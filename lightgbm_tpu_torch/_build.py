@@ -1,0 +1,150 @@
+"""Build and load the port's CUDA kernels.
+
+Each ``csrc/<name>.cu`` is compiled on first use, by ``nvcc`` for
+``sm_90a``, into its own shared library ``build/lib<name>.so`` with a plain
+C interface, and loaded with ``ctypes``.  Nothing here runs at import time:
+the CPU tests import every module of the package on machines without
+``nvcc``.
+
+``build_all()`` starts one ``nvcc`` per source at once and waits for all of
+them, so a cold build costs the slowest file, not the sum.  A library is
+rebuilt when its source or the flags change (a hash stamp sits beside it).
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import threading
+from typing import Dict, List, Sequence, Tuple
+
+_HERE = os.path.dirname(os.path.abspath(__file__))
+CSRC = os.path.join(_HERE, "csrc")
+BUILD = os.path.join(_HERE, "build")
+
+# -fmad=false: no contraction of a*b+c into one fused multiply-add, so the
+# kernels round every f32 operation as the plain PyTorch versions do
+NVCC_FLAGS: Tuple[str, ...] = (
+    "-gencode", "arch=compute_90a,code=sm_90a",
+    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-fmad=false",
+    "-Xptxas", "-v",
+)
+
+# argtypes of each source's one C entry ``lgbt_<name>``, which returns the
+# cudaError_t of its launches as an int
+_VP = ctypes.c_void_p
+_I64 = ctypes.c_longlong
+_I32 = ctypes.c_int
+_F32 = ctypes.c_float
+SIGNATURES: Dict[str, Sequence] = {
+    "seg_hist": (_VP,) * 4 + (_I64,) * 3 + (_I32,) * 2 + (_VP,) * 2,
+    "partition": (_VP,) * 5 + (_I64,) * 3 + (_I32,) * 5 + (_VP,) * 8,
+    "split_scan": (_VP,) * 5 + (_I32,) * 2 + (_F32,) * 4 + (_VP,) * 2,
+    "forest_walk": (_VP,) * 4 + (_I64,) + (_I32,) * 5 + (_VP,) * 2,
+}
+
+_ENTRIES: Dict[str, object] = {}
+_LOCK = threading.Lock()
+
+
+def nvcc_path() -> str:
+    """The CUDA compiler: ``$CUDA_HOME/bin/nvcc`` (PyTorch's own lookup of
+    the toolkit), else ``nvcc`` on ``PATH``."""
+    try:
+        from torch.utils.cpp_extension import CUDA_HOME
+    except Exception:  # pragma: no cover - torch without the extension helpers
+        CUDA_HOME = None
+    if CUDA_HOME:
+        cand = os.path.join(CUDA_HOME, "bin", "nvcc")
+        if os.path.exists(cand):
+            return cand
+    found = shutil.which("nvcc")
+    if not found:
+        raise RuntimeError(
+            "nvcc not found: the port's kernels are built from "
+            "lightgbm_tpu_torch/csrc with the CUDA toolkit"
+        )
+    return found
+
+
+def _paths(name: str) -> Tuple[str, str, str]:
+    src = os.path.join(CSRC, name + ".cu")
+    lib = os.path.join(BUILD, f"lib{name}.so")
+    return src, lib, lib + ".stamp"
+
+
+def _stamp(src: str) -> str:
+    h = hashlib.sha256()
+    with open(src, "rb") as fh:
+        h.update(fh.read())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    return h.hexdigest()
+
+
+def _fresh(name: str) -> bool:
+    src, lib, stamp = _paths(name)
+    if not (os.path.exists(lib) and os.path.exists(stamp)):
+        return False
+    with open(stamp) as fh:
+        return fh.read().strip() == _stamp(src)
+
+
+def build_all(names: Sequence[str] = tuple(SIGNATURES)) -> Dict[str, Tuple[float, str]]:
+    """Compile every stale kernel library, one ``nvcc`` per source, all
+    started together.  Returns {name: (seconds, ptxas register/shared
+    memory report)} for the ones built; raises with the compiler's output
+    if any build fails."""
+    import time
+
+    os.makedirs(BUILD, exist_ok=True)
+    nvcc = nvcc_path()
+    procs: List[Tuple[str, subprocess.Popen, str, float]] = []
+    for name in names:
+        if _fresh(name):
+            continue
+        src, lib, _ = _paths(name)
+        tmp = f"{lib}.{os.getpid()}.tmp"
+        cmd = [nvcc, *NVCC_FLAGS, "-o", tmp, src]
+        p = subprocess.Popen(
+            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True
+        )
+        procs.append((name, p, tmp, time.perf_counter()))
+    took: Dict[str, Tuple[float, str]] = {}
+    errors = []
+    for name, p, tmp, t0 in procs:
+        out, _ = p.communicate()
+        src, lib, stamp = _paths(name)
+        report = [ln.strip() for ln in out.splitlines() if "registers" in ln or "spill" in ln]
+        took[name] = (time.perf_counter() - t0, "; ".join(report))
+        if p.returncode != 0:
+            errors.append(f"nvcc failed for {src}:\n{out}")
+            continue
+        os.replace(tmp, lib)
+        with open(stamp, "w") as fh:
+            fh.write(_stamp(src))
+    if errors:
+        raise RuntimeError("\n".join(errors))
+    return took
+
+
+def entry(name: str):
+    """The C entry ``lgbt_<name>`` of ``csrc/<name>.cu``, built and loaded
+    on first use."""
+    with _LOCK:
+        fn = _ENTRIES.get(name)
+        if fn is None:
+            build_all([name])
+            fn = getattr(ctypes.CDLL(_paths(name)[1]), f"lgbt_{name}")
+            fn.argtypes = list(SIGNATURES[name])
+            fn.restype = ctypes.c_int
+            _ENTRIES[name] = fn
+        return fn
+
+
+def check(rc: int, what: str) -> None:
+    """Raise when a launch returned a CUDA error code."""
+    if rc != 0:
+        raise RuntimeError(f"{what}: CUDA error {rc}")

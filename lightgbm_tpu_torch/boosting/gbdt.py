@@ -1,0 +1,194 @@
+"""GBDT boosting loop and the user-facing Booster.
+
+Counterpart of ``lightgbm_tpu/boosting/gbdt.py`` for one model per
+iteration (binary or regression): the train loop (gradients, ``grow_tree``,
+f32-rounded shrinkage, score update through the segment's row index) and
+``predict`` through the forest walk, with device binning and an exact host
+re-bin of the rows whose f32 binning is in doubt.
+"""
+
+from __future__ import annotations
+
+from typing import Any, Dict, List, Optional
+
+import numpy as np
+import torch
+
+from ..config import Config
+from ..dataset import Dataset
+from ..device import resolve_device
+from ..objectives import create_objective
+from ..ops.forest_walk import bin_numeric, build_devbin_tables, build_tables, forest_walk
+from ..ops.grower import GrowerParams, grow_tree
+from ..tree import Tree
+
+_EPS = 1e-15
+PREDICT_CHUNK = 1 << 20  # rows binned and walked per launch
+
+
+class Booster:
+    """Trains on ``device`` (the CUDA card unless ``device='cpu'``) and
+    predicts through the forest walk."""
+
+    def __init__(
+        self,
+        params: Optional[Dict[str, Any]] = None,
+        train_set: Optional[Dataset] = None,
+        device=None,
+    ) -> None:
+        self.params: Dict[str, Any] = dict(params or {})
+        self.config = Config.from_params(self.params)
+        self.device = resolve_device(device)
+        self.num_class = 1
+        self.trees: List[Tree] = []
+        self.train_set: Optional[Dataset] = None
+        self.objective = None
+        self._finished = False
+        self._tables = None
+        # constant added to every raw score (predict-only boosters, see
+        # convert.booster_from_arrays); training folds its init score into
+        # the first tree instead
+        self.init_score = 0.0
+        if train_set is not None:
+            self._init_train(train_set)
+
+    # ------------------------------------------------------------- training
+    def _init_train(self, train_set: Dataset) -> None:
+        ds = train_set.construct()
+        cfg = self.config
+        dev = self.device
+        self.train_set = ds
+        self.bin_mappers = ds.bin_mappers
+        self.used_features = list(ds.used_features)
+        n = ds.num_data
+        self.objective = create_objective(cfg.objective, ds.label, dev)
+        self.score = torch.zeros(n, dtype=torch.float32, device=dev)
+        self._bins_fn = torch.as_tensor(np.ascontiguousarray(ds.bins.T), device=dev)
+        self.nan_bins = ds.nan_bins()
+        self._num_bins_t = torch.as_tensor(ds.num_bins(), device=dev)
+        self._nan_bins_t = torch.as_tensor(self.nan_bins, device=dev)
+        self._feature_mask = torch.ones(
+            len(self.used_features), dtype=torch.bool, device=dev
+        )
+        self._count_mask = torch.ones(n, dtype=torch.float32, device=dev)
+        self._grower_params = GrowerParams(
+            num_leaves=cfg.num_leaves,
+            max_bin=ds.max_bin_padded,
+            min_data_in_leaf=cfg.min_data_in_leaf,
+            min_sum_hessian_in_leaf=cfg.min_sum_hessian_in_leaf,
+            lambda_l1=cfg.lambda_l1,
+            lambda_l2=cfg.lambda_l2,
+            min_gain_to_split=cfg.min_gain_to_split,
+        )
+
+    def update(self) -> bool:
+        """One boosting iteration (reference GBDT::TrainOneIter
+        gbdt.cpp:352).  Returns True when no split had a positive gain."""
+        if self.train_set is None:
+            raise ValueError("Booster has no training data")
+        if self._finished:
+            return True
+        cfg = self.config
+        init_score = 0.0
+        if not self.trees and cfg.boost_from_average:
+            s = self.objective.boost_from_score()
+            if abs(s) > _EPS:
+                init_score = s
+                self.score += s
+        grad, hess = self.objective.get_gradients(self.score)
+        n_leaves = 1
+        if self.objective.need_train and self.used_features:
+            ta, leaf_id = grow_tree(
+                self._bins_fn, grad, hess, self._count_mask, self._num_bins_t,
+                self._nan_bins_t, self._feature_mask, self._grower_params,
+            )
+            n_leaves = ta.num_leaves
+        if n_leaves <= 1:
+            # constant tree (gbdt.cpp:428-441): only a first tree is kept
+            if not self.trees:
+                tree = Tree.from_record(_constant_record(init_score))
+                self.trees.append(tree)
+                self._tables = None
+            self._finished = True
+            return True
+        tree = Tree.from_tree_arrays(ta, self.bin_mappers, self.used_features)
+        tree.apply_shrinkage(cfg.learning_rate)
+        rate = torch.tensor(np.float32(cfg.learning_rate), device=self.device)
+        shrunk = torch.as_tensor(ta.leaf_value, device=self.device) * rate
+        self.score += shrunk[leaf_id.long()]
+        if init_score:
+            tree.add_bias(init_score)
+        self.trees.append(tree)
+        self._tables = None
+        return False
+
+    def train_loss(self) -> float:
+        """Training loss of the current score (binary log-loss or l2)."""
+        return self.objective.train_loss(self.score)
+
+    # ------------------------------------------------------------ prediction
+    def _walk_tables(self):
+        if self._tables is None:
+            self._tables = build_tables(
+                [t.record() for t in self.trees], self.nan_bins, self.device
+            )
+        return self._tables
+
+    def _bin_host(self, x: np.ndarray) -> np.ndarray:
+        """Exact f64 host binning of rows x [n, F_total] -> [n, F_used]."""
+        cols = [self.bin_mappers[j].values_to_bins(x[:, j]) for j in self.used_features]
+        return np.stack(cols, axis=1) if cols else np.zeros((len(x), 0), np.int32)
+
+    def predict_raw_bins(self, bins: torch.Tensor) -> torch.Tensor:
+        """Raw scores [N] of already-binned rows [N, F_used] u8 on the
+        booster's device."""
+        raw = forest_walk(bins, self._walk_tables(), self.num_class)[:, 0]
+        return raw + self.init_score if self.init_score else raw
+
+    def predict(self, data: np.ndarray, raw_score: bool = False) -> np.ndarray:
+        """Scores of rows ``data`` [N, F] (probabilities for binary unless
+        ``raw_score``).  Rows are binned on the device in f32; rows within
+        f32 rounding of a bin boundary are re-binned on the host in f64,
+        so the bins equal the training Dataset's."""
+        x = np.asarray(data, dtype=np.float64)
+        if x.ndim != 2:
+            raise ValueError(f"data must be 2-D, got shape {x.shape}")
+        n = x.shape[0]
+        if not self.trees:
+            return np.zeros(n)
+        dbt = build_devbin_tables(self.bin_mappers, self.used_features, self.device)
+        parts = []
+        for lo in range(0, n, PREDICT_CHUNK):
+            xo = x[lo : lo + PREDICT_CHUNK]
+            xs = torch.as_tensor(
+                np.ascontiguousarray(xo[:, self.used_features], dtype=np.float32),
+                device=self.device,
+            )
+            bins, suspect = bin_numeric(xs, *dbt)
+            sidx = torch.nonzero(suspect)[:, 0].cpu().numpy()
+            if len(sidx):
+                patch = self._bin_host(xo[sidx])
+                bins[torch.as_tensor(sidx, device=self.device)] = torch.as_tensor(
+                    patch.astype(np.int32), device=self.device
+                )
+            parts.append(self.predict_raw_bins(bins.to(torch.uint8)))
+        raw = torch.cat(parts) if parts else torch.zeros(0, device=self.device)
+        return self._finish_predict(raw, raw_score)
+
+    def _finish_predict(self, raw: torch.Tensor, raw_score: bool) -> np.ndarray:
+        """Raw scores -> output space (gbdt.py:2826)."""
+        if not raw_score and self.objective is not None:
+            raw = self.objective.convert_output(raw)
+        return raw.double().cpu().numpy()
+
+
+def _constant_record(val: float) -> dict:
+    return {
+        "split_feature": np.zeros(0, np.int32),
+        "split_bin": np.zeros(0, np.int32),
+        "default_left": np.zeros(0, bool),
+        "left_child": np.zeros(0, np.int32),
+        "right_child": np.zeros(0, np.int32),
+        "leaf_value": np.array([val], np.float32),
+    }
+

@@ -1,0 +1,151 @@
+"""Parameters of the PyTorch port.
+
+Counterpart of ``lightgbm_tpu/config.py``, cut to the fields this port
+reads.  A parameter outside that set raises ``ValueError`` naming it as not
+yet ported, so a user never trains silently with an option ignored.
+
+The four path parameters accept only the one training path the port has:
+the segment-resident layout (``hist_mode='seg'``) with two separate
+partition and histogram launches (``grow_fused='off'``), the per-feature
+split-scan kernel (``fused_split_scan=True``) and f32-accurate histogram
+accumulation (``hist_acc='bf16'``, the name the JAX package gives it).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Any, Dict, Optional
+
+_PARAM_ALIASES: Dict[str, str] = {
+    "objective_type": "objective",
+    "app": "objective",
+    "application": "objective",
+    "loss": "objective",
+    "shrinkage_rate": "learning_rate",
+    "eta": "learning_rate",
+    "num_leaf": "num_leaves",
+    "max_leaves": "num_leaves",
+    "max_leaf": "num_leaves",
+    "max_leaf_nodes": "num_leaves",
+    "min_data_per_leaf": "min_data_in_leaf",
+    "min_data": "min_data_in_leaf",
+    "min_child_samples": "min_data_in_leaf",
+    "min_samples_leaf": "min_data_in_leaf",
+    "min_sum_hessian_per_leaf": "min_sum_hessian_in_leaf",
+    "min_sum_hessian": "min_sum_hessian_in_leaf",
+    "min_hessian": "min_sum_hessian_in_leaf",
+    "min_child_weight": "min_sum_hessian_in_leaf",
+    "reg_alpha": "lambda_l1",
+    "l1_regularization": "lambda_l1",
+    "reg_lambda": "lambda_l2",
+    "lambda": "lambda_l2",
+    "l2_regularization": "lambda_l2",
+    "min_split_gain": "min_gain_to_split",
+    "max_bins": "max_bin",
+    "subsample_for_bin": "bin_construct_sample_cnt",
+    "data_seed": "data_random_seed",
+}
+
+_OBJECTIVE_ALIASES: Dict[str, str] = {
+    "regression": "regression",
+    "regression_l2": "regression",
+    "l2": "regression",
+    "mean_squared_error": "regression",
+    "mse": "regression",
+    "binary": "binary",
+}
+
+# the one training path of the port: parameter -> the only accepted value
+_PATH_VALUES: Dict[str, Any] = {
+    "hist_mode": "seg",
+    "grow_fused": "off",
+    "fused_split_scan": True,
+    "hist_acc": "bf16",
+}
+
+
+def _to_bool(v: Any) -> bool:
+    if isinstance(v, bool):
+        return v
+    if isinstance(v, (int, float)):
+        return bool(v)
+    s = str(v).strip().lower()
+    if s in ("true", "1", "yes", "+"):
+        return True
+    if s in ("false", "0", "no", "-"):
+        return False
+    raise ValueError(f"cannot parse boolean from {v!r}")
+
+
+@dataclasses.dataclass
+class Config:
+    """Typed view of a LightGBM-style parameter dict (the ported subset)."""
+
+    objective: str = "regression"
+    num_leaves: int = 31
+    max_bin: int = 255
+    learning_rate: float = 0.1
+    min_data_in_leaf: int = 20
+    min_sum_hessian_in_leaf: float = 1e-3
+    lambda_l1: float = 0.0
+    lambda_l2: float = 0.0
+    min_gain_to_split: float = 0.0
+    bin_construct_sample_cnt: int = 200000
+    data_random_seed: int = 1
+    boost_from_average: bool = True
+    hist_mode: str = "seg"
+    grow_fused: str = "off"
+    fused_split_scan: bool = True
+    hist_acc: str = "bf16"
+
+    @classmethod
+    def from_params(cls, params: Optional[Dict[str, Any]]) -> "Config":
+        cfg = cls()
+        resolved: Dict[str, Any] = {}
+        # canonical name wins over its aliases, else the first alias seen
+        for key, value in dict(params or {}).items():
+            canon = _PARAM_ALIASES.get(key, key)
+            if canon in resolved and canon != key:
+                continue
+            resolved[canon] = value
+        fields = {f.name: f for f in dataclasses.fields(cls)}
+        unknown = sorted(k for k in resolved if k not in fields)
+        if unknown:
+            raise ValueError(
+                "parameter(s) not yet ported to lightgbm_tpu_torch: "
+                + ", ".join(unknown)
+            )
+        for name, v in resolved.items():
+            typ = fields[name].type
+            try:
+                if typ in ("bool", bool):
+                    setattr(cfg, name, _to_bool(v))
+                elif typ in ("int", int):
+                    setattr(cfg, name, int(float(v)))
+                elif typ in ("float", float):
+                    setattr(cfg, name, float(v))
+                else:
+                    setattr(cfg, name, str(v))
+            except (TypeError, ValueError) as exc:
+                raise ValueError(f"bad value for parameter {name!r}: {v!r}") from exc
+        obj = _OBJECTIVE_ALIASES.get(cfg.objective)
+        if obj is None:
+            raise ValueError(
+                f"objective {cfg.objective!r} not yet ported to "
+                "lightgbm_tpu_torch (ported: regression, binary)"
+            )
+        cfg.objective = obj
+        for name, only in _PATH_VALUES.items():
+            if getattr(cfg, name) != only:
+                raise ValueError(
+                    f"{name}={getattr(cfg, name)!r} not yet ported to "
+                    f"lightgbm_tpu_torch (the port trains with {name}={only!r})"
+                )
+        if cfg.num_leaves < 2:
+            raise ValueError("num_leaves must be >= 2")
+        if not 2 <= cfg.max_bin <= 255:
+            raise ValueError(
+                "max_bin must be in [2, 255]: the port stores bins, NaN bin "
+                "included, as bytes"
+            )
+        return cfg

@@ -1,0 +1,61 @@
+"""Carry a model trained by the JAX package across to the port.
+
+``booster_from_arrays`` takes plain numpy arrays and dicts — a JAX
+booster's bin-space tree records (``Booster._bin_records``) and its
+Dataset's bin mappers — and returns a port ``Booster`` that predicts what
+the JAX booster predicts, through the forest walk.
+"""
+
+from __future__ import annotations
+
+from typing import Optional, Sequence
+
+import numpy as np
+
+from .binning import BinMapper
+from .boosting.gbdt import Booster
+from .device import resolve_device
+from .objectives import objective_for_output
+from .tree import Tree
+
+
+def booster_from_arrays(
+    records: Sequence[dict],
+    bin_upper_bounds: Sequence[np.ndarray],
+    missing_types: Sequence[int],
+    nan_bins: Sequence[int],
+    init_score: float,
+    objective: str,
+    num_class: int = 1,
+    device=None,
+    used_features: Optional[Sequence[int]] = None,
+) -> Booster:
+    """A predict-only Booster.
+
+    records: per tree, ``split_feature`` (used-feature index), ``split_bin``,
+        ``default_left``, ``left_child``, ``right_child`` (``~leaf`` for
+        leaves) and f32 ``leaf_value`` (shrunk, the first tree holding the
+        boost-from-average bias, as the JAX package's records do);
+    bin_upper_bounds, missing_types, nan_bins: per used feature, the bin
+        mapper of the training Dataset;
+    init_score: a constant added to every raw score (0 for records whose
+        first tree already holds the bias);
+    used_features: the original column of each used feature (default: the
+        columns of ``predict``'s input are the used features, in order).
+    """
+    if num_class != 1:
+        raise ValueError("lightgbm_tpu_torch predicts one class per iteration (num_class=1)")
+    b = Booster({"objective": objective}, device=resolve_device(device))
+    b.objective = objective_for_output(b.config.objective, b.device)
+    b.trees = [Tree.from_record(r) for r in records]
+    f = len(bin_upper_bounds)
+    used = list(range(f)) if used_features is None else [int(j) for j in used_features]
+    mappers = [None] * (max(used) + 1 if used else 0)
+    for j, ub, mt, nb in zip(used, bin_upper_bounds, missing_types, nan_bins):
+        ub = np.asarray(ub, np.float64)
+        mappers[j] = BinMapper(ub, int(mt), len(ub) + (1 if nb >= 0 else 0), int(nb))
+    b.bin_mappers = mappers
+    b.used_features = used
+    b.nan_bins = np.asarray(nan_bins, np.int32)
+    b.init_score = float(init_score)
+    return b

@@ -1,0 +1,108 @@
+"""Training data: dense numpy input -> per-feature bin mappers + a u8 bin
+matrix.
+
+Counterpart of the dense path of ``lightgbm_tpu/dataset.py``: bin mappers are
+fit on a row sample drawn from ``np.random.default_rng(data_random_seed)``
+(the same draw as the JAX package, so both packages bin identically),
+features with a single bin are dropped from training, and the kept columns
+form the ``[N, F]`` uint8 matrix the trainer consumes.  The matrix stays on
+the host; the booster moves it to its device.
+"""
+
+from __future__ import annotations
+
+from typing import Any, Dict, List, Optional
+
+import numpy as np
+
+from .binning import BinMapper
+from .config import Config
+
+MIN_DATA_IN_BIN = 3
+
+
+def ceil_pow2(x: int) -> int:
+    return max(1, 1 << (int(x) - 1).bit_length())
+
+
+class Dataset:
+    """Binned training set (lazily constructed, like the reference's)."""
+
+    def __init__(
+        self,
+        data: np.ndarray,
+        label: Optional[np.ndarray] = None,
+        params: Optional[Dict[str, Any]] = None,
+    ) -> None:
+        self.params: Dict[str, Any] = dict(params or {})
+        self._raw_data = data
+        self._label = label
+        self.constructed = False
+        self.bin_mappers: List[BinMapper] = []
+        self.used_features: List[int] = []
+        self.bins: Optional[np.ndarray] = None  # [N, F_used] uint8
+        self.label: Optional[np.ndarray] = None  # [N] float64
+
+    def construct(self) -> "Dataset":
+        if self.constructed:
+            return self
+        cfg = Config.from_params(self.params)
+        data = np.asarray(self._raw_data, dtype=np.float64)
+        if data.ndim != 2:
+            raise ValueError(f"data must be 2-D, got shape {data.shape}")
+        if self._label is None:
+            raise ValueError("label is required to construct a Dataset")
+        label = np.asarray(self._label, dtype=np.float64).ravel()
+        n, f = data.shape
+        if len(label) != n:
+            raise ValueError(f"label length {len(label)} != num rows {n}")
+        if not np.all(np.isfinite(label)):
+            raise ValueError("label contains NaN or inf")
+
+        sample_cnt = min(n, cfg.bin_construct_sample_cnt)
+        if sample_cnt < n:
+            rng = np.random.default_rng(cfg.data_random_seed)
+            sample = data[np.sort(rng.choice(n, size=sample_cnt, replace=False))]
+        else:
+            sample = data
+        self.bin_mappers = []
+        self.used_features = []
+        for j in range(f):
+            m = BinMapper.from_sample(
+                sample[:, j], cfg.max_bin, min_data_in_bin=MIN_DATA_IN_BIN
+            )
+            self.bin_mappers.append(m)
+            if not m.is_trivial:
+                self.used_features.append(j)
+        bins = np.zeros((n, len(self.used_features)), np.uint8)
+        for ci, j in enumerate(self.used_features):
+            bins[:, ci] = self.bin_mappers[j].values_to_bins(data[:, j])
+        self.bins = bins
+        self.label = label
+        self.constructed = True
+        self._raw_data = None
+        return self
+
+    @property
+    def num_data(self) -> int:
+        return int(self.construct().bins.shape[0])
+
+    def num_bins(self) -> np.ndarray:
+        """[F_used] int32 bins per used feature (NaN bin included)."""
+        self.construct()
+        return np.array(
+            [self.bin_mappers[j].num_bins for j in self.used_features], np.int32
+        )
+
+    def nan_bins(self) -> np.ndarray:
+        """[F_used] int32 NaN-bin index per used feature, -1 if none."""
+        self.construct()
+        return np.array(
+            [self.bin_mappers[j].nan_bin for j in self.used_features], np.int32
+        )
+
+    @property
+    def max_bin_padded(self) -> int:
+        """Histogram bin axis: the next power of two over the widest feature."""
+        nb = self.num_bins()
+        return ceil_pow2(int(nb.max()) if len(nb) else 2)

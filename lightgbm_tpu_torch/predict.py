@@ -1,0 +1,89 @@
+"""Stacked bin-space trees and the plain level-synchronous walker.
+
+Counterpart of ``lightgbm_tpu/predict.py``: ``stack_bin_trees`` pads the
+per-tree records into ``[T, M]`` arrays and ``predict_bins_leaves`` /
+``predict_bins_raw`` walk every row through every tree one level at a time
+(``_walk``, predict.py:180-238).  This walker is the plain version the
+forest-walk kernel (``ops/forest_walk.py``) is held against.
+"""
+
+from __future__ import annotations
+
+from typing import NamedTuple, Sequence
+
+import numpy as np
+import torch
+
+
+class BinTreeBatch(NamedTuple):
+    split_feature: torch.Tensor  # [T, M] i64 used-feature index
+    split_bin: torch.Tensor  # [T, M] i64
+    default_left: torch.Tensor  # [T, M] bool
+    nan_bin: torch.Tensor  # [T, M] i64 NaN bin of the node's feature, -1 none
+    left_child: torch.Tensor  # [T, M] i64 (neg = ~leaf)
+    right_child: torch.Tensor  # [T, M] i64
+    leaf_value: torch.Tensor  # [T, Lm] f32
+
+
+def stack_bin_trees(records: Sequence[dict], nan_bins: np.ndarray, device) -> BinTreeBatch:
+    """Pad bin-space records to [T, M]; a single-leaf tree routes every row
+    to leaf 0 from node 0."""
+    t = len(records)
+    m = max([len(r["split_feature"]) for r in records] + [1])
+    lm = max(len(r["leaf_value"]) for r in records)
+    arr = {k: np.zeros((t, m), np.int64) for k in ("sf", "sb", "dl", "lc", "rc")}
+    arr["lc"][:] = -1
+    arr["rc"][:] = -1
+    leaf = np.zeros((t, lm), np.float32)
+    for i, r in enumerate(records):
+        nn = len(r["split_feature"])
+        arr["sf"][i, :nn] = r["split_feature"]
+        arr["sb"][i, :nn] = r["split_bin"]
+        arr["dl"][i, :nn] = r["default_left"]
+        arr["lc"][i, :nn] = r["left_child"]
+        arr["rc"][i, :nn] = r["right_child"]
+        leaf[i, : len(r["leaf_value"])] = r["leaf_value"]
+    nan_bins = np.asarray(nan_bins, np.int64)
+    as_t = lambda a: torch.as_tensor(a, device=device)
+    return BinTreeBatch(
+        split_feature=as_t(arr["sf"]),
+        split_bin=as_t(arr["sb"]),
+        default_left=as_t(arr["dl"] != 0),
+        nan_bin=as_t(np.where(arr["sf"] >= 0, nan_bins[arr["sf"]], -1)),
+        left_child=as_t(arr["lc"]),
+        right_child=as_t(arr["rc"]),
+        leaf_value=as_t(leaf),
+    )
+
+
+def predict_bins_leaves(batch: BinTreeBatch, bins: torch.Tensor) -> torch.Tensor:
+    """Leaf index [N, T] of every row in every tree; bins [N, F]."""
+    n = bins.shape[0]
+    t = batch.split_feature.shape[0]
+    trees = torch.arange(t, device=bins.device)[None, :]
+    binsl = bins.long()
+    nodes = torch.zeros((n, t), dtype=torch.int64, device=bins.device)
+    while bool((nodes >= 0).any()):
+        cur = torch.clamp(nodes, min=0)
+        feat = batch.split_feature[trees, cur]
+        fval = torch.gather(binsl, 1, feat)
+        nb = batch.nan_bin[trees, cur]
+        gl = (fval <= batch.split_bin[trees, cur]) | (
+            batch.default_left[trees, cur] & (nb >= 0) & (fval == nb)
+        )
+        nxt = torch.where(gl, batch.left_child[trees, cur], batch.right_child[trees, cur])
+        nodes = torch.where(nodes >= 0, nxt, nodes)
+    return ~nodes
+
+
+def predict_bins_raw(batch: BinTreeBatch, bins: torch.Tensor, k: int) -> torch.Tensor:
+    """Raw scores [N, k]: leaf values of tree t summed into class t % k,
+    trees in order, in f32."""
+    leaves = predict_bins_leaves(batch, bins)
+    t = leaves.shape[1]
+    trees = torch.arange(t, device=bins.device)[None, :]
+    vals = batch.leaf_value[trees, leaves]
+    out = torch.zeros((bins.shape[0], k), dtype=torch.float32, device=bins.device)
+    for i in range(t):
+        out[:, i % k] += vals[:, i]
+    return out

@@ -1,0 +1,83 @@
+"""lightgbm_tpu_torch binning, Dataset and Config against the JAX package.
+
+The port keeps its own copy of the numpy binning code; the same inputs must
+give the same bin upper bounds, the same bin matrix and the same per-feature
+bin counts as the JAX package's Dataset — exactly, since both are the same
+f64 arithmetic on the same row sample.
+"""
+
+import numpy as np
+import pytest
+
+import lightgbm_tpu as lgb
+from lightgbm_tpu.binning import BinMapper as JaxBinMapper
+
+import lightgbm_tpu_torch as lt
+from lightgbm_tpu_torch.binning import BinMapper
+from lightgbm_tpu_torch.config import Config
+
+
+def _data(n=3000, f=8, seed=0, nan_frac=0.05):
+    rng = np.random.default_rng(seed)
+    x = rng.normal(size=(n, f))
+    x[:, 1] = np.round(x[:, 1] * 3)  # few distinct values, zeros included
+    x[:, 2] = np.abs(x[:, 2])  # positives and zeros only
+    x[:, 3] = 7.0  # constant: trivial, dropped from training
+    x[rng.random((n, f)) < nan_frac] = np.nan
+    y = (np.nan_to_num(x[:, 0]) + rng.normal(size=n) > 0).astype(float)
+    return x, y
+
+
+@pytest.mark.parametrize("max_bin,sample_cnt", [(63, 200000), (255, 1000), (15, 2000)])
+def test_dataset_bins_match_jax(max_bin, sample_cnt):
+    x, y = _data()
+    params = {"max_bin": max_bin, "bin_construct_sample_cnt": sample_cnt}
+    jd = lgb.Dataset(x, y, params={**params, "verbosity": -1}).construct()
+    td = lt.Dataset(x, y, params=params).construct()
+    assert td.used_features == jd.used_features
+    for jm, tm in zip(jd.bin_mappers, td.bin_mappers):
+        np.testing.assert_array_equal(tm.bin_upper_bound, jm.bin_upper_bound)
+        assert (tm.num_bins, tm.nan_bin, tm.missing_type) == (
+            jm.num_bins, jm.nan_bin, jm.missing_type
+        )
+    np.testing.assert_array_equal(td.bins, jd.bins)
+    np.testing.assert_array_equal(td.num_bins(), jd.num_bins_per_feature())
+    np.testing.assert_array_equal(td.nan_bins(), jd.plane_nan_bins())
+    assert td.bins.dtype == np.uint8
+
+
+def test_values_to_bins_match_jax():
+    rng = np.random.default_rng(3)
+    sample = np.concatenate([rng.normal(size=500), np.zeros(40), [np.nan] * 10])
+    jm = JaxBinMapper.from_sample(sample, 31)
+    tm = BinMapper.from_sample(sample, 31)
+    probe = np.concatenate([
+        rng.normal(size=300) * 2, jm.bin_upper_bound[:-1],
+        np.nextafter(jm.bin_upper_bound[:-1], -np.inf), [0.0, -0.0, np.nan, 1e-36],
+    ])
+    np.testing.assert_array_equal(tm.values_to_bins(probe), jm.values_to_bins(probe))
+    for b in range(tm.num_bins):
+        assert tm.bin_to_threshold(b) == jm.bin_to_threshold(b)
+
+
+def test_config_accepts_the_slice_and_aliases():
+    cfg = Config.from_params({
+        "objective": "binary", "num_leaf": 7, "eta": 0.3, "hist_mode": "seg",
+        "grow_fused": "off", "fused_split_scan": True, "hist_acc": "bf16",
+        "min_child_samples": 5, "reg_lambda": 1.0,
+    })
+    assert (cfg.objective, cfg.num_leaves, cfg.learning_rate) == ("binary", 7, 0.3)
+    assert (cfg.min_data_in_leaf, cfg.lambda_l2) == (5, 1.0)
+
+
+@pytest.mark.parametrize("params,word", [
+    ({"bagging_fraction": 0.5}, "bagging_fraction"),
+    ({"objective": "multiclass"}, "multiclass"),
+    ({"hist_acc": "int8"}, "hist_acc"),
+    ({"grow_fused": "on"}, "grow_fused"),
+    ({"hist_mode": "ordered"}, "hist_mode"),
+    ({"max_bin": 1000}, "max_bin"),
+])
+def test_config_raises_on_what_is_not_ported(params, word):
+    with pytest.raises(ValueError, match=word):
+        Config.from_params(params)

@@ -1,0 +1,124 @@
+"""lightgbm_tpu_torch split search (ops/split.py, ops/split_scan.py) against
+the JAX package, on leaf histograms made from a numpy seed.
+
+* the blocked prefix sum equals XLA's CPU cumsum bit for bit (the order the
+  JAX package's best_split runs in);
+* the port's best_split equals the JAX best_split: same feature, bin and
+  direction, and the same f32 gain and left statistics (same arithmetic on
+  the same prefix sums);
+* the plain scan rows match the Pallas kernel split_scan_pallas in
+  interpret mode: same bin and direction per feature, gains and sums within
+  1e-5 relative (the kernel's prefix sums go through bf16 digits, ~26 bits);
+* fused_best_split agrees with best_split on the chosen split.
+"""
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from lightgbm_tpu.ops.pallas.split_scan import split_scan_pallas
+from lightgbm_tpu.ops.split import best_split as jax_best_split
+
+from lightgbm_tpu_torch.ops.split import best_split, prefix_sum_bins
+from lightgbm_tpu_torch.ops.split_scan import fused_best_split, split_scan
+
+HYPER = [
+    dict(lambda_l1=0.0, lambda_l2=0.0, min_data_in_leaf=20,
+         min_sum_hessian_in_leaf=1e-3, min_gain_to_split=0.0),
+    dict(lambda_l1=0.3, lambda_l2=1.0, min_data_in_leaf=40,
+         min_sum_hessian_in_leaf=2.0, min_gain_to_split=0.1),
+]
+
+
+def _leaf(n, f, b, seed, nan_frac):
+    """A leaf histogram [F, B, 3] built from n rows, its parent stats and
+    per-feature bin counts (ragged) with NaN bins on a share of features."""
+    rng = np.random.default_rng(seed)
+    num_bins = rng.integers(max(2, b // 2), b + 1, size=f).astype(np.int32)
+    has_nan = rng.random(f) < nan_frac
+    nan_bins = np.where(has_nan, num_bins - 1, -1).astype(np.int32)
+    g = rng.normal(size=n).astype(np.float32)
+    h = (rng.random(n) + 0.1).astype(np.float32)
+    hist = np.zeros((f, b, 3), np.float32)
+    for j in range(f):
+        bj = rng.integers(0, num_bins[j], size=n)
+        np.add.at(hist[j, :, 0], bj, g)
+        np.add.at(hist[j, :, 1], bj, h)
+        np.add.at(hist[j, :, 2], bj, 1.0)
+    parent = hist[0].sum(axis=0)
+    return hist, parent, num_bins, nan_bins
+
+
+CASES = [(4000, 8, 64, 0.5), (3000, 6, 16, 1.0), (60, 3, 8, 0.0)]
+
+
+def test_prefix_sum_is_xla_cpu_cumsum():
+    rng = np.random.default_rng(0)
+    for b in (8, 64, 256):
+        x = rng.normal(size=(5, b, 3)).astype(np.float32) * 100
+        got = prefix_sum_bins(torch.as_tensor(x)).numpy()
+        want = np.asarray(jnp.cumsum(jnp.asarray(x), axis=1))
+        np.testing.assert_array_equal(got, want)
+
+
+@pytest.mark.parametrize("hp", HYPER)
+@pytest.mark.parametrize("n,f,b,nan_frac", CASES)
+def test_best_split_equals_jax(hp, n, f, b, nan_frac):
+    hist, parent, num_bins, nan_bins = _leaf(n, f, b, seed=n + f, nan_frac=nan_frac)
+    mask = np.ones(f, bool)
+    want = jax_best_split(
+        jnp.asarray(hist), *map(jnp.float32, parent), jnp.asarray(num_bins),
+        jnp.asarray(nan_bins), jnp.asarray(mask), **hp,
+    )
+    got = best_split(
+        torch.as_tensor(hist), *map(float, parent), torch.as_tensor(num_bins),
+        torch.as_tensor(nan_bins), torch.as_tensor(mask), **hp,
+    )
+    assert got.gain == float(want.gain)
+    if not np.isfinite(got.gain):
+        return
+    assert (got.feature, got.bin, got.default_left) == (
+        int(want.feature), int(want.bin), bool(want.default_left)
+    )
+    for k in ("left_g", "left_h", "left_cnt", "right_g", "right_h", "right_cnt"):
+        assert getattr(got, k) == float(getattr(want, k)), k
+
+
+@pytest.mark.parametrize("n,f,b,nan_frac", CASES)
+def test_scan_rows_match_pallas_interpret(n, f, b, nan_frac):
+    hp = dict(HYPER[0])
+    hp.pop("min_gain_to_split")
+    hist, parent, num_bins, nan_bins = _leaf(n, f, b, seed=7 * n + f, nan_frac=nan_frac)
+    mask = np.ones(f, bool)
+    mask[-1] = False  # a masked-out feature has no candidate
+    got = split_scan(
+        torch.as_tensor(hist), torch.as_tensor(parent), torch.as_tensor(num_bins),
+        torch.as_tensor(nan_bins), torch.as_tensor(mask), **hp,
+    ).numpy()
+    want = np.asarray(split_scan_pallas(
+        jnp.asarray(hist), jnp.asarray(parent), jnp.asarray(num_bins),
+        jnp.asarray(nan_bins), jnp.asarray(mask), f=f, num_bins_pad=b,
+        l1=hp["lambda_l1"], l2=hp["lambda_l2"], min_data=hp["min_data_in_leaf"],
+        min_hess=hp["min_sum_hessian_in_leaf"], interpret=True,
+    ))
+    live = np.isfinite(want[:, 0])
+    np.testing.assert_array_equal(np.isfinite(got[:, 0]), live)
+    np.testing.assert_array_equal(got[live, 1:3], want[live, 1:3])
+    np.testing.assert_allclose(got[live][:, [0, 3, 4, 5]], want[live][:, [0, 3, 4, 5]],
+                               rtol=1e-5, atol=1e-4)
+
+
+@pytest.mark.parametrize("hp", HYPER)
+@pytest.mark.parametrize("n,f,b,nan_frac", CASES)
+def test_fused_best_split_agrees_with_best_split(hp, n, f, b, nan_frac):
+    hist, parent, num_bins, nan_bins = _leaf(n, f, b, seed=3 * n + f, nan_frac=nan_frac)
+    args = (
+        torch.as_tensor(hist), *map(float, parent), torch.as_tensor(num_bins),
+        torch.as_tensor(nan_bins), torch.ones(f, dtype=torch.bool),
+    )
+    want = best_split(*args, **hp)
+    got = fused_best_split(*args, **hp)
+    assert got.gain == want.gain
+    if np.isfinite(want.gain):
+        assert got[1:] == want[1:]
