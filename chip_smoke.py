@@ -39,7 +39,7 @@ PARITY_ROWS = 1 << 16
 PARITY_ROUNDS = 3
 PARAMS = {"objective": "binary", "num_leaves": 255, "max_bin": 255, "learning_rate": 0.1}
 
-# H100 SXM published peaks (on-chip-measurement guide): HBM bytes/s and
+# H100 SXM published peaks: HBM bytes/s and
 # f32 operations/s outside the tensor cores
 HBM_BYTES_PER_S = 3.35e12
 F32_OPS_PER_S = 67e12
