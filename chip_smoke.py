@@ -1,6 +1,8 @@
 """Chip smoke test of the PyTorch/CUDA port (lightgbm_tpu_torch) on one GPU.
 
 Run from the root of a checkout:  python3 chip_smoke.py
+(``--kernels``: build and check the kernels only, then stop without the
+result lines.)
 
 Phases (any failed check raises, and the script exits non-zero):
   device   the card's name and power limit (nvidia-smi); no CUDA -> exit 1
@@ -9,15 +11,26 @@ Phases (any failed check raises, and the script exits non-zero):
            main path's shapes (1,048,576 rows, 28 features, 256 bins,
            255-leaf trees), with its median time, the plain version's time,
            the least time the card could take (bound) and, where one
-           PyTorch call computes the same function, that call's time
+           PyTorch call computes the same function, that call's time: the
+           f32 and int8 histograms (one window and K=2), the partition, the
+           fused grow step (int8 and f32; the root window and K=2 adjacent
+           unaligned windows) and the split scan
   main     train() of the Higgs-shaped binary model (1,048,576 x 28,
-           255 leaves, max_bin 255, learning rate 0.1) for 10 rounds on the
-           card, then predict() on the same rows; launch counts of every
-           kernel in that run (each must be > 0) and the training
-           log-loss per round (it must fall)
-  parity   the same parameters for 3 rounds at 65,536 rows on the card and
-           on the CPU: share of identical splits, prediction difference
-The last lines: the kernels JSON, the card, and
+           255 leaves, max_bin 255, learning rate 0.1) with the default
+           path parameters (fused grow step, int8 accumulation with the
+           near-tie f32 refine) for 10 rounds on the card, then predict()
+           on the same rows; launch counts of its kernels (each must be
+           > 0), near-tie refines per tree, and the training log-loss per
+           round (it must fall); one more iteration under torch.profiler
+  off      the two-launch path (grow_fused='off', hist_acc='bf16') for 3
+           rounds on the same rows: partition and f32 histogram launches,
+           its log-loss against the default path's after 3 rounds, and
+           one more iteration under torch.profiler
+  parity   the default parameters for 3 rounds at 65,536 rows on the card
+           and on the CPU with the int8 accumulation on there
+           (grower.INT8_ON_CPU): share of identical splits, log-loss
+The last lines: the kernels JSON (launches summed over the main and off
+runs), the card, and
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 """
 
@@ -35,9 +48,12 @@ import torch
 ROWS = 1 << 20
 FEATURES = 28
 ROUNDS = 10
+OFF_ROUNDS = 3
 PARITY_ROWS = 1 << 16
 PARITY_ROUNDS = 3
 PARAMS = {"objective": "binary", "num_leaves": 255, "max_bin": 255, "learning_rate": 0.1}
+# the two-launch path: a partition and a histogram launch per split, f32 sums
+OFF_PARAMS = {**PARAMS, "grow_fused": "off", "hist_acc": "bf16", "fused_split_scan": True}
 
 # H100 SXM published peaks: HBM bytes/s and
 # f32 operations/s outside the tensor cores
@@ -46,6 +62,9 @@ F32_OPS_PER_S = 67e12
 
 SOURCES = {
     "seg_hist": ("lightgbm_tpu_torch/csrc/seg_hist.cu", "lightgbm_tpu/ops/pallas/seg.py:587"),
+    "seg_hist_int8": ("lightgbm_tpu_torch/csrc/seg_hist.cu", "lightgbm_tpu/ops/pallas/seg.py:587"),
+    "fused_grow_step": ("lightgbm_tpu_torch/csrc/grow_step.cu",
+                        "lightgbm_tpu/ops/pallas/grow_step.py:260"),
     "partition": ("lightgbm_tpu_torch/csrc/partition.cu", "lightgbm_tpu/ops/pallas/partition.py:446"),
     "split_scan": ("lightgbm_tpu_torch/csrc/split_scan.cu", "lightgbm_tpu/ops/pallas/split_scan.py:218"),
     "forest_walk": ("lightgbm_tpu_torch/csrc/forest_walk.cu", "lightgbm_tpu/ops/pallas/forest_walk.py:418"),
@@ -102,10 +121,22 @@ def kernel_entry(name, max_abs_err, ms, plain_ms, bound, library_ms):
     }
 
 
+def f32_tol(rows, windows, b, counts):
+    """Worst-case |error| of an f32 sum of c terms per bin, c * 2^-24 *
+    sum|x|, for two sums taken in different orders (both g and h)."""
+    from lightgbm_tpu_torch.ops import seg
+
+    absr = seg.SegRows(rows.bins, rows.g.abs(), rows.h.abs(), rows.m, rows.ridx)
+    scale = seg.seg_hist_batch_plain(absr, windows, b)[..., :2]
+    return 2.0 * counts * 2.0**-24 * scale + 1e-6
+
+
 def check_seg_kernels(ds, dev):
-    """Histogram, partition and split scan at the root of the first tree."""
+    """Histograms, partition, split scan and the fused grow step at the root
+    of the first tree."""
     from lightgbm_tpu_torch.objectives import create_objective
     from lightgbm_tpu_torch.ops import seg, split, split_scan
+    from lightgbm_tpu_torch.quantize import hist_acc_scales
 
     n, f = ds.bins.shape
     b = ds.max_bin_padded
@@ -115,6 +146,7 @@ def check_seg_kernels(ds, dev):
     bins_fn = torch.as_tensor(np.ascontiguousarray(ds.bins.T), device=dev)
     ones = torch.ones(n, dtype=torch.float32, device=dev)
     rows = seg.pack_rows(bins_fn, grad, hess, ones)
+    scales = hist_acc_scales(grad, hess, ones)
     out = []
 
     # -- kernel 1: histogram of the whole window (the root)
@@ -125,13 +157,9 @@ def check_seg_kernels(ds, dev):
         raise AssertionError("seg_hist: counts differ from the plain version")
     # both sum g and h in a run-dependent order (the plain version on the
     # card by global atomics): hold them to the worst-case error of an f32
-    # sum of c terms, c * 2^-24 * sum|x| each, and report the kernel's error
-    # against an f64 sum too
-    absr = seg.SegRows(rows.bins, rows.g.abs(), rows.h.abs(), rows.m, rows.ridx)
-    scale = seg.seg_hist_plain(absr, 0, n, b)[..., :2]
-    tol = 2.0 * hp[..., 2:3] * 2.0**-24 * scale + 1e-6
+    # sum of c terms, and report the kernel's error against an f64 sum too
     err = (hk[..., :2] - hp[..., :2]).abs()
-    if bool((err > tol).any()):
+    if bool((err > f32_tol(rows, [(0, n)], b, hp[None, ..., 2:3])[0]).any()):
         raise AssertionError(f"seg_hist: g/h off by {float(err.max())}")
     r64 = seg.SegRows(rows.bins, rows.g.double(), rows.h.double(), rows.m.double(), rows.ridx)
     h64 = _hist_f64(r64, n, b)
@@ -149,6 +177,45 @@ def check_seg_kernels(ds, dev):
     ))
     print(f"kernel seg_hist: counts exact, g/h max |err| vs plain {float(err.max()):.3g} "
           f"(bound: count * 2^-24 * sum|x| per bin, each)")
+
+    # -- kernel 1, int8 2-digit mode: integer digit sums, so bit-exact
+    h8k = seg.seg_hist(rows, 0, n, b, scales)
+    h8p = seg.seg_hist_batch_plain(rows, [(0, n)], b, scales)[0]
+    torch.cuda.synchronize()
+    if not torch.equal(h8k, h8p):
+        raise AssertionError("seg_hist int8: differs from the plain version")
+    grid_err = float((h8k[..., :2] - h64).abs().max())
+    out.append(kernel_entry(
+        "seg_hist_int8", 0.0,
+        time_ms(lambda: seg.seg_hist(rows, 0, n, b, scales)),
+        time_ms(lambda: seg.seg_hist_batch_plain(rows, [(0, n)], b, scales), reps=5),
+        bound_ms(n * (f + 12) + f * b * 12), None,
+    ))
+    print(f"kernel seg_hist_int8: bit-equal to the plain version; the int8 grid is "
+          f"{grid_err:.3g} from the f64 sums at most (scales {scales.tolist()})")
+
+    # -- kernel 1, K=2 adjacent windows that start off any tile boundary
+    wins = [(37, n // 3 + 1), (37 + n // 3 + 1, n // 2)]
+    k8 = seg.seg_hist_batch(rows, wins, b, scales)
+    p8 = seg.seg_hist_batch_plain(rows, wins, b, scales)
+    k32 = seg.seg_hist_batch(rows, wins, b)
+    p32 = seg.seg_hist_batch_plain(rows, wins, b)
+    torch.cuda.synchronize()
+    if not torch.equal(k8, p8):
+        raise AssertionError("seg_hist int8 K=2: differs from the plain version")
+    err2 = (k32[..., :2] - p32[..., :2]).abs()
+    if not torch.equal(k32[..., 2], p32[..., 2]) or bool(
+        (err2 > f32_tol(rows, wins, b, p32[..., 2:3])).any()
+    ):
+        raise AssertionError(f"seg_hist K=2: off the plain version by {float(err2.max())}")
+    t32 = time_ms(lambda: seg.seg_hist_batch(rows, wins, b))
+    t8 = time_ms(lambda: seg.seg_hist_batch(rows, wins, b, scales))
+    p32ms = time_ms(lambda: seg.seg_hist_batch_plain(rows, wins, b), reps=5)
+    p8ms = time_ms(lambda: seg.seg_hist_batch_plain(rows, wins, b, scales), reps=5)
+    nk = sum(c for _, c in wins)
+    print(f"kernel seg_hist K=2 windows {wins}: f32 {t32:.4f} ms (plain {p32ms:.4f}), "
+          f"int8 {t8:.4f} ms (plain {p8ms:.4f}), bound {bound_ms(nk * (f + 12) + 2 * f * b * 12)[0]:.5f} ms; "
+          f"int8 bit-equal, f32 counts exact and g/h within {float(err2.max()):.3g}")
 
     # -- kernel 3: split scan of the root histogram
     kw = dict(lambda_l1=0.0, lambda_l2=0.0, min_data_in_leaf=20, min_sum_hessian_in_leaf=1e-3)
@@ -186,11 +253,7 @@ def check_seg_kernels(ds, dev):
     rp_rows = seg.pack_rows(bins_fn, grad, hess, ones)
     nlk = int(seg.sort_partition(rk_rows, *args))
     nlp = int(seg.sort_partition_plain(rp_rows, *args))
-    same = nlk == nlp and all(
-        torch.equal(getattr(rk_rows, c), getattr(rp_rows, c))
-        for c in ("bins", "g", "h", "m", "ridx")
-    )
-    if not same:
+    if nlk != nlp or not same_rows(rk_rows, rp_rows):
         raise AssertionError(f"partition: nl {nlk} vs {nlp} or row order differs")
     out.append(kernel_entry(
         "partition", 0.0,
@@ -199,7 +262,80 @@ def check_seg_kernels(ds, dev):
         bound_ms(2 * n * (f + 16)), None,
     ))
     print(f"kernel partition: nl {nlk}, row order equal to the plain version")
+    del rk_rows, rp_rows
+
+    out.append(check_fused_step(ds, bins_fn, grad, hess, ones, ck, scales))
     return out
+
+
+def same_rows(a, b) -> bool:
+    return all(torch.equal(getattr(a, c), getattr(b, c)) for c in ("bins", "g", "h", "m", "ridx"))
+
+
+def check_fused_step(ds, bins_fn, grad, hess, ones, ck, scales):
+    """The fused grow step against its plain version (the oracle
+    composition) in both modes, at the root window and on K=2 adjacent
+    windows that start off any tile boundary: rows, nl, nr, child_start and
+    child_cnt exactly; the int8 histogram exactly, the f32 one within the
+    f32 histogram's bound."""
+    from lightgbm_tpu_torch.ops import grow_step, seg
+
+    n, f = ds.bins.shape
+    b = ds.max_bin_padded
+    nan = ds.nan_bins()
+    f2 = (ck.feature + 1) % f
+    members = {
+        "root": ([0], [n], [ck.feature], [ck.bin], [int(ck.default_left)],
+                 [int(nan[ck.feature])]),
+        "K=2": ([1234, 1234 + n // 3], [n // 3, n // 2], [ck.feature, f2],
+                [ck.bin, 100], [int(ck.default_left), 1],
+                [int(nan[ck.feature]), int(nan[f2])]),
+    }
+    times = {}
+    for mode, qs in (("int8", scales), ("f32", None)):
+        for where, mem in members.items():
+            rk = seg.pack_rows(bins_fn, grad, hess, ones)
+            rp = seg.pack_rows(bins_fn, grad, hess, ones)
+            got = grow_step.fused_grow_step(rk, *mem, b, quant_scales=qs)
+            marr = grow_step._members(*mem, None)
+            dec_p, hist_p = grow_step.fused_grow_step_plain(rp, marr, b, qs)
+            torch.cuda.synchronize()
+            dec_k = torch.stack(got[:4], 1)
+            if not torch.equal(dec_k, dec_p) or not same_rows(rk, rp):
+                raise AssertionError(
+                    f"fused_grow_step {mode} {where}: dec {dec_k.tolist()} vs "
+                    f"{dec_p.tolist()} or the row order differs"
+                )
+            hk = got[4]
+            if qs is not None:
+                if not torch.equal(hk, hist_p):
+                    raise AssertionError(f"fused_grow_step {mode} {where}: histogram differs")
+                herr = 0.0
+            else:
+                wins = dec_p[:, 2:4].tolist()
+                herr_t = (hk[..., :2] - hist_p[..., :2]).abs()
+                if not torch.equal(hk[..., 2], hist_p[..., 2]) or bool(
+                    (herr_t > f32_tol(rp, wins, b, hist_p[..., 2:3])).any()
+                ):
+                    raise AssertionError(
+                        f"fused_grow_step {mode} {where}: histogram off by {float(herr_t.max())}"
+                    )
+                herr = float(herr_t.max())
+            if where == "root":
+                times[mode] = (
+                    time_ms(lambda: grow_step.fused_grow_step(rk, *mem, b, quant_scales=qs)),
+                    time_ms(lambda: grow_step.fused_grow_step_plain(rp, marr, b, qs), reps=5),
+                )
+            print(f"kernel fused_grow_step {mode} {where}: dec {dec_k.tolist()} and rows equal "
+                  f"to the plain version, histogram {'bit-equal' if qs is not None else f'within {herr:.3g}'}")
+            del rk, rp
+    print(f"kernel fused_grow_step f32 root: {times['f32'][0]:.4f} ms, plain {times['f32'][1]:.4f} ms")
+    return kernel_entry(
+        "fused_grow_step", 0.0, times["int8"][0], times["int8"][1],
+        # the rows read once and written once; the histogram rides the
+        # scatter and adds only its output
+        bound_ms(2 * n * (f + 16) + f * b * 12), None,
+    )
 
 
 def _hist_f64(rows, n, b):
@@ -251,9 +387,11 @@ def check_forest_walk(booster, x, dev):
     )
 
 
-def profile_iteration(booster) -> None:
+def profile_iteration(booster, label: str = "profile") -> None:
     """Where one training iteration's time goes: torch.profiler over one
-    update(), device time by kernel against the host's wall time."""
+    update(), device time by kernel against the host's wall time, and the
+    host's own time by operator (self time: the rest of the wall is Python
+    outside PyTorch's operators, and the profiler's overhead)."""
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
@@ -272,10 +410,16 @@ def profile_iteration(booster) -> None:
             us, cnt = dev_us.get(e.name, (0.0, 0))
             dev_us[e.name] = (us + e.time_range.elapsed_us(), cnt + 1)
     busy_ms = sum(us for us, _ in dev_us.values()) / 1e3
-    print(f"profile: one iteration (tree {len(booster.trees)}) {wall_ms:.1f} ms wall under the "
+    print(f"{label}: one iteration (tree {len(booster.trees)}) {wall_ms:.1f} ms wall under the "
           f"profiler, device busy {busy_ms:.1f} ms ({busy_ms / wall_ms:.3f} of wall)")
     for key, (us, cnt) in sorted(dev_us.items(), key=lambda kv: -kv[1][0])[:10]:
-        print(f"profile:   {us / 1e3:8.2f} ms  {cnt:6d} calls  {key[:90]}")
+        print(f"{label}:   {us / 1e3:8.2f} ms  {cnt:6d} calls  {key[:90]}")
+    host = [e for e in prof.key_averages() if e.self_cpu_time_total > 0]
+    host_ms = sum(e.self_cpu_time_total for e in host) / 1e3
+    print(f"{label}: host operators {host_ms:.1f} ms self time ({host_ms / wall_ms:.3f} of wall), "
+          f"{sum(e.count for e in host)} calls; top by self time:")
+    for e in sorted(host, key=lambda e: -e.self_cpu_time_total)[:10]:
+        print(f"{label}:   host {e.self_cpu_time_total / 1e3:8.2f} ms  {e.count:6d} calls  {e.key[:60]}")
 
 
 def _leaf_depths(tree, width: int) -> np.ndarray:
@@ -308,13 +452,34 @@ def split_share(a, b) -> float:
     return same / max(total, 1)
 
 
+def train_rounds(lt, params, ds, rounds):
+    """Booster on the card, ``rounds`` updates; (booster, log-loss per
+    round, seconds)."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    booster = lt.Booster(params, ds, device="cuda")
+    losses = []
+    for _ in range(rounds):
+        if booster.update():
+            break
+        losses.append(booster.train_loss())
+    torch.cuda.synchronize()
+    return booster, losses, time.perf_counter() - t0
+
+
+def require_launches(launches, names, what):
+    missing = [k for k in names if launches.get(k, 0) <= 0]
+    if missing:
+        raise AssertionError(f"{what}: kernels never launched: {missing} ({launches})")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
     import lightgbm_tpu_torch as lt
     from lightgbm_tpu_torch import _build
-    from lightgbm_tpu_torch.ops import forest_walk, seg, split_scan
+    from lightgbm_tpu_torch.ops import grower
 
     dev = torch.device("cuda")
     card = card_line()
@@ -333,37 +498,28 @@ def main() -> int:
           f"{ds.max_bin_padded} histogram bins")
 
     kernels = {k["name"]: k for k in check_seg_kernels(ds, dev)}
+    if "--kernels" in sys.argv[1:]:
+        return 0
 
-    # -- main path: counts from 0 just before, read just after
-    wrappers = {
-        "seg_hist": seg.seg_hist, "partition": seg.sort_partition,
-        "split_scan": split_scan.split_scan, "forest_walk": forest_walk.forest_walk,
-    }
-    for w in wrappers.values():
-        w.launches = 0
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    booster = lt.Booster(PARAMS, ds, device="cuda")
-    losses = []
-    for _ in range(ROUNDS):
-        if booster.update():
-            break
-        losses.append(booster.train_loss())
-    torch.cuda.synchronize()
-    train_s = time.perf_counter() - t0
+    # -- main path (default parameters): counts from 0 just before, read
+    # just after training and predict
+    _build.LAUNCHES.clear()
+    booster, losses, train_s = train_rounds(lt, PARAMS, ds, ROUNDS)
     t0 = time.perf_counter()
     pred = booster.predict(x)
     torch.cuda.synchronize()
     pred_s = time.perf_counter() - t0
-    launches = {k: w.launches for k, w in wrappers.items()}
+    main_launches = dict(_build.LAUNCHES)
     print(f"main: {len(booster.trees)} trees of {[t.num_leaves for t in booster.trees]} leaves, "
           f"{len(losses) / train_s:.3f} iterations/s, predict {ROWS / pred_s:.0f} rows/s")
     print("main: training log-loss per round " + " ".join(f"{v:.6f}" for v in losses))
-    print(f"main: kernel launches {json.dumps(launches)}")
+    print(f"main: near-tie f32 refines per tree {booster.refine_counts}, refine rate per tree "
+          + " ".join(f"{booster.refine_rate(i):.3f}" for i in range(len(booster.trees))))
+    print(f"main: kernel launches {json.dumps(main_launches)}")
     if len(losses) != ROUNDS or not all(b < a for a, b in zip(losses, losses[1:])):
         raise AssertionError("training log-loss did not fall every round")
-    if min(launches.values()) <= 0:
-        raise AssertionError(f"a kernel of the main path never launched: {launches}")
+    require_launches(main_launches, ("fused_grow_step", "seg_hist_int8", "split_scan",
+                                     "forest_walk"), "main path")
     if pred.shape != (ROWS,) or not np.all(np.isfinite(pred)) or not np.all((pred > 0) & (pred < 1)):
         raise AssertionError("predictions are not finite probabilities")
     # predicted log-loss must equal the train score's (same rows, same trees)
@@ -375,16 +531,40 @@ def main() -> int:
 
     kernels["forest_walk"] = check_forest_walk(booster, x, dev)
     profile_iteration(booster)
-    for name, k in kernels.items():
-        k["launches"] = launches[name]
 
-    # -- card vs CPU
+    # -- the two-launch path with f32 sums, on the same rows
+    _build.LAUNCHES.clear()
+    off, off_losses, off_s = train_rounds(lt, OFF_PARAMS, ds, OFF_ROUNDS)
+    off_launches = dict(_build.LAUNCHES)
+    print(f"off: grow_fused='off', hist_acc='bf16': {len(off_losses) / off_s:.3f} iterations/s, "
+          f"log-loss per round " + " ".join(f"{v:.6f}" for v in off_losses))
+    print(f"off: kernel launches {json.dumps(off_launches)}")
+    profile_iteration(off, "off profile")
+    require_launches(off_launches, ("partition", "seg_hist", "split_scan"), "two-launch path")
+    if off_launches.get("fused_grow_step", 0) or off_launches.get("seg_hist_int8", 0):
+        raise AssertionError("two-launch path went through the fused step or int8")
+    k = OFF_ROUNDS - 1
+    rel = abs(losses[k] - off_losses[k]) / off_losses[k]
+    print(f"off: log-loss after {OFF_ROUNDS} rounds int8 {losses[k]:.7f} vs bf16 "
+          f"{off_losses[k]:.7f} (relative {rel:.3g})")
+    if rel > 1e-4:
+        raise AssertionError("int8 and f32 accumulation disagree on the log-loss")
+    for name, kern in kernels.items():
+        kern["launches"] = main_launches.get(name, 0) + off_launches.get(name, 0)
+    del booster, off
+
+    # -- card vs CPU on the default path, int8 accumulation on both
     xs, ys = make_data(PARITY_ROWS, FEATURES, seed=7)
     runs = {}
-    for d in ("cuda", "cpu"):
-        t0 = time.perf_counter()
-        runs[d] = lt.train(PARAMS, lt.Dataset(xs, ys, params=PARAMS), PARITY_ROUNDS, device=d)
-        print(f"parity: {d} trained {PARITY_ROUNDS} rounds in {time.perf_counter() - t0:.1f} s")
+    grower.INT8_ON_CPU = True
+    try:
+        for d in ("cuda", "cpu"):
+            t0 = time.perf_counter()
+            runs[d] = lt.train(PARAMS, lt.Dataset(xs, ys, params=PARAMS), PARITY_ROUNDS, device=d)
+            print(f"parity: {d} trained {PARITY_ROUNDS} rounds in {time.perf_counter() - t0:.1f} s, "
+                  f"refines per tree {runs[d].refine_counts}")
+    finally:
+        grower.INT8_ON_CPU = False
     share = split_share(runs["cuda"], runs["cpu"])
     pdiff = float(np.abs(runs["cuda"].predict(xs) - runs["cpu"].predict(xs)).max())
     lc, lp = runs["cuda"].train_loss(), runs["cpu"].train_loss()
@@ -393,11 +573,11 @@ def main() -> int:
     if share < 0.95 or abs(lc - lp) > 1e-4 * abs(lp):
         raise AssertionError("card and CPU training disagree")
 
-    for k in kernels.values():
-        lib = "none" if k["library_ms"] is None else f"{k['library_ms']:.4f} ms"
-        print(f"kernel {k['name']}: {k['ms']:.4f} ms (bound {k['bound_ms']:.5f} ms by "
-              f"{k['bound_by']}), plain {k['plain_ms']:.4f} ms, library {lib}, "
-              f"{k['launches']} launches on the main path")
+    for kern in kernels.values():
+        lib = "none" if kern["library_ms"] is None else f"{kern['library_ms']:.4f} ms"
+        print(f"kernel {kern['name']}: {kern['ms']:.4f} ms (bound {kern['bound_ms']:.5f} ms by "
+              f"{kern['bound_by']}), plain {kern['plain_ms']:.4f} ms, library {lib}, "
+              f"{kern['launches']} launches on the main and off paths")
     print(json.dumps({"kernels": list(kernels.values())}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -1,14 +1,16 @@
 """Build and load the port's CUDA kernels.
 
-Each ``csrc/<name>.cu`` is compiled on first use, by ``nvcc`` for
-``sm_90a``, into its own shared library ``build/lib<name>.so`` with a plain
+Each ``csrc/<name>.cu`` (with the shared ``csrc/*.cuh`` headers it
+includes) is compiled on first use, by ``nvcc`` for ``sm_90a``, into its
+own shared library ``build/lib<name>.so`` with a plain
 C interface, and loaded with ``ctypes``.  Nothing here runs at import time:
 the CPU tests import every module of the package on machines without
 ``nvcc``.
 
 ``build_all()`` starts one ``nvcc`` per source at once and waits for all of
 them, so a cold build costs the slowest file, not the sum.  A library is
-rebuilt when its source or the flags change (a hash stamp sits beside it).
+rebuilt when its source, a header or the flags change (a hash stamp sits
+beside it).
 """
 
 from __future__ import annotations
@@ -19,6 +21,7 @@ import os
 import shutil
 import subprocess
 import threading
+from collections import Counter
 from typing import Dict, List, Sequence, Tuple
 
 _HERE = os.path.dirname(os.path.abspath(__file__))
@@ -40,7 +43,8 @@ _I64 = ctypes.c_longlong
 _I32 = ctypes.c_int
 _F32 = ctypes.c_float
 SIGNATURES: Dict[str, Sequence] = {
-    "seg_hist": (_VP,) * 4 + (_I64,) * 3 + (_I32,) * 2 + (_VP,) * 2,
+    "seg_hist": (_VP,) * 4 + (_I64, _VP) + (_I32,) * 3 + (_VP,) * 3,
+    "grow_step": (_VP,) * 5 + (_I64, _I32, _VP, _I32, _I32) + (_VP,) * 10,
     "partition": (_VP,) * 5 + (_I64,) * 3 + (_I32,) * 5 + (_VP,) * 8,
     "split_scan": (_VP,) * 5 + (_I32,) * 2 + (_F32,) * 4 + (_VP,) * 2,
     "forest_walk": (_VP,) * 4 + (_I64,) + (_I32,) * 5 + (_VP,) * 2,
@@ -48,6 +52,11 @@ SIGNATURES: Dict[str, Sequence] = {
 
 _ENTRIES: Dict[str, object] = {}
 _LOCK = threading.Lock()
+
+# kernel launches by kernel name ("seg_hist_int8" is the int8 mode of
+# seg_hist.cu); a wrapper adds one where it launches its kernel, nowhere
+# else, so a run shows which kernels it went through
+LAUNCHES: Counter = Counter()
 
 
 def nvcc_path() -> str:
@@ -77,9 +86,12 @@ def _paths(name: str) -> Tuple[str, str, str]:
 
 
 def _stamp(src: str) -> str:
+    """Hash of the source, the shared headers of csrc/ and the flags."""
     h = hashlib.sha256()
-    with open(src, "rb") as fh:
-        h.update(fh.read())
+    headers = sorted(f for f in os.listdir(CSRC) if f.endswith(".cuh"))
+    for path in [src] + [os.path.join(CSRC, f) for f in headers]:
+        with open(path, "rb") as fh:
+            h.update(fh.read())
     h.update(" ".join(NVCC_FLAGS).encode())
     return h.hexdigest()
 

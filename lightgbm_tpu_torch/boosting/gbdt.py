@@ -1,10 +1,11 @@
 """GBDT boosting loop and the user-facing Booster.
 
 Counterpart of ``lightgbm_tpu/boosting/gbdt.py`` for one model per
-iteration (binary or regression): the train loop (gradients, ``grow_tree``,
-f32-rounded shrinkage, score update through the segment's row index) and
-``predict`` through the forest walk, with device binning and an exact host
-re-bin of the rows whose f32 binning is in doubt.
+iteration (binary or regression): the train loop (gradients, the int8
+accumulator's scales once per iteration, ``grow_tree``, f32-rounded
+shrinkage, score update through the segment's row index) and ``predict``
+through the forest walk, with device binning and an exact host re-bin of
+the rows whose f32 binning is in doubt.
 """
 
 from __future__ import annotations
@@ -19,7 +20,8 @@ from ..dataset import Dataset
 from ..device import resolve_device
 from ..objectives import create_objective
 from ..ops.forest_walk import bin_numeric, build_devbin_tables, build_tables, forest_walk
-from ..ops.grower import GrowerParams, grow_tree
+from ..ops.grower import GrowerParams, grow_tree, int8_acc_eligible
+from ..quantize import hist_acc_scales
 from ..tree import Tree
 
 _EPS = 1e-15
@@ -45,6 +47,8 @@ class Booster:
         self.objective = None
         self._finished = False
         self._tables = None
+        # per trained tree: near-tie f32 refines of the int8 accumulation
+        self.refine_counts: List[int] = []
         # constant added to every raw score (predict-only boosters, see
         # convert.booster_from_arrays); training folds its init score into
         # the first tree instead
@@ -79,7 +83,10 @@ class Booster:
             lambda_l1=cfg.lambda_l1,
             lambda_l2=cfg.lambda_l2,
             min_gain_to_split=cfg.min_gain_to_split,
+            grow_fused=cfg.resolved_grow_fused(),
+            near_tie_tol=cfg.hist_near_tie_tol,
         )
+        self._int8_acc = int8_acc_eligible(cfg.hist_acc, dev)
 
     def update(self) -> bool:
         """One boosting iteration (reference GBDT::TrainOneIter
@@ -96,22 +103,29 @@ class Booster:
                 init_score = s
                 self.score += s
         grad, hess = self.objective.get_gradients(self.score)
-        n_leaves = 1
+        n_leaves, refines = 1, 0
         if self.objective.need_train and self.used_features:
+            qs = (
+                hist_acc_scales(grad, hess, self._count_mask)
+                if self._int8_acc else None
+            )
             ta, leaf_id = grow_tree(
                 self._bins_fn, grad, hess, self._count_mask, self._num_bins_t,
                 self._nan_bins_t, self._feature_mask, self._grower_params,
+                quant_scales=qs,
             )
-            n_leaves = ta.num_leaves
+            n_leaves, refines = ta.num_leaves, ta.refine_count
         if n_leaves <= 1:
             # constant tree (gbdt.cpp:428-441): only a first tree is kept
             if not self.trees:
                 tree = Tree.from_record(_constant_record(init_score))
                 self.trees.append(tree)
+                self.refine_counts.append(refines)
                 self._tables = None
             self._finished = True
             return True
         tree = Tree.from_tree_arrays(ta, self.bin_mappers, self.used_features)
+        self.refine_counts.append(refines)
         tree.apply_shrinkage(cfg.learning_rate)
         rate = torch.tensor(np.float32(cfg.learning_rate), device=self.device)
         shrunk = torch.as_tensor(ta.leaf_value, device=self.device) * rate
@@ -121,6 +135,13 @@ class Booster:
         self.trees.append(tree)
         self._tables = None
         return False
+
+    def refine_rate(self, i: int = -1) -> float:
+        """Share of tree ``i``'s split decisions that took the near-tie f32
+        refine: refines / (2 * (leaves - 1) + 1), the root and both children
+        of every split (boosting/gbdt.py:336-349)."""
+        decisions = 2 * max(0, self.trees[i].num_leaves - 1) + 1
+        return self.refine_counts[i] / decisions
 
     def train_loss(self) -> float:
         """Training loss of the current score (binary log-loss or l2)."""

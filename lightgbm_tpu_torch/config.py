@@ -4,11 +4,20 @@ Counterpart of ``lightgbm_tpu/config.py``, cut to the fields this port
 reads.  A parameter outside that set raises ``ValueError`` naming it as not
 yet ported, so a user never trains silently with an option ignored.
 
-The four path parameters accept only the one training path the port has:
-the segment-resident layout (``hist_mode='seg'``) with two separate
-partition and histogram launches (``grow_fused='off'``), the per-feature
-split-scan kernel (``fused_split_scan=True``) and f32-accurate histogram
-accumulation (``hist_acc='bf16'``, the name the JAX package gives it).
+The path parameters take the JAX package's defaults and values
+(:320-364, validation :672-692), on the single-host segment-resident layout
+(``hist_mode='seg'``, ``leaf_batch=1``, the only ones ported):
+
+* ``grow_fused`` in auto/on/off: one fused grow step per split, or a
+  partition and a histogram launch ('off'); 'auto' is on, as it is on the
+  seg path (boosting/gbdt.py:1410-1415);
+* ``fused_split_scan``: the per-feature split-scan kernel.  The fused grow
+  step implies it (ops/grower.py:460-463), so ``fused_split_scan=False``
+  with ``grow_fused='off'`` is the one combination not yet ported;
+* ``hist_acc`` in auto/int8/bf16: int8 2-digit accumulation with the f32
+  near-tie refine below ``hist_near_tie_tol`` ('auto', 'int8' where the
+  gate admits it: on the card), or f32-accurate sums ('bf16', the name the
+  JAX package gives its 3-term accumulator).
 """
 
 from __future__ import annotations
@@ -55,12 +64,10 @@ _OBJECTIVE_ALIASES: Dict[str, str] = {
     "binary": "binary",
 }
 
-# the one training path of the port: parameter -> the only accepted value
+# path parameters with one ported value: parameter -> that value
 _PATH_VALUES: Dict[str, Any] = {
     "hist_mode": "seg",
-    "grow_fused": "off",
-    "fused_split_scan": True,
-    "hist_acc": "bf16",
+    "leaf_batch": 1,
 }
 
 
@@ -94,9 +101,11 @@ class Config:
     data_random_seed: int = 1
     boost_from_average: bool = True
     hist_mode: str = "seg"
-    grow_fused: str = "off"
-    fused_split_scan: bool = True
-    hist_acc: str = "bf16"
+    leaf_batch: int = 1
+    grow_fused: str = "auto"
+    fused_split_scan: bool = False
+    hist_acc: str = "auto"
+    hist_near_tie_tol: float = 1e-3
 
     @classmethod
     def from_params(cls, params: Optional[Dict[str, Any]]) -> "Config":
@@ -141,6 +150,19 @@ class Config:
                     f"{name}={getattr(cfg, name)!r} not yet ported to "
                     f"lightgbm_tpu_torch (the port trains with {name}={only!r})"
                 )
+        if cfg.grow_fused not in ("auto", "on", "off"):
+            raise ValueError("grow_fused must be one of 'auto', 'on', 'off'")
+        if cfg.hist_acc not in ("auto", "int8", "bf16"):
+            raise ValueError("hist_acc must be one of 'auto', 'int8', 'bf16'")
+        if cfg.hist_near_tie_tol < 0.0:
+            raise ValueError("hist_near_tie_tol must be >= 0")
+        if not cfg.resolved_grow_fused() and not cfg.fused_split_scan:
+            raise ValueError(
+                "fused_split_scan=False with grow_fused='off' not yet ported "
+                "to lightgbm_tpu_torch (the port scans splits with the "
+                "split-scan kernel: set fused_split_scan=True or grow_fused "
+                "to 'auto' or 'on')"
+            )
         if cfg.num_leaves < 2:
             raise ValueError("num_leaves must be >= 2")
         if not 2 <= cfg.max_bin <= 255:
@@ -149,3 +171,7 @@ class Config:
                 "included, as bytes"
             )
         return cfg
+
+    def resolved_grow_fused(self) -> bool:
+        """'on' and 'auto' (the seg path is always active here) fuse."""
+        return self.grow_fused != "off"

@@ -10,7 +10,7 @@ Counterpart of ``lightgbm_tpu/ops/pallas/forest_walk.py``:
     binning; the caller re-bins those rows on the host;
   * ``forest_walk`` (:367) walks every row through every tree: the plain
     PyTorch version on the CPU, the ``csrc/forest_walk.cu`` kernel on a
-    CUDA device (launches counted in ``forest_walk.launches``).
+    CUDA device (launches counted in ``_build.LAUNCHES['forest_walk']``).
 """
 
 from __future__ import annotations
@@ -112,11 +112,8 @@ def forest_walk(bins: torch.Tensor, tables: ForestTables, k: int) -> torch.Tenso
         out.data_ptr(), torch.cuda.current_stream(bins.device).cuda_stream,
     )
     _build.check(rc, "forest_walk kernel")
-    forest_walk.launches += 1
+    _build.LAUNCHES["forest_walk"] += 1
     return out
-
-
-forest_walk.launches = 0
 
 
 def build_devbin_tables(mappers, used_features, device):

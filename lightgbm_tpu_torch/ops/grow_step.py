@@ -1,0 +1,138 @@
+"""Fused grow step: partition, smaller-child election and the smaller
+child's histogram of K disjoint leaf windows in one launch.
+
+Counterpart of ``lightgbm_tpu/ops/pallas/grow_step.py`` (``fused_grow_step``
+:318, kernel ``fused_grow_step_pallas`` :218).  ``fused_grow_step``
+dispatches on the device of the rows: on the CPU it runs the plain version,
+the XLA oracle of grow_step.py:388-411 (a stable partition of each window,
+the election ``nl <= nr`` picks the left child, the histogram of the
+smaller child), on a CUDA device it launches ``csrc/grow_step.cu`` (one
+cooperative launch, launches counted in ``_build.LAUNCHES['fused_grow_step']``).
+Numeric splits only.
+"""
+
+from __future__ import annotations
+
+from typing import Optional, Sequence, Tuple
+
+import numpy as np
+import torch
+
+from .. import _build
+from .seg import (
+    MAX_INT8_ROWS,
+    MAX_WINDOWS,
+    SegRows,
+    _device_scales,
+    _require_cuda,
+    combine_int8,
+    seg_hist_batch_plain,
+    sort_partition_plain,
+)
+
+_TILE = 1024  # rows per tile of csrc/grow_step.cu
+
+
+def _members(sbegins, cnts, feats, tbins, dls, nanbs, iscats):
+    """[K, 6] i64 host rows (start, cnt, feat, tbin, dl, nanb)."""
+    cols = [np.asarray(a, dtype=np.int64).reshape(-1)
+            for a in (sbegins, cnts, feats, tbins, dls, nanbs)]
+    k = len(cols[0])
+    if any(len(c) != k for c in cols):
+        raise ValueError("fused_grow_step: member arrays differ in length")
+    if iscats is not None and np.any(np.asarray(iscats)):
+        raise ValueError("fused_grow_step: categorical members are not yet ported")
+    mem = np.stack(cols, axis=1)
+    mem[:, 1] = np.maximum(mem[:, 1], 0)
+    return np.ascontiguousarray(mem)
+
+
+def _decision(mem: np.ndarray, nl: np.ndarray) -> np.ndarray:
+    """[K, 4] (nl, nr, child_start, child_cnt) from the left counts."""
+    nr = mem[:, 1] - nl
+    left_smaller = nl <= nr
+    return np.stack(
+        [nl, nr, mem[:, 0] + np.where(left_smaller, 0, nl),
+         np.where(left_smaller, nl, nr)], axis=1,
+    ).astype(np.int32)
+
+
+def fused_grow_step_plain(
+    rows: SegRows, mem: np.ndarray, num_bins: int, quant_scales=None
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The oracle composition: K stable partitions (disjoint windows, so
+    their order does not matter), the local election, the K smaller
+    children's histograms.  Returns (dec [K, 4] i32, hist [K, F, B, 3])."""
+    nl = np.asarray(
+        [int(sort_partition_plain(rows, int(s), int(c), int(ft), int(tb), bool(dl), int(nb)))
+         for s, c, ft, tb, dl, nb in mem],
+        dtype=np.int64,
+    )
+    dec = _decision(mem, nl)
+    hist = seg_hist_batch_plain(rows, dec[:, 2:4], num_bins, quant_scales)
+    return torch.as_tensor(dec, device=rows.device), hist
+
+
+def fused_grow_step(
+    rows: SegRows,
+    sbegins: Sequence[int],  # [K] window begins (disjoint windows)
+    cnts: Sequence[int],  # [K] window rows (0: a no-op member)
+    feats: Sequence[int],  # [K] split feature
+    tbins: Sequence[int],  # [K] threshold bin: bin <= tbin goes left
+    dls: Sequence[int],  # [K] missing values (the NaN bin) go left
+    nanbs: Sequence[int],  # [K] NaN bin of the feature, -1 if none
+    num_bins: int,
+    quant_scales: Optional[torch.Tensor] = None,  # [2] f32: int8 grid
+    iscats: Optional[Sequence[int]] = None,  # [K] categorical: raises
+):
+    """K fused partition + election + histogram steps.  Partitions the rows
+    in place and returns (nl, nr, child_start, child_cnt) as [K] i32 and the
+    smaller children's histograms [K, F, B, 3] f32 (int8 2-digit grid when
+    ``quant_scales`` is given), all on the rows' device."""
+    mem = _members(sbegins, cnts, feats, tbins, dls, nanbs, iscats)
+    # the smaller child of a window holds at most cnt // 2 rows
+    if quant_scales is not None and int(mem[:, 1].max(initial=0)) // 2 > MAX_INT8_ROWS:
+        raise ValueError(
+            f"int8 histogram windows hold at most {MAX_INT8_ROWS} rows "
+            "(exact i32 digit sums)"
+        )
+    if rows.device.type == "cpu":
+        dec, hist = fused_grow_step_plain(rows, mem, num_bins, quant_scales)
+    else:
+        dec, hist = _launch(rows, mem, num_bins, quant_scales)
+    return dec[:, 0], dec[:, 1], dec[:, 2], dec[:, 3], hist
+
+
+def _launch(rows: SegRows, mem: np.ndarray, num_bins: int, quant_scales):
+    _require_cuda(rows)
+    k, f = mem.shape[0], rows.f
+    if not 1 <= k <= MAX_WINDOWS:
+        raise ValueError(f"fused_grow_step takes 1 to {MAX_WINDOWS} windows, got {k}")
+    dev = rows.device
+    total = int(mem[:, 1].sum())
+    if total == 0:  # every member empty: nothing moves, zero histograms
+        dec = torch.as_tensor(_decision(mem, np.zeros(k, np.int64)), device=dev)
+        return dec, torch.zeros((k, f, num_bins, 3), dtype=torch.float32, device=dev)
+    planes = 3 if quant_scales is None else 5
+    dtype = torch.float32 if quant_scales is None else torch.int32
+    out = torch.zeros((k, f, num_bins, planes), dtype=dtype, device=dev)
+    tiles = int(sum(-(-int(c) // _TILE) for c in mem[:, 1]))
+    s_bins = torch.empty((f, total), dtype=torch.uint8, device=dev)
+    s_g = torch.empty((total,), dtype=torch.float32, device=dev)
+    s_h = torch.empty_like(s_g)
+    s_m = torch.empty_like(s_g)
+    s_ridx = torch.empty((total,), dtype=torch.int32, device=dev)
+    tile_counts = torch.empty((tiles,), dtype=torch.int32, device=dev)
+    dec = torch.empty((k, 4), dtype=torch.int32, device=dev)
+    scales = None if quant_scales is None else _device_scales(quant_scales, dev)
+    rc = _build.entry("grow_step")(
+        rows.bins.data_ptr(), rows.g.data_ptr(), rows.h.data_ptr(),
+        rows.m.data_ptr(), rows.ridx.data_ptr(), rows.n, f, mem.ctypes.data,
+        k, int(num_bins), s_bins.data_ptr(), s_g.data_ptr(), s_h.data_ptr(),
+        s_m.data_ptr(), s_ridx.data_ptr(), tile_counts.data_ptr(),
+        dec.data_ptr(), None if scales is None else scales.data_ptr(),
+        out.data_ptr(), torch.cuda.current_stream(dev).cuda_stream,
+    )
+    _build.check(rc, "fused grow step kernel")
+    _build.LAUNCHES["fused_grow_step"] += 1
+    return dec, (out if scales is None else combine_int8(out, scales))

@@ -15,16 +15,18 @@ row index ``ridx`` i32 ``[n]``.  The two contracts of the TPU layout hold:
 stable leaf-ordered windows, and the ``[F, B, 3]`` (g, h, count) histogram
 that ``combine_hist_raw`` returns.
 
-``seg_hist`` (kernel ``csrc/seg_hist.cu``) and ``sort_partition`` (kernel
+``seg_hist_batch`` (kernel ``csrc/seg_hist.cu``: K windows per launch, f32
+sums or the int8 2-digit grid) and ``sort_partition`` (kernel
 ``csrc/partition.cu``) dispatch on the device of the tensors they are given:
 on the CPU they run their plain PyTorch versions, on a CUDA device they
-launch the kernel.  Each counts its kernel launches in ``.launches``.
+launch the kernel.  Each counts its kernel launches in ``_build.LAUNCHES``.
 """
 
 from __future__ import annotations
 
 import dataclasses
 
+import numpy as np
 import torch
 
 from .. import _build
@@ -81,8 +83,13 @@ def go_left(col: torch.Tensor, tbin: int, dl: bool, nanb: int) -> torch.Tensor:
 
 
 # ---------------------------------------------------------------------------
-# kernel 1: histogram of one window
+# kernel 1: histograms of K windows, f32 or on the int8 2-digit grid
 # ---------------------------------------------------------------------------
+
+QMAX = 127 * 128  # 2-digit int8 grid ceiling (lightgbm_tpu/ops/pallas/seg.py:100)
+# the i32 digit sums are exact up to this many rows per window (|hi| <= 127)
+MAX_INT8_ROWS = (2**31 - 1) // 127
+MAX_WINDOWS = 16  # windows per launch (kMaxWindows of seg_hist.cu, grow_step.cu)
 
 
 def seg_hist_plain(rows: SegRows, start: int, cnt: int, num_bins: int) -> torch.Tensor:
@@ -107,26 +114,124 @@ def seg_hist_plain(rows: SegRows, start: int, cnt: int, num_bins: int) -> torch.
     return out.reshape(f, num_bins, 3)
 
 
-def seg_hist(rows: SegRows, start: int, cnt: int, num_bins: int) -> torch.Tensor:
-    """Histogram [F, B, 3] of window [start, start+cnt): plain version on
-    the CPU, the ``csrc/seg_hist.cu`` kernel on a CUDA device."""
+def int8_digits(x: torch.Tensor, scale: torch.Tensor):
+    """(hi, lo) i32 digits of q = clip(round_half_even(x / scale), +-QMAX),
+    q = hi*128 + lo (the TPU kernel's _hist_window, seg.py:348-353): the
+    reciprocal is taken once in f32, then multiplied."""
+    inv = 1.0 / scale
+    q = torch.clamp(torch.round(x * inv), -QMAX, QMAX).to(torch.int32)
+    hi = (q + 64) >> 7
+    return hi, q - hi * 128
+
+
+def seg_hist_int8_raw_plain(
+    rows: SegRows, start: int, cnt: int, num_bins: int, scales: torch.Tensor
+) -> torch.Tensor:
+    """Raw i32 planes [F, B, 5] (S_g_hi, S_g_lo, S_h_hi, S_h_lo, count) of
+    window [start, start+cnt) on the int8 2-digit grid with ``scales`` [2]
+    (g_scale, h_scale).  Integer sums: exact in any order."""
+    f = rows.f
+    dev = rows.device
+    out = torch.zeros((f * num_bins, 5), dtype=torch.int64, device=dev)
+    if cnt > 0 and f > 0:
+        win = slice(start, start + cnt)
+        m = rows.m[win]
+        g_hi, g_lo = int8_digits(rows.g[win] * m, scales[0])
+        h_hi, h_lo = int8_digits(rows.h[win] * m, scales[1])
+        stats = torch.stack([g_hi, g_lo, h_hi, h_lo, (m != 0).to(torch.int32)], 1)
+        ids = rows.bins[:, win].to(torch.int64) + (
+            torch.arange(f, device=dev, dtype=torch.int64)[:, None] * num_bins
+        )
+        data = stats.to(torch.int64).unsqueeze(0).expand(f, cnt, 5).reshape(-1, 5)
+        out.scatter_add_(0, ids.reshape(-1, 1).expand(-1, 5), data)
+    return out.to(torch.int32).reshape(f, num_bins, 5)
+
+
+def combine_int8(raw: torch.Tensor, scales: torch.Tensor) -> torch.Tensor:
+    """[..., B, 5] raw i32 planes -> [..., B, 3] (g, h, count) f32, as
+    ``combine_hist_raw`` does (seg.py:457-461): g = (f32(S_hi)*128 +
+    f32(S_lo)) * g_scale; the *128 is exact, the digit sums are exact below
+    2^24.  Shared by the plain version and the kernel's output."""
+    a = raw.to(torch.float32)
+    g = (a[..., 0] * 128.0 + a[..., 1]) * scales[0]
+    h = (a[..., 2] * 128.0 + a[..., 3]) * scales[1]
+    return torch.stack([g, h, a[..., 4]], dim=-1)
+
+
+def _windows_list(windows):
+    """[(start, cnt), ...] host ints from a [K, 2] array-like."""
+    return [(int(s), max(int(c), 0)) for s, c in windows]
+
+
+def seg_hist_batch_plain(
+    rows: SegRows, windows, num_bins: int, scales=None
+) -> torch.Tensor:
+    """[K, F, B, 3] histograms of K windows (start, cnt): f32 sums, or with
+    ``scales`` [2] f32 the int8 2-digit grid recombined to f32."""
+    out = []
+    for start, cnt in _windows_list(windows):
+        if scales is None:
+            out.append(seg_hist_plain(rows, start, cnt, num_bins))
+        else:
+            raw = seg_hist_int8_raw_plain(rows, start, cnt, num_bins, scales)
+            out.append(combine_int8(raw, scales))
+    return torch.stack(out)
+
+
+def seg_hist_batch(
+    rows: SegRows, windows, num_bins: int, scales=None
+) -> torch.Tensor:
+    """K-window histogram ([K, 2] (start, cnt) host ints -> [K, F, B, 3];
+    ``seg_hist_batch`` of seg.py:754): f32 sums, or with ``scales`` [2] f32
+    (``quantize.hist_acc_scales``) the int8 2-digit grid.  A window with
+    cnt = 0 gives a zero histogram.  Plain version on the CPU, the
+    ``csrc/seg_hist.cu`` kernel on a CUDA device."""
+    wins = _windows_list(windows)
+    if scales is not None and max((c for _, c in wins), default=0) > MAX_INT8_ROWS:
+        raise ValueError(
+            f"int8 histogram windows hold at most {MAX_INT8_ROWS} rows "
+            "(exact i32 digit sums)"
+        )
     if rows.device.type == "cpu":
-        return seg_hist_plain(rows, start, cnt, num_bins)
+        return seg_hist_batch_plain(rows, wins, num_bins, scales)
     _require_cuda(rows)
-    out = torch.zeros((rows.f, num_bins, 3), dtype=torch.float32, device=rows.device)
-    fn = _build.entry("seg_hist")
-    stream = torch.cuda.current_stream(rows.device).cuda_stream
-    rc = fn(
+    k, f = len(wins), rows.f
+    if not 1 <= k <= MAX_WINDOWS:
+        raise ValueError(f"seg_hist takes 1 to {MAX_WINDOWS} windows, got {k}")
+    dev = rows.device
+    if not any(c for _, c in wins):  # nothing to read: no launch
+        return torch.zeros((k, f, num_bins, 3), dtype=torch.float32, device=dev)
+    win_host = np.asarray(wins, dtype=np.int64).reshape(k, 2)
+    if scales is None:
+        out = torch.zeros((k, f, num_bins, 3), dtype=torch.float32, device=dev)
+        sp = None
+    else:
+        scales = _device_scales(scales, dev)
+        out = torch.zeros((k, f, num_bins, 5), dtype=torch.int32, device=dev)
+        sp = scales.data_ptr()
+    rc = _build.entry("seg_hist")(
         rows.bins.data_ptr(), rows.g.data_ptr(), rows.h.data_ptr(),
-        rows.m.data_ptr(), rows.n, int(start), int(cnt), rows.f,
-        int(num_bins), out.data_ptr(), stream,
+        rows.m.data_ptr(), rows.n, win_host.ctypes.data, k, f, int(num_bins),
+        sp, out.data_ptr(), torch.cuda.current_stream(dev).cuda_stream,
     )
     _build.check(rc, "seg_hist kernel")
-    seg_hist.launches += 1
-    return out
+    _build.LAUNCHES["seg_hist" if scales is None else "seg_hist_int8"] += 1
+    if k > 1:
+        _build.LAUNCHES["seg_hist:K>1"] += 1
+    return out if scales is None else combine_int8(out, scales)
 
 
-seg_hist.launches = 0
+def seg_hist(
+    rows: SegRows, start: int, cnt: int, num_bins: int, scales=None
+) -> torch.Tensor:
+    """Histogram [F, B, 3] of window [start, start+cnt): ``seg_hist_batch``
+    with one window."""
+    return seg_hist_batch(rows, [(start, cnt)], num_bins, scales)[0]
+
+
+def _device_scales(scales, dev) -> torch.Tensor:
+    t = torch.as_tensor(scales, dtype=torch.float32, device=dev).reshape(2)
+    return t.contiguous()
 
 
 # ---------------------------------------------------------------------------
@@ -186,11 +291,8 @@ def sort_partition(
         s_ridx.data_ptr(), blocks.data_ptr(), nl.data_ptr(), stream,
     )
     _build.check(rc, "partition kernel")
-    sort_partition.launches += 1
+    _build.LAUNCHES["partition"] += 1
     return nl
-
-
-sort_partition.launches = 0
 
 
 def _require_cuda(rows: SegRows) -> None:

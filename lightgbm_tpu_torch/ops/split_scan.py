@@ -9,7 +9,7 @@ count, runner-up gain, 0) of ``split_scan_pallas`` (:187), and
 
 ``split_scan`` dispatches on the histogram's device: the plain PyTorch
 version on the CPU, the ``csrc/split_scan.cu`` kernel on a CUDA device
-(launches counted in ``split_scan.launches``).
+(launches counted in ``_build.LAUNCHES['split_scan']``).
 """
 
 from __future__ import annotations
@@ -19,7 +19,7 @@ import math
 import torch
 
 from .. import _build
-from .split import SplitCandidate, _ordered_cum, leaf_gain, split_gains
+from .split import _EPS, SplitCandidate, _ordered_cum, leaf_gain, split_gains
 
 
 def split_scan_plain(
@@ -102,21 +102,24 @@ def split_scan(
         out.data_ptr(), torch.cuda.current_stream(dev).cuda_stream,
     )
     _build.check(rc, "split_scan kernel")
-    split_scan.launches += 1
+    _build.LAUNCHES["split_scan"] += 1
     return out
-
-
-split_scan.launches = 0
 
 
 def fused_best_split(
     hist, parent_g: float, parent_h: float, parent_cnt: float, num_bins,
     nan_bins, feature_mask, *, lambda_l1: float, lambda_l2: float,
     min_data_in_leaf: int, min_sum_hessian_in_leaf: float,
-    min_gain_to_split: float,
-) -> SplitCandidate:
+    min_gain_to_split: float, with_margin: bool = False,
+):
     """The leaf's best split from the scan rows: first feature with the
-    largest row gain (split_scan.py:286-334)."""
+    largest row gain (split_scan.py:286-334).
+
+    ``with_margin``: also return the near-tie margin (split_scan.py:306-320),
+    ``(best - runner_up) / max(|best|, 1e-15)`` in f32, where the runner-up
+    is the best row of the other features or the winning feature's own
+    second best (row column 6); +inf when either gain is not finite.  It
+    comes back in the candidate's one host transfer."""
     parent = torch.tensor(
         [parent_g, parent_h, parent_cnt], dtype=torch.float32, device=hist.device
     )
@@ -129,11 +132,23 @@ def fused_best_split(
     feat = torch.argmax(rows[:, 0])
     r = rows[feat]
     improvement = r[0] - leaf_gain(parent[0], parent[1], lambda_l1, lambda_l2) - min_gain_to_split
-    vals = torch.cat(
-        [improvement[None], r[:6], parent - r[3:6], feat.to(torch.float32)[None]]
-    ).tolist()
+    parts = [improvement[None], r[:6], parent - r[3:6], feat.to(torch.float32)[None]]
+    if with_margin:
+        f = rows.shape[0]
+        others = torch.where(
+            torch.arange(f, device=rows.device) == feat, float("-inf"), rows[:, 0]
+        )
+        sec = torch.maximum(others.max(), r[6])
+        margin = torch.where(
+            torch.isfinite(r[0]) & torch.isfinite(sec),
+            (r[0] - sec) / torch.clamp(r[0].abs(), min=_EPS),
+            float("inf"),
+        )
+        parts.append(margin[None])
+    vals = torch.cat(parts).tolist()
     gain = vals[0] if math.isfinite(vals[1]) else float("-inf")
-    return SplitCandidate(
+    cand = SplitCandidate(
         gain, int(vals[10]), int(vals[2]), vals[3] > 0.5, vals[4], vals[5],
         vals[6], vals[7], vals[8], vals[9],
     )
+    return (cand, vals[11]) if with_margin else cand

@@ -11,6 +11,7 @@ import pytest
 
 import lightgbm_tpu as lgb
 from lightgbm_tpu.binning import BinMapper as JaxBinMapper
+from lightgbm_tpu.config import Config as JaxConfig
 
 import lightgbm_tpu_torch as lt
 from lightgbm_tpu_torch.binning import BinMapper
@@ -68,15 +69,37 @@ def test_config_accepts_the_slice_and_aliases():
     })
     assert (cfg.objective, cfg.num_leaves, cfg.learning_rate) == ("binary", 7, 0.3)
     assert (cfg.min_data_in_leaf, cfg.lambda_l2) == (5, 1.0)
+    assert not cfg.resolved_grow_fused()
+    for params in ({"hist_acc": "int8"}, {"grow_fused": "on"}):
+        Config.from_params(params)
+
+
+def test_config_accepts_the_jax_defaults():
+    """No path parameter: the JAX package's defaults (config.py:320-364),
+    resolved as its seg path resolves them (gbdt.py:1410-1415)."""
+    cfg = Config.from_params({})
+    jcfg = JaxConfig.from_params({})
+    for name in ("grow_fused", "hist_acc", "fused_split_scan", "hist_near_tie_tol",
+                 "leaf_batch"):
+        assert getattr(cfg, name) == getattr(jcfg, name), name
+    assert (cfg.grow_fused, cfg.hist_acc, cfg.fused_split_scan) == ("auto", "auto", False)
+    assert cfg.hist_near_tie_tol == 1e-3
+    assert cfg.resolved_grow_fused()
+    explicit = Config.from_params({"grow_fused": "auto", "hist_acc": "auto",
+                                   "hist_near_tie_tol": 0.01})
+    assert explicit.hist_near_tie_tol == 0.01
 
 
 @pytest.mark.parametrize("params,word", [
     ({"bagging_fraction": 0.5}, "bagging_fraction"),
     ({"objective": "multiclass"}, "multiclass"),
-    ({"hist_acc": "int8"}, "hist_acc"),
-    ({"grow_fused": "on"}, "grow_fused"),
+    ({"hist_acc": "fp16"}, "hist_acc"),
+    ({"grow_fused": "off", "fused_split_scan": False}, "grow_fused"),
     ({"hist_mode": "ordered"}, "hist_mode"),
     ({"max_bin": 1000}, "max_bin"),
+    ({"leaf_batch": 4}, "leaf_batch"),
+    ({"grow_fused": "sometimes"}, "grow_fused"),
+    ({"hist_near_tie_tol": -1.0}, "hist_near_tie_tol"),
 ])
 def test_config_raises_on_what_is_not_ported(params, word):
     with pytest.raises(ValueError, match=word):

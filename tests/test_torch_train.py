@@ -1,24 +1,37 @@
 """The whole slice: lightgbm_tpu_torch training on the CPU against the JAX
-package's seg-path training, plus the port's import and device rules.
+package's training, plus the port's import and device rules.
 
-The JAX package trains with ``hist_mode='seg', hist_acc='bf16',
-grow_fused='off', fused_split_scan=True``; the port with ``train(...,
-device='cpu')`` on the same data.  Every tree must have the same split
-features, bins, default directions and children; leaf values and
-predictions must agree within 1e-5 (the two packages' f32 ``exp`` may
-differ in the last ulp, which moves binary gradients by an ulp).
+* the two-launch path: the JAX package with ``hist_mode='seg', hist_acc='bf16',
+  grow_fused='off', fused_split_scan=True``, the port with the same;
+* the default path: both with no path parameter (the port's fused grow step
+  with f32 sums on the CPU; the JAX package's CPU default);
+* int8 accumulation: the port with ``grower.INT8_ON_CPU`` against the JAX
+  package with its seg and grow-step kernels in interpret mode (which is
+  what engages int8 there off the TPU).  The near-tie refine sums f32 in
+  another order there (a bf16 3-term matmul), so structure is compared.
+
+Every tree must have the same split features, bins, default directions and
+children; leaf values and predictions must agree within 1e-5 (the two
+packages' f32 ``exp`` may differ in the last ulp, which moves binary
+gradients by an ulp).
 """
 
 import subprocess
 import sys
 
+import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
 import lightgbm_tpu as lgb
+from lightgbm_tpu.ops import grower as jax_grower
+from lightgbm_tpu.ops.pallas import grow_step as jax_grow_step
+from lightgbm_tpu.ops.pallas import seg as jax_seg
 
 import lightgbm_tpu_torch as lt
+from lightgbm_tpu_torch.ops import grower
+from lightgbm_tpu_torch.quantize import hist_acc_scales
 
 SLICE = {"hist_mode": "seg", "hist_acc": "bf16", "grow_fused": "off",
          "fused_split_scan": True}
@@ -56,6 +69,100 @@ def test_training_matches_jax_seg_path(objective):
     for raw in (True, False):
         np.testing.assert_allclose(tb.predict(x, raw_score=raw), jb.predict(x, raw_score=raw),
                                    rtol=0, atol=1e-5)
+
+
+def _assert_same_trees(jb, tb, leaf_atol=1e-5):
+    assert len(tb.trees) == len(jb._bin_records)
+    for jr, tree in zip(jb._bin_records, tb.trees):
+        tr = tree.record()
+        for k in ("split_feature", "split_bin", "default_left", "left_child", "right_child"):
+            np.testing.assert_array_equal(tr[k], jr[k], err_msg=k)
+        np.testing.assert_allclose(tr["leaf_value"], jr["leaf_value"], rtol=0, atol=leaf_atol)
+
+
+@pytest.mark.parametrize("objective", ["binary", "regression"])
+def test_default_path_matches_jax_defaults(objective):
+    """No path parameter on either side: the port resolves the JAX
+    package's defaults (fused grow step, int8 off on the CPU)."""
+    x, y = _data(objective, seed=11)
+    params = {"objective": objective, "num_leaves": 15, "max_bin": 63,
+              "learning_rate": 0.1}
+    jp = {**params, "verbosity": -1, "metric": "none"}
+    jb = lgb.train(jp, lgb.Dataset(x, y, params=jp), 5)
+    tb = lt.train(params, lt.Dataset(x, y, params=params), 5, device="cpu")
+    assert tb._grower_params.grow_fused and not tb._int8_acc
+    assert tb.refine_counts == [0] * 5
+    _assert_same_trees(jb, tb)
+    for raw in (True, False):
+        np.testing.assert_allclose(tb.predict(x, raw_score=raw), jb.predict(x, raw_score=raw),
+                                   rtol=0, atol=1e-5)
+
+
+def _int8_problem():
+    """The int8 smoke workload of tools/run_tests.sh (1,200 x 10)."""
+    rng = np.random.default_rng(0)
+    x = rng.normal(size=(1200, 10)).astype(np.float32)
+    y = (x[:, 0] + 0.6 * x[:, 1] + 0.1 * rng.normal(size=1200) > 0.2).astype(np.float32)
+    return x, y
+
+
+def test_int8_training_matches_jax_interpret():
+    x, y = _int8_problem()
+    # lambda_l2 is distinctive: the JAX grower is traced afresh with the
+    # interpret flags set (they are read at trace time)
+    params = {"objective": "binary", "num_leaves": 15, "learning_rate": 0.2,
+              "min_data_in_leaf": 20, "lambda_l2": 0.25}
+    jp = {**params, "hist_mode": "seg", "verbosity": -1, "metric": "none"}
+    assert not (jax_seg._INTERPRET or jax_grow_step._INTERPRET)
+    jax_seg._INTERPRET = jax_grow_step._INTERPRET = True
+    try:
+        jb = lgb.train(jp, lgb.Dataset(x, y, params=jp), 3)
+    finally:
+        jax_seg._INTERPRET = jax_grow_step._INTERPRET = False
+    assert jb._grower_params.grow_fused
+    grower.INT8_ON_CPU = True
+    try:
+        tb = lt.train(params, lt.Dataset(x, y, params=params), 3, device="cpu")
+    finally:
+        grower.INT8_ON_CPU = False
+    assert tb._int8_acc and min(tb.refine_counts) > 0
+    _assert_same_trees(jb, tb)
+    np.testing.assert_allclose(tb.predict(x), jb.predict(x), rtol=0, atol=1e-5)
+
+
+def test_int8_tree_refine_count_equals_jax():
+    """One int8 tree from the same gradients: the same splits and the same
+    number of near-tie refines as the JAX TreeArrays.refine_count."""
+    x, _ = _int8_problem()
+    ds = lt.Dataset(x, np.zeros(len(x)), params={}).construct()
+    rng = np.random.default_rng(1)
+    g = rng.normal(size=len(x)).astype(np.float32)
+    h = (rng.random(len(x)) + 0.2).astype(np.float32)
+    nb, nanb, b = ds.num_bins(), ds.nan_bins(), ds.max_bin_padded
+    f = ds.bins.shape[1]
+    jp = jax_grower.GrowerParams(num_leaves=31, max_bin=b, min_data_in_leaf=5,
+                                 lambda_l2=0.125, hist_mode="seg", grow_fused=True)
+    jax_seg._INTERPRET = jax_grow_step._INTERPRET = True
+    try:
+        jt, _ = jax_grower.grow_tree(
+            jnp.asarray(ds.bins.astype(np.int32)), jnp.asarray(g), jnp.asarray(h),
+            jnp.ones(len(x), jnp.float32), jnp.asarray(nb), jnp.asarray(nanb),
+            jnp.ones(f, bool), jp,
+        )
+    finally:
+        jax_seg._INTERPRET = jax_grow_step._INTERPRET = False
+    gt, ht, m = torch.as_tensor(g), torch.as_tensor(h), torch.ones(len(x))
+    tt, _ = grower.grow_tree(
+        torch.as_tensor(np.ascontiguousarray(ds.bins.T)), gt, ht, m,
+        torch.as_tensor(nb), torch.as_tensor(nanb), torch.ones(f, dtype=torch.bool),
+        grower.GrowerParams(num_leaves=31, max_bin=b, min_data_in_leaf=5, lambda_l2=0.125),
+        quant_scales=hist_acc_scales(gt, ht, m),
+    )
+    k = tt.num_leaves - 1
+    assert tt.num_leaves == int(jt.num_leaves)
+    np.testing.assert_array_equal(tt.split_feature, np.asarray(jt.split_feature)[:k])
+    np.testing.assert_array_equal(tt.split_bin, np.asarray(jt.split_bin)[:k])
+    assert tt.refine_count == int(jt.refine_count) > 0
 
 
 def test_training_loss_falls_and_score_matches_predict():
