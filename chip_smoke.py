@@ -13,8 +13,10 @@ Phases (any failed check raises, and the script exits non-zero):
            the least time the card could take (bound) and, where one
            PyTorch call computes the same function, that call's time: the
            f32 and int8 histograms (one window and K=2), the partition, the
-           fused grow step (int8 and f32; the root window and K=2 adjacent
-           unaligned windows) and the split scan
+           fused grow step (int8 and f32; the root window, K=2 adjacent
+           unaligned windows and K=4 disjoint unaligned windows, one of them
+           empty), the split scan, the batched partition on the same K=4
+           windows and the batched split scan on their 8 children
   main     train() of the Higgs-shaped binary model (1,048,576 x 28,
            255 leaves, max_bin 255, learning rate 0.1) with the default
            path parameters (fused grow step, int8 accumulation with the
@@ -22,15 +24,26 @@ Phases (any failed check raises, and the script exits non-zero):
            on the same rows; launch counts of its kernels (each must be
            > 0), near-tie refines per tree, and the training log-loss per
            round (it must fall); one more iteration under torch.profiler
+  batch    bench.py's headline parameters (min_data_in_leaf 100,
+           leaf_batch 4: frontier-batched growth, up to 4 splits per grow
+           step) for 10 rounds on the same rows: log-loss per round (it
+           must fall), grow steps, commit rate and effective K per tree,
+           kernel launches; the same rows and parameters at leaf_batch 1
+           for the same rounds, whose splits must be >= 0.95 identical and
+           whose log-loss must agree within 1e-4 relative; one more
+           iteration under torch.profiler
   off      the two-launch path (grow_fused='off', hist_acc='bf16') for 3
            rounds on the same rows: partition and f32 histogram launches,
            its log-loss against the default path's after 3 rounds, and
            one more iteration under torch.profiler
+  batch-off  the batch phase's parameters on the two-launch path for 3
+           rounds: the batched partition, K-window f32 histograms and the
+           batched split scan must launch
   parity   the default parameters for 3 rounds at 65,536 rows on the card
            and on the CPU with the int8 accumulation on there
            (grower.INT8_ON_CPU): share of identical splits, log-loss
-The last lines: the kernels JSON (launches summed over the main and off
-runs), the card, and
+The last lines: the kernels JSON (launches summed over the main, batch,
+off and batch-off runs), the card, and
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 """
 
@@ -54,6 +67,12 @@ PARITY_ROUNDS = 3
 PARAMS = {"objective": "binary", "num_leaves": 255, "max_bin": 255, "learning_rate": 0.1}
 # the two-launch path: a partition and a histogram launch per split, f32 sums
 OFF_PARAMS = {**PARAMS, "grow_fused": "off", "hist_acc": "bf16", "fused_split_scan": True}
+# bench.py's _PARAMS (less its logging keys): frontier batching, K = 4
+BATCH_PARAMS = {**PARAMS, "min_data_in_leaf": 100, "leaf_batch": 4}
+BATCH_ROUNDS = 10
+BATCH_OFF_PARAMS = {**BATCH_PARAMS, "grow_fused": "off", "hist_acc": "bf16",
+                    "fused_split_scan": True}
+BATCH_OFF_ROUNDS = 3
 
 # H100 SXM published peaks: HBM bytes/s and
 # f32 operations/s outside the tensor cores
@@ -66,7 +85,11 @@ SOURCES = {
     "fused_grow_step": ("lightgbm_tpu_torch/csrc/grow_step.cu",
                         "lightgbm_tpu/ops/pallas/grow_step.py:260"),
     "partition": ("lightgbm_tpu_torch/csrc/partition.cu", "lightgbm_tpu/ops/pallas/partition.py:446"),
+    "partition_batch": ("lightgbm_tpu_torch/csrc/partition.cu",
+                        "lightgbm_tpu/ops/pallas/partition.py:525"),
     "split_scan": ("lightgbm_tpu_torch/csrc/split_scan.cu", "lightgbm_tpu/ops/pallas/split_scan.py:218"),
+    "split_scan_batch": ("lightgbm_tpu_torch/csrc/split_scan.cu",
+                         "lightgbm_tpu/ops/pallas/split_scan.py:218"),
     "forest_walk": ("lightgbm_tpu_torch/csrc/forest_walk.cu", "lightgbm_tpu/ops/pallas/forest_walk.py:418"),
 }
 
@@ -213,8 +236,18 @@ def check_seg_kernels(ds, dev):
     p32ms = time_ms(lambda: seg.seg_hist_batch_plain(rows, wins, b), reps=5)
     p8ms = time_ms(lambda: seg.seg_hist_batch_plain(rows, wins, b, scales), reps=5)
     nk = sum(c for _, c in wins)
+    # the library yardstick: one index_add_ over both windows' rows into a
+    # [K, F, B] table, as for the root window
+    ids = torch.cat([
+        rows.bins[:, s0:s0 + c].long() + (k * f + torch.arange(f, device=dev)[:, None]) * b
+        for k, (s0, c) in enumerate(wins)], dim=1).reshape(-1)
+    stats = torch.cat([torch.stack([rows.g, rows.h, rows.m], 1)[s0:s0 + c].repeat(f, 1)
+                       for s0, c in wins])
+    lib2 = time_ms(lambda: torch.zeros(len(wins) * f * b, 3, device=dev).index_add_(0, ids, stats))
+    del ids, stats
     print(f"kernel seg_hist K=2 windows {wins}: f32 {t32:.4f} ms (plain {p32ms:.4f}), "
-          f"int8 {t8:.4f} ms (plain {p8ms:.4f}), bound {bound_ms(nk * (f + 12) + 2 * f * b * 12)[0]:.5f} ms; "
+          f"int8 {t8:.4f} ms (plain {p8ms:.4f}), bound {bound_ms(nk * (f + 12) + 2 * f * b * 12)[0]:.5f} ms, "
+          f"library (index_add_ over the K windows) {lib2:.4f} ms; "
           f"int8 bit-equal, f32 counts exact and g/h within {float(err2.max()):.3g}")
 
     # -- kernel 3: split scan of the root histogram
@@ -265,6 +298,7 @@ def check_seg_kernels(ds, dev):
     del rk_rows, rp_rows
 
     out.append(check_fused_step(ds, bins_fn, grad, hess, ones, ck, scales))
+    out.extend(check_batch_kernels(ds, bins_fn, grad, hess, ones, ck, dev))
     return out
 
 
@@ -272,10 +306,89 @@ def same_rows(a, b) -> bool:
     return all(torch.equal(getattr(a, c), getattr(b, c)) for c in ("bins", "g", "h", "m", "ridx"))
 
 
+def k4_members(ds, ck):
+    """K=4 disjoint windows of the root's rows, none starting on a tile
+    boundary, the second one empty, split on three features: (starts,
+    cnts, feats, tbins, dls, nanbs)."""
+    n, f = ds.bins.shape
+    nan = ds.nan_bins()
+    f2, f3 = (ck.feature + 1) % f, (ck.feature + 2) % f
+    feats = [ck.feature, f2, f2, f3]
+    return ([37, n // 4 + 5, n // 4 + 5, n // 2 + 1001],
+            [n // 4 - 100, 0, n // 4 - 900, n // 2 - 2000],
+            feats, [ck.bin, 100, 100, 60], [int(ck.default_left), 0, 1, 0],
+            [int(nan[j]) for j in feats])
+
+
+def check_batch_kernels(ds, bins_fn, grad, hess, ones, ck, dev):
+    """The batched partition on the K=4 windows against its plain version
+    (K sequential partitions): nl and the row order exactly.  The batched
+    split scan on the 8 children of those windows (their f32 histograms)
+    against its plain version and against 8 single launches: bit-equal."""
+    from lightgbm_tpu_torch.ops import seg, split_scan
+
+    n, f = ds.bins.shape
+    b = ds.max_bin_padded
+    mem = k4_members(ds, ck)
+    marr = seg.split_members(*mem)
+    rk = seg.pack_rows(bins_fn, grad, hess, ones)
+    rp = seg.pack_rows(bins_fn, grad, hess, ones)
+    nlk = seg.sort_partition_batch(rk, *mem)
+    nlp = seg.sort_partition_batch_plain(rp, marr)
+    torch.cuda.synchronize()
+    if not torch.equal(nlk, nlp) or not same_rows(rk, rp):
+        raise AssertionError(f"partition_batch: nl {nlk.tolist()} vs {nlp.tolist()} "
+                             "or the row order differs")
+    rows_k = int(marr[:, 1].sum())
+    out = [kernel_entry(
+        "partition_batch", 0.0,
+        time_ms(lambda: seg.sort_partition_batch(rk, *mem)),
+        time_ms(lambda: seg.sort_partition_batch_plain(rp, marr), reps=3),
+        bound_ms(2 * rows_k * (f + 16)), None,
+    )]
+    print(f"kernel partition_batch K=4 windows {marr[:, :2].tolist()}: nl {nlk.tolist()}, "
+          f"row order equal to the plain version")
+
+    nl = nlk.tolist()
+    wins = ([(int(s0), l) for s0, l in zip(marr[:, 0], nl)]
+            + [(int(s0) + l, int(c) - l) for s0, c, l in zip(marr[:, 0], marr[:, 1], nl)])
+    hist8 = seg.seg_hist_batch(rk, wins, b)
+    parents = hist8[:, 0].sum(1)  # every row of a child: one bin of feature 0
+    del rk, rp
+    kw = dict(lambda_l1=0.0, lambda_l2=0.0, min_data_in_leaf=BATCH_PARAMS["min_data_in_leaf"],
+              min_sum_hessian_in_leaf=1e-3)
+    args = (torch.as_tensor(ds.num_bins(), device=dev), torch.as_tensor(ds.nan_bins(), device=dev),
+            torch.ones(f, dtype=torch.bool, device=dev))
+    bk = split_scan.split_scan_batch(hist8, parents, *args, **kw)
+    bp = split_scan.split_scan_batch_plain(hist8, parents, *args, **kw)
+    single = torch.stack([split_scan.split_scan(hist8[i], parents[i], *args, **kw)
+                          for i in range(len(wins))])
+    torch.cuda.synchronize()
+    if not torch.equal(bk, single):
+        raise AssertionError("split_scan_batch: a member differs from its single launch")
+    if not torch.equal(bk, bp):
+        diff = (bk - bp).abs().nan_to_num(0.0).max()
+        raise AssertionError(f"split_scan_batch: rows differ from the plain version ({float(diff)})")
+    m = len(wins)
+    out.append(kernel_entry(
+        "split_scan_batch", 0.0,
+        time_ms(lambda: split_scan.split_scan_batch(hist8, parents, *args, **kw)),
+        time_ms(lambda: split_scan.split_scan_batch_plain(hist8, parents, *args, **kw), reps=3),
+        # histograms and parents in, rows out, the shared per-feature
+        # num_bins / nan_bins / mask in once; ~20 f32 operations per (bin,
+        # direction) as the single scan
+        bound_ms(m * (f * b * 12 + 12 + f * 8 * 4) + f * 12, ops=m * f * b * 2 * 20), None,
+    ))
+    print(f"kernel split_scan_batch: {m} children of the K=4 windows, rows bit-equal to the "
+          f"plain version and to {m} single launches")
+    return out
+
+
 def check_fused_step(ds, bins_fn, grad, hess, ones, ck, scales):
     """The fused grow step against its plain version (the oracle
-    composition) in both modes, at the root window and on K=2 adjacent
-    windows that start off any tile boundary: rows, nl, nr, child_start and
+    composition) in both modes, at the root window, on K=2 adjacent
+    windows that start off any tile boundary and on the K=4 windows of
+    ``k4_members`` (one empty): rows, nl, nr, child_start and
     child_cnt exactly; the int8 histogram exactly, the f32 one within the
     f32 histogram's bound."""
     from lightgbm_tpu_torch.ops import grow_step, seg
@@ -290,6 +403,7 @@ def check_fused_step(ds, bins_fn, grad, hess, ones, ck, scales):
         "K=2": ([1234, 1234 + n // 3], [n // 3, n // 2], [ck.feature, f2],
                 [ck.bin, 100], [int(ck.default_left), 1],
                 [int(nan[ck.feature]), int(nan[f2])]),
+        "K=4": k4_members(ds, ck),
     }
     times = {}
     for mode, qs in (("int8", scales), ("f32", None)):
@@ -394,12 +508,17 @@ def profile_iteration(booster, label: str = "profile") -> None:
     outside PyTorch's operators, and the profiler's overhead)."""
     from torch.profiler import ProfilerActivity, profile
 
+    from lightgbm_tpu_torch import _build
+
     torch.cuda.synchronize()
+    before = dict(_build.LAUNCHES)
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         booster.update()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
+    launched = {k: v - before.get(k, 0) for k, v in _build.LAUNCHES.items()
+                if v - before.get(k, 0)}
     # device-side events only (kernels and copies on the card); the host
     # ops that launched them carry the same time and are left out
     from torch.autograd import DeviceType
@@ -416,6 +535,11 @@ def profile_iteration(booster, label: str = "profile") -> None:
         print(f"{label}:   {us / 1e3:8.2f} ms  {cnt:6d} calls  {key[:90]}")
     host = [e for e in prof.key_averages() if e.self_cpu_time_total > 0]
     host_ms = sum(e.self_cpu_time_total for e in host) / 1e3
+    splits = max(1, booster.trees[-1].num_leaves - 1)
+    cuda_launches = sum(e.count for e in host if e.key.startswith("cudaLaunch"))
+    print(f"{label}: {splits} splits in {booster.grow_steps[-1]} grow steps at K="
+          f"{booster.leaf_batch_effective[-1]}: {cuda_launches / splits:.1f} CUDA launches per "
+          f"split ({cuda_launches} in all); kernel wrappers {json.dumps(launched)}")
     print(f"{label}: host operators {host_ms:.1f} ms self time ({host_ms / wall_ms:.3f} of wall), "
           f"{sum(e.count for e in host)} calls; top by self time:")
     for e in sorted(host, key=lambda e: -e.self_cpu_time_total)[:10]:
@@ -471,6 +595,41 @@ def require_launches(launches, names, what):
     missing = [k for k in names if launches.get(k, 0) <= 0]
     if missing:
         raise AssertionError(f"{what}: kernels never launched: {missing} ({launches})")
+
+
+def batch_phase(lt, _build, ds):
+    """bench.py's headline parameters (frontier batching at K = 4) on the
+    card, against the same parameters at K = 1.  Returns the batched run's
+    kernel launches."""
+    _build.LAUNCHES.clear()
+    bb, losses, train_s = train_rounds(lt, BATCH_PARAMS, ds, BATCH_ROUNDS)
+    launches = dict(_build.LAUNCHES)
+    splits = sum(t.num_leaves - 1 for t in bb.trees)
+    print(f"batch: leaf_batch 4, min_data_in_leaf 100: {len(bb.trees)} trees of "
+          f"{[t.num_leaves for t in bb.trees]} leaves, {len(losses) / train_s:.3f} iterations/s")
+    print("batch: training log-loss per round " + " ".join(f"{v:.6f}" for v in losses))
+    print(f"batch: grow steps per tree {bb.grow_steps}, effective K {bb.leaf_batch_effective}, "
+          "commit rate " + " ".join(f"{r:.3f}" for r in bb.commit_rates)
+          + f"; {splits} splits in {sum(bb.grow_steps)} steps")
+    print(f"batch: near-tie f32 refines per tree {bb.refine_counts}")
+    print(f"batch: kernel launches {json.dumps(launches)}")
+    if len(losses) != BATCH_ROUNDS or not all(b < a for a, b in zip(losses, losses[1:])):
+        raise AssertionError("batch: training log-loss did not fall every round")
+    require_launches(launches, ("fused_grow_step", "seg_hist_int8", "split_scan_batch"),
+                     "batched path")
+
+    # the same rows and parameters, one split per step
+    sb, s_losses, s_s = train_rounds(lt, {**BATCH_PARAMS, "leaf_batch": 1}, ds, BATCH_ROUNDS)
+    share = split_share(bb, sb)
+    rel = abs(losses[-1] - s_losses[-1]) / s_losses[-1]
+    print(f"batch: serial (leaf_batch 1) {len(s_losses) / s_s:.3f} iterations/s in the same "
+          f"process; {share:.4f} of splits identical, log-loss after {BATCH_ROUNDS} rounds "
+          f"batched {losses[-1]:.7f} vs serial {s_losses[-1]:.7f} (relative {rel:.3g})")
+    if share < 0.95 or rel > 1e-4:
+        raise AssertionError("batched and serial growth disagree")
+    del sb
+    profile_iteration(bb, "batch profile")
+    return launches
 
 
 def main() -> int:
@@ -531,6 +690,9 @@ def main() -> int:
 
     kernels["forest_walk"] = check_forest_walk(booster, x, dev)
     profile_iteration(booster)
+    del booster
+
+    batch_launches = batch_phase(lt, _build, ds)
 
     # -- the two-launch path with f32 sums, on the same rows
     _build.LAUNCHES.clear()
@@ -549,9 +711,29 @@ def main() -> int:
           f"{off_losses[k]:.7f} (relative {rel:.3g})")
     if rel > 1e-4:
         raise AssertionError("int8 and f32 accumulation disagree on the log-loss")
+    del off
+
+    # -- frontier batching on the two-launch path
+    _build.LAUNCHES.clear()
+    boff, boff_losses, boff_s = train_rounds(lt, BATCH_OFF_PARAMS, ds, BATCH_OFF_ROUNDS)
+    boff_launches = dict(_build.LAUNCHES)
+    print(f"batch-off: leaf_batch 4, grow_fused='off', hist_acc='bf16': "
+          f"{len(boff_losses) / boff_s:.3f} iterations/s, log-loss per round "
+          + " ".join(f"{v:.6f}" for v in boff_losses))
+    print(f"batch-off: grow steps per tree {boff.grow_steps}, effective K {boff.leaf_batch_effective}")
+    print(f"batch-off: kernel launches {json.dumps(boff_launches)}")
+    require_launches(boff_launches, ("partition_batch", "seg_hist", "split_scan_batch"),
+                     "batched two-launch path")
+    if boff_launches.get("fused_grow_step", 0) or boff_launches.get("seg_hist_int8", 0):
+        raise AssertionError("batched two-launch path went through the fused step or int8")
+    if len(boff_losses) != BATCH_OFF_ROUNDS or not all(
+            b < a for a, b in zip(boff_losses, boff_losses[1:])):
+        raise AssertionError("batched two-launch path: log-loss did not fall every round")
+    del boff
+
+    phases = (main_launches, batch_launches, off_launches, boff_launches)
     for name, kern in kernels.items():
-        kern["launches"] = main_launches.get(name, 0) + off_launches.get(name, 0)
-    del booster, off
+        kern["launches"] = sum(ph.get(name, 0) for ph in phases)
 
     # -- card vs CPU on the default path, int8 accumulation on both
     xs, ys = make_data(PARITY_ROWS, FEATURES, seed=7)
@@ -577,7 +759,8 @@ def main() -> int:
         lib = "none" if kern["library_ms"] is None else f"{kern['library_ms']:.4f} ms"
         print(f"kernel {kern['name']}: {kern['ms']:.4f} ms (bound {kern['bound_ms']:.5f} ms by "
               f"{kern['bound_by']}), plain {kern['plain_ms']:.4f} ms, library {lib}, "
-              f"{kern['launches']} launches on the main and off paths")
+              f"{kern['launches']} launches on the main, batch, off and batch-off paths "
+              f"({' + '.join(str(ph.get(kern['name'], 0)) for ph in phases)})")
     print(json.dumps({"kernels": list(kernels.values())}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -3,13 +3,15 @@
 Counterpart of ``lightgbm_tpu/boosting/gbdt.py`` for one model per
 iteration (binary or regression): the train loop (gradients, the int8
 accumulator's scales once per iteration, ``grow_tree``, f32-rounded
-shrinkage, score update through the segment's row index) and ``predict``
-through the forest walk, with device binning and an exact host re-bin of
-the rows whose f32 binning is in doubt.
+shrinkage, score update through the segment's row index), the effective
+frontier batch K of each tree with the adaptive commit-rate clamp, and
+``predict`` through the forest walk, with device binning and an exact host
+re-bin of the rows whose f32 binning is in doubt.
 """
 
 from __future__ import annotations
 
+import dataclasses
 from typing import Any, Dict, List, Optional
 
 import numpy as np
@@ -47,8 +49,19 @@ class Booster:
         self.objective = None
         self._finished = False
         self._tables = None
-        # per trained tree: near-tie f32 refines of the int8 accumulation
+        # per trained tree: near-tie f32 refines of the int8 accumulation,
+        # grow-loop steps, the frontier batch K it grew with, and its commit
+        # rate (splits / (steps * K))
         self.refine_counts: List[int] = []
+        self.grow_steps: List[int] = []
+        self.leaf_batch_effective: List[int] = []
+        self.commit_rates: List[float] = []
+        # the adaptive clamp (boosting/gbdt.py:291-335): EMA of the commit
+        # rate at the current K, and the cap on K once it has halved
+        self.commit_rate_ema: Optional[float] = None
+        self.leaf_batch_cap: Optional[int] = None
+        # (num_leaves, grow_steps) of the last tree, noted one tree late
+        self._unnoted: Optional[tuple] = None
         # constant added to every raw score (predict-only boosters, see
         # convert.booster_from_arrays); training folds its init score into
         # the first tree instead
@@ -85,8 +98,46 @@ class Booster:
             min_gain_to_split=cfg.min_gain_to_split,
             grow_fused=cfg.resolved_grow_fused(),
             near_tie_tol=cfg.hist_near_tie_tol,
+            leaf_batch=self._leaf_k(),
         )
         self._int8_acc = int8_acc_eligible(cfg.hist_acc, dev)
+
+    def _leaf_k(self) -> int:
+        """The frontier batch of the next tree (boosting/gbdt.py:1372-1410):
+        ``leaf_batch`` within the remaining-leaf budget (num_leaves - 1)
+        and the commit-rate cap."""
+        cfg = self.config
+        k = min(max(1, cfg.leaf_batch), max(1, cfg.num_leaves - 1))
+        if self.leaf_batch_cap is not None:
+            k = min(k, self.leaf_batch_cap)
+        return k
+
+    def _note_commit_rate(self, num_leaves: int, steps: int, k: int) -> None:
+        """The adaptive clamp (boosting/gbdt.py:291-335): rate =
+        (num_leaves - 1) / (steps * K); EMA 0.7 * ema + 0.3 * rate; below
+        ``leaf_batch_min_commit_rate`` K halves for the rest of the run (it
+        never rises again) and the EMA restarts.
+
+        ``update`` keeps the JAX Booster's schedule, which notes a tree one
+        iteration late (its pipelined update materializes tree i after
+        tree i+1 is dispatched, gbdt.py:392-476, :243): tree i is noted
+        after tree i+1 has grown, with ``k`` the K then in force, and the
+        first tree, grown before that pipeline starts, is not noted.  So a
+        halving reaches the second tree after the one that caused it, and
+        both packages grow every tree with the same K."""
+        if k <= 1 or steps <= 0:
+            return
+        rate = (num_leaves - 1) / float(steps * k)
+        ema = self.commit_rate_ema
+        ema = rate if ema is None else 0.7 * ema + 0.3 * rate
+        self.commit_rate_ema = ema
+        cfg = self.config
+        if cfg.leaf_batch_adaptive and ema < cfg.leaf_batch_min_commit_rate:
+            self.leaf_batch_cap = max(1, k // 2)
+            self.commit_rate_ema = None
+            self._grower_params = dataclasses.replace(
+                self._grower_params, leaf_batch=self._leaf_k()
+            )
 
     def update(self) -> bool:
         """One boosting iteration (reference GBDT::TrainOneIter
@@ -103,7 +154,8 @@ class Booster:
                 init_score = s
                 self.score += s
         grad, hess = self.objective.get_gradients(self.score)
-        n_leaves, refines = 1, 0
+        n_leaves, refines, steps = 1, 0, 0
+        k = self._grower_params.leaf_batch
         if self.objective.need_train and self.used_features:
             qs = (
                 hist_acc_scales(grad, hess, self._count_mask)
@@ -114,18 +166,21 @@ class Booster:
                 self._nan_bins_t, self._feature_mask, self._grower_params,
                 quant_scales=qs,
             )
-            n_leaves, refines = ta.num_leaves, ta.refine_count
+            n_leaves, refines, steps = ta.num_leaves, ta.refine_count, ta.grow_steps
+        if self._unnoted is not None:
+            self._note_commit_rate(*self._unnoted, k)
+        self._unnoted = (n_leaves, steps) if self.trees and n_leaves > 1 else None
         if n_leaves <= 1:
             # constant tree (gbdt.cpp:428-441): only a first tree is kept
             if not self.trees:
                 tree = Tree.from_record(_constant_record(init_score))
                 self.trees.append(tree)
-                self.refine_counts.append(refines)
+                self._note_tree(refines, steps, k, n_leaves)
                 self._tables = None
             self._finished = True
             return True
         tree = Tree.from_tree_arrays(ta, self.bin_mappers, self.used_features)
-        self.refine_counts.append(refines)
+        self._note_tree(refines, steps, k, n_leaves)
         tree.apply_shrinkage(cfg.learning_rate)
         rate = torch.tensor(np.float32(cfg.learning_rate), device=self.device)
         shrunk = torch.as_tensor(ta.leaf_value, device=self.device) * rate
@@ -135,6 +190,12 @@ class Booster:
         self.trees.append(tree)
         self._tables = None
         return False
+
+    def _note_tree(self, refines: int, steps: int, k: int, n_leaves: int) -> None:
+        self.refine_counts.append(refines)
+        self.grow_steps.append(steps)
+        self.leaf_batch_effective.append(k)
+        self.commit_rates.append((n_leaves - 1) / float(steps * k) if steps else 0.0)
 
     def refine_rate(self, i: int = -1) -> float:
         """Share of tree ``i``'s split decisions that took the near-tie f32

@@ -5,8 +5,8 @@ reads.  A parameter outside that set raises ``ValueError`` naming it as not
 yet ported, so a user never trains silently with an option ignored.
 
 The path parameters take the JAX package's defaults and values
-(:320-364, validation :672-692), on the single-host segment-resident layout
-(``hist_mode='seg'``, ``leaf_batch=1``, the only ones ported):
+(:320-364, validation :672-706), on the single-host segment-resident layout
+(``hist_mode='seg'``, the only one ported):
 
 * ``grow_fused`` in auto/on/off: one fused grow step per split, or a
   partition and a histogram launch ('off'); 'auto' is on, as it is on the
@@ -17,7 +17,11 @@ The path parameters take the JAX package's defaults and values
 * ``hist_acc`` in auto/int8/bf16: int8 2-digit accumulation with the f32
   near-tie refine below ``hist_near_tie_tol`` ('auto', 'int8' where the
   gate admits it: on the card), or f32-accurate sums ('bf16', the name the
-  JAX package gives its 3-term accumulator).
+  JAX package gives its 3-term accumulator);
+* ``leaf_batch`` >= 1: frontier leaves split per grow step (1 = the
+  serial loop), with ``leaf_batch_adaptive`` (halve K when the commit
+  rate's EMA falls below ``leaf_batch_min_commit_rate``) as in
+  boosting/gbdt.py:291-335.
 """
 
 from __future__ import annotations
@@ -67,8 +71,11 @@ _OBJECTIVE_ALIASES: Dict[str, str] = {
 # path parameters with one ported value: parameter -> that value
 _PATH_VALUES: Dict[str, Any] = {
     "hist_mode": "seg",
-    "leaf_batch": 1,
 }
+
+
+# the most windows one launch of the grow-step and partition kernels takes
+MAX_LEAF_BATCH = 16
 
 
 def _to_bool(v: Any) -> bool:
@@ -102,6 +109,8 @@ class Config:
     boost_from_average: bool = True
     hist_mode: str = "seg"
     leaf_batch: int = 1
+    leaf_batch_adaptive: bool = True
+    leaf_batch_min_commit_rate: float = 0.625
     grow_fused: str = "auto"
     fused_split_scan: bool = False
     hist_acc: str = "auto"
@@ -150,6 +159,15 @@ class Config:
                     f"{name}={getattr(cfg, name)!r} not yet ported to "
                     f"lightgbm_tpu_torch (the port trains with {name}={only!r})"
                 )
+        if cfg.leaf_batch < 1:
+            raise ValueError("leaf_batch must be >= 1")
+        if cfg.leaf_batch > MAX_LEAF_BATCH:
+            raise ValueError(
+                f"leaf_batch={cfg.leaf_batch} not yet ported to lightgbm_tpu_torch "
+                f"(the batched kernels take at most {MAX_LEAF_BATCH} windows)"
+            )
+        if not 0.0 <= cfg.leaf_batch_min_commit_rate <= 1.0:
+            raise ValueError("leaf_batch_min_commit_rate must be in [0, 1]")
         if cfg.grow_fused not in ("auto", "on", "off"):
             raise ValueError("grow_fused must be one of 'auto', 'on', 'off'")
         if cfg.hist_acc not in ("auto", "int8", "bf16"):

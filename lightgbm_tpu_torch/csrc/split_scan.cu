@@ -1,8 +1,12 @@
-// Per-feature best numeric split of one leaf histogram.
+// Per-feature best numeric split of one leaf histogram, or of M leaf
+// histograms in one launch.
 //
 // Replaces the TPU kernel _split_scan_kernel
 // (lightgbm_tpu/ops/pallas/split_scan.py:60, launched through pl.pallas_call
-// at split_scan.py:218 by split_scan_pallas; entry fused_best_split :243).
+// at split_scan.py:218 by split_scan_pallas; entry fused_best_split :243),
+// and, in its batched mode (M leaves per launch), the same kernel under
+// jax.vmap over the 2K child candidates of a frontier-batched step
+// (lightgbm_tpu/ops/grower.py:2670-2712).
 // Same [F, 8] result row per feature: (best gain, threshold bin,
 // default_left, left g, left h, left count, runner-up gain, 0), with the
 // NaN bin taken out of the ordered scan and tried on both sides, L1/L2,
@@ -13,8 +17,12 @@
 //
 // What bounds it on an H100: neither memory nor arithmetic at this size
 // (F * B * 12 bytes in, F * 32 out, a few hundred flops per bin); one launch
-// of F small blocks is latency bound.  The design keeps a feature's whole
-// histogram in shared memory, one bin per thread:
+// of F small blocks is latency bound, so the batched mode puts all M
+// members in one launch, a grid of (feature, member) blocks.  Every block
+// runs the same code on its own member's histogram, parent and feature
+// mask, so a member's rows are bit-equal to a launch of that member alone.
+// The design keeps a feature's whole histogram in shared memory, one bin
+// per thread:
 //   * the prefix sum over bins runs in blocks of 16 bins: sequential inside
 //     each block, then the block totals are carried in order.  That is the
 //     exact f32 association the plain PyTorch version uses (and XLA's CPU
@@ -86,16 +94,22 @@ __global__ void split_scan_kernel(const float* __restrict__ hist,
                                   const float* __restrict__ parent,
                                   const int* __restrict__ num_bins,
                                   const int* __restrict__ nan_bins,
-                                  const float* __restrict__ mask, int nb_pad,
-                                  float l1, float l2, float min_data,
-                                  float min_hess, float* __restrict__ out) {
+                                  const float* __restrict__ mask,
+                                  int mask_stride, int nb_pad, float l1,
+                                  float l2, float min_data, float min_hess,
+                                  float* __restrict__ out) {
   __shared__ float xs[3][kThreads];
   __shared__ float bsum[3][kThreads / kBlk];
   const int f = blockIdx.x;
+  const int nf = gridDim.x;
+  const long long member = blockIdx.y;
   const int b = threadIdx.x;
   const int nanb = nan_bins[f];
   const int has_nan = nanb >= 0 ? 1 : 0;
-  const float* hf = hist + (long long)f * nb_pad * 3;
+  const float* hf = hist + (member * nf + f) * nb_pad * 3;
+  parent += member * 3;
+  mask += member * mask_stride;
+  out += member * nf * 8;
   const bool live = b < nb_pad;
 
   float x[3], nan_s[3];
@@ -182,18 +196,21 @@ __global__ void split_scan_kernel(const float* __restrict__ hist,
 
 }  // namespace
 
-// hist [f, nb_pad, 3] f32, parent [3] f32, num_bins/nan_bins [f] i32, mask
-// [f] f32 -> out [f, 8] f32.  Returns cudaGetLastError() after the launch.
+// M leaves in one launch (M = 1: one leaf): hist [m, f, nb_pad, 3] f32,
+// parent [m, 3] f32, num_bins/nan_bins [f] i32 shared, mask f32 [f]
+// (mask_stride 0: one mask for all members) or [m, f] (mask_stride f) ->
+// out [m, f, 8] f32.  Returns cudaGetLastError() after the launch.
 extern "C" int lgbt_split_scan(const void* hist, const void* parent,
                                const void* num_bins, const void* nan_bins,
-                               const void* mask, int f, int nb_pad, float l1,
-                               float l2, float min_data, float min_hess,
-                               void* out, void* stream) {
-  if (f <= 0) return (int)cudaGetLastError();
-  if (nb_pad > kThreads) return (int)cudaErrorInvalidValue;
-  split_scan_kernel<<<f, kThreads, 0, (cudaStream_t)stream>>>(
+                               const void* mask, int m, int f, int nb_pad,
+                               int mask_stride, float l1, float l2,
+                               float min_data, float min_hess, void* out,
+                               void* stream) {
+  if (f <= 0 || m <= 0) return (int)cudaGetLastError();
+  if (nb_pad > kThreads || m > 65535) return (int)cudaErrorInvalidValue;
+  split_scan_kernel<<<dim3(f, m), kThreads, 0, (cudaStream_t)stream>>>(
       (const float*)hist, (const float*)parent, (const int*)num_bins,
-      (const int*)nan_bins, (const float*)mask, nb_pad, l1, l2, min_data,
-      min_hess, (float*)out);
+      (const int*)nan_bins, (const float*)mask, mask_stride, nb_pad, l1, l2,
+      min_data, min_hess, (float*)out);
   return (int)cudaGetLastError();
 }

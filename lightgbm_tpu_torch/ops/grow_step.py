@@ -27,7 +27,8 @@ from .seg import (
     _require_cuda,
     combine_int8,
     seg_hist_batch_plain,
-    sort_partition_plain,
+    sort_partition_batch_plain,
+    split_members,
 )
 
 _TILE = 1024  # rows per tile of csrc/grow_step.cu
@@ -35,16 +36,9 @@ _TILE = 1024  # rows per tile of csrc/grow_step.cu
 
 def _members(sbegins, cnts, feats, tbins, dls, nanbs, iscats):
     """[K, 6] i64 host rows (start, cnt, feat, tbin, dl, nanb)."""
-    cols = [np.asarray(a, dtype=np.int64).reshape(-1)
-            for a in (sbegins, cnts, feats, tbins, dls, nanbs)]
-    k = len(cols[0])
-    if any(len(c) != k for c in cols):
-        raise ValueError("fused_grow_step: member arrays differ in length")
     if iscats is not None and np.any(np.asarray(iscats)):
         raise ValueError("fused_grow_step: categorical members are not yet ported")
-    mem = np.stack(cols, axis=1)
-    mem[:, 1] = np.maximum(mem[:, 1], 0)
-    return np.ascontiguousarray(mem)
+    return split_members(sbegins, cnts, feats, tbins, dls, nanbs)
 
 
 def _decision(mem: np.ndarray, nl: np.ndarray) -> np.ndarray:
@@ -63,11 +57,7 @@ def fused_grow_step_plain(
     """The oracle composition: K stable partitions (disjoint windows, so
     their order does not matter), the local election, the K smaller
     children's histograms.  Returns (dec [K, 4] i32, hist [K, F, B, 3])."""
-    nl = np.asarray(
-        [int(sort_partition_plain(rows, int(s), int(c), int(ft), int(tb), bool(dl), int(nb)))
-         for s, c, ft, tb, dl, nb in mem],
-        dtype=np.int64,
-    )
+    nl = sort_partition_batch_plain(rows, mem).cpu().numpy().astype(np.int64)
     dec = _decision(mem, nl)
     hist = seg_hist_batch_plain(rows, dec[:, 2:4], num_bins, quant_scales)
     return torch.as_tensor(dec, device=rows.device), hist

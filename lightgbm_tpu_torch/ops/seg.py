@@ -16,8 +16,9 @@ stable leaf-ordered windows, and the ``[F, B, 3]`` (g, h, count) histogram
 that ``combine_hist_raw`` returns.
 
 ``seg_hist_batch`` (kernel ``csrc/seg_hist.cu``: K windows per launch, f32
-sums or the int8 2-digit grid) and ``sort_partition`` (kernel
-``csrc/partition.cu``) dispatch on the device of the tensors they are given:
+sums or the int8 2-digit grid), ``sort_partition`` and
+``sort_partition_batch`` (kernel ``csrc/partition.cu``: one window, or K
+disjoint windows per call) dispatch on the device of the tensors they are given:
 on the CPU they run their plain PyTorch versions, on a CUDA device they
 launch the kernel.  Each counts its kernel launches in ``_build.LAUNCHES``.
 """
@@ -196,8 +197,11 @@ def seg_hist_batch(
         return seg_hist_batch_plain(rows, wins, num_bins, scales)
     _require_cuda(rows)
     k, f = len(wins), rows.f
-    if not 1 <= k <= MAX_WINDOWS:
-        raise ValueError(f"seg_hist takes 1 to {MAX_WINDOWS} windows, got {k}")
+    if k > MAX_WINDOWS:  # one launch per MAX_WINDOWS windows
+        return torch.cat([seg_hist_batch(rows, wins[i : i + MAX_WINDOWS], num_bins, scales)
+                          for i in range(0, k, MAX_WINDOWS)])
+    if k < 1:
+        raise ValueError("seg_hist takes at least one window")
     dev = rows.device
     if not any(c for _, c in wins):  # nothing to read: no launch
         return torch.zeros((k, f, num_bins, 3), dtype=torch.float32, device=dev)
@@ -260,39 +264,87 @@ def sort_partition_plain(
 _PART_TILE = 1024  # rows per block of csrc/partition.cu
 
 
+def split_members(sbegins, cnts, feats, tbins, dls, nanbs) -> np.ndarray:
+    """[K, 6] i64 host rows (start, cnt, feat, tbin, dl, nanb) of K splits
+    over disjoint windows; a negative cnt counts as 0 (a no-op member).
+    Raises when two non-empty windows overlap."""
+    cols = [np.asarray(a, dtype=np.int64).reshape(-1)
+            for a in (sbegins, cnts, feats, tbins, dls, nanbs)]
+    k = len(cols[0])
+    if any(len(c) != k for c in cols):
+        raise ValueError("split members: arrays differ in length")
+    mem = np.stack(cols, axis=1) if k else np.zeros((0, 6), np.int64)
+    mem[:, 1] = np.maximum(mem[:, 1], 0)
+    live = mem[mem[:, 1] > 0]
+    live = live[np.argsort(live[:, 0], kind="stable")]
+    if np.any(live[:-1, 0] + live[:-1, 1] > live[1:, 0]):
+        raise ValueError("split members: windows overlap")
+    return np.ascontiguousarray(mem)
+
+
+def sort_partition_batch_plain(rows: SegRows, mem: np.ndarray) -> torch.Tensor:
+    """K sequential stable partitions (the oracle of ops/segpart.py:228):
+    the windows are disjoint, so the order of the calls does not matter and
+    the result is that of K serial calls.  Returns nl [K] i32."""
+    nl = [sort_partition_plain(rows, int(s), int(c), int(ft), int(tb), bool(dl), int(nb))
+          for s, c, ft, tb, dl, nb in mem]
+    if not nl:
+        return torch.zeros(0, dtype=torch.int32, device=rows.device)
+    return torch.stack(nl)
+
+
+def sort_partition_batch(
+    rows: SegRows, sbegins, cnts, feats, tbins, dls, nanbs
+) -> torch.Tensor:
+    """K stable in-place partitions over K disjoint windows (``[K]`` host
+    sequences as ``split_members`` takes them; cnt = 0 is a no-op member).
+    Returns nl [K] i32 on the rows' device.  Plain version on the CPU, ONE
+    call of the ``csrc/partition.cu`` kernels on a CUDA device (counted as
+    ``partition_batch``)."""
+    mem = split_members(sbegins, cnts, feats, tbins, dls, nanbs)
+    if rows.device.type == "cpu":
+        return sort_partition_batch_plain(rows, mem)
+    return _partition_launch(rows, mem, "partition_batch")
+
+
+def _partition_launch(rows: SegRows, mem: np.ndarray, counted_as: str) -> torch.Tensor:
+    _require_cuda(rows)
+    k, f = mem.shape[0], rows.f
+    if not 1 <= k <= MAX_WINDOWS:
+        raise ValueError(f"the partition kernel takes 1 to {MAX_WINDOWS} windows, got {k}")
+    dev = rows.device
+    total = int(mem[:, 1].sum())
+    tiles = int(sum(-(-int(c) // _PART_TILE) for c in mem[:, 1]))
+    s_bins = torch.empty((f, total), dtype=torch.uint8, device=dev)
+    s_g = torch.empty((total,), dtype=torch.float32, device=dev)
+    s_h = torch.empty_like(s_g)
+    s_m = torch.empty_like(s_g)
+    s_ridx = torch.empty((total,), dtype=torch.int32, device=dev)
+    tile_counts = torch.empty((max(tiles, 1),), dtype=torch.int32, device=dev)
+    nl = torch.empty((k,), dtype=torch.int32, device=dev)
+    rc = _build.entry("partition")(
+        rows.bins.data_ptr(), rows.g.data_ptr(), rows.h.data_ptr(),
+        rows.m.data_ptr(), rows.ridx.data_ptr(), rows.n, f, mem.ctypes.data, k,
+        s_bins.data_ptr(), s_g.data_ptr(), s_h.data_ptr(), s_m.data_ptr(),
+        s_ridx.data_ptr(), tile_counts.data_ptr(), nl.data_ptr(),
+        torch.cuda.current_stream(dev).cuda_stream,
+    )
+    _build.check(rc, "partition kernel")
+    _build.LAUNCHES[counted_as] += 1
+    return nl
+
+
 def sort_partition(
     rows: SegRows, start: int, cnt: int, feat: int, tbin: int, dl: bool,
     nanb: int,
 ) -> torch.Tensor:
     """Stable in-place partition of one window; returns nl (0-d i32 tensor
     on the rows' device).  Plain version on the CPU, the
-    ``csrc/partition.cu`` kernel on a CUDA device."""
+    ``csrc/partition.cu`` kernels on a CUDA device."""
     if rows.device.type == "cpu":
         return sort_partition_plain(rows, start, cnt, feat, tbin, dl, nanb)
-    _require_cuda(rows)
-    dev = rows.device
-    c = max(int(cnt), 0)
-    s_bins = torch.empty((rows.f, c), dtype=torch.uint8, device=dev)
-    s_g = torch.empty((c,), dtype=torch.float32, device=dev)
-    s_h = torch.empty_like(s_g)
-    s_m = torch.empty_like(s_g)
-    s_ridx = torch.empty((c,), dtype=torch.int32, device=dev)
-    blocks = torch.empty(
-        (max(1, -(-c // _PART_TILE)),), dtype=torch.int32, device=dev
-    )
-    nl = torch.empty((), dtype=torch.int32, device=dev)
-    fn = _build.entry("partition")
-    stream = torch.cuda.current_stream(dev).cuda_stream
-    rc = fn(
-        rows.bins.data_ptr(), rows.g.data_ptr(), rows.h.data_ptr(),
-        rows.m.data_ptr(), rows.ridx.data_ptr(), rows.n, int(start), c,
-        rows.f, int(feat), int(tbin), int(bool(dl)), int(nanb),
-        s_bins.data_ptr(), s_g.data_ptr(), s_h.data_ptr(), s_m.data_ptr(),
-        s_ridx.data_ptr(), blocks.data_ptr(), nl.data_ptr(), stream,
-    )
-    _build.check(rc, "partition kernel")
-    _build.LAUNCHES["partition"] += 1
-    return nl
+    mem = split_members([start], [cnt], [feat], [tbin], [int(bool(dl))], [nanb])
+    return _partition_launch(rows, mem, "partition")[0]
 
 
 def _require_cuda(rows: SegRows) -> None:

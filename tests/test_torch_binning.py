@@ -80,7 +80,7 @@ def test_config_accepts_the_jax_defaults():
     cfg = Config.from_params({})
     jcfg = JaxConfig.from_params({})
     for name in ("grow_fused", "hist_acc", "fused_split_scan", "hist_near_tie_tol",
-                 "leaf_batch"):
+                 "leaf_batch", "leaf_batch_adaptive", "leaf_batch_min_commit_rate"):
         assert getattr(cfg, name) == getattr(jcfg, name), name
     assert (cfg.grow_fused, cfg.hist_acc, cfg.fused_split_scan) == ("auto", "auto", False)
     assert cfg.hist_near_tie_tol == 1e-3
@@ -97,9 +97,10 @@ def test_config_accepts_the_jax_defaults():
     ({"grow_fused": "off", "fused_split_scan": False}, "grow_fused"),
     ({"hist_mode": "ordered"}, "hist_mode"),
     ({"max_bin": 1000}, "max_bin"),
-    ({"leaf_batch": 4}, "leaf_batch"),
+    ({"leaf_batch": 0}, "leaf_batch"),
     ({"grow_fused": "sometimes"}, "grow_fused"),
     ({"hist_near_tie_tol": -1.0}, "hist_near_tie_tol"),
+    ({"leaf_batch_min_commit_rate": 1.5}, "leaf_batch_min_commit_rate"),
 ])
 def test_config_raises_on_what_is_not_ported(params, word):
     with pytest.raises(ValueError, match=word):

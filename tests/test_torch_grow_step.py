@@ -33,6 +33,8 @@ from lightgbm_tpu.ops.split import best_split as jax_best_split
 from lightgbm_tpu_torch.ops import grow_step, seg, split_scan
 from lightgbm_tpu_torch.quantize import hist_acc_scales
 
+from .test_torch_interpret import jax_interpret
+
 # K=2 adjacent windows, neither start aligned to a tile: (start, cnt, feat,
 # tbin, dl, nanb); the second sends its NaN bin left
 MEMBERS = [(37, 1900, 3, 120, 0, -1), (37 + 1900, 2300, 7, 80, 1, 200)]
@@ -145,14 +147,11 @@ def test_int8_fused_grow_step_plain_equals_pallas_interpret():
     got = _port_step(rows, st)
     seg_j, n_pad = _jax_seg(bins, grad, hess, mask)
     assert not jax_grow_step._INTERPRET
-    jax_grow_step._INTERPRET = True
-    try:
+    with jax_interpret(seg=False, grow_step=True):
         want = jax_grow_step.fused_grow_step(
             seg_j, *_jax_members(), f=11, num_bins=256, n_pad=n_pad,
             quant_scales=(sj[0], sj[1]),
         )
-    finally:
-        jax_grow_step._INTERPRET = False
     for i, name in enumerate(("nl", "nr", "child_start", "child_cnt")):
         np.testing.assert_array_equal(got[i].numpy(), np.asarray(want[i + 1]), err_msg=name)
     _assert_rows_equal(rows, want[0], 11, 5000)

@@ -1,0 +1,80 @@
+"""Switches that the port's tests flip to reach the int8 paths on the CPU.
+
+The JAX package engages its Pallas kernels off the TPU only in interpret
+mode, and reads the flags ``lightgbm_tpu.ops.pallas.seg._INTERPRET`` and
+``grow_step._INTERPRET`` when it TRACES (ops/grower.py:323, :485).  A jitted
+grower traced with the flags on is cached under its static parameters,
+which do not name the flags: a later call with the same parameters and the
+flags off would run the interpret-mode trace, and a trace cached before
+the flags went on would run the plain XLA one.  ``jax_interpret`` clears
+JAX's caches on entry and on exit, so every trace inside it sees the flags
+on and every trace after it sees them off, whichever test ran before or
+after it in the same process (pytest-xdist puts many test files in one
+worker).  ``int8_on_cpu`` is the port's own switch
+(``lightgbm_tpu_torch.ops.grower.INT8_ON_CPU``), read at call time.
+
+Both restore what they found, in ``finally``.
+"""
+
+import contextlib
+
+import jax
+import jax.numpy as jnp
+import pytest
+
+from lightgbm_tpu.ops.pallas import grow_step as jax_grow_step
+from lightgbm_tpu.ops.pallas import seg as jax_seg
+
+from lightgbm_tpu_torch.ops import grower
+
+
+@contextlib.contextmanager
+def jax_interpret(seg: bool = True, grow_step: bool = True):
+    """Run the JAX package's seg and grow-step kernels in interpret mode
+    inside the block, with JAX's caches cleared on entry and on exit."""
+    saved = (jax_seg._INTERPRET, jax_grow_step._INTERPRET)
+    jax.clear_caches()
+    jax_seg._INTERPRET, jax_grow_step._INTERPRET = seg, grow_step
+    try:
+        yield
+    finally:
+        jax_seg._INTERPRET, jax_grow_step._INTERPRET = saved
+        jax.clear_caches()
+
+
+@contextlib.contextmanager
+def int8_on_cpu():
+    """The port's int8 accumulation on the CPU inside the block."""
+    saved = grower.INT8_ON_CPU
+    grower.INT8_ON_CPU = True
+    try:
+        yield
+    finally:
+        grower.INT8_ON_CPU = saved
+
+
+@jax.jit
+def _traced_flag(x):
+    # the flag as seen at trace time, as the JAX grower reads it
+    return x + (1 if jax_seg._INTERPRET else 0)
+
+
+def test_traces_inside_see_the_flags_and_traces_after_do_not():
+    zero = jnp.zeros((), jnp.int32)
+    assert int(_traced_flag(zero)) == 0  # traced and cached with the flags off
+    with jax_interpret():
+        assert int(_traced_flag(zero)) == 1
+    assert int(_traced_flag(zero)) == 0
+
+
+def test_flags_are_restored_when_the_block_raises(monkeypatch):
+    cleared = []
+    monkeypatch.setattr(jax, "clear_caches", lambda: cleared.append(1))
+    before = (jax_seg._INTERPRET, jax_grow_step._INTERPRET, grower.INT8_ON_CPU)
+    with pytest.raises(RuntimeError):
+        with jax_interpret(), int8_on_cpu():
+            assert jax_seg._INTERPRET and jax_grow_step._INTERPRET
+            assert grower.INT8_ON_CPU
+            raise RuntimeError("inside")
+    assert (jax_seg._INTERPRET, jax_grow_step._INTERPRET, grower.INT8_ON_CPU) == before
+    assert len(cleared) == 2  # on entry and on exit

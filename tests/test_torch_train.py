@@ -33,6 +33,8 @@ import lightgbm_tpu_torch as lt
 from lightgbm_tpu_torch.ops import grower
 from lightgbm_tpu_torch.quantize import hist_acc_scales
 
+from .test_torch_interpret import int8_on_cpu, jax_interpret
+
 SLICE = {"hist_mode": "seg", "hist_acc": "bf16", "grow_fused": "off",
          "fused_split_scan": True}
 
@@ -108,23 +110,15 @@ def _int8_problem():
 
 def test_int8_training_matches_jax_interpret():
     x, y = _int8_problem()
-    # lambda_l2 is distinctive: the JAX grower is traced afresh with the
-    # interpret flags set (they are read at trace time)
     params = {"objective": "binary", "num_leaves": 15, "learning_rate": 0.2,
               "min_data_in_leaf": 20, "lambda_l2": 0.25}
     jp = {**params, "hist_mode": "seg", "verbosity": -1, "metric": "none"}
     assert not (jax_seg._INTERPRET or jax_grow_step._INTERPRET)
-    jax_seg._INTERPRET = jax_grow_step._INTERPRET = True
-    try:
+    with jax_interpret():
         jb = lgb.train(jp, lgb.Dataset(x, y, params=jp), 3)
-    finally:
-        jax_seg._INTERPRET = jax_grow_step._INTERPRET = False
     assert jb._grower_params.grow_fused
-    grower.INT8_ON_CPU = True
-    try:
+    with int8_on_cpu():
         tb = lt.train(params, lt.Dataset(x, y, params=params), 3, device="cpu")
-    finally:
-        grower.INT8_ON_CPU = False
     assert tb._int8_acc and min(tb.refine_counts) > 0
     _assert_same_trees(jb, tb)
     np.testing.assert_allclose(tb.predict(x), jb.predict(x), rtol=0, atol=1e-5)
@@ -142,15 +136,12 @@ def test_int8_tree_refine_count_equals_jax():
     f = ds.bins.shape[1]
     jp = jax_grower.GrowerParams(num_leaves=31, max_bin=b, min_data_in_leaf=5,
                                  lambda_l2=0.125, hist_mode="seg", grow_fused=True)
-    jax_seg._INTERPRET = jax_grow_step._INTERPRET = True
-    try:
+    with jax_interpret():
         jt, _ = jax_grower.grow_tree(
             jnp.asarray(ds.bins.astype(np.int32)), jnp.asarray(g), jnp.asarray(h),
             jnp.ones(len(x), jnp.float32), jnp.asarray(nb), jnp.asarray(nanb),
             jnp.ones(f, bool), jp,
         )
-    finally:
-        jax_seg._INTERPRET = jax_grow_step._INTERPRET = False
     gt, ht, m = torch.as_tensor(g), torch.as_tensor(h), torch.ones(len(x))
     tt, _ = grower.grow_tree(
         torch.as_tensor(np.ascontiguousarray(ds.bins.T)), gt, ht, m,
