@@ -1,8 +1,8 @@
 """Chip smoke test of the PyTorch/CUDA port (lightgbm_tpu_torch) on one GPU.
 
 Run from the root of a checkout:  python3 chip_smoke.py
-(``--kernels``: build and check the kernels only, then stop without the
-result lines.)
+(``--kernels``: build and check the kernels only, on the Higgs and the
+wide data, then stop without the result lines.)
 
 Phases (any failed check raises, and the script exits non-zero):
   device   the card's name and power limit (nvidia-smi); no CUDA -> exit 1
@@ -42,8 +42,25 @@ Phases (any failed check raises, and the script exits non-zero):
   parity   the default parameters for 3 rounds at 65,536 rows on the card
            and on the CPU with the int8 accumulation on there
            (grower.INT8_ON_CPU): share of identical splits, log-loss
+  wide data  an Expo-shaped table (binary, 1,048,576 x 700 numeric
+           features, 2% NaN, values on a grid of 1/32), binned; the
+           ordered histograms (f32 and int8) against their plain versions
+           at the root (no index) and on K=2 windows of a shuffled index,
+           with their times; the split scan at F = 700
+  wide     train() with no path parameters: the layout rule must pick
+           hist_mode='ordered'; 5 rounds (log-loss must fall), launches
+           (ordered_hist and split_scan, no seg kernel), predict through
+           the plain walker (700 features > the walk kernel's 512): its
+           log-loss must equal training's; one iteration under the profiler
+  wide-batch  bench.py's batch parameters (leaf_batch 4) for 3 rounds:
+           K-window ordered_hist launches, the batched split scan
+  wide-quant  quantized training on the int8 kernel (use_quantized_grad,
+           stochastic_rounding=False, hist_method='pallas_int8') for 3
+           rounds: ordered_hist_int8 only
+  wide-parity  65,536 of the wide rows for 3 rounds, card vs CPU, f32 and
+           quantized: share of identical splits, log-loss
 The last lines: the kernels JSON (launches summed over the main, batch,
-off and batch-off runs), the card, and
+off, batch-off, wide, wide-batch and wide-quant runs), the card, and
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 """
 
@@ -73,6 +90,15 @@ BATCH_ROUNDS = 10
 BATCH_OFF_PARAMS = {**BATCH_PARAMS, "grow_fused": "off", "hist_acc": "bf16",
                     "fused_split_scan": True}
 BATCH_OFF_ROUNDS = 3
+# the Expo shape of the reference's experiment table (docs/Experiments.rst):
+# binary, 700 features; rows cut from 11,000,000 for the run's time limit
+WIDE_ROWS = 1 << 20
+WIDE_FEATURES = 700
+WIDE_ROUNDS = 5
+WIDE_BATCH_ROUNDS = 3
+WIDE_QUANT_ROUNDS = 3
+QUANT_PARAMS = {**PARAMS, "use_quantized_grad": True, "stochastic_rounding": False,
+                "num_grad_quant_bins": 4, "hist_method": "pallas_int8"}
 
 # H100 SXM published peaks: HBM bytes/s and
 # f32 operations/s outside the tensor cores
@@ -91,7 +117,13 @@ SOURCES = {
     "split_scan_batch": ("lightgbm_tpu_torch/csrc/split_scan.cu",
                          "lightgbm_tpu/ops/pallas/split_scan.py:218"),
     "forest_walk": ("lightgbm_tpu_torch/csrc/forest_walk.cu", "lightgbm_tpu/ops/pallas/forest_walk.py:418"),
+    "ordered_hist": ("lightgbm_tpu_torch/csrc/ordered_hist.cu",
+                     "lightgbm_tpu/ops/pallas/histogram.py:140"),
+    "ordered_hist_int8": ("lightgbm_tpu_torch/csrc/ordered_hist.cu",
+                          "lightgbm_tpu/ops/pallas/histogram_int8.py:43"),
 }
+# kernels that only the seg layout launches
+SEG_KERNELS = ("seg_hist", "seg_hist_int8", "fused_grow_step", "partition", "partition_batch")
 
 
 def make_data(n_rows: int, n_features: int, seed: int = 42):
@@ -101,6 +133,25 @@ def make_data(n_rows: int, n_features: int, seed: int = 42):
     w = rng.normal(size=n_features)
     logits = x @ w * 0.5 + rng.normal(scale=1.0, size=n_rows)
     return x, (logits > 0).astype(np.float64)
+
+
+def make_wide_data(n_rows: int, n_features: int, seed: int = 42):
+    """The Expo-shaped table: standard normal values on a grid of 1/32
+    (~300 distinct values a column, so each fills ~255 bins), 2% NaN; the
+    label a fixed linear-plus-quadratic function of the first 32 columns
+    plus noise."""
+    rng = np.random.default_rng(seed)
+    x = rng.standard_normal((n_rows, n_features), dtype=np.float32)
+    x *= 32.0
+    np.round(x, out=x)
+    x /= 32.0
+    for lo in range(0, n_rows, 1 << 16):  # the NaN draw in row blocks
+        blk = x[lo:lo + (1 << 16)]
+        blk[rng.random(blk.shape, dtype=np.float32) < 0.02] = np.nan
+    k = np.nan_to_num(x[:, :32]).astype(np.float64)
+    w = rng.normal(size=32)
+    z = k @ w * 0.5 + 0.25 * (k[:, :8] ** 2 - 1.0).sum(axis=1) + rng.normal(size=n_rows)
+    return x, (z > 0).astype(np.float64)
 
 
 def time_ms(fn, reps: int = 20, warmup: int = 2) -> float:
@@ -452,6 +503,139 @@ def check_fused_step(ds, bins_fn, grad, hess, ones, ck, scales):
     )
 
 
+def ordered_tol(rows, order, windows, b, counts):
+    """``f32_tol`` for the ordered histogram: c * 2^-24 * sum|x| per bin,
+    for g and h, from the plain version on |g| and |h|."""
+    from lightgbm_tpu_torch.ops import histogram as oh
+
+    absr = oh.OrderedRows(rows.bins, rows.f, rows.g.abs(), rows.h.abs(), rows.m)
+    scale = oh.ordered_hist_plain(absr, order, windows, b)[..., :2]
+    return 2.0 * counts * 2.0**-24 * scale + 1e-6
+
+
+def library_index_add(rows, order, windows, b, scales=None):
+    """Time of one index_add_ of the window's rows into a [K, F, B] table:
+    (ms, rows it covered).  It adds (g*m, h*m, m) in f32, or with
+    ``scales`` the i32 digit rows of the int8 kernel.  The ids alone take 8 bytes a (row, feature): where
+    the windows do not fit the card's memory, the first window is halved
+    until they do."""
+    from lightgbm_tpu_torch.ops import histogram as oh
+
+    dev, f = rows.device, rows.f
+    wins = list(windows)
+    while True:
+        try:
+            ids, stats = [], []
+            for k, (s0, c) in enumerate(wins):
+                idx = oh.window_rows(order, s0, c, dev)
+                ids.append((rows.bins[idx, :f].long() + (k * f + torch.arange(f, device=dev)) * b)
+                           .reshape(-1))
+                m = rows.m[idx]
+                if scales is None:
+                    st = torch.stack([rows.g[idx] * m, rows.h[idx] * m, m], 1)
+                else:
+                    st = oh.int8_digit_rows(rows.g[idx], rows.h[idx], m, scales)
+                stats.append(st.repeat_interleave(f, dim=0))
+            ids, stats = torch.cat(ids), torch.cat(stats)
+            width = stats.shape[1]
+            ms = time_ms(lambda: torch.zeros(len(wins) * f * b, width, dtype=stats.dtype,
+                                             device=dev).index_add_(0, ids, stats), reps=5)
+            return ms, sum(c for _, c in wins)
+        except torch.cuda.OutOfMemoryError:
+            ids = stats = None
+            torch.cuda.empty_cache()
+            s0, c = wins[0]
+            if c < 2:
+                raise
+            wins[0] = (s0, c // 2)
+
+
+def check_ordered_kernels(ds, dev):
+    """The ordered histograms (f32 and int8) at the wide data's root (no
+    index) and on K=2 unaligned windows of a shuffled index, against
+    their plain versions; the split scan of the root histogram at F=700."""
+    from lightgbm_tpu_torch.objectives import create_objective
+    from lightgbm_tpu_torch.ops import histogram as oh
+    from lightgbm_tpu_torch.ops import split_scan
+    from lightgbm_tpu_torch.quantize import quantize_gradients
+
+    n, f = ds.bins.shape
+    b = ds.max_bin_padded
+    obj = create_objective("binary", ds.label, dev)
+    score = torch.full((n,), obj.boost_from_score(), dtype=torch.float32, device=dev)
+    grad, hess = obj.get_gradients(score)
+    ones = torch.ones(n, dtype=torch.float32, device=dev)
+    bins_nf = oh.row_major_bins(ds.bins, dev)
+    rows = oh.OrderedRows(bins_nf, f, grad, hess, ones)
+    # the int8 kernel's inputs as the quantized phase gives them
+    qg, qh, gs, hs = quantize_gradients(grad, hess, QUANT_PARAMS["num_grad_quant_bins"])
+    qrows = oh.OrderedRows(bins_nf, f, qg, qh, ones)
+    scales = torch.stack([gs, hs])
+    order = torch.as_tensor(np.random.default_rng(5).permutation(n).astype(np.int32), device=dev)
+    cases = {"root": (None, [(0, n)]),
+             "K=2": (order, [(37, n // 3 + 1), (37 + n // 3 + 1, n // 2)])}
+    out, err32 = [], 0.0
+    for where, (idx, wins) in cases.items():
+        hk = oh.ordered_hist(rows, idx, wins, b)
+        hp = oh.ordered_hist_plain(rows, idx, wins, b)
+        h8k = oh.ordered_hist_int8(qrows, idx, wins, b, scales)
+        h8p = oh.ordered_hist_int8_plain(qrows, idx, wins, b, scales)
+        torch.cuda.synchronize()
+        err = (hk[..., :2] - hp[..., :2]).abs()
+        if not torch.equal(hk[..., 2], hp[..., 2]) or bool(
+                (err > ordered_tol(rows, idx, wins, b, hp[..., 2:3])).any()):
+            raise AssertionError(f"ordered_hist {where}: off the plain version by {float(err.max())}")
+        if not torch.equal(h8k, h8p):
+            raise AssertionError(f"ordered_hist_int8 {where}: differs from the plain version")
+        err32 = max(err32, float(err.max()))
+        rows_k = sum(c for _, c in wins)
+        # each row read once: its F bin bytes, three f32 stats and (with an
+        # index) its i32 row index; the K histograms written once
+        nbytes = rows_k * (f + 12 + (4 if idx is not None else 0)) + len(wins) * f * b * 12
+        t = {
+            "f32": time_ms(lambda: oh.ordered_hist(rows, idx, wins, b)),
+            "int8": time_ms(lambda: oh.ordered_hist_int8(qrows, idx, wins, b, scales)),
+            "f32 plain": time_ms(lambda: oh.ordered_hist_plain(rows, idx, wins, b), reps=3),
+            "int8 plain": time_ms(lambda: oh.ordered_hist_int8_plain(qrows, idx, wins, b, scales),
+                                  reps=3),
+        }
+        lib32, lib32_rows = library_index_add(rows, idx, wins, b)
+        lib8, lib8_rows = library_index_add(qrows, idx, wins, b, scales)
+        bound = bound_ms(nbytes)
+        print(f"kernel ordered_hist {where} {[tuple(w) for w in wins]} x {f} features: f32 "
+              f"{t['f32']:.4f} ms (plain {t['f32 plain']:.4f}), int8 {t['int8']:.4f} ms (plain "
+              f"{t['int8 plain']:.4f}), bound {bound[0]:.5f} ms by {bound[1]}; library index_add_ "
+              f"f32 {lib32:.4f} ms over {lib32_rows} rows, i32 digits {lib8:.4f} ms over "
+              f"{lib8_rows} rows; counts exact, f32 g/h within {float(err.max()):.3g}, int8 bit-equal")
+        if where == "root":
+            out.append(kernel_entry("ordered_hist", err.max(), t["f32"], t["f32 plain"], bound, lib32))
+            out.append(kernel_entry("ordered_hist_int8", 0.0, t["int8"], t["int8 plain"], bound, lib8))
+            root = hp[0]
+        del hk, hp, h8k, h8p
+    print(f"kernel ordered_hist: f32 max |err| vs plain {err32:.3g} (bound: count * 2^-24 * "
+          "sum|x| per bin, each)")
+
+    # the split scan at the wide shape: F = 700 blocks of 256 bins
+    kw = dict(lambda_l1=0.0, lambda_l2=0.0, min_data_in_leaf=20, min_sum_hessian_in_leaf=1e-3)
+    nb_t = torch.as_tensor(ds.num_bins(), device=dev)
+    nan_t = torch.as_tensor(ds.nan_bins(), device=dev)
+    mask = torch.ones(f, dtype=torch.bool, device=dev)
+    tot = root[0].sum(0)
+    rk = split_scan.split_scan(root, tot, nb_t, nan_t, mask, **kw)
+    rp = split_scan.split_scan_plain(root, tot, nb_t, nan_t, mask, **kw)
+    if not torch.equal(rk[:, 1:3], rp[:, 1:3]):
+        raise AssertionError("split_scan F=700: bin or direction differs from the plain version")
+    gerr = (rk[:, [0, 3, 4, 5]] - rp[:, [0, 3, 4, 5]]).abs()
+    if bool((gerr > 1e-6 * rp[:, [0, 3, 4, 5]].abs() + 1e-6).any()):
+        raise AssertionError(f"split_scan F=700: rows off by {float(gerr.max())}")
+    ts = time_ms(lambda: split_scan.split_scan(root, tot, nb_t, nan_t, mask, **kw))
+    tp = time_ms(lambda: split_scan.split_scan_plain(root, tot, nb_t, nan_t, mask, **kw), reps=5)
+    sb = bound_ms(f * b * 12 + f * 8 * 4 + f * 12, ops=f * b * 2 * 20)
+    print(f"kernel split_scan F={f}: {ts:.4f} ms (plain {tp:.4f}), bound {sb[0]:.5f} ms by "
+          f"{sb[1]}; bins/directions equal, rows max |err| {float(gerr.max()):.3g}")
+    return out
+
+
 def _hist_f64(rows, n, b):
     """[F, B, 2] g/h sums in f64 (reference for the error report)."""
     f = rows.bins.shape[0]
@@ -578,17 +762,20 @@ def split_share(a, b) -> float:
 
 def train_rounds(lt, params, ds, rounds):
     """Booster on the card, ``rounds`` updates; (booster, log-loss per
-    round, seconds)."""
+    round, seconds of the updates, seconds of the Booster's set-up: the
+    bins' copies to the card)."""
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     booster = lt.Booster(params, ds, device="cuda")
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
     losses = []
     for _ in range(rounds):
         if booster.update():
             break
         losses.append(booster.train_loss())
     torch.cuda.synchronize()
-    return booster, losses, time.perf_counter() - t0
+    return booster, losses, time.perf_counter() - t1, t1 - t0
 
 
 def require_launches(launches, names, what):
@@ -602,7 +789,7 @@ def batch_phase(lt, _build, ds):
     card, against the same parameters at K = 1.  Returns the batched run's
     kernel launches."""
     _build.LAUNCHES.clear()
-    bb, losses, train_s = train_rounds(lt, BATCH_PARAMS, ds, BATCH_ROUNDS)
+    bb, losses, train_s, _ = train_rounds(lt, BATCH_PARAMS, ds, BATCH_ROUNDS)
     launches = dict(_build.LAUNCHES)
     splits = sum(t.num_leaves - 1 for t in bb.trees)
     print(f"batch: leaf_batch 4, min_data_in_leaf 100: {len(bb.trees)} trees of "
@@ -619,7 +806,7 @@ def batch_phase(lt, _build, ds):
                      "batched path")
 
     # the same rows and parameters, one split per step
-    sb, s_losses, s_s = train_rounds(lt, {**BATCH_PARAMS, "leaf_batch": 1}, ds, BATCH_ROUNDS)
+    sb, s_losses, s_s, _ = train_rounds(lt, {**BATCH_PARAMS, "leaf_batch": 1}, ds, BATCH_ROUNDS)
     share = split_share(bb, sb)
     rel = abs(losses[-1] - s_losses[-1]) / s_losses[-1]
     print(f"batch: serial (leaf_batch 1) {len(s_losses) / s_s:.3f} iterations/s in the same "
@@ -630,6 +817,124 @@ def batch_phase(lt, _build, ds):
     del sb
     profile_iteration(bb, "batch profile")
     return launches
+
+
+def falls(losses, rounds) -> bool:
+    return len(losses) == rounds and all(b < a for a, b in zip(losses, losses[1:]))
+
+
+def wide_data(lt):
+    """(x, y, the binned Dataset) of the Expo-shaped table."""
+    t0 = time.perf_counter()
+    x, y = make_wide_data(WIDE_ROWS, WIDE_FEATURES)
+    t1 = time.perf_counter()
+    ds = lt.Dataset(x, y, params=PARAMS).construct()
+    print(f"wide data: {WIDE_ROWS} x {WIDE_FEATURES} made in {t1 - t0:.1f} s, binned in "
+          f"{time.perf_counter() - t1:.1f} s; {len(ds.used_features)} used features, "
+          f"{int(ds.num_bins().min())}-{int(ds.num_bins().max())} bins a feature, "
+          f"{ds.max_bin_padded} histogram bins")
+    return x, y, ds
+
+
+def wide_phases(lt, _build, dev):
+    """The ordered layout at the Expo shape.  Returns (kernel entries of the
+    two ordered histograms, {phase: kernel launches})."""
+    from lightgbm_tpu_torch.ops.forest_walk import ForestTables
+
+    x, y, ds = wide_data(lt)
+    kernels = check_ordered_kernels(ds, dev)
+    phases = {}
+
+    # -- no path parameters: the layout rule must pick the ordered layout
+    _build.LAUNCHES.clear()
+    wb, losses, train_s, setup_s = train_rounds(lt, PARAMS, ds, WIDE_ROUNDS)
+    t0 = time.perf_counter()
+    pred = wb.predict(x)
+    torch.cuda.synchronize()
+    pred_s = time.perf_counter() - t0
+    phases["wide"] = launches = dict(_build.LAUNCHES)
+    print(f"wide: hist_mode resolved to {wb.hist_mode!r}; {len(wb.trees)} trees of "
+          f"{[t.num_leaves for t in wb.trees]} leaves, {len(losses) / train_s:.4f} iterations/s "
+          f"(set-up {setup_s:.1f} s), predict {WIDE_ROWS / pred_s:.0f} rows/s")
+    print("wide: training log-loss per round " + " ".join(f"{v:.6f}" for v in losses))
+    print(f"wide: kernel launches {json.dumps(launches)}")
+    if wb.hist_mode != "ordered":
+        raise AssertionError(f"wide: the layout rule picked {wb.hist_mode!r}, not 'ordered'")
+    if not falls(losses, WIDE_ROUNDS):
+        raise AssertionError("wide: training log-loss did not fall every round")
+    require_launches(launches, ("ordered_hist", "split_scan"), "wide path")
+    seg = {k: launches[k] for k in SEG_KERNELS + ("ordered_hist_int8", "forest_walk")
+           if launches.get(k)}
+    if seg:
+        raise AssertionError(f"wide path launched kernels of another path: {seg}")
+    if isinstance(wb._walk_tables(), ForestTables):
+        raise AssertionError(f"wide: predict went through the walk kernel at {WIDE_FEATURES} features")
+    if pred.shape != (WIDE_ROWS,) or not np.all(np.isfinite(pred)):
+        raise AssertionError("wide: predictions are not finite")
+    p = np.clip(pred, 1e-15, 1 - 1e-15)
+    pred_loss = float(-np.mean(y * np.log(p) + (1 - y) * np.log(1 - p)))
+    if abs(pred_loss - losses[-1]) > 1e-5 * losses[-1]:
+        raise AssertionError(f"wide: predict log-loss {pred_loss} vs train {losses[-1]}")
+    bins = wb._bins_nf[:, :WIDE_FEATURES]
+    walk_ms = time_ms(lambda: wb.predict_raw_bins(bins), reps=3, warmup=1)
+    print(f"wide: predict through the plain walker, log-loss {pred_loss:.6f} matches the "
+          f"training score; the walker alone on the binned rows {walk_ms:.1f} ms "
+          f"({WIDE_ROWS / walk_ms * 1e3:.0f} rows/s): the rest of predict is the host's "
+          "conversion of the values and the device binning")
+    del bins
+    profile_iteration(wb, "wide profile")
+    del wb, pred
+
+    # -- frontier batching, K = 4
+    _build.LAUNCHES.clear()
+    bb, losses, train_s, setup_s = train_rounds(lt, BATCH_PARAMS, ds, WIDE_BATCH_ROUNDS)
+    phases["wide-batch"] = launches = dict(_build.LAUNCHES)
+    splits = sum(t.num_leaves - 1 for t in bb.trees)
+    print(f"wide-batch: leaf_batch 4, min_data_in_leaf 100: {len(losses) / train_s:.4f} "
+          f"iterations/s (set-up {setup_s:.1f} s), log-loss per round "
+          + " ".join(f"{v:.6f}" for v in losses))
+    print(f"wide-batch: grow steps per tree {bb.grow_steps}, effective K {bb.leaf_batch_effective}, "
+          "commit rate " + " ".join(f"{r:.3f}" for r in bb.commit_rates)
+          + f"; {splits} splits in {sum(bb.grow_steps)} steps")
+    print(f"wide-batch: kernel launches {json.dumps(launches)}")
+    if not falls(losses, WIDE_BATCH_ROUNDS):
+        raise AssertionError("wide-batch: training log-loss did not fall every round")
+    require_launches(launches, ("ordered_hist", "ordered_hist:K>1", "split_scan_batch"),
+                     "wide batched path")
+    del bb
+
+    # -- quantized training on the int8 kernel
+    _build.LAUNCHES.clear()
+    qb, losses, train_s, setup_s = train_rounds(lt, QUANT_PARAMS, ds, WIDE_QUANT_ROUNDS)
+    phases["wide-quant"] = launches = dict(_build.LAUNCHES)
+    print(f"wide-quant: use_quantized_grad, 4 bins, hist_method 'pallas_int8': "
+          f"{len(losses) / train_s:.4f} iterations/s (set-up {setup_s:.1f} s), log-loss per "
+          "round " + " ".join(f"{v:.6f}" for v in losses))
+    print(f"wide-quant: kernel launches {json.dumps(launches)}")
+    if not falls(losses, WIDE_QUANT_ROUNDS):
+        raise AssertionError("wide-quant: training log-loss did not fall every round")
+    require_launches(launches, ("ordered_hist_int8", "split_scan"), "wide quantized path")
+    if launches.get("ordered_hist", 0):
+        raise AssertionError("wide-quant: the f32 ordered histogram launched")
+    del qb, ds
+
+    # -- card vs CPU on the first rows, f32 and quantized
+    xs, ys = x[:PARITY_ROWS].copy(), y[:PARITY_ROWS].copy()
+    del x
+    for name, params in (("f32", PARAMS), ("quantized", QUANT_PARAMS)):
+        runs = {}
+        for d in ("cuda", "cpu"):
+            t0 = time.perf_counter()
+            runs[d] = lt.train(params, lt.Dataset(xs, ys, params=params), PARITY_ROUNDS, device=d)
+            print(f"wide-parity {name}: {d} trained {PARITY_ROUNDS} rounds in "
+                  f"{time.perf_counter() - t0:.1f} s ({runs[d].hist_mode})")
+        share = split_share(runs["cuda"], runs["cpu"])
+        lc, lp = runs["cuda"].train_loss(), runs["cpu"].train_loss()
+        print(f"wide-parity {name}: {share:.4f} of splits identical, log-loss cuda {lc:.7f} "
+              f"cpu {lp:.7f}")
+        if share < 0.95 or abs(lc - lp) > 1e-4 * abs(lp):
+            raise AssertionError(f"wide-parity {name}: card and CPU training disagree")
+    return kernels, phases
 
 
 def main() -> int:
@@ -658,12 +963,14 @@ def main() -> int:
 
     kernels = {k["name"]: k for k in check_seg_kernels(ds, dev)}
     if "--kernels" in sys.argv[1:]:
+        del ds, x, y
+        check_ordered_kernels(wide_data(lt)[2], dev)
         return 0
 
     # -- main path (default parameters): counts from 0 just before, read
     # just after training and predict
     _build.LAUNCHES.clear()
-    booster, losses, train_s = train_rounds(lt, PARAMS, ds, ROUNDS)
+    booster, losses, train_s, _ = train_rounds(lt, PARAMS, ds, ROUNDS)
     t0 = time.perf_counter()
     pred = booster.predict(x)
     torch.cuda.synchronize()
@@ -696,7 +1003,7 @@ def main() -> int:
 
     # -- the two-launch path with f32 sums, on the same rows
     _build.LAUNCHES.clear()
-    off, off_losses, off_s = train_rounds(lt, OFF_PARAMS, ds, OFF_ROUNDS)
+    off, off_losses, off_s, _ = train_rounds(lt, OFF_PARAMS, ds, OFF_ROUNDS)
     off_launches = dict(_build.LAUNCHES)
     print(f"off: grow_fused='off', hist_acc='bf16': {len(off_losses) / off_s:.3f} iterations/s, "
           f"log-loss per round " + " ".join(f"{v:.6f}" for v in off_losses))
@@ -715,7 +1022,7 @@ def main() -> int:
 
     # -- frontier batching on the two-launch path
     _build.LAUNCHES.clear()
-    boff, boff_losses, boff_s = train_rounds(lt, BATCH_OFF_PARAMS, ds, BATCH_OFF_ROUNDS)
+    boff, boff_losses, boff_s, _ = train_rounds(lt, BATCH_OFF_PARAMS, ds, BATCH_OFF_ROUNDS)
     boff_launches = dict(_build.LAUNCHES)
     print(f"batch-off: leaf_batch 4, grow_fused='off', hist_acc='bf16': "
           f"{len(boff_losses) / boff_s:.3f} iterations/s, log-loss per round "
@@ -731,9 +1038,8 @@ def main() -> int:
         raise AssertionError("batched two-launch path: log-loss did not fall every round")
     del boff
 
-    phases = (main_launches, batch_launches, off_launches, boff_launches)
-    for name, kern in kernels.items():
-        kern["launches"] = sum(ph.get(name, 0) for ph in phases)
+    phases = {"main": main_launches, "batch": batch_launches, "off": off_launches,
+              "batch-off": boff_launches}
 
     # -- card vs CPU on the default path, int8 accumulation on both
     xs, ys = make_data(PARITY_ROWS, FEATURES, seed=7)
@@ -754,13 +1060,22 @@ def main() -> int:
           f"log-loss cuda {lc:.7f} cpu {lp:.7f}")
     if share < 0.95 or abs(lc - lp) > 1e-4 * abs(lp):
         raise AssertionError("card and CPU training disagree")
+    del runs, xs, ys, x, ds
 
+    wide_kernels, wide_launches = wide_phases(lt, _build, dev)
+    kernels.update({k["name"]: k for k in wide_kernels})
+    phases.update(wide_launches)
+    for name, kern in kernels.items():
+        kern["launches"] = sum(ph.get(name, 0) for ph in phases.values())
     for kern in kernels.values():
         lib = "none" if kern["library_ms"] is None else f"{kern['library_ms']:.4f} ms"
         print(f"kernel {kern['name']}: {kern['ms']:.4f} ms (bound {kern['bound_ms']:.5f} ms by "
               f"{kern['bound_by']}), plain {kern['plain_ms']:.4f} ms, library {lib}, "
-              f"{kern['launches']} launches on the main, batch, off and batch-off paths "
-              f"({' + '.join(str(ph.get(kern['name'], 0)) for ph in phases)})")
+              f"{kern['launches']} launches on the {', '.join(phases)} paths "
+              f"({' + '.join(str(ph.get(kern['name'], 0)) for ph in phases.values())})")
+    missing = [name for name, kern in kernels.items() if kern["launches"] <= 0]
+    if len(kernels) != len(SOURCES) or missing:
+        raise AssertionError(f"kernels not checked or never launched on a path: {missing}")
     print(json.dumps({"kernels": list(kernels.values())}))
     print(card)
     print(json.dumps({"ok": True, "device": {

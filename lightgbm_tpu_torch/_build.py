@@ -48,14 +48,16 @@ SIGNATURES: Dict[str, Sequence] = {
     "partition": (_VP,) * 5 + (_I64, _I32, _VP, _I32) + (_VP,) * 8,
     "split_scan": (_VP,) * 5 + (_I32,) * 4 + (_F32,) * 4 + (_VP,) * 2,
     "forest_walk": (_VP,) * 4 + (_I64,) + (_I32,) * 5 + (_VP,) * 2,
+    "ordered_hist": (_VP, _I64) + (_VP,) * 5 + (_I32,) * 3 + (_VP,) * 3,
 }
 
 _ENTRIES: Dict[str, object] = {}
 _LOCK = threading.Lock()
 
-# kernel launches by kernel name ("seg_hist_int8" is the int8 mode of
-# seg_hist.cu, "partition_batch" and "split_scan_batch" the K-window and
-# M-leaf calls of partition.cu and split_scan.cu); a wrapper adds one where
+# kernel launches by kernel name ("seg_hist_int8" and "ordered_hist_int8"
+# are the int8 modes of seg_hist.cu and ordered_hist.cu, "partition_batch"
+# and "split_scan_batch" the K-window and M-leaf calls of partition.cu and
+# split_scan.cu); a wrapper adds one where
 # it launches its kernel, nowhere else, so a run shows which kernels it
 # went through
 LAUNCHES: Counter = Counter()

@@ -1,17 +1,21 @@
 """GBDT boosting loop and the user-facing Booster.
 
 Counterpart of ``lightgbm_tpu/boosting/gbdt.py`` for one model per
-iteration (binary or regression): the train loop (gradients, the int8
-accumulator's scales once per iteration, ``grow_tree``, f32-rounded
-shrinkage, score update through the segment's row index), the effective
-frontier batch K of each tree with the adaptive commit-rate clamp, and
-``predict`` through the forest walk, with device binning and an exact host
-re-bin of the rows whose f32 binning is in doubt.
+iteration (binary or regression): the training layout (``hist_mode``, the
+JAX package's rule at :1313-1369), the train loop (gradients, quantized
+gradients or the int8 accumulator's scales once per iteration,
+``grow_tree``, f32-rounded shrinkage, score update through the leaf of
+each row), the effective frontier batch K of each tree with the adaptive
+commit-rate clamp, and ``predict`` through the forest walk (or the plain
+walker on the same device when the kernel rejects the model), with device
+binning and an exact host re-bin of the rows whose f32 binning is in
+doubt.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import warnings
 from typing import Any, Dict, List, Optional
 
 import numpy as np
@@ -21,13 +25,42 @@ from ..config import Config
 from ..dataset import Dataset
 from ..device import resolve_device
 from ..objectives import create_objective
-from ..ops.forest_walk import bin_numeric, build_devbin_tables, build_tables, forest_walk
+from ..ops.forest_walk import (
+    ForestTables,
+    bin_numeric,
+    build_devbin_tables,
+    build_tables,
+    forest_walk,
+    walk_reject_reason,
+)
 from ..ops.grower import GrowerParams, grow_tree, int8_acc_eligible
-from ..quantize import hist_acc_scales
+from ..ops.histogram import row_major_bins
+from ..predict import predict_bins_raw, stack_bin_trees
+from ..quantize import hist_acc_scales, quantize_gradients
 from ..tree import Tree
 
 _EPS = 1e-15
 PREDICT_CHUNK = 1 << 20  # rows binned and walked per launch
+# the seg layout's feature budget at max_bin <= 256 (boosting/gbdt.py:1318)
+SEG_MAX_FEATURES = 242
+
+
+def resolve_hist_mode(n_used: int, max_bin_padded: int) -> str:
+    """The JAX package's layout rule (boosting/gbdt.py:1313-1369): 'seg'
+    when the bins fit a byte and 0 < used features <= 242, else 'ordered',
+    with the JAX package's warning.  (At max_bin <= 256 the seg kernels'
+    scratch does not depend on F, so the cap is the whole rule.)"""
+    if max_bin_padded <= 256 and 0 < n_used <= SEG_MAX_FEATURES:
+        return "seg"
+    if n_used > 0:
+        warnings.warn(
+            "segment-resident training is unavailable: "
+            f"{n_used} used features > {SEG_MAX_FEATURES} (packed row exceeds 128 "
+            "i16 lanes); falling back to hist_mode='ordered' (1.4-10x slower "
+            "at scale). Consider feature selection.",
+            stacklevel=3,
+        )
+    return "ordered"
 
 
 class Booster:
@@ -49,6 +82,8 @@ class Booster:
         self.objective = None
         self._finished = False
         self._tables = None
+        self._warned_walk_fallback = False
+        self.hist_mode: Optional[str] = None  # the resolved training layout
         # per trained tree: near-tie f32 refines of the int8 accumulation,
         # grow-loop steps, the frontier batch K it grew with, and its commit
         # rate (splits / (steps * K))
@@ -80,7 +115,16 @@ class Booster:
         n = ds.num_data
         self.objective = create_objective(cfg.objective, ds.label, dev)
         self.score = torch.zeros(n, dtype=torch.float32, device=dev)
+        self.hist_mode = cfg.hist_mode or resolve_hist_mode(
+            len(self.used_features), ds.max_bin_padded
+        )
+        cfg.check_layout(self.hist_mode)
         self._bins_fn = torch.as_tensor(np.ascontiguousarray(ds.bins.T), device=dev)
+        # the ordered layout reads whole rows: a row-major copy beside the
+        # feature-major one that its partition reads a column of
+        self._bins_nf = (
+            row_major_bins(ds.bins, dev) if self.hist_mode == "ordered" else None
+        )
         self.nan_bins = ds.nan_bins()
         self._num_bins_t = torch.as_tensor(ds.num_bins(), device=dev)
         self._nan_bins_t = torch.as_tensor(self.nan_bins, device=dev)
@@ -96,11 +140,12 @@ class Booster:
             lambda_l1=cfg.lambda_l1,
             lambda_l2=cfg.lambda_l2,
             min_gain_to_split=cfg.min_gain_to_split,
-            grow_fused=cfg.resolved_grow_fused(),
+            grow_fused=cfg.resolved_grow_fused() and self.hist_mode == "seg",
             near_tie_tol=cfg.hist_near_tie_tol,
             leaf_batch=self._leaf_k(),
+            hist_mode=self.hist_mode,
         )
-        self._int8_acc = int8_acc_eligible(cfg.hist_acc, dev)
+        self._int8_acc = int8_acc_eligible(cfg.hist_acc, self.hist_mode, dev)
 
     def _leaf_k(self) -> int:
         """The frontier batch of the next tree (boosting/gbdt.py:1372-1410):
@@ -157,14 +202,11 @@ class Booster:
         n_leaves, refines, steps = 1, 0, 0
         k = self._grower_params.leaf_batch
         if self.objective.need_train and self.used_features:
-            qs = (
-                hist_acc_scales(grad, hess, self._count_mask)
-                if self._int8_acc else None
-            )
+            grad, hess, qs = self._grow_inputs(grad, hess)
             ta, leaf_id = grow_tree(
                 self._bins_fn, grad, hess, self._count_mask, self._num_bins_t,
                 self._nan_bins_t, self._feature_mask, self._grower_params,
-                quant_scales=qs,
+                quant_scales=qs, bins_nf=self._bins_nf,
             )
             n_leaves, refines, steps = ta.num_leaves, ta.refine_count, ta.grow_steps
         if self._unnoted is not None:
@@ -191,6 +233,25 @@ class Booster:
         self._tables = None
         return False
 
+    def _grow_inputs(self, grad, hess):
+        """(grad, hess, quant_scales) the tree grows on.  Quantized training
+        (``_quant_grow_inputs``, boosting/gbdt.py:1020-1040): the quantized
+        gradients, and their scales for the int8 histogram when
+        ``hist_method='pallas_int8'``; else the true gradients, and the int8
+        accumulator's scales where the gate admits it."""
+        cfg = self.config
+        if cfg.use_quantized_grad:
+            grad, hess, g_scale, h_scale = quantize_gradients(
+                grad, hess, cfg.num_grad_quant_bins,
+                constant_hessian=self.objective.is_constant_hessian,
+            )
+            if cfg.hist_method != "pallas_int8":
+                return grad, hess, None
+            return grad, hess, torch.stack([g_scale, h_scale])
+        if self._int8_acc:
+            return grad, hess, hist_acc_scales(grad, hess, self._count_mask)
+        return grad, hess, None
+
     def _note_tree(self, refines: int, steps: int, k: int, n_leaves: int) -> None:
         self.refine_counts.append(refines)
         self.grow_steps.append(steps)
@@ -210,10 +271,25 @@ class Booster:
 
     # ------------------------------------------------------------ prediction
     def _walk_tables(self):
+        """Walk tables of the model: the forest-walk kernel's, or, when the
+        kernel rejects the model (``walk_reject_reason``), the stacked trees
+        of the plain walker (the JAX package's XLA fallback,
+        boosting/gbdt.py:2646-2694)."""
         if self._tables is None:
-            self._tables = build_tables(
-                [t.record() for t in self.trees], self.nan_bins, self.device
-            )
+            records = [t.record() for t in self.trees]
+            nb = [self.bin_mappers[j].num_bins for j in self.used_features]
+            max_bin = 1 << max(0, (max(nb, default=2) - 1).bit_length())
+            reason = walk_reject_reason(records, self.nan_bins, len(self.used_features), max_bin)
+            if reason is None:
+                self._tables = build_tables(records, self.nan_bins, self.device)
+            else:
+                if not self._warned_walk_fallback:
+                    self._warned_walk_fallback = True
+                    warnings.warn(
+                        "prediction fast path (forest-walk kernel) unavailable: "
+                        + reason + "; using the slower plain walker", stacklevel=3,
+                    )
+                self._tables = stack_bin_trees(records, self.nan_bins, self.device)
         return self._tables
 
     def _bin_host(self, x: np.ndarray) -> np.ndarray:
@@ -224,7 +300,11 @@ class Booster:
     def predict_raw_bins(self, bins: torch.Tensor) -> torch.Tensor:
         """Raw scores [N] of already-binned rows [N, F_used] u8 on the
         booster's device."""
-        raw = forest_walk(bins, self._walk_tables(), self.num_class)[:, 0]
+        tables = self._walk_tables()
+        if isinstance(tables, ForestTables):
+            raw = forest_walk(bins, tables, self.num_class)[:, 0]
+        else:
+            raw = predict_bins_raw(tables, bins, self.num_class)[:, 0]
         return raw + self.init_score if self.init_score else raw
 
     def predict(self, data: np.ndarray, raw_score: bool = False) -> np.ndarray:

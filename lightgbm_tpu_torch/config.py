@@ -5,19 +5,30 @@ reads.  A parameter outside that set raises ``ValueError`` naming it as not
 yet ported, so a user never trains silently with an option ignored.
 
 The path parameters take the JAX package's defaults and values
-(:320-364, validation :672-706), on the single-host segment-resident layout
-(``hist_mode='seg'``, the only one ported):
+(:320-364, validation :672-706) on the single-host layouts:
 
-* ``grow_fused`` in auto/on/off: one fused grow step per split, or a
-  partition and a histogram launch ('off'); 'auto' is on, as it is on the
-  seg path (boosting/gbdt.py:1410-1415);
+* ``hist_mode``: unset, the Booster resolves it by the JAX package's rule
+  (boosting/gbdt.py:1313-1369): the segment-resident layout ('seg') at
+  0 < used features <= 242, else the ordered layout ('ordered': an index
+  array of leaf windows over the row-major bins), which wide data takes;
+  'seg' and 'ordered' may be named; 'gather' and 'full' are not ported;
+* ``hist_method``: 'auto', or 'pallas_int8' (the ordered layout's exact
+  int8 histogram of quantized gradients, which needs
+  ``use_quantized_grad``);
+* ``use_quantized_grad`` with ``num_grad_quant_bins`` (<= 127): trees grow
+  on gradients quantized once per iteration (ops/quantize.py:32-80), in
+  the deterministic form (``stochastic_rounding=False``) and without
+  ``quant_train_renew_leaf``, on the ordered layout only;
+* ``grow_fused`` in auto/on/off (seg only): one fused grow step per split,
+  or a partition and a histogram launch ('off'); 'auto' is on, as it is
+  on the seg path (boosting/gbdt.py:1410-1415);
 * ``fused_split_scan``: the per-feature split-scan kernel.  The fused grow
   step implies it (ops/grower.py:460-463), so ``fused_split_scan=False``
   with ``grow_fused='off'`` is the one combination not yet ported;
 * ``hist_acc`` in auto/int8/bf16: int8 2-digit accumulation with the f32
   near-tie refine below ``hist_near_tie_tol`` ('auto', 'int8' where the
-  gate admits it: on the card), or f32-accurate sums ('bf16', the name the
-  JAX package gives its 3-term accumulator);
+  gate admits it: seg, on the card), or f32-accurate sums ('bf16', the
+  name the JAX package gives its 3-term accumulator);
 * ``leaf_batch`` >= 1: frontier leaves split per grow step (1 = the
   serial loop), with ``leaf_batch_adaptive`` (halve K when the commit
   rate's EMA falls below ``leaf_batch_min_commit_rate``) as in
@@ -68,10 +79,10 @@ _OBJECTIVE_ALIASES: Dict[str, str] = {
     "binary": "binary",
 }
 
-# path parameters with one ported value: parameter -> that value
-_PATH_VALUES: Dict[str, Any] = {
-    "hist_mode": "seg",
-}
+HIST_MODES = ("seg", "ordered")
+HIST_METHODS = ("auto", "pallas_int8")
+# the JAX package's layouts that are not ported yet
+_UNPORTED_HIST_MODES = ("gather", "full")
 
 
 # the most windows one launch of the grow-step and partition kernels takes
@@ -107,7 +118,12 @@ class Config:
     bin_construct_sample_cnt: int = 200000
     data_random_seed: int = 1
     boost_from_average: bool = True
-    hist_mode: str = "seg"
+    hist_mode: Optional[str] = None  # None: the Booster's layout rule
+    hist_method: str = "auto"
+    use_quantized_grad: bool = False
+    num_grad_quant_bins: int = 4
+    stochastic_rounding: bool = True
+    quant_train_renew_leaf: bool = False
     leaf_batch: int = 1
     leaf_batch_adaptive: bool = True
     leaf_batch_min_commit_rate: float = 0.625
@@ -153,12 +169,19 @@ class Config:
                 "lightgbm_tpu_torch (ported: regression, binary)"
             )
         cfg.objective = obj
-        for name, only in _PATH_VALUES.items():
-            if getattr(cfg, name) != only:
-                raise ValueError(
-                    f"{name}={getattr(cfg, name)!r} not yet ported to "
-                    f"lightgbm_tpu_torch (the port trains with {name}={only!r})"
-                )
+        if cfg.hist_mode in _UNPORTED_HIST_MODES:
+            raise ValueError(
+                f"hist_mode={cfg.hist_mode!r} not yet ported to lightgbm_tpu_torch "
+                f"(ported: {', '.join(HIST_MODES)})"
+            )
+        if cfg.hist_mode is not None and cfg.hist_mode not in HIST_MODES:
+            raise ValueError(f"unknown hist_mode {cfg.hist_mode!r}")
+        if cfg.hist_method not in HIST_METHODS:
+            raise ValueError(
+                f"hist_method={cfg.hist_method!r} not yet ported to "
+                f"lightgbm_tpu_torch (ported: {', '.join(HIST_METHODS)})"
+            )
+        cfg._check_quantized()
         if cfg.leaf_batch < 1:
             raise ValueError("leaf_batch must be >= 1")
         if cfg.leaf_batch > MAX_LEAF_BATCH:
@@ -174,13 +197,19 @@ class Config:
             raise ValueError("hist_acc must be one of 'auto', 'int8', 'bf16'")
         if cfg.hist_near_tie_tol < 0.0:
             raise ValueError("hist_near_tie_tol must be >= 0")
-        if not cfg.resolved_grow_fused() and not cfg.fused_split_scan:
+        # on the ordered layout the split-scan kernel is the port's split
+        # search whatever these two say (the JAX package leaves its fused
+        # scan there above 64 features, ops/grower.py:460-478)
+        if (cfg.hist_mode != "ordered" and not cfg.resolved_grow_fused()
+                and not cfg.fused_split_scan):
             raise ValueError(
                 "fused_split_scan=False with grow_fused='off' not yet ported "
-                "to lightgbm_tpu_torch (the port scans splits with the "
-                "split-scan kernel: set fused_split_scan=True or grow_fused "
-                "to 'auto' or 'on')"
+                "to lightgbm_tpu_torch on the seg layout (the port scans "
+                "splits with the split-scan kernel: set fused_split_scan=True "
+                "or grow_fused to 'auto' or 'on')"
             )
+        if cfg.hist_mode == "seg":
+            cfg.check_layout("seg")
         if cfg.num_leaves < 2:
             raise ValueError("num_leaves must be >= 2")
         if not 2 <= cfg.max_bin <= 255:
@@ -190,6 +219,42 @@ class Config:
             )
         return cfg
 
+    def _check_quantized(self) -> None:
+        """The quantized-training keys (lightgbm_tpu/config.py:475-478) and
+        the int8 kernel's need for them (boosting/gbdt.py:1302)."""
+        if self.hist_method == "pallas_int8" and not self.use_quantized_grad:
+            raise ValueError(
+                "hist_method='pallas_int8' needs quantized gradients "
+                "(use_quantized_grad=True provides the scales)"
+            )
+        if self.num_grad_quant_bins > 127:
+            raise ValueError("num_grad_quant_bins must be <= 127 (int8 grid)")
+        if not self.use_quantized_grad:
+            return
+        if self.stochastic_rounding:
+            raise ValueError(
+                "use_quantized_grad with stochastic_rounding=True not yet ported "
+                "to lightgbm_tpu_torch (it waits for the threefry generator); "
+                "set stochastic_rounding=False"
+            )
+        if self.quant_train_renew_leaf:
+            raise ValueError(
+                "quant_train_renew_leaf=True not yet ported to lightgbm_tpu_torch "
+                "(leaf values come from the quantized sums)"
+            )
+
+    def check_layout(self, hist_mode: str) -> None:
+        """What the resolved layout refuses: quantized training on seg (the
+        JAX package runs the seg kernel on the quantization scales there,
+        ops/grower.py:1082-1097, a path not yet ported)."""
+        if hist_mode == "seg" and self.use_quantized_grad:
+            raise ValueError(
+                "use_quantized_grad on hist_mode='seg' not yet ported to "
+                "lightgbm_tpu_torch (quantized training runs on the ordered "
+                "layout: set hist_mode='ordered')"
+            )
+
     def resolved_grow_fused(self) -> bool:
-        """'on' and 'auto' (the seg path is always active here) fuse."""
+        """'on' and 'auto' fuse on the seg layout (the Booster ignores the
+        fused step on the ordered one, as the JAX package does)."""
         return self.grow_fused != "off"

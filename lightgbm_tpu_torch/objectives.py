@@ -22,6 +22,7 @@ class RegressionL2:
 
     name = "regression"
     need_train = True
+    is_constant_hessian = True  # every hessian is 1
 
     def __init__(self, label: np.ndarray, device: torch.device):
         self._label_np = np.asarray(label, np.float64)
@@ -48,6 +49,7 @@ class BinaryLogloss:
 
     name = "binary"
     sigmoid = 1.0
+    is_constant_hessian = False
 
     def __init__(self, label: np.ndarray, device: torch.device):
         pos = np.asarray(label, np.float64) > 0

@@ -2,6 +2,11 @@
 
 Counterpart of ``lightgbm_tpu/ops/pallas/forest_walk.py``:
 
+  * ``walk_reject_reason`` (:101-149) says why the kernel cannot walk a
+    model (more than 512 features, bins or NaN bins past a byte, too many
+    nodes per tree, tables past the kernel's shared memory); the booster
+    then walks with the plain level-synchronous walker of predict.py on
+    the same device, as the JAX package falls back to its XLA walker;
   * ``build_tables`` (:158) stacks bin-space tree records into per-tree
     node tables, in the port's own encoding (one i32 of split data and one
     i32 of two i16 children per node, see ``csrc/forest_walk.cu``);
@@ -25,6 +30,39 @@ from ..binning import K_ZERO_THRESHOLD, MissingType
 from ..predict import BinTreeBatch, predict_bins_raw
 
 MAX_BIN_VALUE = 256  # bins are bytes; thresholds and NaN bins fit 9 bits
+MAX_F = 512  # 9-bit feature field of a node
+MAX_NODES = 1 << 15  # children are i16 node indices
+# dynamic shared memory of csrc/forest_walk.cu (kSharedBytes): one tree's
+# tables, 8 bytes a node and 4 a leaf, must fit
+SHARED_TABLE_BYTES = 48 * 1024
+
+
+def walk_reject_reason(
+    records: Sequence[dict], nan_bins: np.ndarray, num_features: int, max_bin: int
+):
+    """None when the walk kernel can run this model, else why not (the
+    checks of the JAX package's ``walk_reject_reason`` that apply to the
+    port's kernel)."""
+    if num_features > MAX_F:
+        return f"{num_features} features > {MAX_F}"
+    if max_bin > MAX_BIN_VALUE:
+        return f"max_bin {max_bin} > {MAX_BIN_VALUE} (bins must fit a byte)"
+    if len(nan_bins) and int(np.max(nan_bins)) >= MAX_BIN_VALUE:
+        return f"NaN bin {int(np.max(nan_bins))} >= {MAX_BIN_VALUE}"
+    m_nodes = m_leaves = 1
+    for r in records:
+        sf = r["split_feature"]
+        if len(sf) >= MAX_NODES:
+            return f"a tree has {len(sf)} splits >= {MAX_NODES}"
+        if len(sf) and int(np.max(np.asarray(r["split_bin"]))) >= MAX_BIN_VALUE:
+            return f"a split threshold bin >= {MAX_BIN_VALUE}"
+        m_nodes = max(m_nodes, len(sf))
+        m_leaves = max(m_leaves, len(r["leaf_value"]))
+    table_bytes = m_nodes * 8 + m_leaves * 4
+    if table_bytes > SHARED_TABLE_BYTES:
+        return (f"one tree's tables ({table_bytes} bytes) exceed the walk "
+                f"kernel's {SHARED_TABLE_BYTES} bytes of shared memory")
+    return None
 
 
 class ForestTables(NamedTuple):
@@ -58,7 +96,7 @@ def build_tables(
             child[i, 0] = (~0 & 0xFFFF) | ((~0 & 0xFFFF) << 16)
             continue
         thr = np.asarray(r["split_bin"], np.int64)
-        if thr.max() >= MAX_BIN_VALUE or sf.max() >= 512:
+        if thr.max() >= MAX_BIN_VALUE or sf.max() >= MAX_F:
             raise ValueError("forest walk tables need bins < 256 and < 512 features")
         dl = np.asarray(r["default_left"], np.int64)
         lc = np.asarray(r["left_child"], np.int64)

@@ -44,6 +44,19 @@ loop over splits runs on the host: each split reads back the left count
 and the two children's candidates (a few host syncs per split -- the cost
 the device-resident TPU loop does not pay).  The per-leaf statistics are
 kept on the host as f32 values.
+
+The loop is layout-independent: it reads and splits the rows through a row
+store.  ``_SegStore`` keeps the rows physically in leaf order (ops/seg.py,
+the fused grow step).  ``_OrderedStore`` is the ordered layout
+(``hist_mode='ordered'``, :1160-1345): the rows never move, an i32 index
+array ``order`` holds every leaf's rows as one window, a split partitions
+its window of the index stably (``_make_part_branch`` :1240-1272, plain
+PyTorch: a column gather, a compare, two cumsums and a scatter, as it is
+XLA there), and a histogram reads the gathered rows of the row-major bins
+(``ops/histogram.py``: K windows per launch).  On the ordered layout
+``quant_scales`` are those of quantized training (``hist_method=
+'pallas_int8'``): every histogram is on the exact int8 grid and no
+decision is refined.
 """
 
 from __future__ import annotations
@@ -55,8 +68,9 @@ import numpy as np
 import torch
 
 from .grow_step import fused_grow_step
+from .histogram import OrderedRows, ordered_hist, ordered_hist_int8
 from .seg import (
-    SegRows,
+    go_left,
     pack_rows,
     seg_hist,
     seg_hist_batch,
@@ -75,11 +89,12 @@ _F32 = np.float32
 INT8_ON_CPU = False
 
 
-def int8_acc_eligible(hist_acc: str, device: torch.device) -> bool:
+def int8_acc_eligible(hist_acc: str, hist_mode: str, device: torch.device) -> bool:
     """The int8 accumulation gate (ops/grower.py:300-323 for the serial
-    single-host numeric path): on unless ``hist_acc='bf16'``, on a CUDA
-    device, or on the CPU with ``INT8_ON_CPU``."""
-    if hist_acc == "bf16":
+    single-host numeric path, and ``use_seg`` at :1096): on the seg layout
+    only, unless ``hist_acc='bf16'``, on a CUDA device, or on the CPU with
+    ``INT8_ON_CPU``."""
+    if hist_mode != "seg" or hist_acc == "bf16":
         return False
     return torch.device(device).type == "cuda" or INT8_ON_CPU
 
@@ -98,6 +113,7 @@ class GrowerParams:
     grow_fused: bool = True  # one fused grow step per split
     near_tie_tol: float = 1e-3  # int8 margin below which a decision refines
     leaf_batch: int = 1  # K: frontier leaves split per step (1 = serial)
+    hist_mode: str = "seg"  # row store: 'seg' or 'ordered'
 
 
 class TreeArrays(NamedTuple):
@@ -148,6 +164,115 @@ def _leaf_output(g, h, p: GrowerParams) -> np.ndarray:
     return out.numpy()
 
 
+def _smaller_windows(begins, cnts, nleft) -> np.ndarray:
+    """[K, 2] (start, cnt) of the smaller child of each split window: the
+    left one when ``nleft <= nright`` (ops/grower.py:1692)."""
+    begins = np.asarray(begins, np.int64)
+    cnts = np.asarray(cnts, np.int64)
+    ls = nleft <= cnts - nleft
+    return np.stack([begins + np.where(ls, 0, nleft), np.where(ls, nleft, cnts - nleft)], axis=1)
+
+
+class _SegStore:
+    """Rows kept physically in leaf order (ops/seg.py): a split is one
+    fused grow step, or a partition and a histogram launch."""
+
+    def __init__(self, bins_fn, grad, hess, mask, num_bins: int, qs, fused: bool):
+        self.rows = pack_rows(bins_fn, grad, hess, mask)
+        self.device = self.rows.device
+        self.B, self.qs, self.fused = num_bins, qs, fused
+
+    def root_hist(self) -> torch.Tensor:
+        return seg_hist(self.rows, 0, self.rows.n, self.B, self.qs)
+
+    def refine_hist(self, windows) -> torch.Tensor:
+        """f32 histograms of K windows: the near-tie refine of the int8
+        accumulation, which only this layout runs."""
+        return seg_hist_batch(self.rows, windows, self.B)
+
+    def split(self, begins, cnts, feats, tbins, dls, nanbs):
+        """Partition K disjoint windows; (nleft [K] host i64, the smaller
+        children's histograms [K, F, B, 3])."""
+        if self.fused:
+            nl_t, _, _, _, sm = fused_grow_step(
+                self.rows, begins, cnts, feats, tbins, dls, nanbs, self.B,
+                quant_scales=self.qs,
+            )
+            return nl_t.cpu().numpy().astype(np.int64), sm
+        if len(begins) == 1:  # the serial loop: the single partition
+            nleft = np.array([int(sort_partition(
+                self.rows, int(begins[0]), int(cnts[0]), int(feats[0]), int(tbins[0]),
+                bool(dls[0]), int(nanbs[0]),
+            ))], np.int64)
+        else:
+            nleft = sort_partition_batch(
+                self.rows, begins, cnts, feats, tbins, dls, nanbs
+            ).cpu().numpy().astype(np.int64)
+        windows = _smaller_windows(begins, cnts, nleft)
+        return nleft, seg_hist_batch(self.rows, windows, self.B, self.qs)
+
+    def leaf_id(self, leaf_begin, leaf_nrows) -> torch.Tensor:
+        return leaf_id_from_windows(self.rows.ridx, leaf_begin, leaf_nrows)
+
+
+class _OrderedStore:
+    """The ordered layout: the rows stay where they are, the i32 index
+    array ``order`` holds each leaf's rows as one window (the reference's
+    DataPartition), the row-major bins serve the histograms and the
+    feature-major ones the partition's column reads."""
+
+    def __init__(self, bins_fn, bins_nf, grad, hess, mask, num_bins: int, qs):
+        f, n = int(bins_fn.shape[0]), int(bins_fn.shape[1])
+        if bins_nf is None or int(bins_nf.shape[0]) != n or int(bins_nf.shape[1]) < f:
+            raise ValueError("the ordered layout needs the [N, >= F] row-major bins (bins_nf)")
+        self.rows = OrderedRows(
+            bins=bins_nf, f=f,
+            g=grad.to(torch.float32).contiguous(), h=hess.to(torch.float32).contiguous(),
+            m=(mask > 0).to(torch.float32),
+        )
+        self.cols = bins_fn
+        self.device = self.rows.device
+        self.order = torch.arange(n, dtype=torch.int32, device=self.device)
+        self.B, self.qs = num_bins, qs
+
+    def _hist(self, order, windows) -> torch.Tensor:
+        if self.qs is None:
+            return ordered_hist(self.rows, order, windows, self.B)
+        return ordered_hist_int8(self.rows, order, windows, self.B, self.qs)
+
+    def root_hist(self) -> torch.Tensor:
+        """All rows, no index (:1335-1345)."""
+        return self._hist(None, [(0, self.rows.n)])[0]
+
+    def _partition(self, start, cnt, feat, tbin, dl, nanb) -> torch.Tensor:
+        """Stable partition of order[start : start + cnt] (_make_part_branch,
+        :1240-1272): left rows to [0, nleft), right rows to [nleft, cnt),
+        each in their old order.  Returns nleft, a 0-d i32 tensor."""
+        win = self.order[start : start + cnt]
+        gl = go_left(self.cols[feat][win.long()], tbin, dl, nanb)
+        pos_l = torch.cumsum(gl, 0, dtype=torch.int32)
+        nleft = pos_l[-1]
+        pos_r = nleft + torch.cumsum(~gl, 0, dtype=torch.int32)
+        pos = torch.where(gl, pos_l, pos_r) - 1
+        out = torch.empty_like(win)
+        out[pos.long()] = win
+        self.order[start : start + cnt] = out
+        return nleft
+
+    def split(self, begins, cnts, feats, tbins, dls, nanbs):
+        """K partitions, then the K smaller children's histograms in one
+        launch (:2437-2500; serial :1698-1747 is K = 1)."""
+        zero = torch.zeros((), dtype=torch.int32, device=self.device)
+        nls = [self._partition(int(s0), int(c), int(ft), int(tb), bool(dl), int(nb))
+               if c > 0 else zero
+               for s0, c, ft, tb, dl, nb in zip(begins, cnts, feats, tbins, dls, nanbs)]
+        nleft = torch.stack(nls).cpu().numpy().astype(np.int64)
+        return nleft, self._hist(self.order, _smaller_windows(begins, cnts, nleft))
+
+    def leaf_id(self, leaf_begin, leaf_nrows) -> torch.Tensor:
+        return leaf_id_from_windows(self.order, leaf_begin, leaf_nrows)
+
+
 def grow_tree(
     bins_fn: torch.Tensor,  # [F, N] u8 feature-major bins
     grad: torch.Tensor,  # [N] f32
@@ -158,19 +283,30 @@ def grow_tree(
     feature_mask: torch.Tensor,  # [F] bool
     params: GrowerParams,
     quant_scales: Optional[torch.Tensor] = None,  # [2] f32: int8 grid
+    bins_nf: Optional[torch.Tensor] = None,  # [N, stride] u8 row-major (ordered)
 ) -> Tuple[TreeArrays, torch.Tensor]:
     """Grow one tree.  Returns (TreeArrays, leaf_id [N] i32 on the input
-    device).  ``quant_scales`` (``quantize.hist_acc_scales``) turns on the
-    int8 accumulation with the near-tie f32 refine; ``params.leaf_batch``
-    > 1 the frontier-batched loop."""
+    device).  ``params.hist_mode`` picks the row store: 'seg', where
+    ``quant_scales`` (``quantize.hist_acc_scales``) turns on the int8
+    accumulation with the near-tie f32 refine, or 'ordered' (``bins_nf``
+    needed), where ``quant_scales`` (``quantize.quantize_gradients``) put
+    every histogram on the exact int8 grid.  ``params.leaf_batch`` > 1 runs
+    the frontier-batched loop."""
     p = params
     L, B = p.num_leaves, p.max_bin
     K = max(1, min(p.leaf_batch, L - 1))
     f, n = int(bins_fn.shape[0]), int(bins_fn.shape[1])
     nan_host = nan_bins.cpu().numpy()
-    rows = pack_rows(bins_fn, grad, hess, count_mask)
-    dev = rows.device
     qs = quant_scales
+    if p.hist_mode == "ordered":
+        store = _OrderedStore(bins_fn, bins_nf, grad, hess, count_mask, B, qs)
+        refine = False
+    elif p.hist_mode == "seg":
+        store = _SegStore(bins_fn, grad, hess, count_mask, B, qs, p.grow_fused)
+        refine = qs is not None
+    else:
+        raise ValueError(f"hist_mode={p.hist_mode!r} not yet ported to lightgbm_tpu_torch")
+    dev = store.device
     tol = _F32(p.near_tie_tol)
     kw = dict(
         lambda_l1=p.lambda_l1, lambda_l2=p.lambda_l2,
@@ -197,15 +333,15 @@ def grow_tree(
         its window instead (one launch for all such leaves, zero rows for
         the others); the refined histogram is used for this decision only.
         Returns (candidates, near flags)."""
-        if qs is None:
+        if not refine:
             return scan(hists, stats), [False] * len(stats)
         got = scan(hists, stats, True)
         near = [bool(margin < tol) and (live is None or bool(live[i]))
                 for i, (_, margin) in enumerate(got)]
         cands = [cand for cand, _ in got]
         if any(near):
-            refined = seg_hist_batch(
-                rows, [(s, c if nr else 0) for (s, c), nr in zip(windows, near)], B
+            refined = store.refine_hist(
+                [(s, c if nr else 0) for (s, c), nr in zip(windows, near)]
             )
             idx = [i for i, nr in enumerate(near) if nr]
             for i, cand in zip(idx, scan(refined[idx], [stats[i] for i in idx])):
@@ -213,7 +349,7 @@ def grow_tree(
         return cands, near
 
     hist_buf = torch.zeros((L, f, B, 3), dtype=torch.float32, device=dev)
-    hist_buf[0] = seg_hist(rows, 0, n, B, qs)
+    hist_buf[0] = store.root_hist()
     totals = _sum_bins(hist_buf[0, 0].cpu().numpy())  # every row: one bin of feature 0
     (cand0,), near0 = decide([hist_buf[0]], [tuple(map(float, totals))], [(0, n)], scan_each)
     refines = int(sum(near0))
@@ -285,20 +421,11 @@ def grow_tree(
                 break
             new = t + 1
             begin, cnt = int(leaf_begin[l]), int(leaf_nrows[l])
-            nanb = int(nan_host[c.feature])
-            if p.grow_fused:
-                nl_t, _, _, _, sm = fused_grow_step(
-                    rows, [begin], [cnt], [c.feature], [c.bin], [int(c.default_left)],
-                    [nanb], B, quant_scales=qs,
-                )
-                nleft = int(nl_t[0])
-                sm = sm[0]
-                left_smaller = nleft <= cnt - nleft
-            else:
-                nleft = int(sort_partition(rows, begin, cnt, c.feature, c.bin, c.default_left, nanb))
-                left_smaller = nleft <= cnt - nleft
-                child_start = begin + (0 if left_smaller else nleft)
-                sm = seg_hist(rows, child_start, nleft if left_smaller else cnt - nleft, B, qs)
+            nl_a, sm = store.split([begin], [cnt], [c.feature], [c.bin], [int(c.default_left)],
+                                   [int(nan_host[c.feature])])
+            nleft = int(nl_a[0])
+            sm = sm[0]
+            left_smaller = nleft <= cnt - nleft
             nright = cnt - nleft
             other = hist_buf[l] - sm
             left_hist, right_hist = (sm, other) if left_smaller else (other, sm)
@@ -331,18 +458,7 @@ def grow_tree(
             feats = [c.feature for c in cs]
             split = (begins, cnts, feats, [c.bin for c in cs],
                      [int(c.default_left) for c in cs], nan_host[feats])
-            if p.grow_fused:
-                nl_t, _, _, _, sm = fused_grow_step(rows, *split, B, quant_scales=qs)
-                nleft = nl_t.cpu().numpy().astype(np.int64)
-            else:
-                nleft = sort_partition_batch(rows, *split).cpu().numpy().astype(np.int64)
-                ls = nleft <= cnts - nleft
-                sm = seg_hist_batch(
-                    rows,
-                    np.stack([begins + np.where(ls, 0, nleft),
-                              np.where(ls, nleft, cnts - nleft)], axis=1),
-                    B, qs,
-                )
+            nleft, sm = store.split(*split)
             nright = cnts - nleft
             ls4 = torch.as_tensor(nleft <= nright, device=dev)[:, None, None, None]
             other = hist_buf[torch.as_tensor(l_k, device=dev)] - sm
@@ -394,20 +510,22 @@ def grow_tree(
         refine_count=refines,
         grow_steps=steps,
     )
-    return tree, leaf_id_from_seg(rows, leaf_begin[:nl_], leaf_nrows[:nl_])
+    return tree, store.leaf_id(leaf_begin[:nl_], leaf_nrows[:nl_])
 
 
-def leaf_id_from_seg(
-    rows: SegRows, leaf_begin: np.ndarray, leaf_nrows: np.ndarray
+def leaf_id_from_windows(
+    index: torch.Tensor, leaf_begin: np.ndarray, leaf_nrows: np.ndarray
 ) -> torch.Tensor:
-    """Leaf of every original row: windows give the leaf of each segment
-    position, ridx maps positions back to rows (segpart.leaf_id_from_seg)."""
-    order = np.argsort(leaf_begin, kind="stable")
-    dev = rows.device
+    """Leaf of every original row: windows give the leaf of each position,
+    ``index`` (the seg rows' ridx, or the ordered layout's order) maps
+    positions back to rows (segpart.leaf_id_from_seg; the ordered layout's
+    marker-cumsum, ops/grower.py:2955-2979)."""
+    by_begin = np.argsort(leaf_begin, kind="stable")
+    dev = index.device
     leaf_pos = torch.repeat_interleave(
-        torch.as_tensor(order, dtype=torch.int32, device=dev),
-        torch.as_tensor(leaf_nrows[order], dtype=torch.int64, device=dev),
+        torch.as_tensor(by_begin, dtype=torch.int32, device=dev),
+        torch.as_tensor(leaf_nrows[by_begin], dtype=torch.int64, device=dev),
     )
-    leaf_id = torch.empty(rows.n, dtype=torch.int32, device=dev)
-    leaf_id[rows.ridx.long()] = leaf_pos
+    leaf_id = torch.empty(int(index.shape[0]), dtype=torch.int32, device=dev)
+    leaf_id[index.long()] = leaf_pos
     return leaf_id

@@ -4,7 +4,9 @@ Counterpart of ``lightgbm_tpu/predict.py``: ``stack_bin_trees`` pads the
 per-tree records into ``[T, M]`` arrays and ``predict_bins_leaves`` /
 ``predict_bins_raw`` walk every row through every tree one level at a time
 (``_walk``, predict.py:180-238).  This walker is the plain version the
-forest-walk kernel (``ops/forest_walk.py``) is held against.
+forest-walk kernel (``ops/forest_walk.py``) is held against, and the
+booster's walker for a model the kernel rejects (``walk_reject_reason``),
+on the booster's device: the JAX package's XLA fallback.
 """
 
 from __future__ import annotations
@@ -61,12 +63,11 @@ def predict_bins_leaves(batch: BinTreeBatch, bins: torch.Tensor) -> torch.Tensor
     n = bins.shape[0]
     t = batch.split_feature.shape[0]
     trees = torch.arange(t, device=bins.device)[None, :]
-    binsl = bins.long()
     nodes = torch.zeros((n, t), dtype=torch.int64, device=bins.device)
     while bool((nodes >= 0).any()):
         cur = torch.clamp(nodes, min=0)
         feat = batch.split_feature[trees, cur]
-        fval = torch.gather(binsl, 1, feat)
+        fval = torch.gather(bins, 1, feat).long()
         nb = batch.nan_bin[trees, cur]
         gl = (fval <= batch.split_bin[trees, cur]) | (
             batch.default_left[trees, cur] & (nb >= 0) & (fval == nb)
