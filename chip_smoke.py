@@ -1,8 +1,9 @@
 """Chip smoke test of the PyTorch/CUDA port (lightgbm_tpu_torch) on one GPU.
 
 Run from the root of a checkout:  python3 chip_smoke.py
-(``--kernels``: build and check the kernels only, on the Higgs and the
-wide data, then stop without the result lines.)
+(``--kernels``: build and check the kernels only, on the Higgs data and,
+for the ordered histograms, on synthetic Expo-shaped bins made on the card,
+then stop without the result lines.)
 
 Phases (any failed check raises, and the script exits non-zero):
   device   the card's name and power limit (nvidia-smi); no CUDA -> exit 1
@@ -43,15 +44,20 @@ Phases (any failed check raises, and the script exits non-zero):
            and on the CPU with the int8 accumulation on there
            (grower.INT8_ON_CPU): share of identical splits, log-loss
   wide data  an Expo-shaped table (binary, 1,048,576 x 700 numeric
-           features, 2% NaN, values on a grid of 1/32), binned; the
-           ordered histograms (f32 and int8) against their plain versions
-           at the root (no index) and on K=2 windows of a shuffled index,
-           with their times; the split scan at F = 700
+           features, 2% NaN, values on a grid of 1/32), binned (and the
+           seconds of the bundling check); the ordered histograms (f32 and
+           int8) against their plain versions on the cases of
+           lightgbm_tpu_torch/bench_ordered.py (the root with no index, K=2
+           windows of a shuffled index, windows of 14,000 and 4,000 rows,
+           the root with 64 skewed features), with their times; the split
+           scan at F = 700
   wide     train() with no path parameters: the layout rule must pick
            hist_mode='ordered'; 5 rounds (log-loss must fall), launches
            (ordered_hist and split_scan, no seg kernel), predict through
            the plain walker (700 features > the walk kernel's 512): its
-           log-loss must equal training's; one iteration under the profiler
+           log-loss must equal training's; one iteration under the
+           profiler, with the tree's ordered_hist time against its bound
+           (each launch's rows * (F + 16) + K * F * B * 12 bytes)
   wide-batch  bench.py's batch parameters (leaf_batch 4) for 3 rounds:
            K-window ordered_hist launches, the batched split scan
   wide-quant  quantized training on the int8 kernel (use_quantized_grad,
@@ -259,11 +265,19 @@ def check_seg_kernels(ds, dev):
     if not torch.equal(h8k, h8p):
         raise AssertionError("seg_hist int8: differs from the plain version")
     grid_err = float((h8k[..., :2] - h64).abs().max())
+    # the library yardstick: one index_add_ of the i32 digit rows
+    g_hi, g_lo = seg.int8_digits(rows.g * rows.m, scales[0])
+    h_hi, h_lo = seg.int8_digits(rows.h * rows.m, scales[1])
+    ids = (rows.bins.long() + torch.arange(f, device=dev)[:, None] * b).reshape(-1)
+    stats = torch.stack([g_hi, g_lo, h_hi, h_lo, (rows.m != 0).to(torch.int32)], 1).repeat(f, 1)
+    lib8 = time_ms(lambda: torch.zeros(f * b, 5, dtype=torch.int32, device=dev)
+                   .index_add_(0, ids, stats))
+    del ids, stats
     out.append(kernel_entry(
         "seg_hist_int8", 0.0,
         time_ms(lambda: seg.seg_hist(rows, 0, n, b, scales)),
         time_ms(lambda: seg.seg_hist_batch_plain(rows, [(0, n)], b, scales), reps=5),
-        bound_ms(n * (f + 12) + f * b * 12), None,
+        bound_ms(n * (f + 12) + f * b * 12), lib8,
     ))
     print(f"kernel seg_hist_int8: bit-equal to the plain version; the int8 grid is "
           f"{grid_err:.3g} from the f64 sums at most (scales {scales.tolist()})")
@@ -339,11 +353,16 @@ def check_seg_kernels(ds, dev):
     nlp = int(seg.sort_partition_plain(rp_rows, *args))
     if nlk != nlp or not same_rows(rk_rows, rp_rows):
         raise AssertionError(f"partition: nl {nlk} vs {nlp} or row order differs")
+    # the library yardstick: one stable torch.sort of the go-left keys (it
+    # gives the permutation; the kernel also moves the rows)
+    keys = (~seg.go_left(bins_fn[ck.feature], ck.bin, ck.default_left, nanb)).to(torch.uint8)
+    lib_sort = time_ms(lambda: torch.sort(keys, stable=True))
+    del keys
     out.append(kernel_entry(
         "partition", 0.0,
         time_ms(lambda: seg.sort_partition(rk_rows, *args)),
         time_ms(lambda: seg.sort_partition_plain(rp_rows, *args), reps=5),
-        bound_ms(2 * n * (f + 16)), None,
+        bound_ms(2 * n * (f + 16)), lib_sort,
     ))
     print(f"kernel partition: nl {nlk}, row order equal to the plain version")
     del rk_rows, rp_rows
@@ -391,11 +410,19 @@ def check_batch_kernels(ds, bins_fn, grad, hess, ones, ck, dev):
         raise AssertionError(f"partition_batch: nl {nlk.tolist()} vs {nlp.tolist()} "
                              "or the row order differs")
     rows_k = int(marr[:, 1].sum())
+    # the library yardstick: one stable torch.sort of (window, goes right)
+    # keys over the K windows' rows
+    keys = torch.cat([
+        2 * i + (~seg.go_left(bins_fn[int(ft), int(s0):int(s0) + int(c)], int(tb), bool(dl),
+                              int(nb))).to(torch.int32)
+        for i, (s0, c, ft, tb, dl, nb) in enumerate(marr)])
+    lib_sort = time_ms(lambda: torch.sort(keys, stable=True))
+    del keys
     out = [kernel_entry(
         "partition_batch", 0.0,
         time_ms(lambda: seg.sort_partition_batch(rk, *mem)),
         time_ms(lambda: seg.sort_partition_batch_plain(rp, marr), reps=3),
-        bound_ms(2 * rows_k * (f + 16)), None,
+        bound_ms(2 * rows_k * (f + 16)), lib_sort,
     )]
     print(f"kernel partition_batch K=4 windows {marr[:, :2].tolist()}: nl {nlk.tolist()}, "
           f"row order equal to the plain version")
@@ -503,46 +530,19 @@ def check_fused_step(ds, bins_fn, grad, hess, ones, ck, scales):
     )
 
 
-def ordered_tol(rows, order, windows, b, counts):
-    """``f32_tol`` for the ordered histogram: c * 2^-24 * sum|x| per bin,
-    for g and h, from the plain version on |g| and |h|."""
-    from lightgbm_tpu_torch.ops import histogram as oh
-
-    absr = oh.OrderedRows(rows.bins, rows.f, rows.g.abs(), rows.h.abs(), rows.m)
-    scale = oh.ordered_hist_plain(absr, order, windows, b)[..., :2]
-    return 2.0 * counts * 2.0**-24 * scale + 1e-6
-
-
 def library_index_add(rows, order, windows, b, scales=None):
-    """Time of one index_add_ of the window's rows into a [K, F, B] table:
-    (ms, rows it covered).  It adds (g*m, h*m, m) in f32, or with
-    ``scales`` the i32 digit rows of the int8 kernel.  The ids alone take 8 bytes a (row, feature): where
-    the windows do not fit the card's memory, the first window is halved
-    until they do."""
-    from lightgbm_tpu_torch.ops import histogram as oh
+    """Time of one index_add_ of the windows' rows into a [K, F, B] table
+    (``bench_ordered.library_ms``): (ms, rows it covered).  The ids alone
+    take 8 bytes a (row, feature): where the windows do not fit the card's
+    memory, the first window is halved until they do."""
+    from lightgbm_tpu_torch import bench_ordered
 
-    dev, f = rows.device, rows.f
     wins = list(windows)
     while True:
         try:
-            ids, stats = [], []
-            for k, (s0, c) in enumerate(wins):
-                idx = oh.window_rows(order, s0, c, dev)
-                ids.append((rows.bins[idx, :f].long() + (k * f + torch.arange(f, device=dev)) * b)
-                           .reshape(-1))
-                m = rows.m[idx]
-                if scales is None:
-                    st = torch.stack([rows.g[idx] * m, rows.h[idx] * m, m], 1)
-                else:
-                    st = oh.int8_digit_rows(rows.g[idx], rows.h[idx], m, scales)
-                stats.append(st.repeat_interleave(f, dim=0))
-            ids, stats = torch.cat(ids), torch.cat(stats)
-            width = stats.shape[1]
-            ms = time_ms(lambda: torch.zeros(len(wins) * f * b, width, dtype=stats.dtype,
-                                             device=dev).index_add_(0, ids, stats), reps=5)
-            return ms, sum(c for _, c in wins)
+            return (bench_ordered.library_ms(rows, order, wins, b, scales),
+                    sum(c for _, c in wins))
         except torch.cuda.OutOfMemoryError:
-            ids = stats = None
             torch.cuda.empty_cache()
             s0, c = wins[0]
             if c < 2:
@@ -550,75 +550,56 @@ def library_index_add(rows, order, windows, b, scales=None):
             wins[0] = (s0, c // 2)
 
 
-def check_ordered_kernels(ds, dev):
-    """The ordered histograms (f32 and int8) at the wide data's root (no
-    index) and on K=2 unaligned windows of a shuffled index, against
-    their plain versions; the split scan of the root histogram at F=700."""
-    from lightgbm_tpu_torch.objectives import create_objective
+def check_ordered_kernels(rows, qrows, scales, num_bins, nan_bins, b):
+    """The ordered histograms (f32 and int8) against their plain versions on
+    the cases of ``bench_ordered.cases``: the root (no index), K=2 unaligned
+    windows of a shuffled index, windows of 14,000 rows at K=1 and K=4, and
+    the root with 64 skewed features; the split scan of the root histogram
+    at F=700."""
+    from lightgbm_tpu_torch import bench_ordered
     from lightgbm_tpu_torch.ops import histogram as oh
     from lightgbm_tpu_torch.ops import split_scan
-    from lightgbm_tpu_torch.quantize import quantize_gradients
 
-    n, f = ds.bins.shape
-    b = ds.max_bin_padded
-    obj = create_objective("binary", ds.label, dev)
-    score = torch.full((n,), obj.boost_from_score(), dtype=torch.float32, device=dev)
-    grad, hess = obj.get_gradients(score)
-    ones = torch.ones(n, dtype=torch.float32, device=dev)
-    bins_nf = oh.row_major_bins(ds.bins, dev)
-    rows = oh.OrderedRows(bins_nf, f, grad, hess, ones)
-    # the int8 kernel's inputs as the quantized phase gives them
-    qg, qh, gs, hs = quantize_gradients(grad, hess, QUANT_PARAMS["num_grad_quant_bins"])
-    qrows = oh.OrderedRows(bins_nf, f, qg, qh, ones)
-    scales = torch.stack([gs, hs])
-    order = torch.as_tensor(np.random.default_rng(5).permutation(n).astype(np.int32), device=dev)
-    cases = {"root": (None, [(0, n)]),
-             "K=2": (order, [(37, n // 3 + 1), (37 + n // 3 + 1, n // 2)])}
+    f = rows.f
     out, err32 = [], 0.0
-    for where, (idx, wins) in cases.items():
-        hk = oh.ordered_hist(rows, idx, wins, b)
-        hp = oh.ordered_hist_plain(rows, idx, wins, b)
-        h8k = oh.ordered_hist_int8(qrows, idx, wins, b, scales)
-        h8p = oh.ordered_hist_int8_plain(qrows, idx, wins, b, scales)
+    for where, (crows, idx, wins) in bench_ordered.cases(rows).items():
+        cq = oh.OrderedRows(crows.bins, f, qrows.g, qrows.h, qrows.m)
+        hk = oh.ordered_hist(crows, idx, wins, b)
+        hp = oh.ordered_hist_plain(crows, idx, wins, b)
+        h8k = oh.ordered_hist_int8(cq, idx, wins, b, scales)
+        h8p = oh.ordered_hist_int8_plain(cq, idx, wins, b, scales)
         torch.cuda.synchronize()
-        err = (hk[..., :2] - hp[..., :2]).abs()
-        if not torch.equal(hk[..., 2], hp[..., 2]) or bool(
-                (err > ordered_tol(rows, idx, wins, b, hp[..., 2:3])).any()):
-            raise AssertionError(f"ordered_hist {where}: off the plain version by {float(err.max())}")
-        if not torch.equal(h8k, h8p):
-            raise AssertionError(f"ordered_hist_int8 {where}: differs from the plain version")
-        err32 = max(err32, float(err.max()))
-        rows_k = sum(c for _, c in wins)
-        # each row read once: its F bin bytes, three f32 stats and (with an
-        # index) its i32 row index; the K histograms written once
-        nbytes = rows_k * (f + 12 + (4 if idx is not None else 0)) + len(wins) * f * b * 12
+        err = bench_ordered.check(where, hk, hp, h8k, h8p, crows, idx, wins, b)
+        err32 = max(err32, err)
         t = {
-            "f32": time_ms(lambda: oh.ordered_hist(rows, idx, wins, b)),
-            "int8": time_ms(lambda: oh.ordered_hist_int8(qrows, idx, wins, b, scales)),
-            "f32 plain": time_ms(lambda: oh.ordered_hist_plain(rows, idx, wins, b), reps=3),
-            "int8 plain": time_ms(lambda: oh.ordered_hist_int8_plain(qrows, idx, wins, b, scales),
+            "f32": time_ms(lambda: oh.ordered_hist(crows, idx, wins, b)),
+            "int8": time_ms(lambda: oh.ordered_hist_int8(cq, idx, wins, b, scales)),
+            "f32 plain": time_ms(lambda: oh.ordered_hist_plain(crows, idx, wins, b), reps=3),
+            "int8 plain": time_ms(lambda: oh.ordered_hist_int8_plain(cq, idx, wins, b, scales),
                                   reps=3),
         }
-        lib32, lib32_rows = library_index_add(rows, idx, wins, b)
-        lib8, lib8_rows = library_index_add(qrows, idx, wins, b, scales)
-        bound = bound_ms(nbytes)
+        lib32, lib32_rows = library_index_add(crows, idx, wins, b)
+        lib8, lib8_rows = library_index_add(cq, idx, wins, b, scales)
+        bound = (bench_ordered.bound_ms(crows, idx, wins, b), "bytes")
         print(f"kernel ordered_hist {where} {[tuple(w) for w in wins]} x {f} features: f32 "
               f"{t['f32']:.4f} ms (plain {t['f32 plain']:.4f}), int8 {t['int8']:.4f} ms (plain "
               f"{t['int8 plain']:.4f}), bound {bound[0]:.5f} ms by {bound[1]}; library index_add_ "
               f"f32 {lib32:.4f} ms over {lib32_rows} rows, i32 digits {lib8:.4f} ms over "
-              f"{lib8_rows} rows; counts exact, f32 g/h within {float(err.max()):.3g}, int8 bit-equal")
+              f"{lib8_rows} rows; counts exact, f32 g/h within {err:.3g}, int8 bit-equal")
         if where == "root":
-            out.append(kernel_entry("ordered_hist", err.max(), t["f32"], t["f32 plain"], bound, lib32))
+            out.append(kernel_entry("ordered_hist", err, t["f32"], t["f32 plain"], bound, lib32))
             out.append(kernel_entry("ordered_hist_int8", 0.0, t["int8"], t["int8 plain"], bound, lib8))
             root = hp[0]
-        del hk, hp, h8k, h8p
+        del hk, hp, h8k, h8p, cq, crows
+        torch.cuda.empty_cache()
     print(f"kernel ordered_hist: f32 max |err| vs plain {err32:.3g} (bound: count * 2^-24 * "
           "sum|x| per bin, each)")
 
     # the split scan at the wide shape: F = 700 blocks of 256 bins
     kw = dict(lambda_l1=0.0, lambda_l2=0.0, min_data_in_leaf=20, min_sum_hessian_in_leaf=1e-3)
-    nb_t = torch.as_tensor(ds.num_bins(), device=dev)
-    nan_t = torch.as_tensor(ds.nan_bins(), device=dev)
+    dev = rows.device
+    nb_t = torch.as_tensor(num_bins, device=dev)
+    nan_t = torch.as_tensor(nan_bins, device=dev)
     mask = torch.ones(f, dtype=torch.bool, device=dev)
     tot = root[0].sum(0)
     rk = split_scan.split_scan(root, tot, nb_t, nan_t, mask, **kw)
@@ -634,6 +615,25 @@ def check_ordered_kernels(ds, dev):
     print(f"kernel split_scan F={f}: {ts:.4f} ms (plain {tp:.4f}), bound {sb[0]:.5f} ms by "
           f"{sb[1]}; bins/directions equal, rows max |err| {float(gerr.max()):.3g}")
     return out
+
+
+def wide_kernel_inputs(ds, dev):
+    """The ordered histograms' inputs on the binned wide table: (f32 rows,
+    quantized rows as the quantized phase gives them, their scales, bins a
+    feature, NaN bins, B)."""
+    from lightgbm_tpu_torch.objectives import create_objective
+    from lightgbm_tpu_torch.ops import histogram as oh
+    from lightgbm_tpu_torch.quantize import quantize_gradients
+
+    n, f = ds.bins.shape
+    obj = create_objective("binary", ds.label, dev)
+    score = torch.full((n,), obj.boost_from_score(), dtype=torch.float32, device=dev)
+    grad, hess = obj.get_gradients(score)
+    ones = torch.ones(n, dtype=torch.float32, device=dev)
+    bins_nf = oh.row_major_bins(ds.bins, dev)
+    qg, qh, gs, hs = quantize_gradients(grad, hess, QUANT_PARAMS["num_grad_quant_bins"])
+    return (oh.OrderedRows(bins_nf, f, grad, hess, ones), oh.OrderedRows(bins_nf, f, qg, qh, ones),
+            torch.stack([gs, hs]), ds.num_bins(), ds.nan_bins(), ds.max_bin_padded)
 
 
 def _hist_f64(rows, n, b):
@@ -694,13 +694,26 @@ def profile_iteration(booster, label: str = "profile") -> None:
 
     from lightgbm_tpu_torch import _build
 
+    from lightgbm_tpu_torch.ops import histogram as oh
+
     torch.cuda.synchronize()
     before = dict(_build.LAUNCHES)
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        booster.update()
-        torch.cuda.synchronize()
-        wall_ms = (time.perf_counter() - t0) * 1e3
+    ordered = []  # (rows, windows) of each ordered histogram call
+    launch = oh._launch
+
+    def recorded(rows, order, wins, num_bins, scales):
+        ordered.append((sum(c for _, c in wins), len(wins)))
+        return launch(rows, order, wins, num_bins, scales)
+
+    oh._launch = recorded
+    try:
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            booster.update()
+            torch.cuda.synchronize()
+            wall_ms = (time.perf_counter() - t0) * 1e3
+    finally:
+        oh._launch = launch
     launched = {k: v - before.get(k, 0) for k, v in _build.LAUNCHES.items()
                 if v - before.get(k, 0)}
     # device-side events only (kernels and copies on the card); the host
@@ -717,6 +730,18 @@ def profile_iteration(booster, label: str = "profile") -> None:
           f"profiler, device busy {busy_ms:.1f} ms ({busy_ms / wall_ms:.3f} of wall)")
     for key, (us, cnt) in sorted(dev_us.items(), key=lambda kv: -kv[1][0])[:10]:
         print(f"{label}:   {us / 1e3:8.2f} ms  {cnt:6d} calls  {key[:90]}")
+    if ordered:
+        # the tree's ordered histograms against their bound: each launch
+        # reads rows * (F + 16) bytes and writes K * F * B * 12
+        f, b = len(booster.used_features), booster._grower_params.max_bin
+        nbytes = sum(r * (f + 16) + k * f * b * 12 for r, k in ordered)
+        hist_us = sum(us for key, (us, _) in dev_us.items() if "ordered_hist_" in key)
+        rows = sorted(r for r, _ in ordered)
+        print(f"{label}: ordered_hist {hist_us / 1e3:.3f} ms over {len(ordered)} launches "
+              f"against a bound of {nbytes / HBM_BYTES_PER_S * 1e3:.3f} ms "
+              f"({hist_us / 1e3 / (nbytes / HBM_BYTES_PER_S * 1e3):.1f}x); rows a launch: "
+              f"median {rows[len(rows) // 2]}, mean {sum(rows) / len(rows):.0f}, "
+              f"non-root mean {sum(rows[:-1]) / max(1, len(rows) - 1):.0f}")
     host = [e for e in prof.key_averages() if e.self_cpu_time_total > 0]
     host_ms = sum(e.self_cpu_time_total for e in host) / 1e3
     splits = max(1, booster.trees[-1].num_leaves - 1)
@@ -832,7 +857,8 @@ def wide_data(lt):
     print(f"wide data: {WIDE_ROWS} x {WIDE_FEATURES} made in {t1 - t0:.1f} s, binned in "
           f"{time.perf_counter() - t1:.1f} s; {len(ds.used_features)} used features, "
           f"{int(ds.num_bins().min())}-{int(ds.num_bins().max())} bins a feature, "
-          f"{ds.max_bin_padded} histogram bins")
+          f"{ds.max_bin_padded} histogram bins; the bundling check took "
+          f"{ds.bundle_check_s:.2f} s (no bundle: every column has NaNs)")
     return x, y, ds
 
 
@@ -842,7 +868,7 @@ def wide_phases(lt, _build, dev):
     from lightgbm_tpu_torch.ops.forest_walk import ForestTables
 
     x, y, ds = wide_data(lt)
-    kernels = check_ordered_kernels(ds, dev)
+    kernels = check_ordered_kernels(*wide_kernel_inputs(ds, dev))
     phases = {}
 
     # -- no path parameters: the layout rule must pick the ordered layout
@@ -964,7 +990,12 @@ def main() -> int:
     kernels = {k["name"]: k for k in check_seg_kernels(ds, dev)}
     if "--kernels" in sys.argv[1:]:
         del ds, x, y
-        check_ordered_kernels(wide_data(lt)[2], dev)
+        # synthetic Expo-shaped bins made on the card (the binned table takes
+        # ~100 s on the host): the same shapes and cases
+        from lightgbm_tpu_torch import bench_ordered
+
+        rows, qrows, scales, nb = bench_ordered.synthetic_inputs(WIDE_ROWS, WIDE_FEATURES, dev)
+        check_ordered_kernels(rows, qrows, scales, nb, -torch.ones_like(nb), 256)
         return 0
 
     # -- main path (default parameters): counts from 0 just before, read

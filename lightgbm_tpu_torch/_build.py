@@ -48,7 +48,11 @@ SIGNATURES: Dict[str, Sequence] = {
     "partition": (_VP,) * 5 + (_I64, _I32, _VP, _I32) + (_VP,) * 8,
     "split_scan": (_VP,) * 5 + (_I32,) * 4 + (_F32,) * 4 + (_VP,) * 2,
     "forest_walk": (_VP,) * 4 + (_I64,) + (_I32,) * 5 + (_VP,) * 2,
-    "ordered_hist": (_VP, _I64) + (_VP,) * 5 + (_I32,) * 3 + (_VP,) * 3,
+    "ordered_hist": (_VP, _I64) + (_VP,) * 5 + (_I32,) * 3 + (_VP, _VP, _I64, _VP, _VP),
+}
+# further C entries of a source: name -> (source, argtypes, restype)
+EXTRA_ENTRIES: Dict[str, Tuple[str, Sequence, object]] = {
+    "ordered_hist_scratch": ("ordered_hist", (_VP,) + (_I32,) * 4, _I64),
 }
 
 _ENTRIES: Dict[str, object] = {}
@@ -147,15 +151,17 @@ def build_all(names: Sequence[str] = tuple(SIGNATURES)) -> Dict[str, Tuple[float
 
 
 def entry(name: str):
-    """The C entry ``lgbt_<name>`` of ``csrc/<name>.cu``, built and loaded
-    on first use."""
+    """The C entry ``lgbt_<name>`` of ``csrc/<name>.cu`` (or of the source
+    ``EXTRA_ENTRIES`` names), built and loaded on first use."""
     with _LOCK:
         fn = _ENTRIES.get(name)
         if fn is None:
-            build_all([name])
-            fn = getattr(ctypes.CDLL(_paths(name)[1]), f"lgbt_{name}")
-            fn.argtypes = list(SIGNATURES[name])
-            fn.restype = ctypes.c_int
+            src, argtypes, restype = EXTRA_ENTRIES.get(
+                name, (name, SIGNATURES.get(name), ctypes.c_int))
+            build_all([src])
+            fn = getattr(ctypes.CDLL(_paths(src)[1]), f"lgbt_{name}")
+            fn.argtypes = list(argtypes)
+            fn.restype = restype
             _ENTRIES[name] = fn
         return fn
 

@@ -32,7 +32,11 @@ The path parameters take the JAX package's defaults and values
 * ``leaf_batch`` >= 1: frontier leaves split per grow step (1 = the
   serial loop), with ``leaf_batch_adaptive`` (halve K when the commit
   rate's EMA falls below ``leaf_batch_min_commit_rate``) as in
-  boosting/gbdt.py:291-335.
+  boosting/gbdt.py:291-335;
+* ``enable_bundle`` (default True, aliases ``is_enable_bundle`` and
+  ``bundle``) with ``max_conflict_rate``: Exclusive Feature Bundling is not
+  ported, so data whose columns the JAX package would bundle raises at
+  ``Dataset.construct``; ``enable_bundle=False`` trains them unbundled.
 """
 
 from __future__ import annotations
@@ -68,6 +72,8 @@ _PARAM_ALIASES: Dict[str, str] = {
     "max_bins": "max_bin",
     "subsample_for_bin": "bin_construct_sample_cnt",
     "data_seed": "data_random_seed",
+    "is_enable_bundle": "enable_bundle",
+    "bundle": "enable_bundle",
 }
 
 _OBJECTIVE_ALIASES: Dict[str, str] = {
@@ -118,6 +124,10 @@ class Config:
     bin_construct_sample_cnt: int = 200000
     data_random_seed: int = 1
     boost_from_average: bool = True
+    # Exclusive Feature Bundling: not ported; True refuses data that would
+    # bundle (bundling.py), False trains every column unbundled
+    enable_bundle: bool = True
+    max_conflict_rate: float = 0.0
     hist_mode: Optional[str] = None  # None: the Booster's layout rule
     hist_method: str = "auto"
     use_quantized_grad: bool = False
@@ -212,6 +222,8 @@ class Config:
             cfg.check_layout("seg")
         if cfg.num_leaves < 2:
             raise ValueError("num_leaves must be >= 2")
+        if not 0.0 <= cfg.max_conflict_rate < 1.0:
+            raise ValueError("max_conflict_rate must be in [0, 1)")
         if not 2 <= cfg.max_bin <= 255:
             raise ValueError(
                 "max_bin must be in [2, 255]: the port stores bins, NaN bin "

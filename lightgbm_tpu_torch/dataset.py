@@ -6,16 +6,20 @@ fit on a row sample drawn from ``np.random.default_rng(data_random_seed)``
 (the same draw as the JAX package, so both packages bin identically),
 features with a single bin are dropped from training, and the kept columns
 form the ``[N, F]`` uint8 matrix the trainer consumes.  The matrix stays on
-the host; the booster moves it to its device.
+the host; the booster moves it to its device.  With ``enable_bundle`` (the
+default) columns that the JAX package would bundle are refused
+(``bundling.refuse_bundles``): bundling is not ported yet.
 """
 
 from __future__ import annotations
 
+import time
 from typing import Any, Dict, List, Optional
 
 import numpy as np
 
 from .binning import BinMapper
+from .bundling import refuse_bundles
 from .config import Config
 
 MIN_DATA_IN_BIN = 3
@@ -42,6 +46,7 @@ class Dataset:
         self.used_features: List[int] = []
         self.bins: Optional[np.ndarray] = None  # [N, F_used] uint8
         self.label: Optional[np.ndarray] = None  # [N] float64
+        self.bundle_check_s = 0.0  # seconds of the bundling check
 
     def construct(self) -> "Dataset":
         if self.constructed:
@@ -74,6 +79,11 @@ class Dataset:
             self.bin_mappers.append(m)
             if not m.is_trivial:
                 self.used_features.append(j)
+        if cfg.enable_bundle:
+            t0 = time.perf_counter()
+            refuse_bundles(self.used_features, self.bin_mappers, sample,
+                           cfg.max_conflict_rate)
+            self.bundle_check_s = time.perf_counter() - t0
         bins = np.zeros((n, len(self.used_features)), np.uint8)
         for ci, j in enumerate(self.used_features):
             bins[:, ci] = self.bin_mappers[j].values_to_bins(data[:, j])

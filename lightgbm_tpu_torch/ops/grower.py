@@ -114,6 +114,9 @@ class GrowerParams:
     near_tie_tol: float = 1e-3  # int8 margin below which a decision refines
     leaf_batch: int = 1  # K: frontier leaves split per step (1 = serial)
     hist_mode: str = "seg"  # row store: 'seg' or 'ordered'
+    # exact gain ties between features go by best_split's case-major argmax
+    # (missing-right first) instead of the split-scan kernel's first feature
+    case_major_ties: bool = False
 
 
 class TreeArrays(NamedTuple):
@@ -313,6 +316,7 @@ def grow_tree(
         min_data_in_leaf=p.min_data_in_leaf,
         min_sum_hessian_in_leaf=p.min_sum_hessian_in_leaf,
         min_gain_to_split=p.min_gain_to_split,
+        case_major=p.case_major_ties,
     )
 
     def scan_each(hists, stats, with_margin=False):

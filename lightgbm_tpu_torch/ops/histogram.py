@@ -21,9 +21,11 @@ histogram of the gathered rows.
 ``ordered_hist`` (f32 sums) and ``ordered_hist_int8`` (exact i32 digit
 sums of q = clip(round(x / scale), +-QMAX), recombined as the quantized
 branch of ``combine_hist_raw``, seg.py:457-461) dispatch on the device of
-the rows: the plain PyTorch version on the CPU, one launch of
-``csrc/ordered_hist.cu`` on a CUDA device (counted in
-``_build.LAUNCHES['ordered_hist']`` and ``['ordered_hist_int8']``).
+the rows: the plain PyTorch version on the CPU, one call of the
+``csrc/ordered_hist.cu`` kernel on a CUDA device (two launches: the
+per-block histograms into a scratch buffer, then their sum into the
+output; counted once, in ``_build.LAUNCHES['ordered_hist']`` and
+``['ordered_hist_int8']``).
 """
 
 from __future__ import annotations
@@ -156,7 +158,7 @@ def ordered_hist(
 ) -> torch.Tensor:
     """f32 histograms [K, F, B, 3] of K windows ``[(start, cnt), ...]`` of
     ``order`` (None: of the rows themselves); a window with cnt = 0 gives a
-    zero histogram.  Plain version on the CPU, ONE launch of the
+    zero histogram.  Plain version on the CPU, ONE call of the
     ``csrc/ordered_hist.cu`` f32 kernel on a CUDA device."""
     wins = _windows_list(windows)
     if rows.device.type == "cpu":
@@ -170,7 +172,7 @@ def ordered_hist_int8(
 ) -> torch.Tensor:
     """``ordered_hist`` on the int8 2-digit grid with ``scales`` [2] f32
     (g_scale, h_scale): exact i32 digit sums recombined to f32.  Plain
-    version on the CPU, ONE launch of the int8 kernel on a CUDA device."""
+    version on the CPU, ONE call of the int8 kernel on a CUDA device."""
     wins = _windows_list(windows)
     if max((c for _, c in wins), default=0) > MAX_INT8_ROWS:
         raise ValueError(
@@ -197,24 +199,47 @@ def _launch(rows: OrderedRows, order, wins, num_bins: int, scales) -> torch.Tens
         raise ValueError("ordered_hist: a window runs past the rows")
     win_host = np.asarray(wins, dtype=np.int64).reshape(k, 2)
     if scales is None:
-        out = torch.zeros((k, f, num_bins, 3), dtype=torch.float32, device=dev)
         sp = None
     else:
         scales = _device_scales(scales, dev)
-        out = torch.zeros((k, f, num_bins, 5), dtype=torch.int32, device=dev)
         sp = scales.data_ptr()
+    out, scratch = kernel_buffers(_build.entry("ordered_hist_scratch"), k, f, int(num_bins),
+                                  scales is not None, dev)
     rc = _build.entry("ordered_hist")(
         rows.bins.data_ptr(), int(rows.bins.shape[1]),
         None if order is None else order.data_ptr(),
         rows.g.data_ptr(), rows.h.data_ptr(), rows.m.data_ptr(),
-        win_host.ctypes.data, k, f, int(num_bins), sp, out.data_ptr(),
-        torch.cuda.current_stream(dev).cuda_stream,
+        win_host.ctypes.data, k, f, int(num_bins), sp, scratch.data_ptr(),
+        scratch.numel(), out.data_ptr(), torch.cuda.current_stream(dev).cuda_stream,
     )
     _build.check(rc, "ordered_hist kernel")
     _build.LAUNCHES["ordered_hist" if scales is None else "ordered_hist_int8"] += 1
     if k > 1:
         _build.LAUNCHES["ordered_hist:K>1"] += 1
     return out if scales is None else combine_int8(out, scales)
+
+
+# scratch bytes by (entry, K, F, B, int8): the most any windows need
+_SCRATCH_BYTES: dict = {}
+
+
+def kernel_buffers(scratch_entry, k: int, f: int, num_bins: int, int8: bool, dev) -> tuple:
+    """(out, scratch) of a launch over k windows: the kernel writes every
+    cell of out, f32 [K, F, B, 3] or i32 [K, F, B, 5], and keeps one
+    histogram per block in the scratch.  Its size is
+    ``lgbt_ordered_hist_scratch`` of k windows of the most rows (the blocks
+    of a launch are capped), asked once per shape."""
+    key = (id(scratch_entry), k, f, num_bins, bool(int8))
+    need = _SCRATCH_BYTES.get(key)
+    if need is None:
+        most = np.tile(np.array([[0, 1 << 40]], dtype=np.int64), (k, 1))
+        need = scratch_entry(most.ctypes.data, k, f, num_bins, int(int8))
+        if need < 0:
+            _build.check(-need, "ordered_hist scratch size")
+        _SCRATCH_BYTES[key] = need
+    shape, dt = (k, f, num_bins, 5 if int8 else 3), torch.int32 if int8 else torch.float32
+    return (torch.empty(shape, dtype=dt, device=dev),
+            torch.empty(need, dtype=torch.uint8, device=dev))
 
 
 def _require_cuda(rows: OrderedRows, order) -> None:

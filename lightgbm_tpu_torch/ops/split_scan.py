@@ -169,10 +169,17 @@ def split_scan_batch(
 
 
 def _candidates(rows, parent, *, lambda_l1: float, lambda_l2: float,
-                min_gain_to_split: float, with_margin: bool):
+                min_gain_to_split: float, with_margin: bool, case_major: bool = False):
     """M candidates from scan rows [M, F, 8] and parents [M, 3]: first
     feature with the largest row gain (split_scan.py:286-334), in one set
     of tensor operations and ONE host transfer.
+
+    ``case_major``: the tie rule of ``best_split``'s argmax over [case, F,
+    B] (lightgbm_tpu/ops/split.py:408), which the JAX package takes where
+    its split-scan kernel is off (ops/grower.py:460-478): among the
+    features whose row gain equals the largest, the first whose row goes
+    missing-right, else the first.  A row's bin is already the first
+    maximum of its winning case, so the rows carry all the rule needs.
 
     ``with_margin``: also the near-tie margin (split_scan.py:306-320),
     ``(best - runner_up) / max(|best|, 1e-15)`` in f32, where the runner-up
@@ -180,7 +187,16 @@ def _candidates(rows, parent, *, lambda_l1: float, lambda_l2: float,
     second best (row column 6); +inf when either gain is not finite."""
     m, f = rows.shape[0], rows.shape[1]
     dev = rows.device
-    feat = torch.argmax(rows[..., 0], dim=1)  # [M] first maximum
+    if case_major:
+        # the first maximum of [case 0 (missing-right) | case 1] over the
+        # features: a missing-right row's gain is its case-0 best, and a
+        # missing-left row's case-0 best is below its gain, so it cannot
+        # be the case-0 maximum and is left out there
+        gain = rows[..., 0]
+        cases = torch.cat([torch.where(rows[..., 2] <= 0.5, gain, float("-inf")), gain], dim=1)
+        feat = torch.argmax(cases, dim=1) % f  # [M]
+    else:
+        feat = torch.argmax(rows[..., 0], dim=1)  # [M] first maximum
     r = rows[torch.arange(m, device=dev), feat]  # [M, 8]
     improvement = (
         r[:, 0] - leaf_gain(parent[:, 0], parent[:, 1], lambda_l1, lambda_l2)
@@ -215,12 +231,12 @@ def fused_best_split(
     hist, parent_g: float, parent_h: float, parent_cnt: float, num_bins,
     nan_bins, feature_mask, *, lambda_l1: float, lambda_l2: float,
     min_data_in_leaf: int, min_sum_hessian_in_leaf: float,
-    min_gain_to_split: float, with_margin: bool = False,
+    min_gain_to_split: float, with_margin: bool = False, case_major: bool = False,
 ):
     """The leaf's best split from the scan rows of one ``split_scan``
     launch; with ``with_margin`` also its near-tie margin
     (``_candidates``), which comes back in the candidate's one host
-    transfer."""
+    transfer; ``case_major`` picks the tie rule (``_candidates``)."""
     parent = torch.tensor(
         [[parent_g, parent_h, parent_cnt]], dtype=torch.float32, device=hist.device
     )
@@ -233,13 +249,14 @@ def fused_best_split(
     return _candidates(
         rows[None], parent, lambda_l1=lambda_l1, lambda_l2=lambda_l2,
         min_gain_to_split=min_gain_to_split, with_margin=with_margin,
+        case_major=case_major,
     )[0]
 
 
 def fused_best_split_batch(
     hist, parents, num_bins, nan_bins, feature_mask, *, lambda_l1: float,
     lambda_l2: float, min_data_in_leaf: int, min_sum_hessian_in_leaf: float,
-    min_gain_to_split: float, with_margin: bool = False,
+    min_gain_to_split: float, with_margin: bool = False, case_major: bool = False,
 ):
     """Best splits of M leaves: hist [M, F, B, 3], parents [M, 3] (g, h,
     count; host values or a tensor), feature_mask [F] or [M, F].  One
@@ -257,4 +274,5 @@ def fused_best_split_batch(
     return _candidates(
         rows, parent, lambda_l1=lambda_l1, lambda_l2=lambda_l2,
         min_gain_to_split=min_gain_to_split, with_margin=with_margin,
+        case_major=case_major,
     )

@@ -17,6 +17,8 @@ import lightgbm_tpu_torch as lt
 from lightgbm_tpu_torch.binning import BinMapper
 from lightgbm_tpu_torch.config import Config
 
+from .test_torch_interpret import clear_jax_caches_after_module  # noqa: F401 (autouse)
+
 
 def _data(n=3000, f=8, seed=0, nan_frac=0.05):
     rng = np.random.default_rng(seed)
@@ -105,3 +107,64 @@ def test_config_accepts_the_jax_defaults():
 def test_config_raises_on_what_is_not_ported(params, word):
     with pytest.raises(ValueError, match=word):
         Config.from_params(params)
+
+
+def _one_hot_data(n=3000, seed=0):
+    """Four 12-level one-hot blocks and 3 normal columns (ROADMAP.md Queue
+    3, F3): the JAX package bundles each block's columns into shared
+    planes."""
+    rng = np.random.default_rng(seed)
+    levels = rng.integers(0, 12, size=(n, 4))
+    blocks = [np.eye(12)[levels[:, k]] for k in range(4)]
+    x = np.concatenate(blocks + [rng.normal(size=(n, 3))], axis=1)
+    z = levels[:, 0] % 3 - 1 + x[:, -1] + 0.5 * rng.normal(size=n)
+    return x, (z > 0).astype(float)
+
+
+BUNDLE_PARAMS = {"objective": "binary", "num_leaves": 15, "max_bin": 63}
+
+
+@pytest.mark.parametrize("params", [{}, {"enable_bundle": True}, {"bundle": "true"},
+                                    {"is_enable_bundle": 1, "max_conflict_rate": 0.1}])
+def test_bundleable_columns_raise_unless_bundling_is_off(params):
+    x, y = _one_hot_data()
+    jp = {**BUNDLE_PARAMS, **params, "verbosity": -1}
+    layout = lgb.Dataset(x, y, params=jp).construct().bundle_layout
+    assert layout is not None and any(len(p) > 1 for p in layout.planes)
+    with pytest.raises(NotImplementedError, match="enable_bundle=False"):
+        lt.Dataset(x, y, params={**BUNDLE_PARAMS, **params}).construct()
+
+
+def test_bundle_search_finds_the_jax_bundles():
+    from lightgbm_tpu_torch.bundling import find_bundles
+
+    x, y = _one_hot_data()
+    jd = lgb.Dataset(x, y, params={**BUNDLE_PARAMS, "verbosity": -1}).construct()
+    td = lt.Dataset(x, y, params={**BUNDLE_PARAMS, "enable_bundle": False}).construct()
+    assert td.bundle_check_s == 0.0
+    got = find_bundles(td.used_features, td.bin_mappers,
+                       lambda j: np.flatnonzero(x[:, j]), x.shape[0])
+    assert got == [p for p in jd.bundle_layout.planes if len(p) > 1]
+
+
+def test_enable_bundle_false_trains_like_jax_unbundled():
+    x, y = _one_hot_data()
+    params = {**BUNDLE_PARAMS, "enable_bundle": False}
+    jp = {**params, "verbosity": -1, "metric": "none"}
+    jb = lgb.train(jp, lgb.Dataset(x, y, params=jp), 5)
+    assert jb.train_set.bundle_layout is None
+    tb = lt.train(params, lt.Dataset(x, y, params=params), 5, device="cpu")
+    assert len(tb.trees) == len(jb._bin_records) == 5
+    for jr, tree in zip(jb._bin_records, tb.trees):
+        tr = tree.record()
+        for k in ("split_feature", "split_bin", "default_left", "left_child", "right_child"):
+            np.testing.assert_array_equal(tr[k], jr[k], err_msg=k)
+        np.testing.assert_allclose(tr["leaf_value"], jr["leaf_value"], rtol=0, atol=1e-5)
+    np.testing.assert_allclose(tb.predict(x), jb.predict(x), rtol=0, atol=1e-5)
+
+
+def test_dense_columns_pass_the_bundle_check():
+    x, y = _data()
+    td = lt.Dataset(x, y, params={"max_bin": 63}).construct()
+    assert td.bundle_check_s > 0.0
+    assert Config.from_params({"is_enable_bundle": False}).enable_bundle is False

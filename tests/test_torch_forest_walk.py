@@ -36,6 +36,8 @@ from lightgbm_tpu_torch.ops.forest_walk import (
 )
 from lightgbm_tpu_torch.predict import predict_bins_raw, stack_bin_trees
 
+from .test_torch_interpret import clear_jax_caches_after_module  # noqa: F401 (autouse)
+
 
 @pytest.fixture(scope="module", params=["binary", "regression"])
 def trained(request):

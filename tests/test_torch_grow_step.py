@@ -33,6 +33,7 @@ from lightgbm_tpu.ops.split import best_split as jax_best_split
 from lightgbm_tpu_torch.ops import grow_step, seg, split_scan
 from lightgbm_tpu_torch.quantize import hist_acc_scales
 
+from .test_torch_interpret import clear_jax_caches_after_module  # noqa: F401 (autouse)
 from .test_torch_interpret import jax_interpret
 
 # K=2 adjacent windows, neither start aligned to a tile: (start, cnt, feat,

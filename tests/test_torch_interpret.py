@@ -14,9 +14,16 @@ worker).  ``int8_on_cpu`` is the port's own switch
 (``lightgbm_tpu_torch.ops.grower.INT8_ON_CPU``), read at call time.
 
 Both restore what they found, in ``finally``.
+
+``clear_jax_caches_after_module`` is a module-scoped autouse fixture that
+every port test file imports: JAX's compiled executables keep their memory
+mappings until its caches are cleared, and an xdist worker that runs many
+files could otherwise reach the kernel's limit on mappings
+(``vm.max_map_count``) and crash inside XLA:CPU.
 """
 
 import contextlib
+import gc
 
 import jax
 import jax.numpy as jnp
@@ -26,6 +33,20 @@ from lightgbm_tpu.ops.pallas import grow_step as jax_grow_step
 from lightgbm_tpu.ops.pallas import seg as jax_seg
 
 from lightgbm_tpu_torch.ops import grower
+
+
+def clear_jax_caches() -> None:
+    """Drop JAX's compiled executables and collect them, which unmaps their
+    memory."""
+    jax.clear_caches()
+    gc.collect()
+
+
+@pytest.fixture(scope="module", autouse=True)
+def clear_jax_caches_after_module():
+    """``clear_jax_caches`` at the end of the module."""
+    yield
+    clear_jax_caches()
 
 
 @contextlib.contextmanager
@@ -78,3 +99,30 @@ def test_flags_are_restored_when_the_block_raises(monkeypatch):
             raise RuntimeError("inside")
     assert (jax_seg._INTERPRET, jax_grow_step._INTERPRET, grower.INT8_ON_CPU) == before
     assert len(cleared) == 2  # on entry and on exit
+
+
+def _mappings() -> int:
+    with open("/proc/self/maps") as fh:
+        return sum(1 for _ in fh)
+
+
+def test_clearing_jax_caches_unmaps_compiled_executables():
+    before = _mappings()
+    for n in range(3, 9):  # six executables
+        jax.jit(lambda x: jnp.cumsum(x * 2.0) - x.sum())(jnp.ones(n * 17)).block_until_ready()
+    grown = _mappings()
+    clear_jax_caches()
+    assert grown > before
+    assert _mappings() < grown
+
+
+def test_every_port_test_file_clears_jax_caches_after_it():
+    import importlib
+    import pathlib
+
+    files = sorted(pathlib.Path(__file__).parent.glob("test_torch_*.py"))
+    assert len(files) >= 9
+    for path in files:
+        mod = importlib.import_module(f"{__package__}.{path.stem}")
+        fixture = getattr(mod, "clear_jax_caches_after_module", None)
+        assert fixture is clear_jax_caches_after_module, path.name

@@ -37,6 +37,7 @@ import lightgbm_tpu_torch as lt
 from lightgbm_tpu_torch.ops import grower, seg, split_scan
 from lightgbm_tpu_torch.quantize import hist_acc_scales
 
+from .test_torch_interpret import clear_jax_caches_after_module  # noqa: F401 (autouse)
 from .test_torch_interpret import int8_on_cpu, jax_interpret
 
 KW = dict(lambda_l1=0.0, lambda_l2=0.5, min_data_in_leaf=5, min_sum_hessian_in_leaf=1e-3)

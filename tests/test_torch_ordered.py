@@ -44,6 +44,7 @@ from lightgbm_tpu_torch.ops import grower, histogram
 from lightgbm_tpu_torch.ops.forest_walk import walk_reject_reason
 from lightgbm_tpu_torch.quantize import quantize_gradients
 
+from .test_torch_interpret import clear_jax_caches_after_module  # noqa: F401 (autouse)
 from .test_torch_interpret import int8_on_cpu
 
 TREE_KEYS = ("split_feature", "split_bin", "default_left", "left_child", "right_child")

@@ -27,6 +27,8 @@ from lightgbm_tpu.ops.segpart import sort_partition_xla
 
 from lightgbm_tpu_torch.ops import seg
 
+from .test_torch_interpret import clear_jax_caches_after_module  # noqa: F401 (autouse)
+
 
 def _problem(n, f, nb, seed, nan_bin=True):
     rng = np.random.default_rng(seed)

@@ -9,7 +9,11 @@ the JAX package, on leaf histograms made from a numpy seed.
 * the plain scan rows match the Pallas kernel split_scan_pallas in
   interpret mode: same bin and direction per feature, gains and sums within
   1e-5 relative (the kernel's prefix sums go through bf16 digits, ~26 bits);
-* fused_best_split agrees with best_split on the chosen split.
+* fused_best_split agrees with best_split on the chosen split;
+* exact gain ties between features: where the JAX package's split-scan
+  kernel is off (the ordered layout's default, more than 64 features or
+  256 bins), the port takes best_split's case-major rule, serial and
+  batched; where the kernel is on, the kernel's first-feature rule.
 """
 
 import jax.numpy as jnp
@@ -17,11 +21,19 @@ import numpy as np
 import pytest
 import torch
 
+import lightgbm_tpu as lgb
 from lightgbm_tpu.ops.pallas.split_scan import split_scan_pallas
 from lightgbm_tpu.ops.split import best_split as jax_best_split
 
+import lightgbm_tpu_torch as lt
 from lightgbm_tpu_torch.ops.split import best_split, prefix_sum_bins
-from lightgbm_tpu_torch.ops.split_scan import fused_best_split, split_scan
+from lightgbm_tpu_torch.ops.split_scan import (
+    fused_best_split,
+    fused_best_split_batch,
+    split_scan,
+)
+
+from .test_torch_interpret import clear_jax_caches_after_module  # noqa: F401 (autouse)
 
 HYPER = [
     dict(lambda_l1=0.0, lambda_l2=0.0, min_data_in_leaf=20,
@@ -122,3 +134,100 @@ def test_fused_best_split_agrees_with_best_split(hp, n, f, b, nan_frac):
     assert got.gain == want.gain
     if np.isfinite(want.gain):
         assert got[1:] == want[1:]
+
+
+# two features tie at gain 50: feature 0 only with its NaN rows sent left,
+# feature 1 with missing-right (ROADMAP.md Queue 3, F1)
+TIE_X = np.array([[np.nan, 0], [np.nan, 0], [1, 0], [1, 0], [2, 1], [2, 1], [2, 1], [2, 1]],
+                 dtype=np.float64)
+TIE_Y = np.array([5, 5, 5, 5, 0, 0, 0, 0], dtype=np.float64)
+TIE_PARAMS = {"objective": "regression", "num_leaves": 2, "min_data_in_leaf": 1,
+              "min_sum_hessian_in_leaf": 0.0}
+
+
+def _first_split(tree):
+    return int(tree.split_feature[0]), int(tree.split_bin[0]), bool(tree.default_left[0])
+
+
+def test_exact_tie_on_the_ordered_layout_follows_jax_best_split():
+    params = {**TIE_PARAMS, "hist_mode": "ordered"}
+    jp = {**params, "verbosity": -1, "metric": "none"}
+    jb = lgb.train(jp, lgb.Dataset(TIE_X, TIE_Y, params=jp), 1)
+    tb = lt.train(params, lt.Dataset(TIE_X, TIE_Y, params=params), 1, device="cpu")
+    assert tb._grower_params.case_major_ties
+    jr = jb._bin_records[0]
+    want = (int(jr["split_feature"][0]), int(jr["split_bin"][0]), bool(jr["default_left"][0]))
+    assert want == (1, 0, False)
+    assert _first_split(tb.trees[0]) == want
+    np.testing.assert_allclose(tb.predict(TIE_X), jb.predict(TIE_X), rtol=0, atol=1e-6)
+
+
+def test_exact_tie_on_seg_keeps_the_kernel_rule():
+    """At F <= 64 on seg the JAX package's kernel scan (fused_ok) takes the
+    first feature with the largest row gain, and so does the port."""
+    tb = lt.train(TIE_PARAMS, lt.Dataset(TIE_X, TIE_Y, params=TIE_PARAMS), 1, device="cpu")
+    assert tb.hist_mode == "seg" and not tb._grower_params.case_major_ties
+    assert _first_split(tb.trees[0]) == (0, 0, True)
+
+
+def _tied_leaves():
+    """Leaf histograms [3, 2, 4, 3] of TIE_X's two features at the root's
+    gradients (g = mean - y, h = 1): as they are; swapped (the missing-right
+    feature first); feature 0 twice (missing-left only)."""
+    g = np.where(TIE_Y > 0, -2.5, 2.5).astype(np.float32)
+    f0 = np.array([3, 3, 0, 0, 1, 1, 1, 1])  # NaN -> bin 3
+    f1 = np.array([0, 0, 0, 0, 1, 1, 1, 1])
+
+    def feat(bins):
+        out = np.zeros((4, 3), np.float32)
+        np.add.at(out, bins, np.stack([g, np.ones(8), np.ones(8)], 1).astype(np.float32))
+        return out
+
+    hist = np.stack([np.stack([feat(f0), feat(f1)]), np.stack([feat(f1), feat(f0)]),
+                     np.stack([feat(f0), feat(f0)])])
+    nan_bins = [np.array(v, np.int32) for v in ([3, -1], [-1, 3], [3, 3])]
+    return hist, nan_bins
+
+
+@pytest.mark.parametrize("hp", HYPER)
+@pytest.mark.parametrize("n,f,b,nan_frac", CASES)
+def test_case_major_candidate_agrees_with_best_split(hp, n, f, b, nan_frac):
+    hist, parent, num_bins, nan_bins = _leaf(n, f, b, seed=3 * n + f, nan_frac=nan_frac)
+    args = (
+        torch.as_tensor(hist), *map(float, parent), torch.as_tensor(num_bins),
+        torch.as_tensor(nan_bins), torch.ones(f, dtype=torch.bool),
+    )
+    want = best_split(*args, **hp)
+    got = fused_best_split(*args, case_major=True, **hp)
+    assert got.gain == want.gain
+    if np.isfinite(want.gain):
+        assert got[1:] == want[1:]
+
+
+@pytest.mark.parametrize("batched", [False, True])
+def test_case_major_candidates_equal_best_split_on_ties(batched):
+    hist, nan_bins = _tied_leaves()
+    m, f, b, _ = hist.shape
+    hp = dict(lambda_l1=0.0, lambda_l2=0.0, min_data_in_leaf=1,
+              min_sum_hessian_in_leaf=0.0, min_gain_to_split=0.0)
+    num_bins = torch.full((f,), 3, dtype=torch.int32)
+    mask = torch.ones(f, dtype=torch.bool)
+    parents = hist[:, 0].sum(axis=1)
+    want, kernel, got = [], [], []
+    for i in range(m):
+        args = (torch.as_tensor(hist[i]), *map(float, parents[i]), num_bins,
+                torch.as_tensor(nan_bins[i]), mask)
+        want.append(best_split(*args, **hp))
+        kernel.append(fused_best_split(*args, **hp))
+        if batched:  # one leaf a launch: the members' NaN bins differ
+            got += fused_best_split_batch(
+                torch.as_tensor(hist[i:i + 1]), torch.as_tensor(parents[i:i + 1]),
+                num_bins, torch.as_tensor(nan_bins[i]), mask, case_major=True,
+                with_margin=True, **hp)
+        else:
+            got.append(fused_best_split(*args, case_major=True, with_margin=True, **hp))
+    assert [c for c, _ in got] == want
+    assert [margin for _, margin in got] == [0.0] * m  # exact ties
+    # the kernel's rule takes the missing-left feature 0 of the first leaf
+    assert [(c.feature, c.default_left) for c in kernel] == [(0, True), (0, False), (0, True)]
+    assert [(c.feature, c.default_left) for c in want] == [(1, False), (0, False), (0, True)]

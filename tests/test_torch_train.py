@@ -33,6 +33,7 @@ import lightgbm_tpu_torch as lt
 from lightgbm_tpu_torch.ops import grower
 from lightgbm_tpu_torch.quantize import hist_acc_scales
 
+from .test_torch_interpret import clear_jax_caches_after_module  # noqa: F401 (autouse)
 from .test_torch_interpret import int8_on_cpu, jax_interpret
 
 SLICE = {"hist_mode": "seg", "hist_acc": "bf16", "grow_fused": "off",
@@ -154,6 +155,31 @@ def test_int8_tree_refine_count_equals_jax():
     np.testing.assert_array_equal(tt.split_feature, np.asarray(jt.split_feature)[:k])
     np.testing.assert_array_equal(tt.split_bin, np.asarray(jt.split_bin)[:k])
     assert tt.refine_count == int(jt.refine_count) > 0
+
+
+@pytest.mark.parametrize("objective,leaf", [("regression", 4.99862), ("binary", 1.38629)])
+def test_constant_first_tree_without_boost_from_average(objective, leaf):
+    """No split possible and ``boost_from_average=False``: the first tree is
+    the constant init score, added to the scores (ROADMAP.md Queue 3, F2)."""
+    rng = np.random.default_rng(0)
+    x = rng.normal(size=(100, 2))
+    if objective == "regression":
+        y = 5.0 + 0.01 * rng.normal(size=100)
+    else:
+        y = (np.arange(100) % 5 != 0).astype(float)  # 80% positives
+    params = {"objective": objective, "boost_from_average": False, "min_gain_to_split": 1e9}
+    jp = {**params, "verbosity": -1, "metric": "none"}
+    jb = lgb.train(jp, lgb.Dataset(x, y, params=jp), 3)
+    tb = lt.train(params, lt.Dataset(x, y, params=params), 3, device="cpu")
+    assert len(tb.trees) == len(jb.models_) == 1
+    assert tb.trees[0].num_leaves == 1
+    np.testing.assert_allclose(tb.trees[0].leaf_value, jb.models_[0].leaf_value, rtol=0,
+                               atol=1e-6)
+    assert abs(float(tb.trees[0].leaf_value[0]) - leaf) < 1e-5
+    for raw in (True, False):
+        np.testing.assert_allclose(tb.predict(x, raw_score=raw), jb.predict(x, raw_score=raw),
+                                   rtol=0, atol=1e-6)
+    np.testing.assert_allclose(tb.score.numpy(), tb.predict(x, raw_score=True), rtol=0, atol=1e-6)
 
 
 def test_training_loss_falls_and_score_matches_predict():
