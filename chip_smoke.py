@@ -17,7 +17,11 @@ Phases (any failed check raises, and the script exits non-zero):
            fused grow step (int8 and f32; the root window, K=2 adjacent
            unaligned windows and K=4 disjoint unaligned windows, one of them
            empty), the split scan, the batched partition on the same K=4
-           windows and the batched split scan on their 8 children
+           windows and the batched split scan on their 8 children; the
+           partition (its library yardstick: a stable sort of the go-left
+           keys, the gathers of every column and the copies back, the sort
+           alone beside it) also on the cases and edge cases of
+           lightgbm_tpu_torch/bench_partition.py, through the wrappers
   main     train() of the Higgs-shaped binary model (1,048,576 x 28,
            255 leaves, max_bin 255, learning rate 0.1) with the default
            path parameters (fused grow step, int8 accumulation with the
@@ -36,7 +40,8 @@ Phases (any failed check raises, and the script exits non-zero):
   off      the two-launch path (grow_fused='off', hist_acc='bf16') for 3
            rounds on the same rows: partition and f32 histogram launches,
            its log-loss against the default path's after 3 rounds, and
-           one more iteration under torch.profiler
+           one more iteration under torch.profiler (with the rows of its
+           partition windows: median, mean, largest)
   batch-off  the batch phase's parameters on the two-launch path for 3
            rounds: the batched partition, K-window f32 histograms and the
            batched split scan must launch
@@ -346,30 +351,68 @@ def check_seg_kernels(ds, dev):
 
     # -- kernel 2: stable partition of the root window by the root's split
     nanb = int(ds.nan_bins()[ck.feature])
-    args = (0, n, ck.feature, ck.bin, ck.default_left, nanb)
-    rk_rows = seg.pack_rows(bins_fn, grad, hess, ones)
-    rp_rows = seg.pack_rows(bins_fn, grad, hess, ones)
-    nlk = int(seg.sort_partition(rk_rows, *args))
-    nlp = int(seg.sort_partition_plain(rp_rows, *args))
-    if nlk != nlp or not same_rows(rk_rows, rp_rows):
-        raise AssertionError(f"partition: nl {nlk} vs {nlp} or row order differs")
-    # the library yardstick: one stable torch.sort of the go-left keys (it
-    # gives the permutation; the kernel also moves the rows)
-    keys = (~seg.go_left(bins_fn[ck.feature], ck.bin, ck.default_left, nanb)).to(torch.uint8)
-    lib_sort = time_ms(lambda: torch.sort(keys, stable=True))
-    del keys
-    out.append(kernel_entry(
-        "partition", 0.0,
-        time_ms(lambda: seg.sort_partition(rk_rows, *args)),
-        time_ms(lambda: seg.sort_partition_plain(rp_rows, *args), reps=5),
-        bound_ms(2 * n * (f + 16)), lib_sort,
-    ))
-    print(f"kernel partition: nl {nlk}, row order equal to the plain version")
-    del rk_rows, rp_rows
+    mem = seg.split_members([0], [n], [ck.feature], [ck.bin], [int(ck.default_left)], [nanb])
+    out.append(partition_entry("partition", seg.pack_rows(bins_fn, grad, hess, ones), mem,
+                               "root of the Higgs table", plain_reps=5))
 
     out.append(check_fused_step(ds, bins_fn, grad, hess, ones, ck, scales))
     out.extend(check_batch_kernels(ds, bins_fn, grad, hess, ones, ck, dev))
+    check_partition_cases(dev)
     return out
+
+
+def partition_entry(name, rows, mem, where, plain_reps):
+    """The partition kernel through its wrapper on one case
+    (``bench_partition.run_case``): nl and every column of the rows equal
+    to the plain version's, then its times with the rows restored before
+    each call; the library yardstick is the composite (stable sort of the
+    go-left keys, gathers of every column, copies back), the sort alone
+    beside it."""
+    from lightgbm_tpu_torch import bench_partition as bp
+
+    res = bp.run_case(where, rows, mem, {"wrapper": bp.wrapper_launch}, reps=20,
+                      plain_reps=plain_reps)
+    f, rows_k = rows.f, int(mem[:, 1].sum())
+    entry = kernel_entry(name, 0.0, res["wrapper"], res["plain"], bound_ms(2 * rows_k * (f + 16)),
+                         res["composite"])
+    entry.update(device_ms=res["wrapper device"], launches_per_call=res["wrapper ops"],
+                 sort_ms=res["sort"], library_call="stable torch.sort of the go-left keys, "
+                 "index_select of the bins and the four columns, copy_ back")
+    print(f"kernel {name} ({where}, windows {mem[:, :2].tolist()}): nl and every column equal "
+          f"to the plain version; {res['wrapper']:.4f} ms (device {res['wrapper device']:.4f} ms, "
+          f"{res['wrapper ops']:.0f} launches), bound {entry['bound_ms']:.5f} ms, sort "
+          f"{res['sort']:.4f} ms, composite {res['composite']:.4f} ms (device "
+          f"{res['composite device']:.4f}), plain {res['plain']:.4f} ms")
+    return entry
+
+
+def check_partition_cases(dev):
+    """The partition wrappers on the cases of ``bench_partition`` (synthetic
+    seg rows made on the card: the root, chip_smoke's K=4 layout, windows of
+    16,384 and 4,096 rows at unaligned starts, K=16 windows of 4,096 rows,
+    the root at F = 242) with their times, and on its edge cases: nl and
+    every column of the rows exactly as the plain versions leave them."""
+    from lightgbm_tpu_torch import bench_partition as bp
+
+    for f in (bp.ROOT_FEATURES, bp.WIDE_FEATURES):
+        rows, nb = bp.synthetic_rows(ROWS, f, dev)
+        todo = bp.cases(rows.n, nb)
+        if f != bp.ROOT_FEATURES:
+            todo = {"root": todo["root"]}
+        for cname, mem in todo.items():
+            res = bp.run_case(cname, rows, mem, {"wrapper": bp.wrapper_launch}, reps=20)
+            print(f"kernel partition case {cname} x {f} features ({int(mem[:, 1].sum())} rows in "
+                  f"{len(mem)} window(s)): exact; {res['wrapper']:.4f} ms (device "
+                  f"{res['wrapper device']:.4f} ms, {res['wrapper ops']:.0f} launches), bound "
+                  f"{res['bound']:.5f} ms, sort {res['sort']:.4f} ms, composite "
+                  f"{res['composite']:.4f} ms (device {res['composite device']:.4f})")
+        if f == bp.ROOT_FEATURES:
+            for cname, mem in bp.edge_cases(rows.n, nb).items():
+                bp.run_case(cname, rows, mem, {"wrapper": bp.wrapper_launch}, reps=0,
+                            timed=False)
+                print(f"kernel partition edge case {cname}: windows {mem[:, :2].tolist()}: exact")
+        del rows
+        torch.cuda.empty_cache()
 
 
 def same_rows(a, b) -> bool:
@@ -402,37 +445,16 @@ def check_batch_kernels(ds, bins_fn, grad, hess, ones, ck, dev):
     mem = k4_members(ds, ck)
     marr = seg.split_members(*mem)
     rk = seg.pack_rows(bins_fn, grad, hess, ones)
-    rp = seg.pack_rows(bins_fn, grad, hess, ones)
+    out = [partition_entry("partition_batch", rk, marr, "K=4 windows of the Higgs table",
+                           plain_reps=3)]
     nlk = seg.sort_partition_batch(rk, *mem)
-    nlp = seg.sort_partition_batch_plain(rp, marr)
-    torch.cuda.synchronize()
-    if not torch.equal(nlk, nlp) or not same_rows(rk, rp):
-        raise AssertionError(f"partition_batch: nl {nlk.tolist()} vs {nlp.tolist()} "
-                             "or the row order differs")
-    rows_k = int(marr[:, 1].sum())
-    # the library yardstick: one stable torch.sort of (window, goes right)
-    # keys over the K windows' rows
-    keys = torch.cat([
-        2 * i + (~seg.go_left(bins_fn[int(ft), int(s0):int(s0) + int(c)], int(tb), bool(dl),
-                              int(nb))).to(torch.int32)
-        for i, (s0, c, ft, tb, dl, nb) in enumerate(marr)])
-    lib_sort = time_ms(lambda: torch.sort(keys, stable=True))
-    del keys
-    out = [kernel_entry(
-        "partition_batch", 0.0,
-        time_ms(lambda: seg.sort_partition_batch(rk, *mem)),
-        time_ms(lambda: seg.sort_partition_batch_plain(rp, marr), reps=3),
-        bound_ms(2 * rows_k * (f + 16)), lib_sort,
-    )]
-    print(f"kernel partition_batch K=4 windows {marr[:, :2].tolist()}: nl {nlk.tolist()}, "
-          f"row order equal to the plain version")
 
     nl = nlk.tolist()
     wins = ([(int(s0), l) for s0, l in zip(marr[:, 0], nl)]
             + [(int(s0) + l, int(c) - l) for s0, c, l in zip(marr[:, 0], marr[:, 1], nl)])
     hist8 = seg.seg_hist_batch(rk, wins, b)
     parents = hist8[:, 0].sum(1)  # every row of a child: one bin of feature 0
-    del rk, rp
+    del rk
     kw = dict(lambda_l1=0.0, lambda_l2=0.0, min_data_in_leaf=BATCH_PARAMS["min_data_in_leaf"],
               min_sum_hessian_in_leaf=1e-3)
     args = (torch.as_tensor(ds.num_bins(), device=dev), torch.as_tensor(ds.nan_bins(), device=dev),
@@ -695,6 +717,7 @@ def profile_iteration(booster, label: str = "profile") -> None:
     from lightgbm_tpu_torch import _build
 
     from lightgbm_tpu_torch.ops import histogram as oh
+    from lightgbm_tpu_torch.ops import seg
 
     torch.cuda.synchronize()
     before = dict(_build.LAUNCHES)
@@ -705,7 +728,15 @@ def profile_iteration(booster, label: str = "profile") -> None:
         ordered.append((sum(c for _, c in wins), len(wins)))
         return launch(rows, order, wins, num_bins, scales)
 
+    parts = []  # rows of each window of each partition call
+    part_launch = seg._partition_launch
+
+    def part_recorded(rows, mem, counted_as, fn=None):
+        parts.extend(int(c) for c in mem[:, 1])
+        return part_launch(rows, mem, counted_as, fn)
+
     oh._launch = recorded
+    seg._partition_launch = part_recorded
     try:
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
             t0 = time.perf_counter()
@@ -714,6 +745,7 @@ def profile_iteration(booster, label: str = "profile") -> None:
             wall_ms = (time.perf_counter() - t0) * 1e3
     finally:
         oh._launch = launch
+        seg._partition_launch = part_launch
     launched = {k: v - before.get(k, 0) for k, v in _build.LAUNCHES.items()
                 if v - before.get(k, 0)}
     # device-side events only (kernels and copies on the card); the host
@@ -742,6 +774,15 @@ def profile_iteration(booster, label: str = "profile") -> None:
               f"({hist_us / 1e3 / (nbytes / HBM_BYTES_PER_S * 1e3):.1f}x); rows a launch: "
               f"median {rows[len(rows) // 2]}, mean {sum(rows) / len(rows):.0f}, "
               f"non-root mean {sum(rows[:-1]) / max(1, len(rows) - 1):.0f}")
+    if parts:
+        # the tree's partitions against their bound: each window's rows
+        # read and written once, F + 16 bytes a row
+        part_us = sum(us for key, (us, _) in dev_us.items() if "partition_" in key)
+        wins = sorted(parts)
+        pbound = 2 * sum(wins) * (len(booster.used_features) + 16) / HBM_BYTES_PER_S * 1e3
+        print(f"{label}: partition {part_us / 1e3:.3f} ms over {len(wins)} windows against a bound "
+              f"of {pbound:.3f} ms; rows a window median {wins[len(wins) // 2]}, mean "
+              f"{sum(wins) / len(wins):.0f}, largest {wins[-1]}")
     host = [e for e in prof.key_averages() if e.self_cpu_time_total > 0]
     host_ms = sum(e.self_cpu_time_total for e in host) / 1e3
     splits = max(1, booster.trees[-1].num_leaves - 1)

@@ -45,7 +45,8 @@ _F32 = ctypes.c_float
 SIGNATURES: Dict[str, Sequence] = {
     "seg_hist": (_VP,) * 4 + (_I64, _VP) + (_I32,) * 3 + (_VP,) * 3,
     "grow_step": (_VP,) * 5 + (_I64, _I32, _VP, _I32, _I32) + (_VP,) * 10,
-    "partition": (_VP,) * 5 + (_I64, _I32, _VP, _I32) + (_VP,) * 8,
+    "partition": (_VP,) * 5 + (_I64, _I32, _VP, _I32, _I32, _VP, _VP, _I64, _VP, _VP, _VP,
+                                ctypes.c_uint, _VP, _VP),
     "split_scan": (_VP,) * 5 + (_I32,) * 4 + (_F32,) * 4 + (_VP,) * 2,
     "forest_walk": (_VP,) * 4 + (_I64,) + (_I32,) * 5 + (_VP,) * 2,
     "ordered_hist": (_VP, _I64) + (_VP,) * 5 + (_I32,) * 3 + (_VP, _VP, _I64, _VP, _VP),

@@ -50,9 +50,9 @@ import numpy as np
 import torch
 
 from . import _build
+from ._bench import HBM_BYTES_PER_S, build_library, card_line, device_ms, time_ms
 from .ops import histogram as oh
 
-HBM_BYTES_PER_S = 3.35e12  # H100 SXM published HBM rate
 SMALL_ROWS = 14_000
 MEDIAN_ROWS = 4_000  # the median window of a profiled 255-leaf wide tree
 SKEWED_FEATURES = 64
@@ -144,41 +144,6 @@ def bound_ms(rows: oh.OrderedRows, order, wins, b: int) -> float:
     return nbytes / HBM_BYTES_PER_S * 1e3
 
 
-def time_ms(fn, reps: int = 20, warmup: int = 2) -> float:
-    """Median device time of one call, by CUDA events around each call."""
-    for _ in range(warmup):
-        fn()
-    torch.cuda.synchronize()
-    times = []
-    for _ in range(reps):
-        a = torch.cuda.Event(enable_timing=True)
-        z = torch.cuda.Event(enable_timing=True)
-        a.record()
-        fn()
-        z.record()
-        z.synchronize()
-        times.append(a.elapsed_time(z))
-    return statistics.median(times)
-
-
-def device_ms(fn, reps: int = 10) -> float:
-    """Device time of one call: the sum of the card's kernel times over
-    ``reps`` calls under torch.profiler, divided by ``reps`` (no host time
-    between launches, unlike ``time_ms``)."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
-    fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    us = sum(e.time_range.elapsed_us() for e in prof.events()
-             if e.device_type == DeviceType.CUDA)
-    return us / reps / 1e3
-
-
 def library_ms(rows, order, wins, b, scales=None) -> float:
     """One ``index_add_`` of the windows' (g*m, h*m, m) rows, or with
     ``scales`` their i32 digit rows, into a [K * F * B] table."""
@@ -206,11 +171,7 @@ def build_other(src: str, flags: List[str], out_dir: str):
     entry, its lgbt_ordered_hist_scratch entry or None for a source of the
     older interface: no scratch, output zeroed by the caller), the library
     path)."""
-    lib = os.path.join(out_dir, f"lib{abs(hash((src, tuple(flags))))}.so")
-    cmd = [_build.nvcc_path(), *_build.NVCC_FLAGS, *flags, "-I", _build.CSRC, "-o", lib, src]
-    res = subprocess.run(cmd, capture_output=True, text=True)
-    if res.returncode != 0:
-        raise RuntimeError(f"nvcc failed for {src} {flags}:\n{res.stdout}{res.stderr}")
+    lib, _ = build_library(src, flags, out_dir)
     so = ctypes.CDLL(lib)
     fn = so.lgbt_ordered_hist
     if hasattr(so, "lgbt_ordered_hist_scratch"):
@@ -280,8 +241,7 @@ def main(argv: Optional[List[str]] = None) -> int:
         print("bench_ordered: no CUDA device", file=sys.stderr)
         return 1
     dev = torch.device("cuda")
-    card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-                          capture_output=True, text=True).stdout.strip()
+    card = card_line()
     print(f"card: {card}")
     _build.build_all(["ordered_hist"])
     builds = {"this": ((_build.entry("ordered_hist"), _build.entry("ordered_hist_scratch")),

@@ -19,270 +19,322 @@
 // (ops/segpart.py:52 _go_left).
 //
 // Layout (the port's, not the TPU's i16 planes): bins u8 feature-major
-// [f, n_pad]; g, h, m f32 and ridx i32 columns [n_pad].
-//
-// The TPU's K-window kernel is correct only because its K grid programs run
-// one after another on the core, each finishing its in-place rewrite before
-// the next begins.  CUDA blocks run in no order, so here every phase covers
-// all K windows at once over a grid of (window, 1024-row tile) pairs, with
-// the per-window tile offsets from a scan:
-//   1. count:   one block per tile counts its left rows;
-//   2. scan:    one block per window turns its tile counts into exclusive
-//               offsets and writes the window's nl;
-//   3. scatter: each tile recomputes its flags, ranks them with a block
-//               scan (stable), and writes every column of every row to its
-//               final place in the window's part of a scratch buffer;
-//   4. copy:    the scratch windows are copied back over the rows.
-// All four are plain loads and stores: the result is exact and the same on
-// every run, and K windows in one call equal K calls of one window.
+// [f, n]; g, h, m f32 and ridx i32 columns [n], moved as 32-bit words.
 //
 // What bounds it on an H100: memory.  The least traffic is reading the
-// windows' rows once and writing them once, 2 * rows * (f + 16) bytes.  The
-// design moves them four times (each row's split-feature byte is read twice
-// more for the flags) because blocks run in no fixed order and a stable
-// scatter needs every tile's left count first.
+// windows' rows once and writing them once, 2 * rows * (f + 16) bytes.
+//
+// Design: two launches per call, both over all K windows at once.
+//   1. tiles (partition_tile_kernel): one block per tile of T rows of a
+//      window, numbered by a global counter in launch order.  The block
+//      starts 16-byte cp.async copies of its rows (every plane and column)
+//      into shared memory; meanwhile it reads the split feature's bytes
+//      directly, ranks the rows by ballots (rank_tile), publishes its left
+//      count, and looks back over the window's earlier tiles' counts, 256
+//      at a time, for its left offset L0.  Its left rows then go IN PLACE
+//      to [start + L0, start + L0 + left), once every earlier tile whose
+//      rows lie there has published that it has staged them (publish_staged,
+//      wait_staged); its right rows go, in order, to the window's
+//      part of a scratch at the window's right rank R0 = (rows before the
+//      tile) - L0.  Both runs are written by consecutive lanes as aligned
+//      4-byte words.  The window's last tile writes nl.
+//   2. copy (partition_copy_kernel): the scratch's right runs are copied
+//      to [start + nl, start + cnt) by one warp a run of kCopyRows rows,
+//      aligned 4-byte stores built from two aligned loads whatever the two
+//      runs' alignments, each lane's loads all in flight before its
+//      stores; it also resets the tile counter for the next call.
+// Traffic: each row read and written once in pass 1, each right row read
+// and written once more in pass 2: about (2 + 2 * right share) * (f + 16)
+// bytes a row, against the earlier design's four passes.  The scratch, the
+// status and staged words and the counter belong to the caller and live
+// across calls (the words carry an epoch, so nothing is cleared).  The
+// tile size T is the host's (ops/seg.py partition_tile_rows): at most what
+// keeps three blocks' stages on a multiprocessor, smaller for a call on few
+// rows, so that they still make a few hundred tiles.
+//
+// All moves are plain loads and stores: the result is exact and the same
+// on every run, and K windows in one call equal K calls of one window.
 
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "partition_tile.cuh"
 
 namespace {
 
-constexpr int kThreads = 256;
-constexpr int kRowsPerThread = 4;
-constexpr int kTile = kThreads * kRowsPerThread;  // 1024 rows per block
-constexpr int kMaxWindows = 16;
+using namespace ptile;
 
-struct Windows {
+constexpr int kMaxWindows = 16;
+constexpr int kCopyRows = 1024;  // right rows a block of the copy pass moves
+// loads a lane of the copy pass keeps in flight: a plane's run of kCopyRows
+// bytes is at most 257 aligned words, a column's quarter 256 words
+constexpr int kCopyPlaneUnroll = (kCopyRows / 4 + 1 + 31) / 32;
+constexpr int kCopyColUnroll = kCopyRows / 4 / 32;
+constexpr int kMemberCols = 6;   // start, cnt, feat, tbin, dl, nanb
+constexpr int kWriteUnroll = 2;  // rows of the columns a thread of a tile moves at a time
+constexpr int kMaxPlanes = 512;  // the stage offsets' room; the host's tile rule allows fewer
+
+struct Plan {
   int k;
   long long start[kMaxWindows];
   long long cnt[kMaxWindows];
-  long long row0[kMaxWindows + 1];   // prefix of cnt: scratch offsets
-  long long tile0[kMaxWindows + 1];  // prefix of tile counts
+  long long tile0[kMaxWindows + 1];  // the window's first tile; [k]: all tiles
+  long long s0[kMaxWindows];         // the window's offset in the scratch
   int feat[kMaxWindows];
   int tbin[kMaxWindows];
   int dl[kMaxWindows];
   int nanb[kMaxWindows];
 };
 
-__device__ __forceinline__ int go_left(int v, int tbin, int dl, int nanb) {
-  return (v <= tbin) || (dl && nanb >= 0 && v == nanb);
+struct Cols {
+  uint32_t* c[4];  // g, h, m, ridx
+  // column i by selects (a runtime index into a parameter array would copy
+  // the array to local memory)
+  __device__ __forceinline__ uint32_t* at(int i) const {
+    return i == 0 ? c[0] : i == 1 ? c[1] : i == 2 ? c[2] : c[3];
+  }
+};
+
+// the rows, the caller's scratch and the call's epoch
+struct Args {
+  uint8_t* bins;
+  Cols cols;
+  long long n;
+  int f;
+  uint8_t* s_planes;  // [f, s_stride]
+  uint32_t* s_cols;   // [4, s_stride]
+  long long s_stride;
+  unsigned long long* status;
+  unsigned* staged;
+  int* counter;
+  unsigned epoch;
+  int* nl_out;
+};
+
+// bytes of a tile's stage: a plane of T rows, a 4-byte column of T rows
+template <int T>
+struct Stage {
+  static constexpr int kPlane = T + 32;
+  static constexpr int kCol = 4 * T + 32;
+};
+
+// -DPART_TRACE: each tile's thread 0 notes the global timer (ns) at the
+// ends of its phases, and the multiprocessor's clock at the first and the
+// last, read back by lgbt_partition_trace (a diagnostic build of the
+// bench; the kernel's own builds leave it out)
+#ifdef PART_TRACE
+constexpr int kTraceTiles = 4096;
+constexpr int kTraceMarks = 7;
+__device__ unsigned long long g_trace[kTraceTiles][kTraceMarks + 2];
+__device__ __forceinline__ void mark(long long t, int k) {
+  __syncthreads();
+  if (threadIdx.x == 0 && t < kTraceTiles) {
+    unsigned long long ns;
+    asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(ns));
+    g_trace[t][k] = ns;
+    if (k == 0 || k == kTraceMarks - 1) g_trace[t][kTraceMarks + (k > 0)] = clock64();
+  }
+}
+#define PART_MARK(t, k) mark(t, k)
+#else
+#define PART_MARK(t, k)
+#endif
+
+template <int T>
+__global__ void __launch_bounds__(kThreads) partition_tile_kernel(Args a, Plan P) {
+  extern __shared__ __align__(16) uint8_t smem[];
+  __shared__ uint16_t src_of[T];
+  __shared__ uint32_t mask[T / 32];
+  __shared__ int pre[T / 32];
+  __shared__ unsigned red[kWarps];
+  __shared__ uint8_t soff[kMaxPlanes];  // plane j's first row at stage byte soff[j]
+  __shared__ long long s_tile;
+  __shared__ int s_left;
+  const long long n = a.n;
+  const int f = a.f;
+
+  if (threadIdx.x == 0) s_tile = atomicAdd(a.counter, 1);
+  __syncthreads();
+  const long long t = s_tile;
+  int w = 0;
+  while (w + 1 < P.k && t >= P.tile0[w + 1]) ++w;
+  const long long base = (t - P.tile0[w]) * T;  // window rows before the tile
+  const int tt = (int)min((long long)T, P.cnt[w] - base);
+  const long long row0 = P.start[w] + base;
+  PART_MARK(t, 0);
+
+  // 1. read the split feature's bytes of the tile's rows, then start
+  // staging every plane and column of them
+  int key[Chunks<T>::kPerWarp];
+  load_keys<T>(tt, a.bins + (long long)P.feat[w] * n + row0, key);
+  for (int j = threadIdx.x; j < f; j += kThreads) {
+    soff[j] = (uint8_t)align16_offset(a.bins + (long long)j * n + row0);
+  }
+  uint8_t* planes = smem;
+  uint8_t* cstage = smem + (size_t)f * Stage<T>::kPlane;
+  stage_runs(planes, Stage<T>::kPlane, a.bins + row0, n, f, tt, Stage<T>::kPlane / 16);
+#pragma unroll
+  for (int c = 0; c < 4; ++c) {
+    stage_runs(cstage + c * Stage<T>::kCol, 0,
+               reinterpret_cast<const uint8_t*>(a.cols.c[c] + row0), 0, 1, 4 * tt,
+               Stage<T>::kCol / 16);
+  }
+  PART_MARK(t, 1);
+
+  // 2. meanwhile rank the rows and publish the tile's left count
+  const int tbin = P.tbin[w], dl = P.dl[w], nanb = P.nanb[w];
+  const int tl = rank_tile<T>(
+      tt, key, [&](int v) { return go_left(v, tbin, dl, nanb); }, src_of, mask, pre, &s_left);
+  publish_count(a.status, t, P.tile0[w], (unsigned)tl, a.epoch);
+  PART_MARK(t, 2);
+
+  // 3. once the copies have landed, publish that the tile is staged
+  cp_async_wait_all();
+  __syncthreads();
+  publish_staged(a.staged, t, a.epoch);
+  PART_MARK(t, 3);
+
+  // 4. the tile's left offset; then wait for the earlier tiles whose rows
+  // the left run overwrites to have staged theirs
+  const unsigned excl = lookback(a.status, t, P.tile0[w], (unsigned)tl, a.epoch, red);
+  if (threadIdx.x == 0 && t + 1 == P.tile0[w + 1]) a.nl_out[w] = (int)(excl + tl);
+  PART_MARK(t, 4);
+  wait_staged(a.staged, t, P.tile0[w] + excl / T, a.epoch);
+  PART_MARK(t, 5);
+
+  // 5. the left run in place, the right run to the scratch
+  const long long lbase = P.start[w] + excl;
+  const long long rbase = P.s0[w] + base - excl;
+  const int tr = tt - tl;
+  write_planes(a.bins + lbase, n, f, tl, planes, Stage<T>::kPlane, soff, src_of);
+  write_planes(a.s_planes + rbase, a.s_stride, f, tr, planes, Stage<T>::kPlane, soff,
+               src_of + tl);
+  auto col_stage = [&](int c) {
+    return reinterpret_cast<const uint32_t*>(cstage + c * Stage<T>::kCol +
+                                             align16_offset(a.cols.at(c) + row0));
+  };
+  write_cols<kWriteUnroll>([&](int c) { return a.cols.at(c) + lbase; }, col_stage, tl, src_of);
+  write_cols<kWriteUnroll>([&](int c) { return a.s_cols + c * a.s_stride + rbase; }, col_stage,
+                           tr, src_of + tl);
+  PART_MARK(t, 6);
 }
 
-__device__ __forceinline__ int window_of(const Windows& w, long long tile) {
-  int i = 0;
-  while (i + 1 < w.k && tile >= w.tile0[i + 1]) ++i;
-  return i;
-}
-
-// exclusive scan of one int per thread over the block; returns this
-// thread's prefix and writes the block total to *total
-__device__ int block_exclusive_scan(int x, int* total) {
-  __shared__ int warp_sums[kThreads / 32];
+// blockIdx.z: the window; blockIdx.x: kCopyRows of its right rows;
+// blockIdx.y: a group of kWarps runs, one a warp (the f planes, then the
+// four columns in quarters)
+__global__ void __launch_bounds__(kThreads) partition_copy_kernel(Args a, Plan P) {
+  const int w = blockIdx.z;
   const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
-  int v = x;
-#pragma unroll
-  for (int d = 1; d < 32; d <<= 1) {
-    int y = __shfl_up_sync(0xffffffffu, v, d);
-    if (lane >= d) v += y;
+  const int item = blockIdx.y * kWarps + (threadIdx.x >> 5);
+  const bool lead = blockIdx.x == 0 && blockIdx.y == 0 && threadIdx.x == 0;
+  if (lead && w == 0) *a.counter = 0;
+  if (P.cnt[w] == 0) {
+    if (lead) a.nl_out[w] = 0;
+    return;
   }
-  if (lane == 31) warp_sums[warp] = v;
-  __syncthreads();
-  if (warp == 0) {
-    int w = lane < kThreads / 32 ? warp_sums[lane] : 0;
-#pragma unroll
-    for (int d = 1; d < 32; d <<= 1) {
-      int y = __shfl_up_sync(0xffffffffu, w, d);
-      if (lane >= d) w += y;
-    }
-    if (lane < kThreads / 32) warp_sums[lane] = w;  // inclusive
-  }
-  __syncthreads();
-  const int before = warp > 0 ? warp_sums[warp - 1] : 0;
-  *total = warp_sums[kThreads / 32 - 1];
-  __syncthreads();
-  return before + v - x;
-}
-
-__global__ void count_kernel(const uint8_t* __restrict__ bins, long long n_pad,
-                             Windows w, int* __restrict__ tile_counts) {
-  const long long t = blockIdx.x;
-  const int wi = window_of(w, t);
-  const long long base = (t - w.tile0[wi]) * kTile;
-  const uint8_t* col = bins + (long long)w.feat[wi] * n_pad + w.start[wi];
-  int c = 0;
-  for (int i = threadIdx.x; i < kTile; i += kThreads) {
-    const long long r = base + i;
-    if (r < w.cnt[wi]) c += go_left(col[r], w.tbin[wi], w.dl[wi], w.nanb[wi]);
-  }
-  int total;
-  block_exclusive_scan(c, &total);
-  if (threadIdx.x == 0) tile_counts[t] = total;
-}
-
-// one block per window: exclusive offsets of its tiles (in place) and nl
-__global__ void scan_kernel(Windows w, int* __restrict__ tile_counts,
-                            int* __restrict__ nl_out) {
-  const int wi = blockIdx.x;
-  int* counts = tile_counts + w.tile0[wi];
-  const long long nt = w.tile0[wi + 1] - w.tile0[wi];
-  int carry = 0;
-  for (long long b0 = 0; b0 < nt; b0 += kThreads) {
-    const long long i = b0 + threadIdx.x;
-    const int x = i < nt ? counts[i] : 0;
-    int total;
-    const int ex = block_exclusive_scan(x, &total);
-    if (i < nt) counts[i] = carry + ex;
-    carry += total;
-  }
-  if (threadIdx.x == 0) nl_out[wi] = carry;
-}
-
-__global__ void scatter_kernel(const uint8_t* __restrict__ bins,
-                               const float* __restrict__ g,
-                               const float* __restrict__ h,
-                               const float* __restrict__ m,
-                               const int* __restrict__ ridx, long long n_pad,
-                               int f, Windows w,
-                               const int* __restrict__ tile_offsets,
-                               const int* __restrict__ nl_out,
-                               uint8_t* __restrict__ s_bins,
-                               float* __restrict__ s_g, float* __restrict__ s_h,
-                               float* __restrict__ s_m,
-                               int* __restrict__ s_ridx) {
-  const long long t = blockIdx.x;
-  const int wi = window_of(w, t);
-  const long long start = w.start[wi];
-  const long long cnt = w.cnt[wi];
-  const long long total_rows = w.row0[w.k];
-  const long long base = (t - w.tile0[wi]) * kTile;
-  const long long r0 = base + (long long)threadIdx.x * kRowsPerThread;
-  const uint8_t* col = bins + (long long)w.feat[wi] * n_pad + start;
-  int flags[kRowsPerThread];
-  int mine = 0;
-#pragma unroll
-  for (int k = 0; k < kRowsPerThread; ++k) {
-    const long long r = r0 + k;
-    flags[k] = r < cnt ? go_left(col[r], w.tbin[wi], w.dl[wi], w.nanb[wi]) : 0;
-    mine += flags[k];
-  }
-  int total;
-  const int left_before = block_exclusive_scan(mine, &total);
-  const long long lbase = tile_offsets[t];
-  const long long nl = nl_out[wi];
-  // rows of this tile before this thread's first row, left and right
-  const long long rows_before = (long long)threadIdx.x * kRowsPerThread;
-  long long lpos = lbase + left_before;
-  long long rpos = nl + (base - lbase) + (rows_before - left_before);
-  const long long s0 = w.row0[wi];
-#pragma unroll
-  for (int k = 0; k < kRowsPerThread; ++k) {
-    const long long r = r0 + k;
-    if (r >= cnt) break;
-    const long long dst = s0 + (flags[k] ? lpos++ : rpos++);
-    const long long src = start + r;
-    for (int j = 0; j < f; ++j) {
-      s_bins[(long long)j * total_rows + dst] = bins[(long long)j * n_pad + src];
-    }
-    s_g[dst] = g[src];
-    s_h[dst] = h[src];
-    s_m[dst] = m[src];
-    s_ridx[dst] = ridx[src];
+  const long long nl = a.nl_out[w];
+  const long long r0 = (long long)blockIdx.x * kCopyRows;
+  if (r0 >= P.cnt[w] - nl || item >= a.f + 16) return;
+  const int len = (int)min((long long)kCopyRows, P.cnt[w] - nl - r0);
+  const long long dst0 = P.start[w] + nl + r0;
+  const long long src0 = P.s0[w] + r0;
+  if (item < a.f) {
+    copy_run_u8<kCopyPlaneUnroll>(a.bins + (long long)item * a.n + dst0,
+                                  a.s_planes + (long long)item * a.s_stride + src0, len, lane);
+  } else {
+    const int c = (item - a.f) >> 2, q = (item - a.f) & 3;
+    const int lo = q * (len >> 2), hi = q == 3 ? len : lo + (len >> 2);
+    copy_run_u32<kCopyColUnroll>(a.cols.at(c) + dst0 + lo, a.s_cols + c * a.s_stride + src0 + lo,
+                                 hi - lo, lane);
   }
 }
 
-// blockIdx.y: the window; grid-stride over its rows
-__global__ void copy_back_kernel(uint8_t* __restrict__ bins,
-                                 float* __restrict__ g, float* __restrict__ h,
-                                 float* __restrict__ m, int* __restrict__ ridx,
-                                 long long n_pad, int f, Windows w,
-                                 const uint8_t* __restrict__ s_bins,
-                                 const float* __restrict__ s_g,
-                                 const float* __restrict__ s_h,
-                                 const float* __restrict__ s_m,
-                                 const int* __restrict__ s_ridx) {
-  const int wi = blockIdx.y;
-  const long long start = w.start[wi];
-  const long long s0 = w.row0[wi];
-  const long long total_rows = w.row0[w.k];
-  const long long stride = (long long)gridDim.x * blockDim.x;
-  for (long long r = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-       r < w.cnt[wi]; r += stride) {
-    for (int j = 0; j < f; ++j) {
-      bins[(long long)j * n_pad + start + r] =
-          s_bins[(long long)j * total_rows + s0 + r];
-    }
-    g[start + r] = s_g[s0 + r];
-    h[start + r] = s_h[s0 + r];
-    m[start + r] = s_m[s0 + r];
-    ridx[start + r] = s_ridx[s0 + r];
+template <int T>
+int launch_tiles(long long tiles, const Args& a, const Plan& P, cudaStream_t st) {
+  const int dyn = a.f * Stage<T>::kPlane + 4 * Stage<T>::kCol;
+  static int allowed = 48 * 1024;  // dynamic shared memory this kernel may take
+  if (dyn > allowed) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        partition_tile_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize, dyn);
+    if (e != cudaSuccess) return (int)e;
+    allowed = dyn;
   }
-}
-
-int partition_windows(const Windows& w, void* bins, void* g, void* h, void* m,
-                      void* ridx, long long n_pad, int f, void* s_bins,
-                      void* s_g, void* s_h, void* s_m, void* s_ridx,
-                      void* tile_counts, void* nl_out, cudaStream_t st) {
-  const long long tiles = w.tile0[w.k];
-  if (tiles == 0) {  // every window empty: nothing moves
-    cudaMemsetAsync(nl_out, 0, sizeof(int) * w.k, st);
-    return (int)cudaGetLastError();
-  }
-  count_kernel<<<(unsigned)tiles, kThreads, 0, st>>>(
-      (const uint8_t*)bins, n_pad, w, (int*)tile_counts);
-  scan_kernel<<<w.k, kThreads, 0, st>>>(w, (int*)tile_counts, (int*)nl_out);
-  scatter_kernel<<<(unsigned)tiles, kThreads, 0, st>>>(
-      (const uint8_t*)bins, (const float*)g, (const float*)h, (const float*)m,
-      (const int*)ridx, n_pad, f, w, (const int*)tile_counts,
-      (const int*)nl_out, (uint8_t*)s_bins, (float*)s_g, (float*)s_h,
-      (float*)s_m, (int*)s_ridx);
-  long long most = 0;
-  for (int i = 0; i < w.k; ++i) most = w.cnt[i] > most ? w.cnt[i] : most;
-  long long cblocks = (most + kThreads - 1) / kThreads;
-  if (cblocks > 4096) cblocks = 4096;
-  copy_back_kernel<<<dim3((unsigned)cblocks, w.k), kThreads, 0, st>>>(
-      (uint8_t*)bins, (float*)g, (float*)h, (float*)m, (int*)ridx, n_pad, f,
-      w, (const uint8_t*)s_bins, (const float*)s_g, (const float*)s_h,
-      (const float*)s_m, (const int*)s_ridx);
+  partition_tile_kernel<T><<<(unsigned)tiles, kThreads, dyn, st>>>(a, P);
   return (int)cudaGetLastError();
-}
-
-void add_window(Windows& w, long long start, long long cnt, int feat,
-                int tbin, int dl, int nanb) {
-  const int i = w.k++;
-  w.start[i] = start;
-  w.cnt[i] = cnt > 0 ? cnt : 0;
-  w.feat[i] = feat;
-  w.tbin[i] = tbin;
-  w.dl[i] = dl;
-  w.nanb[i] = nanb;
-  w.row0[i + 1] = w.row0[i] + w.cnt[i];
-  w.tile0[i + 1] = w.tile0[i] + (w.cnt[i] + kTile - 1) / kTile;
 }
 
 }  // namespace
 
 // K stable partitions of disjoint windows in one call (K = 1: one window).
-// Host array windows [k, 6] i64 rows (start, cnt, feat, tbin, dl, nanb).
-// Scratch: s_bins [f, total] u8, s_g/s_h/s_m [total] f32, s_ridx [total]
-// i32 with total the sum of cnt, tile_counts [max(1, sum of ceil(cnt /
-// 1024))] i32; nl_out [k] i32 receives the left counts.  Returns
+// members: host i64 [k, 6] rows (start, cnt, feat, tbin, dl, nanb); the
+// windows are cut into tiles of `tile` rows (the host's choice, one of the
+// instantiated sizes), counted over the windows in member order, and
+// window i's right run goes to the scratch at 16 plus the earlier
+// windows' cnt, each rounded up to 16 rows (ops/seg.py sizes the scratch
+// for that).  Scratch: s_planes u8 [f, s_stride], s_cols 4-byte
+// [4, s_stride], status u64 and staged u32 [>= all tiles], counter i32 (0
+// between calls; the call leaves it 0), epoch in [1, 2^30) and new for
+// every call that shares the status and staged words.  nl_out [k] i32
+// receives the left counts.  Every pointer 16-byte aligned.  Returns
 // cudaGetLastError() after the launches (0 on success).
-extern "C" int lgbt_partition(void* bins, void* g, void* h, void* m,
-                              void* ridx, long long n_pad, int f,
-                              const long long* windows, int k, void* s_bins,
-                              void* s_g, void* s_h, void* s_m, void* s_ridx,
-                              void* tile_counts, void* nl_out, void* stream) {
-  if (k < 1 || k > kMaxWindows || f <= 0) return (int)cudaErrorInvalidValue;
-  Windows w;
-  w.k = 0;
-  w.row0[0] = 0;
-  w.tile0[0] = 0;
-  for (int i = 0; i < k; ++i) {
-    const long long* r = windows + 6 * i;
-    add_window(w, r[0], r[1], (int)r[2], (int)r[3], (int)r[4], (int)r[5]);
+extern "C" int lgbt_partition(void* bins, void* g, void* h, void* m, void* ridx, long long n,
+                              int f, const long long* members, int k, int tile, void* s_planes,
+                              void* s_cols, long long s_stride, void* status, void* staged,
+                              void* counter, unsigned epoch, void* nl_out, void* stream) {
+  if (k < 1 || k > kMaxWindows || f <= 0 || f > kMaxPlanes || tile <= 0 || epoch == 0 ||
+      epoch >= (1u << 30)) {
+    return (int)cudaErrorInvalidValue;
   }
-  return partition_windows(w, bins, g, h, m, ridx, n_pad, f, s_bins, s_g,
-                           s_h, s_m, s_ridx, tile_counts, nl_out,
-                           (cudaStream_t)stream);
+  Plan P;
+  P.k = k;
+  P.tile0[0] = 0;
+  long long most = 0, s0 = 16;
+  for (int i = 0; i < k; ++i) {
+    const long long* r = members + kMemberCols * i;
+    P.start[i] = r[0];
+    P.cnt[i] = r[1] > 0 ? r[1] : 0;
+    P.feat[i] = (int)r[2];
+    P.tbin[i] = (int)r[3];
+    P.dl[i] = (int)r[4];
+    P.nanb[i] = (int)r[5];
+    P.tile0[i + 1] = P.tile0[i] + (P.cnt[i] + tile - 1) / tile;
+    P.s0[i] = s0;
+    s0 += (P.cnt[i] + 15) / 16 * 16;
+    most = P.cnt[i] > most ? P.cnt[i] : most;
+  }
+  const Args a{(uint8_t*)bins,
+               Cols{{(uint32_t*)g, (uint32_t*)h, (uint32_t*)m, (uint32_t*)ridx}},
+               n,
+               f,
+               (uint8_t*)s_planes,
+               (uint32_t*)s_cols,
+               s_stride,
+               (unsigned long long*)status,
+               (unsigned*)staged,
+               (int*)counter,
+               epoch,
+               (int*)nl_out};
+  cudaStream_t st = (cudaStream_t)stream;
+  const long long tiles = P.tile0[k];
+  if (tiles > 0) {
+    int rc;
+    switch (tile) {
+      case 2048: rc = launch_tiles<2048>(tiles, a, P, st); break;
+      case 1024: rc = launch_tiles<1024>(tiles, a, P, st); break;
+      case 512: rc = launch_tiles<512>(tiles, a, P, st); break;
+      case 256: rc = launch_tiles<256>(tiles, a, P, st); break;
+      case 128: rc = launch_tiles<128>(tiles, a, P, st); break;
+      default: return (int)cudaErrorInvalidValue;
+    }
+    if (rc != 0) return rc;
+  }
+  const long long xblocks = most > 0 ? (most + kCopyRows - 1) / kCopyRows : 1;
+  const unsigned groups = (unsigned)((f + 16 + kWarps - 1) / kWarps);
+  partition_copy_kernel<<<dim3((unsigned)xblocks, groups, (unsigned)k), kThreads, 0, st>>>(a, P);
+  return (int)cudaGetLastError();
 }
+
+#ifdef PART_TRACE
+// the marks of the last call: u64 [kTraceTiles, kTraceMarks + 2] into host
+// memory (the two clocks last)
+extern "C" int lgbt_partition_trace(void* host_out) {
+  return (int)cudaMemcpyFromSymbol(host_out, g_trace, sizeof(g_trace));
+}
+#endif

@@ -26,6 +26,7 @@ launch the kernel.  Each counts its kernel launches in ``_build.LAUNCHES``.
 from __future__ import annotations
 
 import dataclasses
+from typing import Optional
 
 import numpy as np
 import torch
@@ -42,6 +43,9 @@ class SegRows:
     h: torch.Tensor  # [n] f32
     m: torch.Tensor  # [n] f32 (1 in bag, 0 out)
     ridx: torch.Tensor  # [n] i32 original row index
+    # the partition kernel's buffers, made at its first call on these rows
+    part: Optional["PartitionScratch"] = dataclasses.field(default=None, repr=False,
+                                                           compare=False)
 
     @property
     def n(self) -> int:
@@ -239,7 +243,7 @@ def _device_scales(scales, dev) -> torch.Tensor:
 
 
 # ---------------------------------------------------------------------------
-# kernel 2: stable partition of one window
+# kernel 2: stable partition of one window, or of K disjoint windows
 # ---------------------------------------------------------------------------
 
 
@@ -259,9 +263,6 @@ def sort_partition_plain(
     for col in (rows.g, rows.h, rows.m, rows.ridx):
         col[win] = col[win][perm]
     return gl.sum().to(torch.int32)
-
-
-_PART_TILE = 1024  # rows per block of csrc/partition.cu
 
 
 def split_members(sbegins, cnts, feats, tbins, dls, nanbs) -> np.ndarray:
@@ -299,34 +300,111 @@ def sort_partition_batch(
     """K stable in-place partitions over K disjoint windows (``[K]`` host
     sequences as ``split_members`` takes them; cnt = 0 is a no-op member).
     Returns nl [K] i32 on the rows' device.  Plain version on the CPU, ONE
-    call of the ``csrc/partition.cu`` kernels on a CUDA device (counted as
-    ``partition_batch``)."""
+    call of the ``csrc/partition.cu`` kernels (two launches) on a CUDA
+    device (counted as ``partition_batch``)."""
     mem = split_members(sbegins, cnts, feats, tbins, dls, nanbs)
     if rows.device.type == "cpu":
         return sort_partition_batch_plain(rows, mem)
     return _partition_launch(rows, mem, "partition_batch")
 
 
-def _partition_launch(rows: SegRows, mem: np.ndarray, counted_as: str) -> torch.Tensor:
-    _require_cuda(rows)
-    k, f = mem.shape[0], rows.f
+# the tile sizes csrc/partition.cu instantiates, largest first
+PART_TILES = (2048, 1024, 512, 256, 128)
+# shared memory one tile block may take, so that three share a
+# multiprocessor (227 KB of the H100's 228 KB, 1 KB reserved per block)
+PART_BLOCK_SMEM = 75_776
+PART_COPY_ROWS = 1024  # right rows a block of the copy pass moves (kCopyRows)
+PART_FILL_TILES = 264  # tiles a call aims for: two a multiprocessor
+PART_MIN_TILE = 256
+
+
+def partition_stage_bytes(f: int, tile: int) -> int:
+    """Shared memory of one tile block: f planes of tile + 32 bytes and four
+    4-byte columns of 4 * tile + 32 (the 16-byte chunks that cover an
+    unaligned run), the ranks (2 bytes a row), the ballot masks and their
+    scan (8 bytes per 32 rows), the planes' stage offsets (512 bytes) and
+    a few words."""
+    return f * (tile + 32) + 4 * (4 * tile + 32) + 2 * tile + tile // 4 + 512 + 64
+
+
+def partition_tile_rows(f: int, rows: int = 0) -> int:
+    """Rows a tile of the partition kernel stages: the largest of
+    ``PART_TILES`` whose stage fits ``PART_BLOCK_SMEM``; for a call on
+    ``rows`` rows, no larger than gives ``PART_FILL_TILES`` tiles, and no
+    smaller than ``PART_MIN_TILE`` (small windows finish sooner in more,
+    smaller tiles; large ones lose less to each tile's fixed cost in fewer,
+    larger ones)."""
+    for tile in PART_TILES:
+        if partition_stage_bytes(f, tile) <= PART_BLOCK_SMEM:
+            break
+    else:
+        widest = ((PART_BLOCK_SMEM - partition_stage_bytes(0, PART_TILES[-1]))
+                  // (PART_TILES[-1] + 32))
+        raise ValueError(f"the partition kernel's tiles hold at most {widest} features, got {f}")
+    while rows and tile > PART_MIN_TILE and rows < tile * PART_FILL_TILES:
+        tile //= 2
+    return tile
+
+
+def partition_scratch_rows(n: int) -> int:
+    """Row stride of the partition kernel's scratch: every window's right
+    run (at most its cnt rows; the windows hold at most n rows together)
+    at a 16-row aligned offset, with 16 rows of margin before the first
+    and after the last (the copy pass reads up to 7 bytes past a run)."""
+    return -(-(n + 16 * (MAX_WINDOWS + 2)) // 16) * 16
+
+
+class PartitionScratch:
+    """The partition kernel's buffers for one set of seg rows, made once
+    and kept across calls: the right runs' scratch (planes u8 [F, stride],
+    the four 4-byte columns [4, stride]), the look-back's status words and
+    the staged words (one each per tile, tagged with the call's epoch, so
+    never cleared) and the tile counter (the kernel leaves it 0)."""
+
+    def __init__(self, rows: SegRows):
+        dev = rows.device
+        self.shape = (rows.f, rows.n)
+        self.stride = partition_scratch_rows(rows.n)
+        self.planes = torch.empty((rows.f, self.stride), dtype=torch.uint8, device=dev)
+        self.cols = torch.empty((4, self.stride), dtype=torch.int32, device=dev)
+        tiles = -(-rows.n // PART_TILES[-1]) + MAX_WINDOWS  # at the smallest tile
+        self.status = torch.zeros(tiles, dtype=torch.int64, device=dev)
+        self.staged = torch.zeros(tiles, dtype=torch.int32, device=dev)
+        self.counter = torch.zeros(1, dtype=torch.int32, device=dev)
+        self.epoch = 0
+
+    def next_epoch(self) -> int:
+        """The epoch of the next call, in [1, 2^30) (the status words keep
+        it in 30 bits; after 2^30 - 1 calls they are cleared once)."""
+        self.epoch += 1
+        if self.epoch >= 1 << 30:
+            self.status.zero_()
+            self.staged.zero_()
+            self.epoch = 1
+        return self.epoch
+
+
+def _partition_launch(rows: SegRows, mem: np.ndarray, counted_as: str, fn=None) -> torch.Tensor:
+    """One call of the ``csrc/partition.cu`` entry (``fn``: another build
+    of it) on K members ([K, 6] i64, C-contiguous); nl [K] i32 on the
+    card."""
+    k = mem.shape[0]
     if not 1 <= k <= MAX_WINDOWS:
         raise ValueError(f"the partition kernel takes 1 to {MAX_WINDOWS} windows, got {k}")
+    _require_cuda(rows)
+    if any(t.data_ptr() % 16 for t in (rows.bins, rows.g, rows.h, rows.m, rows.ridx)):
+        raise ValueError("the partition kernel needs seg rows columns at 16-byte aligned starts")
+    if rows.part is None or rows.part.shape != (rows.f, rows.n):
+        rows.part = PartitionScratch(rows)
+    ps = rows.part
     dev = rows.device
-    total = int(mem[:, 1].sum())
-    tiles = int(sum(-(-int(c) // _PART_TILE) for c in mem[:, 1]))
-    s_bins = torch.empty((f, total), dtype=torch.uint8, device=dev)
-    s_g = torch.empty((total,), dtype=torch.float32, device=dev)
-    s_h = torch.empty_like(s_g)
-    s_m = torch.empty_like(s_g)
-    s_ridx = torch.empty((total,), dtype=torch.int32, device=dev)
-    tile_counts = torch.empty((max(tiles, 1),), dtype=torch.int32, device=dev)
     nl = torch.empty((k,), dtype=torch.int32, device=dev)
-    rc = _build.entry("partition")(
-        rows.bins.data_ptr(), rows.g.data_ptr(), rows.h.data_ptr(),
-        rows.m.data_ptr(), rows.ridx.data_ptr(), rows.n, f, mem.ctypes.data, k,
-        s_bins.data_ptr(), s_g.data_ptr(), s_h.data_ptr(), s_m.data_ptr(),
-        s_ridx.data_ptr(), tile_counts.data_ptr(), nl.data_ptr(),
+    rc = (fn or _build.entry("partition"))(
+        rows.bins.data_ptr(), rows.g.data_ptr(), rows.h.data_ptr(), rows.m.data_ptr(),
+        rows.ridx.data_ptr(), rows.n, rows.f, mem.ctypes.data, k,
+        partition_tile_rows(rows.f, int(mem[:, 1].sum())), ps.planes.data_ptr(),
+        ps.cols.data_ptr(), ps.stride, ps.status.data_ptr(), ps.staged.data_ptr(),
+        ps.counter.data_ptr(), ps.next_epoch(), nl.data_ptr(),
         torch.cuda.current_stream(dev).cuda_stream,
     )
     _build.check(rc, "partition kernel")
@@ -343,7 +421,7 @@ def sort_partition(
     ``csrc/partition.cu`` kernels on a CUDA device."""
     if rows.device.type == "cpu":
         return sort_partition_plain(rows, start, cnt, feat, tbin, dl, nanb)
-    mem = split_members([start], [cnt], [feat], [tbin], [int(bool(dl))], [nanb])
+    mem = np.array([[start, max(cnt, 0), feat, tbin, int(bool(dl)), nanb]], dtype=np.int64)
     return _partition_launch(rows, mem, "partition")[0]
 
 
