@@ -16,7 +16,11 @@ Phases (any failed check raises, and the script exits non-zero):
            f32 and int8 histograms (one window and K=2), the partition, the
            fused grow step (int8 and f32; the root window, K=2 adjacent
            unaligned windows and K=4 disjoint unaligned windows, one of them
-           empty), the split scan, the batched partition on the same K=4
+           empty, then the edge cases of
+           lightgbm_tpu_torch/bench_grow_step.py on synthetic rows; its
+           library yardstick the composite of sort, gathers, copies back and
+           index_add_ of the child, the pair of the partition and seg_hist
+           beside it), the split scan, the batched partition on the same K=4
            windows and the batched split scan on their 8 children; the
            partition (its library yardstick: a stable sort of the go-left
            keys, the gathers of every column and the copies back, the sort
@@ -29,6 +33,8 @@ Phases (any failed check raises, and the script exits non-zero):
            on the same rows; launch counts of its kernels (each must be
            > 0), near-tie refines per tree, and the training log-loss per
            round (it must fall); one more iteration under torch.profiler
+           (with the tree's fused steps against their bound and the rows of
+           their windows)
   batch    bench.py's headline parameters (min_data_in_leaf 100,
            leaf_batch 4: frontier-batched growth, up to 4 splits per grow
            step) for 10 rounds on the same rows: log-loss per round (it
@@ -206,19 +212,10 @@ def kernel_entry(name, max_abs_err, ms, plain_ms, bound, library_ms):
     }
 
 
-def f32_tol(rows, windows, b, counts):
-    """Worst-case |error| of an f32 sum of c terms per bin, c * 2^-24 *
-    sum|x|, for two sums taken in different orders (both g and h)."""
-    from lightgbm_tpu_torch.ops import seg
-
-    absr = seg.SegRows(rows.bins, rows.g.abs(), rows.h.abs(), rows.m, rows.ridx)
-    scale = seg.seg_hist_batch_plain(absr, windows, b)[..., :2]
-    return 2.0 * counts * 2.0**-24 * scale + 1e-6
-
-
 def check_seg_kernels(ds, dev):
     """Histograms, partition, split scan and the fused grow step at the root
     of the first tree."""
+    from lightgbm_tpu_torch._bench import f32_tol
     from lightgbm_tpu_torch.objectives import create_objective
     from lightgbm_tpu_torch.ops import seg, split, split_scan
     from lightgbm_tpu_torch.quantize import hist_acc_scales
@@ -415,10 +412,6 @@ def check_partition_cases(dev):
         torch.cuda.empty_cache()
 
 
-def same_rows(a, b) -> bool:
-    return all(torch.equal(getattr(a, c), getattr(b, c)) for c in ("bins", "g", "h", "m", "ridx"))
-
-
 def k4_members(ds, ck):
     """K=4 disjoint windows of the root's rows, none starting on a tile
     boundary, the second one empty, split on three features: (starts,
@@ -485,12 +478,20 @@ def check_batch_kernels(ds, bins_fn, grad, hess, ones, ck, dev):
 
 
 def check_fused_step(ds, bins_fn, grad, hess, ones, ck, scales):
-    """The fused grow step against its plain version (the oracle
-    composition) in both modes, at the root window, on K=2 adjacent
-    windows that start off any tile boundary and on the K=4 windows of
-    ``k4_members`` (one empty): rows, nl, nr, child_start and
-    child_cnt exactly; the int8 histogram exactly, the f32 one within the
-    f32 histogram's bound."""
+    """The fused grow step through its wrapper against its plain version
+    (the oracle composition) in both modes, with the rows restored before
+    each call (``bench_grow_step.run_case``): at the root window, on K=2
+    adjacent windows that start off any tile boundary and on the K=4
+    windows of ``k4_members`` (one empty), then on the edge cases of
+    ``bench_grow_step`` on synthetic rows made on the card (and the root of
+    a 64-bin table, ``few_bins``): dec and every
+    column of the rows exactly, the int8 histogram bit-equal, the f32
+    one's counts exactly and g/h within ``_bench.f32_tol``.  At the root:
+    its time, the plain version's, the pair (partition, then the histogram
+    of the elected child) and the composite (sort, gathers, copies back,
+    index_add_ of the child), the library yardstick."""
+    from lightgbm_tpu_torch import bench_grow_step as bg
+    from lightgbm_tpu_torch import bench_partition as bp
     from lightgbm_tpu_torch.ops import grow_step, seg
 
     n, f = ds.bins.shape
@@ -505,51 +506,47 @@ def check_fused_step(ds, bins_fn, grad, hess, ones, ck, scales):
                 [int(nan[ck.feature]), int(nan[f2])]),
         "K=4": k4_members(ds, ck),
     }
-    times = {}
+    wrapper = {"wrapper": bg.this_launcher()}
+    root = {}
     for mode, qs in (("int8", scales), ("f32", None)):
         for where, mem in members.items():
-            rk = seg.pack_rows(bins_fn, grad, hess, ones)
-            rp = seg.pack_rows(bins_fn, grad, hess, ones)
-            got = grow_step.fused_grow_step(rk, *mem, b, quant_scales=qs)
+            rows = seg.pack_rows(bins_fn, grad, hess, ones)
             marr = grow_step._members(*mem, None)
-            dec_p, hist_p = grow_step.fused_grow_step_plain(rp, marr, b, qs)
-            torch.cuda.synchronize()
-            dec_k = torch.stack(got[:4], 1)
-            if not torch.equal(dec_k, dec_p) or not same_rows(rk, rp):
-                raise AssertionError(
-                    f"fused_grow_step {mode} {where}: dec {dec_k.tolist()} vs "
-                    f"{dec_p.tolist()} or the row order differs"
-                )
-            hk = got[4]
-            if qs is not None:
-                if not torch.equal(hk, hist_p):
-                    raise AssertionError(f"fused_grow_step {mode} {where}: histogram differs")
-                herr = 0.0
-            else:
-                wins = dec_p[:, 2:4].tolist()
-                herr_t = (hk[..., :2] - hist_p[..., :2]).abs()
-                if not torch.equal(hk[..., 2], hist_p[..., 2]) or bool(
-                    (herr_t > f32_tol(rp, wins, b, hist_p[..., 2:3])).any()
-                ):
-                    raise AssertionError(
-                        f"fused_grow_step {mode} {where}: histogram off by {float(herr_t.max())}"
-                    )
-                herr = float(herr_t.max())
+            res = bg.run_case(f"{where} {mode}", rows, marr, b, qs, wrapper, reps=20,
+                              timed=where == "root", plain_reps=5)
+            got = "bit-equal" if qs is not None else "within f32_tol"
+            print(f"kernel fused_grow_step {mode} {where} (windows {marr[:, :2].tolist()}): dec "
+                  f"and every column of the rows equal to the plain version, histogram {got}")
             if where == "root":
-                times[mode] = (
-                    time_ms(lambda: grow_step.fused_grow_step(rk, *mem, b, quant_scales=qs)),
-                    time_ms(lambda: grow_step.fused_grow_step_plain(rp, marr, b, qs), reps=5),
-                )
-            print(f"kernel fused_grow_step {mode} {where}: dec {dec_k.tolist()} and rows equal "
-                  f"to the plain version, histogram {'bit-equal' if qs is not None else f'within {herr:.3g}'}")
-            del rk, rp
-    print(f"kernel fused_grow_step f32 root: {times['f32'][0]:.4f} ms, plain {times['f32'][1]:.4f} ms")
-    return kernel_entry(
-        "fused_grow_step", 0.0, times["int8"][0], times["int8"][1],
-        # the rows read once and written once; the histogram rides the
-        # scatter and adds only its output
-        bound_ms(2 * n * (f + 16) + f * b * 12), None,
-    )
+                root[mode] = res
+                print(f"kernel fused_grow_step {mode} root: {res['wrapper']:.4f} ms (device "
+                      f"{res['wrapper device']:.4f} ms, {res['wrapper ops']:.0f} device "
+                      f"operations), bound {res['bound']:.5f} ms, pair {res['pair']:.4f} ms "
+                      f"(device {res['pair device']:.4f}), composite {res['composite']:.4f} ms "
+                      f"(device {res['composite device']:.4f}), plain {res['plain']:.4f} ms")
+            del rows
+    rows, nb = bp.synthetic_rows(ROWS, f, torch.device("cuda"))
+    qs = bg.int8_scales(rows)
+    for cname, mem in bg.edge_cases(rows, nb).items():
+        for q in (qs, None):
+            bg.run_case(cname, rows, mem, 256, q, wrapper, reps=0, timed=False)
+        print(f"kernel fused_grow_step edge case {cname}: windows {mem[:, :2].tolist()}: exact "
+              "in both modes")
+    small, mem = bg.few_bins(rows)
+    for q in (qs, None):
+        bg.run_case("root at 64 bins", small, mem, 64, q, wrapper, reps=0, timed=False)
+    print("kernel fused_grow_step edge case root at 64 bins: exact in both modes")
+    del rows, small
+    torch.cuda.empty_cache()
+    res = root["int8"]
+    entry = kernel_entry("fused_grow_step", 0.0, res["wrapper"], res["plain"],
+                         bound_ms(2 * n * (f + 16) + f * b * 12), res["composite"])
+    entry.update(device_ms=res["wrapper device"], launches_per_call=res["wrapper ops"],
+                 pair_ms=res["pair"], pair_device_ms=res["pair device"],
+                 f32_ms=root["f32"]["wrapper"], f32_device_ms=root["f32"]["wrapper device"],
+                 library_call="composite: stable torch.sort of the go-left keys, index_select "
+                 "of every column, copy_ back, index_add_ of the child's i32 digit rows")
+    return entry
 
 
 def library_index_add(rows, order, windows, b, scales=None):
@@ -716,8 +713,8 @@ def profile_iteration(booster, label: str = "profile") -> None:
 
     from lightgbm_tpu_torch import _build
 
+    from lightgbm_tpu_torch.ops import grow_step, seg
     from lightgbm_tpu_torch.ops import histogram as oh
-    from lightgbm_tpu_torch.ops import seg
 
     torch.cuda.synchronize()
     before = dict(_build.LAUNCHES)
@@ -735,8 +732,16 @@ def profile_iteration(booster, label: str = "profile") -> None:
         parts.extend(int(c) for c in mem[:, 1])
         return part_launch(rows, mem, counted_as, fn)
 
+    steps = []  # rows of each window of each fused grow step
+    step_launch = grow_step._launch
+
+    def step_recorded(rows, mem, num_bins, quant_scales, fn=None):
+        steps.append([int(c) for c in mem[:, 1]])
+        return step_launch(rows, mem, num_bins, quant_scales, fn)
+
     oh._launch = recorded
     seg._partition_launch = part_recorded
+    grow_step._launch = step_recorded
     try:
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
             t0 = time.perf_counter()
@@ -746,6 +751,7 @@ def profile_iteration(booster, label: str = "profile") -> None:
     finally:
         oh._launch = launch
         seg._partition_launch = part_launch
+        grow_step._launch = step_launch
     launched = {k: v - before.get(k, 0) for k, v in _build.LAUNCHES.items()
                 if v - before.get(k, 0)}
     # device-side events only (kernels and copies on the card); the host
@@ -783,6 +789,20 @@ def profile_iteration(booster, label: str = "profile") -> None:
         print(f"{label}: partition {part_us / 1e3:.3f} ms over {len(wins)} windows against a bound "
               f"of {pbound:.3f} ms; rows a window median {wins[len(wins) // 2]}, mean "
               f"{sum(wins) / len(wins):.0f}, largest {wins[-1]}")
+    if steps:
+        # the tree's fused grow steps against their bound: each window's
+        # rows read and written once, F + 16 bytes a row, and each call's
+        # K * F * B * 12 output bytes
+        f, b = len(booster.used_features), booster._grower_params.max_bin
+        step_us = sum(us for key, (us, _) in dev_us.items()
+                      if "partition_" in key or "lane_hist_" in key)
+        wins = sorted(c for call in steps for c in call)
+        sbound = (2 * sum(wins) * (f + 16) + sum(len(call) for call in steps) * f * b * 12
+                  ) / HBM_BYTES_PER_S * 1e3
+        print(f"{label}: fused_grow_step {step_us / 1e3:.3f} ms over {len(steps)} calls "
+              f"({len(wins)} windows) against a bound of {sbound:.3f} ms "
+              f"({step_us / 1e3 / sbound:.1f}x); rows a window median {wins[len(wins) // 2]}, "
+              f"mean {sum(wins) / len(wins):.0f}, largest {wins[-1]}")
     host = [e for e in prof.key_averages() if e.self_cpu_time_total > 0]
     host_ms = sum(e.self_cpu_time_total for e in host) / 1e3
     splits = max(1, booster.trees[-1].num_leaves - 1)

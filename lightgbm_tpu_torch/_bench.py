@@ -1,7 +1,8 @@
 """Helpers shared by the kernel benches (``bench_ordered``,
-``bench_partition``): the card's line, timing by CUDA events and by device
-time under torch.profiler, and building another version of a kernel source
-into a directory of its own.  Nothing here runs at import time."""
+``bench_partition``, ``bench_grow_step``) and chip_smoke.py: the card's
+line, timing by CUDA events and by device time under torch.profiler, the
+tolerance of an f32 histogram, and building another version of a kernel
+source into a directory of its own.  Nothing here runs at import time."""
 
 from __future__ import annotations
 
@@ -99,15 +100,25 @@ def device_by_name(fn: Callable, reps: int = 10,
     return out
 
 
+def f32_tol(rows, windows, b: int, counts: torch.Tensor) -> torch.Tensor:
+    """Worst-case |error| of an f32 sum of c terms per bin, c * 2^-24 *
+    sum|x|, for two sums of the windows' (g*m, h*m) taken in different
+    orders; ``counts`` [K, F, B, 1] the bins' counts."""
+    from .ops import seg
+
+    absr = seg.SegRows(rows.bins, rows.g.abs(), rows.h.abs(), rows.m, rows.ridx)
+    scale = seg.seg_hist_batch_plain(absr, windows, b)[..., :2]
+    return 2.0 * counts * 2.0**-24 * scale + 1e-6
+
+
 def build_library(src: str, flags, out_dir: str) -> Tuple[str, str]:
     """Compile ``src`` (with extra nvcc ``flags``, the headers of csrc/ on
     the include path) into a shared library in ``out_dir``: (its path,
-    ptxas's register and spill lines)."""
+    ptxas's registers and spills a kernel)."""
     lib = os.path.join(out_dir, f"lib{abs(hash((src, tuple(flags))))}.so")
     cmd = [_build.nvcc_path(), *_build.NVCC_FLAGS, *flags, "-I", _build.CSRC, "-o", lib, src]
     res = subprocess.run(cmd, capture_output=True, text=True)
     out = res.stdout + res.stderr
     if res.returncode != 0:
         raise RuntimeError(f"nvcc failed for {src} {flags}:\n{out}")
-    report = [ln.strip() for ln in out.splitlines() if "registers" in ln or "spill" in ln]
-    return lib, "; ".join(report)
+    return lib, _build.ptxas_report(out)

@@ -1,16 +1,15 @@
 """Build and load the port's CUDA kernels.
 
-Each ``csrc/<name>.cu`` (with the shared ``csrc/*.cuh`` headers it
-includes) is compiled on first use, by ``nvcc`` for ``sm_90a``, into its
-own shared library ``build/lib<name>.so`` with a plain
-C interface, and loaded with ``ctypes``.  Nothing here runs at import time:
-the CPU tests import every module of the package on machines without
-``nvcc``.
+Each ``csrc/<name>.cu`` (with the ``csrc/`` files it includes) is compiled
+on first use, by ``nvcc`` for ``sm_90a``, into its own shared library
+``build/lib<name>.so`` with a plain C interface, and loaded with
+``ctypes``.  Nothing here runs at import time: the CPU tests import every
+module of the package on machines without ``nvcc``.
 
 ``build_all()`` starts one ``nvcc`` per source at once and waits for all of
 them, so a cold build costs the slowest file, not the sum.  A library is
-rebuilt when its source, a header or the flags change (a hash stamp sits
-beside it).
+rebuilt when its source, a file it includes or the flags change (a hash
+stamp sits beside it).
 """
 
 from __future__ import annotations
@@ -18,6 +17,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import threading
@@ -44,7 +44,8 @@ _I32 = ctypes.c_int
 _F32 = ctypes.c_float
 SIGNATURES: Dict[str, Sequence] = {
     "seg_hist": (_VP,) * 4 + (_I64, _VP) + (_I32,) * 3 + (_VP,) * 3,
-    "grow_step": (_VP,) * 5 + (_I64, _I32, _VP, _I32, _I32) + (_VP,) * 10,
+    "grow_step": (_VP,) * 5 + (_I64, _I32, _VP, _I32, _I32, _VP, _VP, _I64, _VP, _VP, _VP,
+                                ctypes.c_uint, _I32, _VP, _VP, _I64, _VP, _VP, _VP),
     "partition": (_VP,) * 5 + (_I64, _I32, _VP, _I32, _I32, _VP, _VP, _I64, _VP, _VP, _VP,
                                 ctypes.c_uint, _VP, _VP),
     "split_scan": (_VP,) * 5 + (_I32,) * 4 + (_F32,) * 4 + (_VP,) * 2,
@@ -54,6 +55,7 @@ SIGNATURES: Dict[str, Sequence] = {
 # further C entries of a source: name -> (source, argtypes, restype)
 EXTRA_ENTRIES: Dict[str, Tuple[str, Sequence, object]] = {
     "ordered_hist_scratch": ("ordered_hist", (_VP,) + (_I32,) * 4, _I64),
+    "grow_step_scratch": ("grow_step", (_I32,) * 3, _I64),
 }
 
 _ENTRIES: Dict[str, object] = {}
@@ -94,11 +96,26 @@ def _paths(name: str) -> Tuple[str, str, str]:
     return src, lib, lib + ".stamp"
 
 
+def _includes(path: str) -> List[str]:
+    """The csrc/ files that a source includes (``#include "..."``), and the
+    ones they include, each once."""
+    found: List[str] = []
+    todo = [path]
+    while todo:
+        with open(todo.pop()) as fh:
+            names = re.findall(r'^#include "([^"]+)"', fh.read(), flags=re.M)
+        for name in names:
+            dep = os.path.join(CSRC, name)
+            if dep not in found and os.path.exists(dep):
+                found.append(dep)
+                todo.append(dep)
+    return sorted(found)
+
+
 def _stamp(src: str) -> str:
-    """Hash of the source, the shared headers of csrc/ and the flags."""
+    """Hash of the source, the csrc/ files it includes and the flags."""
     h = hashlib.sha256()
-    headers = sorted(f for f in os.listdir(CSRC) if f.endswith(".cuh"))
-    for path in [src] + [os.path.join(CSRC, f) for f in headers]:
+    for path in [src] + _includes(src):
         with open(path, "rb") as fh:
             h.update(fh.read())
     h.update(" ".join(NVCC_FLAGS).encode())
@@ -138,8 +155,7 @@ def build_all(names: Sequence[str] = tuple(SIGNATURES)) -> Dict[str, Tuple[float
     for name, p, tmp, t0 in procs:
         out, _ = p.communicate()
         src, lib, stamp = _paths(name)
-        report = [ln.strip() for ln in out.splitlines() if "registers" in ln or "spill" in ln]
-        took[name] = (time.perf_counter() - t0, "; ".join(report))
+        took[name] = (time.perf_counter() - t0, ptxas_report(out))
         if p.returncode != 0:
             errors.append(f"nvcc failed for {src}:\n{out}")
             continue
@@ -149,6 +165,42 @@ def build_all(names: Sequence[str] = tuple(SIGNATURES)) -> Dict[str, Tuple[float
     if errors:
         raise RuntimeError("\n".join(errors))
     return took
+
+
+def _kernel_name(mangled: str) -> str:
+    """A mangled entry function's own name, with its template arguments
+    when they are bools or ints (``lane_hist_accumulate<true>``)."""
+    i = 3 if mangled.startswith("_ZN") else 2
+    name = mangled
+    while i < len(mangled) and mangled[i].isdigit():
+        j = i
+        while mangled[j].isdigit():
+            j += 1
+        name, i = mangled[j:j + int(mangled[i:j])], j + int(mangled[i:j])
+        if mangled.startswith("I", i):
+            args = re.findall(r"L([bi])(\d+)E", mangled[i:mangled.find("EE", i) + 2])
+            return name + "<" + ", ".join(("true" if v == "1" else "false") if t == "b" else v
+                                          for t, v in args) + ">"
+    return name
+
+
+def ptxas_report(out: str) -> str:
+    """nvcc's ``-Xptxas -v`` output as one entry a kernel: its registers
+    and its spill stores / loads in bytes."""
+    rows, name, spill = [], None, ""
+    for ln in out.splitlines():
+        m = re.search(r"Function properties for (\S+)", ln)
+        if m:
+            name = _kernel_name(m.group(1))
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", ln)
+        if m:
+            spill = f"spills {m.group(1)}/{m.group(2)} B"
+        m = re.search(r"Used (\d+) registers", ln)
+        if m and name:
+            rows.append(f"{name} {m.group(1)} registers, {spill}")
+            name = None
+    return "; ".join(rows)
 
 
 def entry(name: str):

@@ -1,18 +1,21 @@
 """Fused grow step: partition, smaller-child election and the smaller
-child's histogram of K disjoint leaf windows in one launch.
+child's histogram of K disjoint leaf windows in one call.
 
 Counterpart of ``lightgbm_tpu/ops/pallas/grow_step.py`` (``fused_grow_step``
 :318, kernel ``fused_grow_step_pallas`` :218).  ``fused_grow_step``
 dispatches on the device of the rows: on the CPU it runs the plain version,
 the XLA oracle of grow_step.py:388-411 (a stable partition of each window,
 the election ``nl <= nr`` picks the left child, the histogram of the
-smaller child), on a CUDA device it launches ``csrc/grow_step.cu`` (one
-cooperative launch, launches counted in ``_build.LAUNCHES['fused_grow_step']``).
-Numeric splits only.
+smaller child), on a CUDA device it calls ``csrc/grow_step.cu``: the
+partition kernels of ``csrc/partition.cu`` then the histogram of
+``csrc/lane_hist.cuh`` on each elected child, four launches with no host
+read between them, counted once a call in
+``_build.LAUNCHES['fused_grow_step']``.  Numeric splits only.
 """
 
 from __future__ import annotations
 
+import functools
 from typing import Optional, Sequence, Tuple
 
 import numpy as np
@@ -24,14 +27,12 @@ from .seg import (
     MAX_WINDOWS,
     SegRows,
     _device_scales,
-    _require_cuda,
-    combine_int8,
+    partition_scratch,
+    partition_tile_rows,
     seg_hist_batch_plain,
     sort_partition_batch_plain,
     split_members,
 )
-
-_TILE = 1024  # rows per tile of csrc/grow_step.cu
 
 
 def _members(sbegins, cnts, feats, tbins, dls, nanbs, iscats):
@@ -93,36 +94,42 @@ def fused_grow_step(
     return dec[:, 0], dec[:, 1], dec[:, 2], dec[:, 3], hist
 
 
-def _launch(rows: SegRows, mem: np.ndarray, num_bins: int, quant_scales):
-    _require_cuda(rows)
+@functools.lru_cache(maxsize=None)
+def scratch_bytes(f: int, num_bins: int, int8: bool) -> int:
+    """Bytes of the histogram scratch a step over any K <= 16 windows needs
+    (``lgbt_grow_step_scratch``: the head, then one image of a block's table
+    for each block the card holds at once)."""
+    nbytes = int(_build.entry("grow_step_scratch")(f, num_bins, int(int8)))
+    if nbytes < 0:
+        _build.check(-nbytes, "fused grow step scratch")
+    return nbytes
+
+
+def _launch(rows: SegRows, mem: np.ndarray, num_bins: int, quant_scales, fn=None):
+    """One call of the ``csrc/grow_step.cu`` entry (``fn``: another build of
+    it) on K members ([K, 6] i64): (dec [K, 4] i32, hist [K, F, B, 3] f32) on
+    the card.  The partition's buffers and the histogram scratch live on the
+    rows; only the two outputs are allocated."""
     k, f = mem.shape[0], rows.f
     if not 1 <= k <= MAX_WINDOWS:
         raise ValueError(f"fused_grow_step takes 1 to {MAX_WINDOWS} windows, got {k}")
+    ps = partition_scratch(rows)
     dev = rows.device
-    total = int(mem[:, 1].sum())
-    if total == 0:  # every member empty: nothing moves, zero histograms
-        dec = torch.as_tensor(_decision(mem, np.zeros(k, np.int64)), device=dev)
-        return dec, torch.zeros((k, f, num_bins, 3), dtype=torch.float32, device=dev)
-    planes = 3 if quant_scales is None else 5
-    dtype = torch.float32 if quant_scales is None else torch.int32
-    out = torch.zeros((k, f, num_bins, planes), dtype=dtype, device=dev)
-    tiles = int(sum(-(-int(c) // _TILE) for c in mem[:, 1]))
-    s_bins = torch.empty((f, total), dtype=torch.uint8, device=dev)
-    s_g = torch.empty((total,), dtype=torch.float32, device=dev)
-    s_h = torch.empty_like(s_g)
-    s_m = torch.empty_like(s_g)
-    s_ridx = torch.empty((total,), dtype=torch.int32, device=dev)
-    tile_counts = torch.empty((tiles,), dtype=torch.int32, device=dev)
+    need = scratch_bytes(f, int(num_bins), quant_scales is not None)
+    if rows.step is None or rows.step.numel() < need:
+        rows.step = torch.empty(need, dtype=torch.uint8, device=dev)
     dec = torch.empty((k, 4), dtype=torch.int32, device=dev)
+    out = torch.empty((k, f, num_bins, 3), dtype=torch.float32, device=dev)
     scales = None if quant_scales is None else _device_scales(quant_scales, dev)
-    rc = _build.entry("grow_step")(
-        rows.bins.data_ptr(), rows.g.data_ptr(), rows.h.data_ptr(),
-        rows.m.data_ptr(), rows.ridx.data_ptr(), rows.n, f, mem.ctypes.data,
-        k, int(num_bins), s_bins.data_ptr(), s_g.data_ptr(), s_h.data_ptr(),
-        s_m.data_ptr(), s_ridx.data_ptr(), tile_counts.data_ptr(),
-        dec.data_ptr(), None if scales is None else scales.data_ptr(),
-        out.data_ptr(), torch.cuda.current_stream(dev).cuda_stream,
+    rc = (fn or _build.entry("grow_step"))(
+        rows.bins.data_ptr(), rows.g.data_ptr(), rows.h.data_ptr(), rows.m.data_ptr(),
+        rows.ridx.data_ptr(), rows.n, f, mem.ctypes.data, k,
+        partition_tile_rows(f, int(mem[:, 1].sum())), ps.planes.data_ptr(), ps.cols.data_ptr(),
+        ps.stride, ps.status.data_ptr(), ps.staged.data_ptr(), ps.counter.data_ptr(),
+        ps.next_epoch(), int(num_bins), None if scales is None else scales.data_ptr(),
+        rows.step.data_ptr(), rows.step.numel(), dec.data_ptr(), out.data_ptr(),
+        torch.cuda.current_stream(dev).cuda_stream,
     )
-    _build.check(rc, "fused grow step kernel")
+    _build.check(rc, "fused grow step kernels")
     _build.LAUNCHES["fused_grow_step"] += 1
-    return dec, (out if scales is None else combine_int8(out, scales))
+    return dec, out

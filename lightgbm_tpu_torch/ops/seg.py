@@ -46,6 +46,8 @@ class SegRows:
     # the partition kernel's buffers, made at its first call on these rows
     part: Optional["PartitionScratch"] = dataclasses.field(default=None, repr=False,
                                                            compare=False)
+    # the fused grow step's histogram scratch (ops/grow_step.py), likewise
+    step: Optional[torch.Tensor] = dataclasses.field(default=None, repr=False, compare=False)
 
     @property
     def n(self) -> int:
@@ -94,7 +96,7 @@ def go_left(col: torch.Tensor, tbin: int, dl: bool, nanb: int) -> torch.Tensor:
 QMAX = 127 * 128  # 2-digit int8 grid ceiling (lightgbm_tpu/ops/pallas/seg.py:100)
 # the i32 digit sums are exact up to this many rows per window (|hi| <= 127)
 MAX_INT8_ROWS = (2**31 - 1) // 127
-MAX_WINDOWS = 16  # windows per launch (kMaxWindows of seg_hist.cu, grow_step.cu)
+MAX_WINDOWS = 16  # windows per launch (kMaxWindows of seg_hist.cu, partition.cu, lane_hist.cuh)
 
 
 def seg_hist_plain(rows: SegRows, start: int, cnt: int, num_bins: int) -> torch.Tensor:
@@ -384,6 +386,18 @@ class PartitionScratch:
         return self.epoch
 
 
+def partition_scratch(rows: SegRows) -> PartitionScratch:
+    """The partition kernel's buffers on the rows (made at the first call),
+    once the rows are checked: CUDA columns of the seg layout at 16-byte
+    aligned starts."""
+    _require_cuda(rows)
+    if any(t.data_ptr() % 16 for t in (rows.bins, rows.g, rows.h, rows.m, rows.ridx)):
+        raise ValueError("the partition kernel needs seg rows columns at 16-byte aligned starts")
+    if rows.part is None or rows.part.shape != (rows.f, rows.n):
+        rows.part = PartitionScratch(rows)
+    return rows.part
+
+
 def _partition_launch(rows: SegRows, mem: np.ndarray, counted_as: str, fn=None) -> torch.Tensor:
     """One call of the ``csrc/partition.cu`` entry (``fn``: another build
     of it) on K members ([K, 6] i64, C-contiguous); nl [K] i32 on the
@@ -391,12 +405,7 @@ def _partition_launch(rows: SegRows, mem: np.ndarray, counted_as: str, fn=None) 
     k = mem.shape[0]
     if not 1 <= k <= MAX_WINDOWS:
         raise ValueError(f"the partition kernel takes 1 to {MAX_WINDOWS} windows, got {k}")
-    _require_cuda(rows)
-    if any(t.data_ptr() % 16 for t in (rows.bins, rows.g, rows.h, rows.m, rows.ridx)):
-        raise ValueError("the partition kernel needs seg rows columns at 16-byte aligned starts")
-    if rows.part is None or rows.part.shape != (rows.f, rows.n):
-        rows.part = PartitionScratch(rows)
-    ps = rows.part
+    ps = partition_scratch(rows)
     dev = rows.device
     nl = torch.empty((k,), dtype=torch.int32, device=dev)
     rc = (fn or _build.entry("partition"))(
