@@ -13,7 +13,10 @@ Phases (any failed check raises, and the script exits non-zero):
            255-leaf trees), with its median time, the plain version's time,
            the least time the card could take (bound) and, where one
            PyTorch call computes the same function, that call's time: the
-           f32 and int8 histograms (one window and K=2), the partition, the
+           f32 and int8 segment histograms (the root and K=2 windows, then
+           the cases and edge cases of lightgbm_tpu_torch/bench_seg_hist.py
+           on synthetic rows: counts exact, int8 bit-equal, f32 within
+           _bench.f32_tol and the same bits on two calls), the partition, the
            fused grow step (int8 and f32; the root window, K=2 adjacent
            unaligned windows and K=4 disjoint unaligned windows, one of them
            empty, then the edge cases of
@@ -33,8 +36,9 @@ Phases (any failed check raises, and the script exits non-zero):
            on the same rows; launch counts of its kernels (each must be
            > 0), near-tie refines per tree, and the training log-loss per
            round (it must fall); one more iteration under torch.profiler
-           (with the tree's fused steps against their bound and the rows of
-           their windows)
+           (with the tree's fused steps, and its segment histograms of the
+           near-tie refine, against their bounds and the rows of their
+           windows)
   batch    bench.py's headline parameters (min_data_in_leaf 100,
            leaf_batch 4: frontier-batched growth, up to 4 splits per grow
            step) for 10 rounds on the same rows: log-loss per round (it
@@ -47,7 +51,8 @@ Phases (any failed check raises, and the script exits non-zero):
            rounds on the same rows: partition and f32 histogram launches,
            its log-loss against the default path's after 3 rounds, and
            one more iteration under torch.profiler (with the rows of its
-           partition windows: median, mean, largest)
+           partition windows, median, mean, largest, and its segment
+           histograms against their bound)
   batch-off  the batch phase's parameters on the two-launch path for 3
            rounds: the batched partition, K-window f32 histograms and the
            batched split scan must launch
@@ -84,6 +89,7 @@ off, batch-off, wide, wide-batch and wide-quant runs), the card, and
 from __future__ import annotations
 
 import json
+import re
 import statistics
 import subprocess
 import sys
@@ -212,10 +218,23 @@ def kernel_entry(name, max_abs_err, ms, plain_ms, bound, library_ms):
     }
 
 
+def with_device(entry, fn):
+    """The kernel entry with the device time of one call of ``fn`` alone
+    (``_bench.device_profile``: the card's kernel times under
+    torch.profiler, no host time between them) and its device operations;
+    the event time ``ms`` is the host's and the card's together."""
+    from lightgbm_tpu_torch._bench import device_profile
+
+    entry["device_ms"], entry["launches_per_call"] = device_profile(fn)
+    print(f"kernel {entry['name']}: {entry['ms']:.4f} ms event time, {entry['device_ms']:.4f} ms "
+          f"device time in {entry['launches_per_call']:.0f} device operations a call")
+    return entry
+
+
 def check_seg_kernels(ds, dev):
     """Histograms, partition, split scan and the fused grow step at the root
     of the first tree."""
-    from lightgbm_tpu_torch._bench import f32_tol
+    from lightgbm_tpu_torch import bench_seg_hist as bs
     from lightgbm_tpu_torch.objectives import create_objective
     from lightgbm_tpu_torch.ops import seg, split, split_scan
     from lightgbm_tpu_torch.quantize import hist_acc_scales
@@ -231,91 +250,50 @@ def check_seg_kernels(ds, dev):
     scales = hist_acc_scales(grad, hess, ones)
     out = []
 
-    # -- kernel 1: histogram of the whole window (the root)
+    # -- kernel 1: the histograms of the root and of K=2 adjacent windows
+    # that start off any tile boundary, f32 and int8, through the wrapper
+    # (bench_seg_hist.run_case: counts exact, int8 bit-equal to the plain
+    # version, f32 g/h within f32_tol and the same on two calls; the time,
+    # the device time alone, the plain version's, index_add_ beside it)
+    wrapper = {"wrapper": bs.this_launcher()}
+    k2 = [(37, n // 3 + 1), (37 + n // 3 + 1, n // 2)]
+    seg_res = {}
+    for mode, qs in (("f32", None), ("int8", scales)):
+        for where, wins in (("root", [(0, n)]), ("K=2", k2)):
+            r = bs.run_case(f"Higgs {where} {mode}", rows, wins, b, qs, wrapper, reps=20,
+                            plain_reps=5)
+            seg_res[mode, where] = r
+            print(f"kernel seg_hist {mode} {where} {wins} x {f} features: {r['wrapper']:.4f} ms "
+                  f"(device {r['wrapper device']:.4f} ms, {r['wrapper ops']:.0f} device "
+                  f"operations), bound {r['bound']:.5f} ms, plain {r['plain']:.4f} ms, library "
+                  f"index_add_ {r['library']:.4f} ms (device {r['library device']:.4f}); counts "
+                  + ("exact, bit-equal to the plain version" if qs is not None else
+                     "exact, g/h within f32_tol, the same bits on two calls"))
     hk = seg.seg_hist(rows, 0, n, b)
     hp = seg.seg_hist_plain(rows, 0, n, b)
-    torch.cuda.synchronize()
-    if not torch.equal(hk[..., 2], hp[..., 2]):
-        raise AssertionError("seg_hist: counts differ from the plain version")
-    # both sum g and h in a run-dependent order (the plain version on the
-    # card by global atomics): hold them to the worst-case error of an f32
-    # sum of c terms, and report the kernel's error against an f64 sum too
     err = (hk[..., :2] - hp[..., :2]).abs()
-    if bool((err > f32_tol(rows, [(0, n)], b, hp[None, ..., 2:3])[0]).any()):
-        raise AssertionError(f"seg_hist: g/h off by {float(err.max())}")
     r64 = seg.SegRows(rows.bins, rows.g.double(), rows.h.double(), rows.m.double(), rows.ridx)
     h64 = _hist_f64(r64, n, b)
-    print(f"kernel seg_hist: max |err| vs f64 sums: kernel {float((hk[..., :2] - h64).abs().max()):.3g}, "
-          f"plain {float((hp[..., :2] - h64).abs().max()):.3g}")
-    ids = (rows.bins.long() + torch.arange(f, device=dev)[:, None] * b).reshape(-1)
-    stats = torch.stack([rows.g, rows.h, rows.m], 1).repeat(f, 1)
-    lib = time_ms(lambda: torch.zeros(f * b, 3, device=dev).index_add_(0, ids, stats))
-    del ids, stats
-    out.append(kernel_entry(
-        "seg_hist", err.max(),
-        time_ms(lambda: seg.seg_hist(rows, 0, n, b)),
-        time_ms(lambda: seg.seg_hist_plain(rows, 0, n, b), reps=5),
-        bound_ms(n * (f + 12) + f * b * 12), lib,
-    ))
-    print(f"kernel seg_hist: counts exact, g/h max |err| vs plain {float(err.max()):.3g} "
-          f"(bound: count * 2^-24 * sum|x| per bin, each)")
-
-    # -- kernel 1, int8 2-digit mode: integer digit sums, so bit-exact
     h8k = seg.seg_hist(rows, 0, n, b, scales)
-    h8p = seg.seg_hist_batch_plain(rows, [(0, n)], b, scales)[0]
-    torch.cuda.synchronize()
-    if not torch.equal(h8k, h8p):
-        raise AssertionError("seg_hist int8: differs from the plain version")
-    grid_err = float((h8k[..., :2] - h64).abs().max())
-    # the library yardstick: one index_add_ of the i32 digit rows
-    g_hi, g_lo = seg.int8_digits(rows.g * rows.m, scales[0])
-    h_hi, h_lo = seg.int8_digits(rows.h * rows.m, scales[1])
-    ids = (rows.bins.long() + torch.arange(f, device=dev)[:, None] * b).reshape(-1)
-    stats = torch.stack([g_hi, g_lo, h_hi, h_lo, (rows.m != 0).to(torch.int32)], 1).repeat(f, 1)
-    lib8 = time_ms(lambda: torch.zeros(f * b, 5, dtype=torch.int32, device=dev)
-                   .index_add_(0, ids, stats))
-    del ids, stats
-    out.append(kernel_entry(
-        "seg_hist_int8", 0.0,
-        time_ms(lambda: seg.seg_hist(rows, 0, n, b, scales)),
-        time_ms(lambda: seg.seg_hist_batch_plain(rows, [(0, n)], b, scales), reps=5),
-        bound_ms(n * (f + 12) + f * b * 12), lib8,
-    ))
-    print(f"kernel seg_hist_int8: bit-equal to the plain version; the int8 grid is "
-          f"{grid_err:.3g} from the f64 sums at most (scales {scales.tolist()})")
-
-    # -- kernel 1, K=2 adjacent windows that start off any tile boundary
-    wins = [(37, n // 3 + 1), (37 + n // 3 + 1, n // 2)]
-    k8 = seg.seg_hist_batch(rows, wins, b, scales)
-    p8 = seg.seg_hist_batch_plain(rows, wins, b, scales)
-    k32 = seg.seg_hist_batch(rows, wins, b)
-    p32 = seg.seg_hist_batch_plain(rows, wins, b)
-    torch.cuda.synchronize()
-    if not torch.equal(k8, p8):
-        raise AssertionError("seg_hist int8 K=2: differs from the plain version")
-    err2 = (k32[..., :2] - p32[..., :2]).abs()
-    if not torch.equal(k32[..., 2], p32[..., 2]) or bool(
-        (err2 > f32_tol(rows, wins, b, p32[..., 2:3])).any()
-    ):
-        raise AssertionError(f"seg_hist K=2: off the plain version by {float(err2.max())}")
-    t32 = time_ms(lambda: seg.seg_hist_batch(rows, wins, b))
-    t8 = time_ms(lambda: seg.seg_hist_batch(rows, wins, b, scales))
-    p32ms = time_ms(lambda: seg.seg_hist_batch_plain(rows, wins, b), reps=5)
-    p8ms = time_ms(lambda: seg.seg_hist_batch_plain(rows, wins, b, scales), reps=5)
-    nk = sum(c for _, c in wins)
-    # the library yardstick: one index_add_ over both windows' rows into a
-    # [K, F, B] table, as for the root window
-    ids = torch.cat([
-        rows.bins[:, s0:s0 + c].long() + (k * f + torch.arange(f, device=dev)[:, None]) * b
-        for k, (s0, c) in enumerate(wins)], dim=1).reshape(-1)
-    stats = torch.cat([torch.stack([rows.g, rows.h, rows.m], 1)[s0:s0 + c].repeat(f, 1)
-                       for s0, c in wins])
-    lib2 = time_ms(lambda: torch.zeros(len(wins) * f * b, 3, device=dev).index_add_(0, ids, stats))
-    del ids, stats
-    print(f"kernel seg_hist K=2 windows {wins}: f32 {t32:.4f} ms (plain {p32ms:.4f}), "
-          f"int8 {t8:.4f} ms (plain {p8ms:.4f}), bound {bound_ms(nk * (f + 12) + 2 * f * b * 12)[0]:.5f} ms, "
-          f"library (index_add_ over the K windows) {lib2:.4f} ms; "
-          f"int8 bit-equal, f32 counts exact and g/h within {float(err2.max()):.3g}")
+    print(f"kernel seg_hist: max |err| vs f64 sums: kernel "
+          f"{float((hk[..., :2] - h64).abs().max()):.3g}, plain "
+          f"{float((hp[..., :2] - h64).abs().max()):.3g}; the int8 grid is "
+          f"{float((h8k[..., :2] - h64).abs().max()):.3g} from them at most "
+          f"(scales {scales.tolist()})")
+    del hk, h8k, h64, r64
+    for name, mode, max_err, lib in (
+            ("seg_hist", "f32", float(err.max()), "index_add_ of the rows' (g*m, h*m, m) into a "
+             "[K, F, B] table"),
+            ("seg_hist_int8", "int8", 0.0, "index_add_ of the rows' i32 digits and count into "
+             "a [K, F, B] table")):
+        r, r2 = seg_res[mode, "root"], seg_res[mode, "K=2"]
+        entry = kernel_entry(name, max_err, r["wrapper"], r["plain"],
+                             bound_ms(n * (f + 12) + f * b * 12), r["library"])
+        entry.update(device_ms=r["wrapper device"], launches_per_call=r["wrapper ops"],
+                     library_call=lib, k2_ms=r2["wrapper"], k2_device_ms=r2["wrapper device"],
+                     k2_library_ms=r2["library"])
+        out.append(entry)
+    check_seg_hist_cases(dev)
 
     # -- kernel 3: split scan of the root histogram
     kw = dict(lambda_l1=0.0, lambda_l2=0.0, min_data_in_leaf=20, min_sum_hessian_in_leaf=1e-3)
@@ -335,14 +313,14 @@ def check_seg_kernels(ds, dev):
     cp = split.best_split(hp, tg, th, tc, nb_t, nan_t, mask, min_gain_to_split=0.0, **kw)
     if (ck.feature, ck.bin) != (cp.feature, cp.bin):
         raise AssertionError(f"split_scan: best split {ck} vs best_split {cp}")
-    out.append(kernel_entry(
+    out.append(with_device(kernel_entry(
         "split_scan", gerr.max(),
         time_ms(lambda: split_scan.split_scan(hp, tot, nb_t, nan_t, mask, **kw)),
         time_ms(lambda: split_scan.split_scan_plain(hp, tot, nb_t, nan_t, mask, **kw), reps=5),
         # ~20 f32 operations per (bin, direction): 3 prefix adds, 3
         # subtractions, 4 compares, two leaf gains and their sum
         bound_ms(f * b * 12 + f * 8 * 4 + f * 12, ops=f * b * 2 * 20), None,
-    ))
+    ), lambda: split_scan.split_scan(hp, tot, nb_t, nan_t, mask, **kw)))
     print(f"kernel split_scan: bins/directions equal, rows max |err| {float(gerr.max()):.3g}; "
           f"best split feature {ck.feature} bin {ck.bin} as best_split")
 
@@ -356,6 +334,49 @@ def check_seg_kernels(ds, dev):
     out.extend(check_batch_kernels(ds, bins_fn, grad, hess, ones, ck, dev))
     check_partition_cases(dev)
     return out
+
+
+def check_seg_hist_cases(dev):
+    """The segment histogram through its wrapper on the cases of
+    ``bench_seg_hist`` (synthetic seg rows made on the card: the root, K=2,
+    the serial and batched near-tie refines, windows of 16,384 and 4,096
+    rows, K=16 x 4,096, the root at F = 242) in both modes with their times,
+    and on its edge cases (windows empty but one, under 32 rows, ending at
+    row n, a 64-bin table, an int8 window of MAX_INT8_ROWS rows): counts
+    exact, int8 bit-equal to the plain version, f32 within f32_tol and the
+    same on two calls."""
+    from lightgbm_tpu_torch import bench_partition as bp
+    from lightgbm_tpu_torch import bench_seg_hist as bs
+
+    wrapper = {"wrapper": bs.this_launcher()}
+    for f in (bp.ROOT_FEATURES, bp.WIDE_FEATURES):
+        rows, _ = bp.synthetic_rows(ROWS, f, dev)
+        scales = bs.int8_scales(rows)
+        todo = bs.cases(rows.n) if f == bp.ROOT_FEATURES else {"root": bs.cases(rows.n)["root"]}
+        for cname, wins in todo.items():
+            for mode, qs in (("f32", None), ("int8", scales)):
+                r = bs.run_case(cname, rows, wins, 256, qs, wrapper, reps=20)
+                print(f"kernel seg_hist case {cname} {mode} x {f} features "
+                      f"({sum(c for _, c in wins)} rows in {len(wins)} window(s)): exact; "
+                      f"{r['wrapper']:.4f} ms (device "
+                      f"{r['wrapper device']:.4f} ms, {r['wrapper ops']:.0f} device operations), "
+                      f"bound {r['bound']:.5f} ms, library index_add_ {r['library']:.4f} ms "
+                      f"(device {r['library device']:.4f})")
+        if f == bp.ROOT_FEATURES:
+            small = bs.few_bins(rows)
+            for q in (None, scales):
+                for cname, wins in bs.edge_cases(rows.n).items():
+                    bs.run_case(cname, rows, wins, 256, q, wrapper, reps=0, timed=False)
+                bs.run_case("root at 64 bins", small, [(0, rows.n)], 64, q, wrapper, reps=0,
+                            timed=False)
+            print(f"kernel seg_hist edge cases {list(bs.edge_cases(rows.n))} and the root at 64 "
+                  "bins: exact in both modes")
+            del small
+        del rows
+        torch.cuda.empty_cache()
+    wins = bs.check_largest_int8(wrapper, dev)
+    print(f"kernel seg_hist edge case int8 window {wins}, every row in one bin at digit 127: "
+          "bit-equal to the plain version")
 
 
 def partition_entry(name, rows, mem, where, plain_reps):
@@ -463,7 +484,7 @@ def check_batch_kernels(ds, bins_fn, grad, hess, ones, ck, dev):
         diff = (bk - bp).abs().nan_to_num(0.0).max()
         raise AssertionError(f"split_scan_batch: rows differ from the plain version ({float(diff)})")
     m = len(wins)
-    out.append(kernel_entry(
+    out.append(with_device(kernel_entry(
         "split_scan_batch", 0.0,
         time_ms(lambda: split_scan.split_scan_batch(hist8, parents, *args, **kw)),
         time_ms(lambda: split_scan.split_scan_batch_plain(hist8, parents, *args, **kw), reps=3),
@@ -471,7 +492,7 @@ def check_batch_kernels(ds, bins_fn, grad, hess, ones, ck, dev):
         # num_bins / nan_bins / mask in once; ~20 f32 operations per (bin,
         # direction) as the single scan
         bound_ms(m * (f * b * 12 + 12 + f * 8 * 4) + f * 12, ops=m * f * b * 2 * 20), None,
-    ))
+    ), lambda: split_scan.split_scan_batch(hist8, parents, *args, **kw)))
     print(f"kernel split_scan_batch: {m} children of the K=4 windows, rows bit-equal to the "
           f"plain version and to {m} single launches")
     return out
@@ -576,6 +597,7 @@ def check_ordered_kernels(rows, qrows, scales, num_bins, nan_bins, b):
     the root with 64 skewed features; the split scan of the root histogram
     at F=700."""
     from lightgbm_tpu_torch import bench_ordered
+    from lightgbm_tpu_torch._bench import device_profile
     from lightgbm_tpu_torch.ops import histogram as oh
     from lightgbm_tpu_torch.ops import split_scan
 
@@ -630,9 +652,11 @@ def check_ordered_kernels(rows, qrows, scales, num_bins, nan_bins, b):
         raise AssertionError(f"split_scan F=700: rows off by {float(gerr.max())}")
     ts = time_ms(lambda: split_scan.split_scan(root, tot, nb_t, nan_t, mask, **kw))
     tp = time_ms(lambda: split_scan.split_scan_plain(root, tot, nb_t, nan_t, mask, **kw), reps=5)
+    td, _ = device_profile(lambda: split_scan.split_scan(root, tot, nb_t, nan_t, mask, **kw))
     sb = bound_ms(f * b * 12 + f * 8 * 4 + f * 12, ops=f * b * 2 * 20)
-    print(f"kernel split_scan F={f}: {ts:.4f} ms (plain {tp:.4f}), bound {sb[0]:.5f} ms by "
-          f"{sb[1]}; bins/directions equal, rows max |err| {float(gerr.max()):.3g}")
+    print(f"kernel split_scan F={f}: {ts:.4f} ms (device {td:.4f}; plain {tp:.4f}), bound "
+          f"{sb[0]:.5f} ms by {sb[1]}; bins/directions equal, rows max |err| "
+          f"{float(gerr.max()):.3g}")
     return out
 
 
@@ -696,12 +720,12 @@ def check_forest_walk(booster, x, dev):
     table_bytes = sum(t.numel() * t.element_size() for t in (tables.node, tables.child, tables.leaf))
     print(f"kernel forest_walk: same leaves in every tree, scores max |err| {err:.3g} "
           f"vs the plain walker (tolerance 1e-5), {visits:.0f} node visits")
-    return kernel_entry(
+    return with_device(kernel_entry(
         "forest_walk", err,
         time_ms(lambda: fw.forest_walk(bins, tables, 1)),
         time_ms(lambda: fw.forest_walk_plain(bins, tables, 1), reps=3),
         bound_ms(n * f + table_bytes + n * 4, ops=visits), None,
-    )
+    ), lambda: fw.forest_walk(bins, tables, 1))
 
 
 def profile_iteration(booster, label: str = "profile") -> None:
@@ -739,9 +763,17 @@ def profile_iteration(booster, label: str = "profile") -> None:
         steps.append([int(c) for c in mem[:, 1]])
         return step_launch(rows, mem, num_bins, quant_scales, fn)
 
+    hists = {"f32": [], "int8": []}  # rows of each window of each segment histogram call
+    hist_launch = seg._seg_hist_launch
+
+    def hist_recorded(rows, wins, num_bins, scales, fn=None):
+        hists["f32" if scales is None else "int8"].append([int(c) for _, c in wins])
+        return hist_launch(rows, wins, num_bins, scales, fn)
+
     oh._launch = recorded
     seg._partition_launch = part_recorded
     grow_step._launch = step_recorded
+    seg._seg_hist_launch = hist_recorded
     try:
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
             t0 = time.perf_counter()
@@ -752,6 +784,7 @@ def profile_iteration(booster, label: str = "profile") -> None:
         oh._launch = launch
         seg._partition_launch = part_launch
         grow_step._launch = step_launch
+        seg._seg_hist_launch = hist_launch
     launched = {k: v - before.get(k, 0) for k, v in _build.LAUNCHES.items()
                 if v - before.get(k, 0)}
     # device-side events only (kernels and copies on the card); the host
@@ -763,6 +796,19 @@ def profile_iteration(booster, label: str = "profile") -> None:
         if e.device_type == DeviceType.CUDA:
             us, cnt = dev_us.get(e.name, (0.0, 0))
             dev_us[e.name] = (us + e.time_range.elapsed_us(), cnt + 1)
+    # the lane histogram's kernels serve the segment histogram and the fused
+    # step: an accumulate names its user (its second template argument is
+    # true in csrc/seg_hist.cu), and the reduce after it on the stream is
+    # the same call's
+    lane_us = {"seg f32": 0.0, "seg int8": 0.0, "step": 0.0}
+    user = "step"
+    for e in sorted((e for e in prof.events() if e.device_type == DeviceType.CUDA
+                     and "lane_hist_" in e.name), key=lambda e: e.time_range.start):
+        acc = re.search(r"lane_hist_accumulate<(\w+), (\w+)>", e.name)
+        if acc:
+            user = "step" if acc.group(2) == "false" else (
+                "seg int8" if acc.group(1) == "true" else "seg f32")
+        lane_us[user] += e.time_range.elapsed_us()
     busy_ms = sum(us for us, _ in dev_us.values()) / 1e3
     print(f"{label}: one iteration (tree {len(booster.trees)}) {wall_ms:.1f} ms wall under the "
           f"profiler, device busy {busy_ms:.1f} ms ({busy_ms / wall_ms:.3f} of wall)")
@@ -794,8 +840,8 @@ def profile_iteration(booster, label: str = "profile") -> None:
         # rows read and written once, F + 16 bytes a row, and each call's
         # K * F * B * 12 output bytes
         f, b = len(booster.used_features), booster._grower_params.max_bin
-        step_us = sum(us for key, (us, _) in dev_us.items()
-                      if "partition_" in key or "lane_hist_" in key)
+        step_us = lane_us["step"] + sum(us for key, (us, _) in dev_us.items()
+                                        if "partition_" in key)
         wins = sorted(c for call in steps for c in call)
         sbound = (2 * sum(wins) * (f + 16) + sum(len(call) for call in steps) * f * b * 12
                   ) / HBM_BYTES_PER_S * 1e3
@@ -803,6 +849,22 @@ def profile_iteration(booster, label: str = "profile") -> None:
               f"({len(wins)} windows) against a bound of {sbound:.3f} ms "
               f"({step_us / 1e3 / sbound:.1f}x); rows a window median {wins[len(wins) // 2]}, "
               f"mean {sum(wins) / len(wins):.0f}, largest {wins[-1]}")
+    for mode, calls in hists.items():
+        if not calls:
+            continue
+        # the tree's segment histograms against their bound: each window's
+        # rows read once, F + 12 bytes a row, and each call's K * F * B * 12
+        # output bytes (f32: the near-tie refine on the fused path)
+        f, b = len(booster.used_features), booster._grower_params.max_bin
+        wins = sorted(c for call in calls for c in call)
+        live = [c for c in wins if c > 0]
+        hbound = (sum(wins) * (f + 12) + len(wins) * f * b * 12) / HBM_BYTES_PER_S * 1e3
+        hms = lane_us["seg " + mode] / 1e3
+        print(f"{label}: seg_hist {mode} {hms:.3f} ms over {len(calls)} calls ({len(wins)} "
+              f"windows, {len(wins) - len(live)} of them empty) against a bound of {hbound:.3f} "
+              f"ms ({hms / max(hbound, 1e-9):.1f}x); rows a non-empty window median "
+              f"{live[len(live) // 2] if live else 0}, mean {sum(live) / max(1, len(live)):.0f}, "
+              f"largest {wins[-1]}")
     host = [e for e in prof.key_averages() if e.self_cpu_time_total > 0]
     host_ms = sum(e.self_cpu_time_total for e in host) / 1e3
     splits = max(1, booster.trees[-1].num_leaves - 1)

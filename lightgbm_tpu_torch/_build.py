@@ -43,7 +43,7 @@ _I64 = ctypes.c_longlong
 _I32 = ctypes.c_int
 _F32 = ctypes.c_float
 SIGNATURES: Dict[str, Sequence] = {
-    "seg_hist": (_VP,) * 4 + (_I64, _VP) + (_I32,) * 3 + (_VP,) * 3,
+    "seg_hist": (_VP,) * 4 + (_I64, _VP) + (_I32,) * 3 + (_VP, _VP, _I64, _VP, _VP),
     "grow_step": (_VP,) * 5 + (_I64, _I32, _VP, _I32, _I32, _VP, _VP, _I64, _VP, _VP, _VP,
                                 ctypes.c_uint, _I32, _VP, _VP, _I64, _VP, _VP, _VP),
     "partition": (_VP,) * 5 + (_I64, _I32, _VP, _I32, _I32, _VP, _VP, _I64, _VP, _VP, _VP,
@@ -56,6 +56,7 @@ SIGNATURES: Dict[str, Sequence] = {
 EXTRA_ENTRIES: Dict[str, Tuple[str, Sequence, object]] = {
     "ordered_hist_scratch": ("ordered_hist", (_VP,) + (_I32,) * 4, _I64),
     "grow_step_scratch": ("grow_step", (_I32,) * 3, _I64),
+    "seg_hist_scratch": ("seg_hist", (_I32,) * 3, _I64),
 }
 
 _ENTRIES: Dict[str, object] = {}

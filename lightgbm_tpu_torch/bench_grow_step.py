@@ -6,13 +6,15 @@ against PyTorch calls that do.
 Run from the root of a checkout, on a machine with the card::
 
     python3 -m lightgbm_tpu_torch.bench_grow_step [--baseline OTHER.cu]
-        [--variant NAME=FLAGS ...] [--trace] [--rows N] [--reps N]
+        [--other NAME=SOURCE ...] [--variant NAME=FLAGS ...] [--trace]
+        [--rows N] [--reps N]
 
 It makes seg rows on the card from a seed (``bench_partition.synthetic_rows``)
 and, for each case of ``bench_partition.cases`` (the root at 1,048,576 x 28,
 K=4 as chip_smoke.py's ``k4_members`` with one window empty, one window of
 16,384 rows and one of 4,096 at unaligned starts, K=16 windows of 4,096
-rows) and the root at F = 242, in f32 and in int8 mode (the scales of
+rows), one window of 14,012 rows (a default tree's median) and the root
+at F = 242, in f32 and in int8 mode (the scales of
 ``quantize.hist_acc_scales``), checks every build against
 ``fused_grow_step_plain``: ``dec`` exact, every column of the whole rows
 byte-equal after the call, the int8 histogram bit-equal, the f32
@@ -45,7 +47,9 @@ each case:
 ``--baseline`` builds another source with the C interface of the earlier
 design (one cooperative launch over scratch that its wrapper allocated on
 every call, a zeroed output, the int8 recombine outside the kernel) into a
-temporary directory; ``--variant`` builds this source with extra compiler
+temporary directory; ``--other`` builds another source of this one's C
+interface (with the headers beside it, for example an earlier
+``lane_hist.cuh``); ``--variant`` builds this source with extra compiler
 flags.  ``--trace`` builds this source with ``-DPART_TRACE -DHIST_TRACE``
 and prints each case's per-tile partition phases and per-block histogram
 phases (``clock64`` and the global timer).  chip_smoke.py checks the root,
@@ -80,8 +84,12 @@ MODES = ("f32", "int8")
 
 
 def cases(n: int, nb) -> Dict[str, np.ndarray]:
-    """{name: [K, 6] members} of the timed cases: the partition bench's."""
-    return partition_cases(n, nb)
+    """{name: [K, 6] members} of the timed cases: the partition bench's, and
+    one window of 14,012 rows (the median window of a default tree's fused
+    steps) at an unaligned start."""
+    out = partition_cases(n, nb)
+    out["14,012 rows"] = _members(nb, [4_321], [min(14_012, n - 4_321)], [7], [1])
+    return out
 
 
 def equal_children(rows: seg.SegRows, nb, start: int = 77, feat: int = 5,
@@ -368,6 +376,8 @@ def main(argv: Optional[List[str]] = None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--baseline", help="a grow_step.cu of the earlier, one-launch design to time "
                     "beside this one")
+    ap.add_argument("--other", action="append", default=[],
+                    help="NAME=SOURCE: another grow_step.cu with this source's C entry")
     ap.add_argument("--variant", action="append", default=[],
                     help="NAME=FLAGS: this source built with extra nvcc flags")
     ap.add_argument("--trace", action="store_true",
@@ -393,8 +403,11 @@ def main(argv: Optional[List[str]] = None) -> int:
         builds["baseline"] = earlier_launcher(lib)
     builds["this"] = this_launcher()
     src = f"{_build.CSRC}/grow_step.cu"
-    for vname, _, flags in (v.partition("=") for v in args.variant):
-        lib, report = build_library(src, flags.split(), tmp)
+    extra = [(name, path, []) for name, _, path in (v.partition("=") for v in args.other)]
+    extra += [(name, src, flags.split())
+              for name, _, flags in (v.partition("=") for v in args.variant)]
+    for vname, vsrc, flags in extra:
+        lib, report = build_library(vsrc, flags, tmp)
         print(f"build {vname}: ptxas: {report}")
         builds[vname] = this_launcher(_c_entry(lib))
     tracer = None

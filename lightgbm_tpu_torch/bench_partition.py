@@ -237,8 +237,8 @@ def this_launcher(fn=None) -> Callable:
 
 def kernel_name(name: str) -> str:
     """A device operation's function name without its namespace and
-    arguments ("partition_tile_kernel<1024>")."""
-    m = re.search(r"(\w+(?:<\d+>)?)\(", name)
+    arguments ("partition_tile_kernel<1024>", "lane_hist_reduce<true>")."""
+    m = re.search(r"(\w+(?:<[\w, ]+>)?)\(", name)
     return m.group(1) if m else name
 
 

@@ -15,8 +15,9 @@ row index ``ridx`` i32 ``[n]``.  The two contracts of the TPU layout hold:
 stable leaf-ordered windows, and the ``[F, B, 3]`` (g, h, count) histogram
 that ``combine_hist_raw`` returns.
 
-``seg_hist_batch`` (kernel ``csrc/seg_hist.cu``: K windows per launch, f32
-sums or the int8 2-digit grid), ``sort_partition`` and
+``seg_hist_batch`` (kernel ``csrc/seg_hist.cu``: K windows per call, f32
+sums or the int8 2-digit grid, the lane histogram of ``csrc/lane_hist.cuh``
+in two launches), ``sort_partition`` and
 ``sort_partition_batch`` (kernel ``csrc/partition.cu``: one window, or K
 disjoint windows per call) dispatch on the device of the tensors they are given:
 on the CPU they run their plain PyTorch versions, on a CUDA device they
@@ -26,6 +27,7 @@ launch the kernel.  Each counts its kernel launches in ``_build.LAUNCHES``.
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import Optional
 
 import numpy as np
@@ -46,7 +48,9 @@ class SegRows:
     # the partition kernel's buffers, made at its first call on these rows
     part: Optional["PartitionScratch"] = dataclasses.field(default=None, repr=False,
                                                            compare=False)
-    # the fused grow step's histogram scratch (ops/grow_step.py), likewise
+    # the lane histogram's scratch (csrc/lane_hist.cuh), likewise, shared by
+    # the fused grow step (ops/grow_step.py) and seg_hist_batch: both use it
+    # in stream order on one stream, and it grows to the larger need
     step: Optional[torch.Tensor] = dataclasses.field(default=None, repr=False, compare=False)
 
     @property
@@ -158,7 +162,10 @@ def combine_int8(raw: torch.Tensor, scales: torch.Tensor) -> torch.Tensor:
     """[..., B, 5] raw i32 planes -> [..., B, 3] (g, h, count) f32, as
     ``combine_hist_raw`` does (seg.py:457-461): g = (f32(S_hi)*128 +
     f32(S_lo)) * g_scale; the *128 is exact, the digit sums are exact below
-    2^24.  Shared by the plain version and the kernel's output."""
+    2^24.  The plain versions' recombine, and the ordered histogram's after
+    its launch; the lane histogram's reduce (``csrc/lane_hist.cuh``: the
+    segment histogram, the fused grow step) computes the same, bit for bit
+    (``-fmad=false``)."""
     a = raw.to(torch.float32)
     g = (a[..., 0] * 128.0 + a[..., 1]) * scales[0]
     h = (a[..., 2] * 128.0 + a[..., 3]) * scales[1]
@@ -192,7 +199,9 @@ def seg_hist_batch(
     ``seg_hist_batch`` of seg.py:754): f32 sums, or with ``scales`` [2] f32
     (``quantize.hist_acc_scales``) the int8 2-digit grid.  A window with
     cnt = 0 gives a zero histogram.  Plain version on the CPU, the
-    ``csrc/seg_hist.cu`` kernel on a CUDA device."""
+    ``csrc/seg_hist.cu`` kernels on a CUDA device (one call of
+    ``_seg_hist_launch`` per ``MAX_WINDOWS`` windows; none when every
+    window is empty)."""
     wins = _windows_list(windows)
     if scales is not None and max((c for _, c in wins), default=0) > MAX_INT8_ROWS:
         raise ValueError(
@@ -202,33 +211,56 @@ def seg_hist_batch(
     if rows.device.type == "cpu":
         return seg_hist_batch_plain(rows, wins, num_bins, scales)
     _require_cuda(rows)
-    k, f = len(wins), rows.f
-    if k > MAX_WINDOWS:  # one launch per MAX_WINDOWS windows
+    k = len(wins)
+    if k > MAX_WINDOWS:  # one call per MAX_WINDOWS windows
         return torch.cat([seg_hist_batch(rows, wins[i : i + MAX_WINDOWS], num_bins, scales)
                           for i in range(0, k, MAX_WINDOWS)])
     if k < 1:
         raise ValueError("seg_hist takes at least one window")
-    dev = rows.device
     if not any(c for _, c in wins):  # nothing to read: no launch
-        return torch.zeros((k, f, num_bins, 3), dtype=torch.float32, device=dev)
+        return torch.zeros((k, rows.f, num_bins, 3), dtype=torch.float32, device=rows.device)
+    return _seg_hist_launch(rows, wins, num_bins, scales)
+
+
+@functools.lru_cache(maxsize=None)
+def seg_hist_scratch_bytes(f: int, num_bins: int, int8: bool) -> int:
+    """Bytes of the scratch a ``csrc/seg_hist.cu`` call over any K <= 16
+    windows needs (``lgbt_seg_hist_scratch``: one image of a block's table
+    for each block the card holds at once, after the head that the fused
+    grow step's scratch has)."""
+    nbytes = int(_build.entry("seg_hist_scratch")(f, num_bins, int(int8)))
+    if nbytes < 0:
+        _build.check(-nbytes, "seg_hist scratch")
+    return nbytes
+
+
+def _seg_hist_launch(rows: SegRows, wins, num_bins: int, scales, fn=None) -> torch.Tensor:
+    """One call of the ``csrc/seg_hist.cu`` entry (``fn``: another build of
+    it) on 1 to ``MAX_WINDOWS`` windows [(start, cnt)] of CUDA rows: [K, F,
+    B, 3] f32 on the card, every cell written by the kernels.  The scratch
+    lives on the rows (``SegRows.step``); only the output is allocated."""
+    k, f = len(wins), rows.f
+    if not 1 <= k <= MAX_WINDOWS:
+        raise ValueError(f"the seg_hist kernel takes 1 to {MAX_WINDOWS} windows, got {k}")
+    _require_cuda(rows)
+    dev = rows.device
+    need = seg_hist_scratch_bytes(f, int(num_bins), scales is not None)
+    if rows.step is None or rows.step.numel() < need:
+        rows.step = torch.empty(need, dtype=torch.uint8, device=dev)
+    out = torch.empty((k, f, num_bins, 3), dtype=torch.float32, device=dev)
+    sp = None if scales is None else _device_scales(scales, dev)
     win_host = np.asarray(wins, dtype=np.int64).reshape(k, 2)
-    if scales is None:
-        out = torch.zeros((k, f, num_bins, 3), dtype=torch.float32, device=dev)
-        sp = None
-    else:
-        scales = _device_scales(scales, dev)
-        out = torch.zeros((k, f, num_bins, 5), dtype=torch.int32, device=dev)
-        sp = scales.data_ptr()
-    rc = _build.entry("seg_hist")(
-        rows.bins.data_ptr(), rows.g.data_ptr(), rows.h.data_ptr(),
-        rows.m.data_ptr(), rows.n, win_host.ctypes.data, k, f, int(num_bins),
-        sp, out.data_ptr(), torch.cuda.current_stream(dev).cuda_stream,
+    rc = (fn or _build.entry("seg_hist"))(
+        rows.bins.data_ptr(), rows.g.data_ptr(), rows.h.data_ptr(), rows.m.data_ptr(),
+        rows.n, win_host.ctypes.data, k, f, int(num_bins),
+        None if sp is None else sp.data_ptr(), rows.step.data_ptr(), rows.step.numel(),
+        out.data_ptr(), torch.cuda.current_stream(dev).cuda_stream,
     )
-    _build.check(rc, "seg_hist kernel")
+    _build.check(rc, "seg_hist kernels")
     _build.LAUNCHES["seg_hist" if scales is None else "seg_hist_int8"] += 1
     if k > 1:
         _build.LAUNCHES["seg_hist:K>1"] += 1
-    return out if scales is None else combine_int8(out, scales)
+    return out
 
 
 def seg_hist(

@@ -13,7 +13,8 @@ window's smaller child (the left one when nl <= nr), takes its chunk of
 the child's rows as the kernel cuts them and writes its table to its own
 slot; then the reduce sums each window's slots in the
 kernel's fixed order, recombines the int8 digit sums as the kernel does,
-and writes dec.
+and writes dec (the histogram's launches: ``lane_hist_model.model_lane_hist``,
+shared with test_torch_seg_hist_model.py).
 
 Held against ``fused_grow_step_plain`` and the JAX package's
 ``fused_grow_step`` (the XLA oracle in f32, the Pallas kernel in interpret
@@ -35,70 +36,12 @@ from lightgbm_tpu_torch import _build, bench_grow_step, bench_partition
 from lightgbm_tpu_torch._bench import f32_tol
 from lightgbm_tpu_torch.ops import grow_step, seg
 
+from .lane_hist_model import (LANES, MIN_ROWS, PLANES, SLICES, model_lane_hist, plan_chunks,
+                              recombine, window_chunks)
 from .test_torch_grow_step import MEMBERS, _jax_members, _jax_seg, _problem, _scales, _torch_rows
 from .test_torch_interpret import clear_jax_caches_after_module  # noqa: F401 (autouse)
 from .test_torch_interpret import jax_interpret
 from .test_torch_partition import _assert_same, _clone, _members, _rows, model_partition
-
-# csrc/lane_hist.cuh (test_kernel_source_agrees_with_the_model checks them)
-LANES = 32  # features a block's lanes take (kLanes)
-MIN_ROWS = 256  # rows a chunk takes at least, where a window has them (kMinRowsPerBlock)
-PLANES = {False: 3, True: 5}  # 32-bit planes of a table cell (Table<kInt8>::kWords)
-SLICES = 8  # threads of the reduce a cell (kSlices)
-
-
-def window_chunks(c, cap):
-    """lane_hist.cuh window_chunks: the chunks of a window of c rows that
-    may take `cap`, at least one."""
-    return max(1, min(-(-c // MIN_ROWS), cap))
-
-
-def plan_chunks(cnts, children, groups, fill):
-    """lane_hist.cuh plan_chunks: each window's first chunk, and the
-    launch's chunks last."""
-    total, share = sum(cnts), fill // groups
-    chunk0 = [0]
-    for c in cnts:
-        cap = window_chunks(c // 2 if children else c, share)
-        fair = share * c // total if total > 0 else 0
-        if cap > fair:
-            cap = fair if fair > 0 else 1
-        chunk0.append(chunk0[-1] + cap)
-    return chunk0
-
-
-def recombine(raw: np.ndarray, scales: np.ndarray) -> np.ndarray:
-    """The reduce's recombine, one f32 operation at a time (numpy float32
-    rounds each as the card does with -fmad=false): [..., 5] i32 digit sums
-    -> [..., 3] f32 (g, h, count)."""
-    a = raw.astype(np.float32)
-    s = scales.astype(np.float32)
-    g = (a[..., 0] * np.float32(128.0) + a[..., 1]) * s[0]
-    h = (a[..., 2] * np.float32(128.0) + a[..., 3]) * s[1]
-    return np.stack([g, h, a[..., 4]], axis=-1)
-
-
-def _block_table(rows, s, i0, i1, f0, nf, num_bins, scales, rng):
-    """One accumulate block's table: [planes, B, 32] over rows [s + i0,
-    s + i1) and features [f0, f0 + nf) (lane j: feature f0 + j); int8
-    digit sums as i64 (exact), f32 sums in a random order (the atomics')."""
-    int8 = scales is not None
-    table = torch.zeros((PLANES[int8], num_bins * LANES), dtype=torch.int64 if int8
-                        else torch.float32)
-    r = s + i0 + torch.as_tensor(rng.permutation(i1 - i0), dtype=torch.int64)
-    m = rows.m[r]
-    if int8:
-        g_hi, g_lo = seg.int8_digits(rows.g[r] * m, scales[0])
-        h_hi, h_lo = seg.int8_digits(rows.h[r] * m, scales[1])
-        vals = torch.stack([g_hi, g_lo, h_hi, h_lo, (m != 0).to(torch.int32)]).to(torch.int64)
-    else:
-        vals = torch.stack([rows.g[r] * m, rows.h[r] * m, (m != 0).to(torch.float32)])
-    for j in range(nf):
-        b = rows.bins[f0 + j, r].to(torch.int64)
-        cell, keep = b * LANES + j, b < num_bins
-        for p in range(PLANES[int8]):
-            table[p].index_add_(0, cell[keep], vals[p][keep])
-    return table.reshape(PLANES[int8], num_bins, LANES)
 
 
 def model_grow_step(rows, mem, num_bins, scales, fill, rng, tile=None):
@@ -114,50 +57,11 @@ def model_grow_step(rows, mem, num_bins, scales, fill, rng, tile=None):
         s, c, l = int(mem[w, 0]), int(mem[w, 1]), int(nl[w])
         return (s, l) if l <= c - l else (s + l, c - l)
 
-    slots = {}
-    blocks = [(y, x) for y in range(groups) for x in range(chunk0[-1])]
-    for i in rng.permutation(len(blocks)):
-        y, x = blocks[i]
-        w = max(v for v in range(k) if chunk0[v] <= x)
-        s, c = child(w)
-        wc = window_chunks(c, chunk0[w + 1] - chunk0[w])
-        xi = x - chunk0[w]
-        if xi >= wc:  # the block exits at once
-            continue
-        per = -(-c // wc)
-        i0, i1 = xi * per, min(xi * per + per, c)
-        assert 0 <= i0 <= i1 <= c  # a chunk never reads past its child
-        f0 = y * LANES
-        slots[(y, x)] = _block_table(rows, s, i0, i1, f0, min(LANES, f - f0), num_bins, scales,
-                                     rng)
-
-    hist = torch.zeros((k, f, num_bins, 3), dtype=torch.float32)
+    children = [child(w) for w in range(k)]
+    hist = model_lane_hist(rows, children, chunk0, num_bins, scales, rng)
     dec = np.zeros((k, 4), np.int64)
-    for w in range(k):
-        s, c = child(w)
+    for w, (s, c) in enumerate(children):
         dec[w] = (nl[w], int(mem[w, 1]) - nl[w], s, c)
-        wc = window_chunks(c, chunk0[w + 1] - chunk0[w])
-        for y in range(groups):
-            parts = [slots[(y, chunk0[w] + q)] for q in range(wc)]
-            assert all((y, x) not in slots for x in range(chunk0[w] + wc, chunk0[w + 1]))
-            # thread slice t sums chunks t, t + SLICES, ... in order, then the
-            # slices are summed in order
-            sliced = []
-            for t in range(SLICES):
-                acc = torch.zeros_like(parts[0])
-                for p in parts[t::SLICES]:
-                    acc += p
-                sliced.append(acc)
-            total = sliced[0]
-            for p in sliced[1:]:
-                total = total + p
-            nf = min(LANES, f - y * LANES)
-            cells = total[:, :, :nf].permute(2, 1, 0)  # [nf, B, planes]
-            if scales is None:
-                hist[w, y * LANES:y * LANES + nf] = cells
-            else:
-                hist[w, y * LANES:y * LANES + nf] = torch.as_tensor(
-                    recombine(cells.numpy(), scales.numpy()))
     return torch.as_tensor(dec.astype(np.int32)), hist
 
 
