@@ -20,11 +20,16 @@ Phases (any failed check raises, and the script exits non-zero):
            fused grow step (int8 and f32; the root window, K=2 adjacent
            unaligned windows and K=4 disjoint unaligned windows, one of them
            empty, then the edge cases of
-           lightgbm_tpu_torch/bench_grow_step.py on synthetic rows; its
+           lightgbm_tpu_torch/bench_grow_step.py on synthetic rows; f32 the
+           same bits on two calls; its
            library yardstick the composite of sort, gathers, copies back and
            index_add_ of the child, the pair of the partition and seg_hist
-           beside it), the split scan, the batched partition on the same K=4
-           windows and the batched split scan on their 8 children; the
+           beside it), the split scan and its candidate call (one launch
+           and one copy to the host; the packed candidates bit-equal to
+           candidates_plain of the kernel's own rows under both tie rules,
+           lightgbm_tpu_torch/bench_split_scan.py's checks), the batched
+           partition on the same K=4 windows and the batched split scan on
+           their 8 children (and their candidates in one call); the
            partition (its library yardstick: a stable sort of the go-left
            keys, the gathers of every column and the copies back, the sort
            alone beside it) also on the cases and edge cases of
@@ -65,8 +70,9 @@ Phases (any failed check raises, and the script exits non-zero):
            int8) against their plain versions on the cases of
            lightgbm_tpu_torch/bench_ordered.py (the root with no index, K=2
            windows of a shuffled index, windows of 14,000 and 4,000 rows,
-           the root with 64 skewed features), with their times; the split
-           scan at F = 700
+           the root with 64 skewed features; f32 the same bits on two
+           calls), with their times; the split scan and its candidate call
+           (case-major) at F = 700
   wide     train() with no path parameters: the layout rule must pick
            hist_mode='ordered'; 5 rounds (log-loss must fall), launches
            (ordered_hist and split_scan, no seg kernel), predict through
@@ -139,12 +145,18 @@ SOURCES = {
     "split_scan": ("lightgbm_tpu_torch/csrc/split_scan.cu", "lightgbm_tpu/ops/pallas/split_scan.py:218"),
     "split_scan_batch": ("lightgbm_tpu_torch/csrc/split_scan.cu",
                          "lightgbm_tpu/ops/pallas/split_scan.py:218"),
+    "split_candidates": ("lightgbm_tpu_torch/csrc/split_scan.cu",
+                         "lightgbm_tpu/ops/pallas/split_scan.py:218"),
     "forest_walk": ("lightgbm_tpu_torch/csrc/forest_walk.cu", "lightgbm_tpu/ops/pallas/forest_walk.py:418"),
     "ordered_hist": ("lightgbm_tpu_torch/csrc/ordered_hist.cu",
                      "lightgbm_tpu/ops/pallas/histogram.py:140"),
     "ordered_hist_int8": ("lightgbm_tpu_torch/csrc/ordered_hist.cu",
                           "lightgbm_tpu/ops/pallas/histogram_int8.py:43"),
 }
+# CUDA launches per split of the profiled iterations with the rows-only scan
+# and its candidates in PyTorch operators on the host side (PERF.md section 5)
+EARLIER_LAUNCHES_PER_SPLIT = {"profile": 100.6, "batch profile": 20.7, "off profile": 43.2,
+                              "wide profile": 68.1}
 # kernels that only the seg layout launches
 SEG_KERNELS = ("seg_hist", "seg_hist_int8", "fused_grow_step", "partition", "partition_batch")
 
@@ -323,6 +335,7 @@ def check_seg_kernels(ds, dev):
     ), lambda: split_scan.split_scan(hp, tot, nb_t, nan_t, mask, **kw)))
     print(f"kernel split_scan: bins/directions equal, rows max |err| {float(gerr.max()):.3g}; "
           f"best split feature {ck.feature} bin {ck.bin} as best_split")
+    out.append(check_candidates("Higgs root", hp[None], tot[None].cpu().numpy(), nb_t, nan_t))
 
     # -- kernel 2: stable partition of the root window by the root's split
     nanb = int(ds.nan_bins()[ck.feature])
@@ -334,6 +347,52 @@ def check_seg_kernels(ds, dev):
     out.extend(check_batch_kernels(ds, bins_fn, grad, hess, ones, ck, dev))
     check_partition_cases(dev)
     return out
+
+
+def check_candidates(where, hist, parents, num_bins, nan_bins, case_major=False):
+    """The split scan's candidate call (``fused_best_split_batch``: one
+    launch, one copy to the host) on these leaves: the checks of
+    ``bench_split_scan.check_case`` (packed candidates bit-equal to
+    ``candidates_plain`` of the kernel's own rows under both tie rules,
+    feature/bin/direction as the plain version's, members as single calls,
+    one launch and one device-to-host copy), then its time from the
+    histograms to the candidates on the host, the plain version's, and
+    its device time and operations.  Returns its kernel entry."""
+    from lightgbm_tpu_torch import bench_split_scan as bss
+    from lightgbm_tpu_torch.ops import split_scan
+
+    dev = hist.device
+    m, f, b = hist.shape[0], hist.shape[1], hist.shape[2]
+    inputs = split_scan.scan_inputs(num_bins, nan_bins, torch.ones(f, device=dev), dev)
+    bss.check_case(where, hist, parents, inputs)
+    par_t = torch.as_tensor(parents, dtype=torch.float32, device=dev)
+
+    def plain():
+        rows = split_scan.split_scan_batch_plain(hist, par_t, *inputs, **bss.KW)
+        return split_scan.candidates_plain(rows, par_t, lambda_l1=bss.KW["lambda_l1"],
+                                           lambda_l2=bss.KW["lambda_l2"],
+                                           min_gain_to_split=bss.MIN_GAIN,
+                                           case_major=case_major).tolist()
+
+    def call():
+        return bss.this_call(hist, parents, inputs, case_major)
+
+    got = torch.tensor(bss.packed_call(hist, parents, inputs, case_major))
+    err = float((got - torch.tensor(plain())).abs().nan_to_num(0.0).max())
+    kinds = bss.transfers(call)
+    entry = with_device(kernel_entry(
+        "split_candidates", err, time_ms(call), time_ms(plain, reps=5),
+        bss.bound_ms(m, f, b), None), call)
+    entry.update(host_ms=bss.host_ms(call, 20), host_transfers_per_call=kinds["HtoD"] +
+                 kinds["DtoH"], shape=[m, f, b])
+    print(f"kernel split_candidates {where} ({m} x {f} x {b}, case_major={case_major}): one "
+          f"call {entry['ms']:.4f} ms event time, {entry['host_ms']:.4f} ms host time, device "
+          f"{entry['device_ms']:.4f} ms in {entry['launches_per_call']:.0f} device operations "
+          f"({kinds['kernels']:.0f} kernel, {kinds['HtoD']:.0f} host-to-device and "
+          f"{kinds['DtoH']:.0f} device-to-host copies), plain {entry['plain_ms']:.4f} ms, bound "
+          f"{entry['bound_ms']:.6f} ms; packed candidates bit-equal to candidates_plain of the "
+          f"kernel's rows under both tie rules, max |diff| vs the plain version {err:.3g}")
+    return entry
 
 
 def check_seg_hist_cases(dev):
@@ -495,6 +554,13 @@ def check_batch_kernels(ds, bins_fn, grad, hess, ones, ck, dev):
     ), lambda: split_scan.split_scan_batch(hist8, parents, *args, **kw)))
     print(f"kernel split_scan_batch: {m} children of the K=4 windows, rows bit-equal to the "
           f"plain version and to {m} single launches")
+    from lightgbm_tpu_torch import bench_split_scan
+
+    bench_split_scan.check_case("K=4 children", hist8, parents.cpu().numpy(),
+                                split_scan.scan_inputs(args[0], args[1], args[2], dev))
+    print(f"kernel split_candidates: the {m} children of the K=4 windows in one call: packed "
+          "candidates bit-equal to candidates_plain of the kernel's rows under both tie rules, "
+          "each member bit-equal to a call of it alone, one launch and one device-to-host copy")
     return out
 
 
@@ -536,6 +602,8 @@ def check_fused_step(ds, bins_fn, grad, hess, ones, ck, scales):
             res = bg.run_case(f"{where} {mode}", rows, marr, b, qs, wrapper, reps=20,
                               timed=where == "root", plain_reps=5)
             got = "bit-equal" if qs is not None else "within f32_tol"
+            if qs is None:
+                got += ", the same bits on two calls"
             print(f"kernel fused_grow_step {mode} {where} (windows {marr[:, :2].tolist()}): dec "
                   f"and every column of the rows equal to the plain version, histogram {got}")
             if where == "root":
@@ -609,8 +677,10 @@ def check_ordered_kernels(rows, qrows, scales, num_bins, nan_bins, b):
         hp = oh.ordered_hist_plain(crows, idx, wins, b)
         h8k = oh.ordered_hist_int8(cq, idx, wins, b, scales)
         h8p = oh.ordered_hist_int8_plain(cq, idx, wins, b, scales)
+        again = oh.ordered_hist(crows, idx, wins, b)
         torch.cuda.synchronize()
-        err = bench_ordered.check(where, hk, hp, h8k, h8p, crows, idx, wins, b)
+        err = bench_ordered.check(where, hk, hp, h8k, h8p, crows, idx, wins, b, again)
+        del again
         err32 = max(err32, err)
         t = {
             "f32": time_ms(lambda: oh.ordered_hist(crows, idx, wins, b)),
@@ -626,7 +696,8 @@ def check_ordered_kernels(rows, qrows, scales, num_bins, nan_bins, b):
               f"{t['f32']:.4f} ms (plain {t['f32 plain']:.4f}), int8 {t['int8']:.4f} ms (plain "
               f"{t['int8 plain']:.4f}), bound {bound[0]:.5f} ms by {bound[1]}; library index_add_ "
               f"f32 {lib32:.4f} ms over {lib32_rows} rows, i32 digits {lib8:.4f} ms over "
-              f"{lib8_rows} rows; counts exact, f32 g/h within {err:.3g}, int8 bit-equal")
+              f"{lib8_rows} rows; counts exact, f32 g/h within {err:.3g} and the same bits on "
+              "two calls, int8 bit-equal")
         if where == "root":
             out.append(kernel_entry("ordered_hist", err, t["f32"], t["f32 plain"], bound, lib32))
             out.append(kernel_entry("ordered_hist_int8", 0.0, t["int8"], t["int8 plain"], bound, lib8))
@@ -657,6 +728,8 @@ def check_ordered_kernels(rows, qrows, scales, num_bins, nan_bins, b):
     print(f"kernel split_scan F={f}: {ts:.4f} ms (device {td:.4f}; plain {tp:.4f}), bound "
           f"{sb[0]:.5f} ms by {sb[1]}; bins/directions equal, rows max |err| "
           f"{float(gerr.max()):.3g}")
+    check_candidates(f"F={f} root", root[None], tot[None].cpu().numpy(), nb_t, nan_t,
+                     case_major=True)
     return out
 
 
@@ -737,11 +810,20 @@ def profile_iteration(booster, label: str = "profile") -> None:
 
     from lightgbm_tpu_torch import _build
 
-    from lightgbm_tpu_torch.ops import grow_step, seg
+    from lightgbm_tpu_torch.ops import grow_step, grower, seg
     from lightgbm_tpu_torch.ops import histogram as oh
 
     torch.cuda.synchronize()
     before = dict(_build.LAUNCHES)
+    scans = []  # (leaves, host ms) of each split-scan call of the grower
+    scan_call = grower.fused_best_split_batch
+
+    def scan_timed(hists, *a, **k):
+        t0 = time.perf_counter()
+        got = scan_call(hists, *a, **k)
+        scans.append((len(hists), (time.perf_counter() - t0) * 1e3))
+        return got
+
     ordered = []  # (rows, windows) of each ordered histogram call
     launch = oh._launch
 
@@ -771,6 +853,7 @@ def profile_iteration(booster, label: str = "profile") -> None:
         return hist_launch(rows, wins, num_bins, scales, fn)
 
     oh._launch = recorded
+    grower.fused_best_split_batch = scan_timed
     seg._partition_launch = part_recorded
     grow_step._launch = step_recorded
     seg._seg_hist_launch = hist_recorded
@@ -782,6 +865,7 @@ def profile_iteration(booster, label: str = "profile") -> None:
             wall_ms = (time.perf_counter() - t0) * 1e3
     finally:
         oh._launch = launch
+        grower.fused_best_split_batch = scan_call
         seg._partition_launch = part_launch
         grow_step._launch = step_launch
         seg._seg_hist_launch = hist_launch
@@ -871,7 +955,13 @@ def profile_iteration(booster, label: str = "profile") -> None:
     cuda_launches = sum(e.count for e in host if e.key.startswith("cudaLaunch"))
     print(f"{label}: {splits} splits in {booster.grow_steps[-1]} grow steps at K="
           f"{booster.leaf_batch_effective[-1]}: {cuda_launches / splits:.1f} CUDA launches per "
-          f"split ({cuda_launches} in all); kernel wrappers {json.dumps(launched)}")
+          f"split ({cuda_launches} in all; {EARLIER_LAUNCHES_PER_SPLIT.get(label, 'n/a')} with "
+          f"the rows-only scan, PERF.md section 5); kernel wrappers {json.dumps(launched)}")
+    scan_ms = sum(ms for _, ms in scans)
+    scan_us = sum(us for key, (us, _) in dev_us.items() if "split_scan_" in key)
+    print(f"{label}: split scan {len(scans)} calls ({sum(k for k, _ in scans)} leaves, "
+          f"{len(scans) / splits:.2f} a split), wrapper {scan_ms:.2f} ms in all under the "
+          f"profiler, {scan_ms / max(1, len(scans)):.4f} ms a call; device {scan_us / 1e3:.3f} ms")
     print(f"{label}: host operators {host_ms:.1f} ms self time ({host_ms / wall_ms:.3f} of wall), "
           f"{sum(e.count for e in host)} calls; top by self time:")
     for e in sorted(host, key=lambda e: -e.self_cpu_time_total)[:10]:

@@ -48,7 +48,7 @@ SIGNATURES: Dict[str, Sequence] = {
                                 ctypes.c_uint, _I32, _VP, _VP, _I64, _VP, _VP, _VP),
     "partition": (_VP,) * 5 + (_I64, _I32, _VP, _I32, _I32, _VP, _VP, _I64, _VP, _VP, _VP,
                                 ctypes.c_uint, _VP, _VP),
-    "split_scan": (_VP,) * 5 + (_I32,) * 4 + (_F32,) * 4 + (_VP,) * 2,
+    "split_scan": (_VP,) * 5 + (_I32,) * 4 + (_F32,) * 4 + (_VP, _F32, _I32) + (_VP,) * 4,
     "forest_walk": (_VP,) * 4 + (_I64,) + (_I32,) * 5 + (_VP,) * 2,
     "ordered_hist": (_VP, _I64) + (_VP,) * 5 + (_I32,) * 3 + (_VP, _VP, _I64, _VP, _VP),
 }
@@ -65,9 +65,10 @@ _LOCK = threading.Lock()
 # kernel launches by kernel name ("seg_hist_int8" and "ordered_hist_int8"
 # are the int8 modes of seg_hist.cu and ordered_hist.cu, "partition_batch"
 # and "split_scan_batch" the K-window and M-leaf calls of partition.cu and
-# split_scan.cu); a wrapper adds one where
-# it launches its kernel, nowhere else, so a run shows which kernels it
-# went through
+# split_scan.cu, "split_candidates" the split_scan.cu launches, of one leaf
+# or of M, that also reduce each leaf to its candidate); a wrapper adds one
+# where it launches its kernel, nowhere else, so a run shows which kernels
+# it went through
 LAUNCHES: Counter = Counter()
 
 

@@ -18,7 +18,10 @@ at F = 242, in f32 and in int8 mode (the scales of
 ``quantize.hist_acc_scales``), checks every build against
 ``fused_grow_step_plain``: ``dec`` exact, every column of the whole rows
 byte-equal after the call, the int8 histogram bit-equal, the f32
-histogram's counts exact and g/h within ``f32_tol``.  The edge cases
+histogram's counts exact and g/h within ``f32_tol``, and in f32 the same
+bits from a second call on the same rows (``<build> repeatable``; a
+difference fails this source's build and is reported for the others,
+whose f32 sums may change from call to call).  The edge cases
 (``edge_cases``: every row left, every row right, an empty window among K,
 windows under 32 rows, a NaN-bin split with missing values left, a window
 whose two children are equal in size; ``few_bins``: the root of a table of
@@ -288,19 +291,26 @@ def run_case(name: str, rows: seg.SegRows, mem: np.ndarray, b: int, qs,
     def restore():
         _copy_rows(rows, pristine)
 
+    res: Dict[str, float] = {}
     for bname, launch in builds.items():
         restore()
         got = launch(rows, mem, b, qs)
         torch.cuda.synchronize()
         check(f"grow step {name} ({bname})", rows, want, got, dec_p, hist_p, tol)
-    res: Dict[str, float] = {}
+        if qs is None:  # f32: the same bits from a second call on the same rows
+            first = got[-1].clone()
+            restore()
+            same = torch.equal(first, launch(rows, mem, b, qs)[-1])
+            res[f"{bname} repeatable"] = float(same)
+            if not same and bname == "this":
+                raise AssertionError(f"grow step {name}: f32 sums differ between two calls")
     if timed:
         times: Dict[str, List[float]] = {}
         for bname in list(builds) + list(builds)[::-1]:
             launch = builds[bname]
             times.setdefault(bname, []).append(
                 time_ms(lambda: launch(rows, mem, b, qs), reps=reps, setup=restore))
-        res = {k: statistics.median(v) for k, v in times.items()}
+        res.update({k: statistics.median(v) for k, v in times.items()})
         for bname, launch in builds.items():
             res[f"{bname} device"], res[f"{bname} ops"] = device_profile(
                 lambda: launch(rows, mem, b, qs), setup=restore)

@@ -11,7 +11,9 @@ It makes Expo-shaped bins on the card from a seed (1,048,576 x 700 by
 default, 208-256 bins a feature, B = 256), the f32 statistics of a binary
 objective and their quantized form, then for each case below checks every
 build against the plain versions (int8 bit-equal, counts exact, f32 g and h
-within ``ordered_tol``) and times them by CUDA events, the builds in turns
+within ``ordered_tol``; this source's f32 the same bits on two calls, the
+others' reported as ``<build> repeatable``) and times them by CUDA events,
+the builds in turns
 (baseline, this source, variants, ..., then the reverse order), with the
 bound and one ``index_add_`` of the same sums beside them, and each build's
 device time alone (``device_ms``: the kernels' own times under
@@ -123,10 +125,13 @@ def ordered_tol(rows, order, windows, b, counts):
     return 2.0 * counts * 2.0**-24 * scale + 1e-6
 
 
-def check(name: str, hk, hp, h8k, h8p, rows, order, wins, b) -> float:
+def check(name: str, hk, hp, h8k, h8p, rows, order, wins, b, again=None) -> float:
     """Raise unless the kernel's f32 histogram ``hk`` has the plain ``hp``'s
     counts exactly and g, h within ``ordered_tol``, and the int8 one
-    ``h8k`` equals ``h8p``.  Returns the f32 max |error|."""
+    ``h8k`` equals ``h8p``; with ``again`` (the f32 histogram of a second
+    call), unless the two are the same bits.  Returns the f32 max |error|."""
+    if again is not None and not torch.equal(hk, again):
+        raise AssertionError(f"ordered_hist {name}: f32 sums differ between two calls")
     err = (hk[..., :2] - hp[..., :2]).abs()
     if not torch.equal(hk[..., 2], hp[..., 2]) or bool(
             (err > ordered_tol(rows, order, wins, b, hp[..., 2:3])).any()):
@@ -269,9 +274,12 @@ def main(argv: Optional[List[str]] = None) -> int:
         for name, (entry, _) in builds.items():
             hk = launch_with(entry, crows, order, wins, b)
             h8k = launch_with(entry, cq, order, wins, b, scales)
+            again = launch_with(entry, crows, order, wins, b)
             torch.cuda.synchronize()
-            errs[name] = check(f"{cname} ({name})", hk, hp, h8k, h8p, crows, order, wins, b)
-            del hk, h8k
+            errs[f"{name} repeatable"] = float(torch.equal(hk, again))
+            errs[name] = check(f"{cname} ({name})", hk, hp, h8k, h8p, crows, order, wins, b,
+                               again if name == "this" else None)
+            del hk, h8k, again
         del hp, h8p
         times: Dict[str, List[float]] = {}
         for name in order_names:

@@ -24,8 +24,10 @@
 //        right runs; it leaves each window's left count nl on the card;
 //   3-4. the histogram of csrc/lane_hist.cuh over each window's smaller
 //        child, located from nl on the card (lane = feature, a block's table
-//        in shared memory, then a fixed-order reduce that recombines the int8
-//        digit sums and writes dec).
+//        in shared memory: in f32 one warp adding its chunk's rows in row
+//        order, in int8 sixteen warps with integer atomics; then a
+//        fixed-order reduce that recombines the int8 digit sums and writes
+//        dec), so that the sums are the same on every run in both modes.
 // The histogram reads the child's rows once more (child * (F + 12) bytes)
 // after the partition has written them; in exchange the partition is the
 // tuned one of partition.cu, and the histogram one the segment histogram
@@ -40,7 +42,8 @@
 
 // Bytes of the histogram scratch lgbt_grow_step needs for any k <= 16 at f
 // features and nbins bins (int8 != 0: the int8 mode): a 64-byte head for the
-// left counts, then one histogram image a block.  Negative: minus a CUDA
+// left counts, then one histogram image a block, as many blocks as the
+// mode's accumulate (lhist::Acc<int8, false>) plans.  Negative: minus a CUDA
 // error.
 extern "C" long long lgbt_grow_step_scratch(int f, int nbins, int int8) {
   if (f <= 0 || nbins <= 0 || nbins > 256) return -(long long)cudaErrorInvalidValue;

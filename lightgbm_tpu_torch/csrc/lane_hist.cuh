@@ -23,27 +23,27 @@
 // in shared memory (f32: 96 KB, int8: 160 KB at B = 256), so lane j's
 // cells all lie in bank j: the 32 adds of a warp never share a bank or an
 // address, whatever the bins.  How a block adds (Acc; kSeg: the segment
-// histogram's build, else the fused step's):
+// histogram's build, else the fused step's, which differ only in the int8
+// warps):
 //   * int8: warps on interleaved rows, meeting on a cell only through shared
 //     integer atomics, whose sums do not depend on the order: 32 warps
 //     (1,024 threads) in the segment histogram, whose int8 calls are roots
 //     (12% faster there than 16), 16 in the fused step, whose windows are
 //     mostly a few thousand rows (2-3% faster there than 32);
-//   * f32 in the segment histogram: one warp, the block's only thread of
-//     each cell, adding every row of the chunk in row order with plain
-//     loads and stores (four rows at a time, a row whose cell an earlier
-//     row of the four holds adding to that row's new value), so that a
-//     block's f32 sums are those of one add after another and the same on
-//     every run (shared f32 atomics from several warps add in the order the
-//     warps reach a cell, which changes from run to run).  It issues the
-//     loads of the next three batches of 32 rows before adding one; a row
-//     costs five shared-memory operations: its (g*m, h*m) pair from a stage
-//     (a broadcast load), its cell's (g, h) pair (one 8-byte load and store)
-//     and count; a trash bin (kOrderBins) spares the rows any test;
-//   * f32 in the fused step: sixteen warps with shared f32 atomics
-//     (compare-and-swap loops: sm_90 has no shared f32 atomic add), whose
-//     sums depend on that order; in row order the step's accumulate took
-//     13-17% longer on the root's and K=4's children, 26% at F = 242.
+//   * f32, in both: one warp, the block's only thread of each cell, adding
+//     every row of the chunk in row order with plain loads and stores (four
+//     rows at a time, a row whose cell an earlier row of the four holds
+//     adding to that row's new value), so that a block's f32 sums are those
+//     of one add after another and the same on every run (shared f32
+//     atomics from several warps add in the order the warps reach a cell,
+//     which changes from run to run; sm_90 has no shared f32 atomic add
+//     either, only compare-and-swap loops).  It issues the loads of the
+//     next three batches of 32 rows before adding one; a row costs five
+//     shared-memory operations: its (g*m, h*m) pair from a stage (a
+//     broadcast load), its cell's (g, h) pair (one 8-byte load and store)
+//     and count; a trash bin (kOrderBins) spares the rows any test.  In the
+//     fused step this took 5% longer than sixteen atomic warps on the root's
+//     children, 2% at K=4, 10% at F = 242, and 0-4% less on small windows.
 // The block then copies its whole histogram to its slot of a scratch.
 // Pass 2 (lane_hist_reduce) sums each cell over the window's chunks in a
 // fixed order (kSlices threads a cell, each over every kSlices-th chunk in
@@ -51,8 +51,7 @@
 // combine_int8 does ((f32(S_hi) * 128 + f32(S_lo)) * scale, bit-equal under
 // -fmad=false), and writes every cell through a shared-memory transpose, so
 // that each feature's bins go out as one run: no global atomics, no zeroed
-// output, and, but for the fused step's f32 mode, the same sums on every
-// run.
+// output, and the same sums on every run.
 //
 // What bounds it: in principle memory, one pass over cnt * (F + 12) bytes
 // plus the output; in practice the shared memory pipe: in int8 mode five
@@ -88,11 +87,12 @@ constexpr int kNlBytes = 64;  // the scratch's head: the partition's left counts
 
 // How an accumulate block adds (see the top), in the segment histogram
 // (kSeg) or the fused grow step: int8 with shared atomics, 32 or 16 warps;
-// f32 in row order, one warp, or sixteen warps with shared f32 atomics.
+// f32 in row order, one warp, in both.  The second template argument names
+// the caller only (a profile tells the two histograms apart by it).
 template <bool kInt8, bool kSeg>
 struct Acc {
-  static constexpr bool kInOrder = !kInt8 && kSeg;
-  static constexpr int kWarps = kSeg ? (kInt8 ? 32 : 1) : 16;
+  static constexpr bool kInOrder = !kInt8;
+  static constexpr int kWarps = kInt8 ? (kSeg ? 32 : 16) : 1;
   static constexpr int kThreads = kWarps * 32;
 };
 
@@ -112,9 +112,8 @@ struct Table {
   // bytes of a block's image in the scratch: [plane][bin][lane] words
   static size_t bytes(int nbins) { return (size_t)kWords * nbins * kLanes * 4; }
   // bytes of a block's table in shared memory
-  template <bool kSeg>
   static size_t smem_bytes(int nbins) {
-    return Acc<kInt8, kSeg>::kInOrder ? (size_t)kOrderWords * 4 : bytes(nbins);
+    return Acc<kInt8, false>::kInOrder ? (size_t)kOrderWords * 4 : bytes(nbins);
   }
 };
 
@@ -193,21 +192,12 @@ __device__ __forceinline__ int digit(uint32_t w, int k) {
   return (int)(w << (24 - 8 * k)) >> 24;  // signed byte k
 }
 
-// One row's values added to a cell with shared atomics (a block of
-// several warps): the int8 digits and count (integer sums, the same in any
-// order), or g*m and h*m with f32 atomics and the count.
-template <bool kInt8>
-__device__ __forceinline__ void add_atomic(int* s, int cell, int pw, const Vals& v) {
-  if constexpr (kInt8) {
+// One row's int8 digits and count added to a cell with shared integer
+// atomics (a block of several warps): integer sums, the same in any order.
+__device__ __forceinline__ void add_digits(int* s, int cell, int pw, const Vals& v) {
 #pragma unroll
-    for (int p = 0; p < 4; ++p) atomicAdd(&s[p * pw + cell], digit(v.a, p));
-    atomicAdd(&s[4 * pw + cell], v.c);
-  } else {
-    float* sf = reinterpret_cast<float*>(s);
-    atomicAdd(&sf[cell], __uint_as_float(v.a));
-    atomicAdd(&sf[pw + cell], __uint_as_float(v.b));
-    atomicAdd(&s[2 * pw + cell], v.c);
-  }
+  for (int p = 0; p < 4; ++p) atomicAdd(&s[p * pw + cell], digit(v.a, p));
+  atomicAdd(&s[4 * pw + cell], v.c);
 }
 
 // Bytes p[0 .. nv) (nv <= 32) as eight words, byte q in w[q / 4] at bits
@@ -255,7 +245,7 @@ __device__ __forceinline__ void load_raw(Raw& r, const uint8_t* plane, bool has,
 // Rows the in-order warp adds at a time (see add_in_order).
 constexpr int kGroup = 4;
 
-// One batch added in row order by the block's only warp (Acc<false, true>)
+// One batch added in row order by the block's only warp (Acc<false, *>)
 // to the in-order table, lane j to its feature's cells, which no other
 // thread touches (gh, cnt: the lane's columns of the (g, h) pairs and the
 // counts).  The batch's (g*m, h*m) pairs go to the stage, whence each row's
@@ -394,7 +384,7 @@ __global__ void __launch_bounds__((Acc<kInt8, kSeg>::kThreads))
       r1 = r2;
       r2 = r3;
     }
-  } else {  // interleaved rows, shared atomics
+  } else {  // int8: interleaved rows, shared integer atomics
     const int warp = threadIdx.x >> 5;
     for (long long base = i0 + (long long)warp * 32; base < i1; base += (long long)kWarps * 32) {
       const int nv = (int)min(32LL, i1 - base);
@@ -408,10 +398,10 @@ __global__ void __launch_bounds__((Acc<kInt8, kSeg>::kThreads))
         if (q >= nv) break;  // nv is the same on every lane
         Vals r;
         r.a = __shfl_sync(0xffffffffu, v.a, q);
-        r.b = kInt8 ? 0u : __shfl_sync(0xffffffffu, v.b, q);
+        r.b = 0u;
         r.c = __shfl_sync(0xffffffffu, v.c, q);
         const int b = (int)((w[q >> 2] >> (8 * (q & 3))) & 0xffu);
-        if (has && b < nbins) add_atomic<kInt8>(lh_smem, b * kLanes + lane, pw, r);
+        if (has && b < nbins) add_digits(lh_smem, b * kLanes + lane, pw, r);
       }
     }
   }
@@ -553,7 +543,7 @@ template <bool kInt8, bool kSeg>
 long long fill_blocks(cudaError_t* err) {
   static long long fill = 0;
   if (fill == 0) {
-    const int bytes = (int)Table<kInt8>::template smem_bytes<kSeg>(256);
+    const int bytes = (int)Table<kInt8>::smem_bytes(256);
     *err = cudaFuncSetAttribute(lane_hist_accumulate<kInt8, kSeg>,
                                 cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
     if (*err != cudaSuccess) return 0;
@@ -601,8 +591,8 @@ int launch(const uint8_t* bins, long long n, const float* g, const float* h, con
   if (scratch_size < groups * chunks * words * 4) return (int)cudaErrorInvalidValue;
   lane_hist_accumulate<kInt8, kSeg>
       <<<dim3((unsigned)chunks, (unsigned)groups), Acc<kInt8, kSeg>::kThreads,
-         Table<kInt8>::template smem_bytes<kSeg>(nbins), st>>>(bins, n, g, h, m, win, nl, f,
-                                                                   nbins, scales, scratch);
+         Table<kInt8>::smem_bytes(nbins), st>>>(bins, n, g, h, m, win, nl, f, nbins,
+                                                      scales, scratch);
   e = cudaGetLastError();
   if (e != cudaSuccess) return (int)e;
   const int bins_a_block = kReduceCells / kLanes;

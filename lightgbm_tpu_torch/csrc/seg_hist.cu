@@ -24,8 +24,8 @@
 // blocks in which lane j of a warp owns feature j, so a warp's 32 adds hit
 // 32 banks: in int8 mode 32 warps adding with shared integer atomics, in
 // f32 mode one warp adding its chunk's rows in row order with plain loads
-// and stores (kSeg), so that the f32 sums do not depend on the order in
-// which warps reach a cell; each block copies its table to its slot of a
+// and stores (as in the fused step), so that the f32 sums do not depend on
+// the order in which warps reach a cell; each block copies its table to its slot of a
 // scratch.  The reduce sums each window's slots in a fixed order,
 // recombines the int8 digit sums (bit-equal to combine_int8 under
 // -fmad=false) and writes every output cell.  No zeroed output, no global

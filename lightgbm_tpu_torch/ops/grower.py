@@ -11,7 +11,8 @@ Counterpart of the seg-mode bodies of ``lightgbm_tpu/ops/grower.py``
           picks the left, :1692) -- ONE fused grow step (``grow_fused``,
           the serial fused branch :1599-1627), or a partition and a
           histogram launch (:1628-1697); the sibling as parent minus child;
-          candidates of both children.
+          candidates of both children in one split-scan call (one launch,
+          one transfer).
 
 int8 accumulation (``quant_scales`` given, the gate ``int8_acc_eligible``
 of :300-323): every histogram the tree keeps is on the int8 2-digit grid,
@@ -41,7 +42,7 @@ commit-rate clamp reads its rate.
 
 Growth stops at ``num_leaves`` or when no leaf has a positive gain.  The
 loop over splits runs on the host: each split reads back the left count
-and the two children's candidates (a few host syncs per split -- the cost
+and the two children's candidates (two host syncs per split -- the cost
 the device-resident TPU loop does not pay).  The per-leaf statistics are
 kept on the host as f32 values.
 
@@ -78,7 +79,7 @@ from .seg import (
     sort_partition_batch,
 )
 from .split import SplitCandidate, leaf_output
-from .split_scan import fused_best_split, fused_best_split_batch
+from .split_scan import fused_best_split_batch, scan_inputs
 
 _F32 = np.float32
 
@@ -319,18 +320,15 @@ def grow_tree(
         case_major=p.case_major_ties,
     )
 
-    def scan_each(hists, stats, with_margin=False):
-        """One split-scan launch and one transfer per leaf (serial loop)."""
-        return [fused_best_split(hh, *st, num_bins, nan_bins, feature_mask,
-                                 with_margin=with_margin, **kw)
-                for hh, st in zip(hists, stats)]
+    # the scan's per-feature inputs as its kernel reads them, once a tree
+    scan_in = scan_inputs(num_bins, nan_bins, feature_mask, dev)
 
-    def scan_batch(hists, stats, with_margin=False):
-        """One launch and one transfer for all leaves (batched loop)."""
-        return fused_best_split_batch(hists, stats, num_bins, nan_bins, feature_mask,
-                                      with_margin=with_margin, **kw)
+    def scan(hists, stats, with_margin=False):
+        """Candidates of the leaves with histograms ``hists`` (a list of
+        [F, B, 3]): one launch and one transfer for all of them."""
+        return fused_best_split_batch(hists, stats, *scan_in, with_margin=with_margin, **kw)
 
-    def decide(hists, stats, windows, scan, live=None):
+    def decide(hists, stats, windows, live=None):
         """Candidates of the leaves with histograms ``hists``.  With the
         int8 accumulation, a leaf whose near-tie margin is below the
         tolerance (and that is ``live``) is decided on an f32 histogram of
@@ -348,14 +346,14 @@ def grow_tree(
                 [(s, c if nr else 0) for (s, c), nr in zip(windows, near)]
             )
             idx = [i for i, nr in enumerate(near) if nr]
-            for i, cand in zip(idx, scan(refined[idx], [stats[i] for i in idx])):
+            for i, cand in zip(idx, scan([refined[i] for i in idx], [stats[i] for i in idx])):
                 cands[i] = cand
         return cands, near
 
     hist_buf = torch.zeros((L, f, B, 3), dtype=torch.float32, device=dev)
     hist_buf[0] = store.root_hist()
     totals = _sum_bins(hist_buf[0, 0].cpu().numpy())  # every row: one bin of feature 0
-    (cand0,), near0 = decide([hist_buf[0]], [tuple(map(float, totals))], [(0, n)], scan_each)
+    (cand0,), near0 = decide([hist_buf[0]], [tuple(map(float, totals))], [(0, n)])
     refines = int(sum(near0))
 
     leaf_g = np.zeros(L, _F32)
@@ -429,21 +427,25 @@ def grow_tree(
                                    [int(nan_host[c.feature])])
             nleft = int(nl_a[0])
             sm = sm[0]
-            left_smaller = nleft <= cnt - nleft
             nright = cnt - nleft
-            other = hist_buf[l] - sm
-            left_hist, right_hist = (sm, other) if left_smaller else (other, sm)
+            # the children's histograms in place: the smaller one as
+            # accumulated, the other as parent minus it
+            if nleft <= nright:
+                torch.sub(hist_buf[l], sm, out=hist_buf[new])
+                hist_buf[l].copy_(sm)
+            else:
+                hist_buf[l].sub_(sm)
+                hist_buf[new].copy_(sm)
 
-            # a refined child is re-histogrammed directly, never by subtraction
+            # both children in one scan; a refined child is re-histogrammed
+            # directly, never by subtraction
             cand2, near = decide(
-                [left_hist, right_hist],
+                [hist_buf[l], hist_buf[new]],
                 [(c.left_g, c.left_h, c.left_cnt), (c.right_g, c.right_h, c.right_cnt)],
-                [(begin, nleft), (begin + nleft, nright)], scan_each,
+                [(begin, nleft), (begin + nleft, nright)],
             )
             refines += int(sum(near))
             record(t, l, new, begin, nleft, nright, cand2[0], cand2[1])
-            hist_buf[l] = left_hist
-            hist_buf[new] = right_hist
             num_leaves += 1
             steps += 1
     else:
@@ -469,11 +471,11 @@ def grow_tree(
             left_h = torch.where(ls4, sm, other)
             right_h = torch.where(ls4, other, sm)
             cand2, near2 = decide(
-                torch.cat([left_h, right_h]),
+                list(left_h) + list(right_h),
                 [(c.left_g, c.left_h, c.left_cnt) for c in cs]
                 + [(c.right_g, c.right_h, c.right_cnt) for c in cs],
                 list(zip(begins, nleft)) + list(zip(begins + nleft, nright)),
-                scan_batch, live=np.concatenate([active, active]),
+                live=np.concatenate([active, active]),
             )
             # prefix commit: strictly beat every earlier member's children
             child_best = np.maximum([c.gain for c in cand2[:K]],

@@ -10,14 +10,19 @@ them, in a random order (blocks of one launch wait on nothing but the launch
 before), each taking its chunk of its window's rows as the kernel cuts them
 and writing its table to its own slot; then the reduce, which sums each
 window's slots in the kernel's fixed order and recombines the int8 digit
-sums as the kernel does.  A block's f32 table adds its rows in a random
-order (the fused step's shared atomics) or in row order (the segment
-histogram's one warp).
+sums as the kernel does.  A block's f32 table adds its rows in row order
+(one warp, the block's only thread of each cell) or, where the header's
+``Acc`` gives the caller's f32 blocks shared atomics, in a random order
+(``source_in_order`` reads which from the source).
 """
+
+import os
+import re
 
 import numpy as np
 import torch
 
+from lightgbm_tpu_torch import _build
 from lightgbm_tpu_torch.ops import seg
 
 # csrc/lane_hist.cuh (the models' tests check them against the source)
@@ -25,6 +30,30 @@ LANES = 32  # features a block's lanes take (kLanes)
 MIN_ROWS = 256  # rows a chunk takes at least, where a window has them (kMinRowsPerBlock)
 PLANES = {False: 3, True: 5}  # 32-bit planes of a table cell (Table<kInt8>::kWords)
 SLICES = 8  # threads of the reduce a cell (kSlices)
+
+
+def source_in_order(int8: bool, seg_caller: bool) -> bool:
+    """Whether lane_hist.cuh's ``Acc<kInt8, kSeg>`` adds a block's rows in
+    row order (its ``kInOrder`` expression, evaluated for the caller: the
+    segment histogram, ``seg_caller``, or the fused grow step)."""
+    with open(os.path.join(_build.CSRC, "lane_hist.cuh")) as fh:
+        expr = re.search(r"static constexpr bool kInOrder = ([^;]+);", fh.read()).group(1)
+    expr = expr.replace("&&", " and ").replace("||", " or ").replace("!", " not ")
+    return bool(eval(expr, {}, {"kInt8": int8, "kSeg": seg_caller, "true": True,
+                                "false": False}))
+
+
+def atomic_types(src: str) -> set:
+    """The element types of the operands of every ``atomicAdd`` in a
+    source, from the declarations of the names they index (``int* s``,
+    ``float* sf``, ``int smem[]``)."""
+    words = {"int", "unsigned", "float", "double", "half", "uint32_t", "int32_t", "long"}
+    types = set()
+    for name in set(re.findall(r"atomicAdd\(\s*&\s*(\w+)\s*\[", src)):
+        decl = re.findall(r"(\w+)\s*\*\s*(?:const\s+)?(?:__restrict__\s+)?%s\b" % name, src)
+        decl += re.findall(r"(\w+)\s+%s\s*\[" % name, src)
+        types.update([t for t in decl if t in words] or ["?"])
+    return types
 
 
 def window_chunks(c, cap):

@@ -36,8 +36,8 @@ from lightgbm_tpu_torch import _build, bench_grow_step, bench_partition
 from lightgbm_tpu_torch._bench import f32_tol
 from lightgbm_tpu_torch.ops import grow_step, seg
 
-from .lane_hist_model import (LANES, MIN_ROWS, PLANES, SLICES, model_lane_hist, plan_chunks,
-                              recombine, window_chunks)
+from .lane_hist_model import (LANES, MIN_ROWS, PLANES, SLICES, atomic_types, model_lane_hist,
+                              plan_chunks, recombine, source_in_order, window_chunks)
 from .test_torch_grow_step import MEMBERS, _jax_members, _jax_seg, _problem, _scales, _torch_rows
 from .test_torch_interpret import clear_jax_caches_after_module  # noqa: F401 (autouse)
 from .test_torch_interpret import jax_interpret
@@ -58,7 +58,8 @@ def model_grow_step(rows, mem, num_bins, scales, fill, rng, tile=None):
         return (s, l) if l <= c - l else (s + l, c - l)
 
     children = [child(w) for w in range(k)]
-    hist = model_lane_hist(rows, children, chunk0, num_bins, scales, rng)
+    hist = model_lane_hist(rows, children, chunk0, num_bins, scales, rng,
+                           in_order=source_in_order(scales is not None, False))
     dec = np.zeros((k, 4), np.int64)
     for w, (s, c) in enumerate(children):
         dec[w] = (nl[w], int(mem[w, 1]) - nl[w], s, c)
@@ -99,6 +100,37 @@ def test_model_equals_plain_on_random_windows(k, seed, fill, mode):
     mem = _members(rows.n, nb, rng, k)
     scales = _int8_scales(rows) if mode == "int8" else None
     _run(rows, mem, 40, scales, fill, seed)
+
+
+@pytest.mark.parametrize("k,seed,fill", [(1, 6, 132), (4, 7, 264), (16, 8, 132)])
+def test_model_f32_the_same_bits_whatever_the_block_order(k, seed, fill):
+    """The step's f32 histogram, its blocks adding as lane_hist.cuh's Acc
+    has the step's f32 blocks add, is the same bits with the blocks (and
+    the partition's tiles) in two other orders: every block sums its chunk
+    in row order and the reduce in a fixed order."""
+    rows, nb = _rows(24_000, 37, seed)
+    mem = _members(rows.n, nb, np.random.default_rng(seed), k)
+    got = []
+    for order_seed in (seed + 100, seed + 200):
+        r = _clone(rows)
+        got.append(model_grow_step(r, mem, 40, None, fill, np.random.default_rng(order_seed))[1])
+    assert torch.equal(got[0], got[1])
+
+
+def test_kernel_source_sums_the_step_f32_in_row_order():
+    """The step's f32 launch (``lhist::launch<false>``, Acc<false, false>)
+    takes the header's in-order path, one warp a block, its scratch sized
+    for that path, and no atomicAdd in the header adds a float; the int8
+    launch keeps sixteen warps."""
+    with open(os.path.join(_build.CSRC, "lane_hist.cuh")) as fh:
+        lane = fh.read()
+    with open(os.path.join(_build.CSRC, "grow_step.cu")) as fh:
+        step = fh.read()
+    assert source_in_order(False, False) and source_in_order(False, True)
+    assert not source_in_order(True, False)
+    assert "kWarps = kInt8 ? (kSeg ? 32 : 16) : 1;" in lane
+    assert "lhist::launch<false>(" in step and "lhist::scratch_bytes<false>(f, nbins)" in step
+    assert atomic_types(lane) == {"int"}
 
 
 @pytest.mark.parametrize("mode", ["f32", "int8"])

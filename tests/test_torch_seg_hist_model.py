@@ -32,7 +32,7 @@ from lightgbm_tpu_torch import _build, bench_partition, bench_seg_hist
 from lightgbm_tpu_torch._bench import f32_tol
 from lightgbm_tpu_torch.ops import seg
 
-from .lane_hist_model import LANES, chunk_rows, model_lane_hist, plan_chunks
+from .lane_hist_model import LANES, chunk_rows, model_lane_hist, plan_chunks, source_in_order
 from .test_torch_grow_step import _jax_seg, _problem, _scales, _torch_rows
 from .test_torch_interpret import clear_jax_caches_after_module  # noqa: F401 (autouse)
 from .test_torch_interpret import jax_interpret
@@ -43,7 +43,8 @@ def model_seg_hist(rows, windows, num_bins, scales, fill, rng):
     wins = [(int(s), max(int(c), 0)) for s, c in windows]
     groups = -(-rows.f // LANES)
     chunk0 = plan_chunks([c for _, c in wins], False, groups, fill)
-    return model_lane_hist(rows, wins, chunk0, num_bins, scales, rng, in_order=scales is None)
+    return model_lane_hist(rows, wins, chunk0, num_bins, scales, rng,
+                           in_order=source_in_order(scales is not None, True))
 
 
 def _check(got, want, rows, windows, num_bins, scales):
@@ -188,8 +189,8 @@ def test_kernel_source_runs_the_lane_histogram_on_host_windows():
         assert "BlockHist" not in fh.read()
     with open(os.path.join(_build.CSRC, "lane_hist.cuh")) as fh:
         lane = fh.read()
-    assert "static constexpr bool kInOrder = !kInt8 && kSeg;" in lane
-    assert "kWarps = kSeg ? (kInt8 ? 32 : 1) : 16;" in lane
+    assert "static constexpr bool kInOrder = !kInt8;" in lane
+    assert "kWarps = kInt8 ? (kSeg ? 32 : 16) : 1;" in lane
     launch = inspect.getsource(seg._seg_hist_launch)
     assert "torch.empty((k, f, num_bins, 3)" in launch
     assert "zeros" not in launch and "combine_int8" not in launch

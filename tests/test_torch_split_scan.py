@@ -13,7 +13,12 @@ the JAX package, on leaf histograms made from a numpy seed.
 * exact gain ties between features: where the JAX package's split-scan
   kernel is off (the ordered layout's default, more than 64 features or
   256 bins), the port takes best_split's case-major rule, serial and
-  batched; where the kernel is on, the kernel's first-feature rule.
+  batched; where the kernel is on, the kernel's first-feature rule;
+* the packed candidate row the kernel reduces to (``candidates_plain``):
+  bit-equal to the old host reduction of the same rows and within 1e-5 of
+  the JAX package's fused_best_split, on random leaves and exact ties,
+  under both tie rules, with and without margin; a split's two children in
+  one call equal two single calls.
 """
 
 import jax.numpy as jnp
@@ -22,15 +27,19 @@ import pytest
 import torch
 
 import lightgbm_tpu as lgb
+from lightgbm_tpu.ops.pallas.split_scan import fused_best_split as jax_fused_best_split
 from lightgbm_tpu.ops.pallas.split_scan import split_scan_pallas
 from lightgbm_tpu.ops.split import best_split as jax_best_split
 
 import lightgbm_tpu_torch as lt
-from lightgbm_tpu_torch.ops.split import best_split, prefix_sum_bins
+from lightgbm_tpu_torch.ops.split import SplitCandidate, best_split, leaf_gain, prefix_sum_bins
 from lightgbm_tpu_torch.ops.split_scan import (
+    CAND_COLS,
+    candidates_plain,
     fused_best_split,
     fused_best_split_batch,
     split_scan,
+    unpack_candidates,
 )
 
 from .test_torch_interpret import clear_jax_caches_after_module  # noqa: F401 (autouse)
@@ -231,3 +240,172 @@ def test_case_major_candidates_equal_best_split_on_ties(batched):
     # the kernel's rule takes the missing-left feature 0 of the first leaf
     assert [(c.feature, c.default_left) for c in kernel] == [(0, True), (0, False), (0, True)]
     assert [(c.feature, c.default_left) for c in want] == [(1, False), (0, False), (0, True)]
+
+
+def _old_candidates(rows, parent, *, lambda_l1, lambda_l2, min_gain_to_split, with_margin,
+                    case_major=False):
+    """The candidates as the port computed them before the kernel reduced
+    them (its host ``_candidates``): the oracle of the packed row."""
+    m, f = rows.shape[0], rows.shape[1]
+    if case_major:
+        gain = rows[..., 0]
+        cases = torch.cat([torch.where(rows[..., 2] <= 0.5, gain, float("-inf")), gain], dim=1)
+        feat = torch.argmax(cases, dim=1) % f
+    else:
+        feat = torch.argmax(rows[..., 0], dim=1)
+    r = rows[torch.arange(m), feat]
+    improvement = (r[:, 0] - leaf_gain(parent[:, 0], parent[:, 1], lambda_l1, lambda_l2)
+                   - min_gain_to_split)
+    parts = [improvement[:, None], r[:, :6], parent - r[:, 3:6], feat.to(torch.float32)[:, None]]
+    if with_margin:
+        others = torch.where(torch.arange(f)[None, :] == feat[:, None], float("-inf"),
+                             rows[..., 0])
+        sec = torch.maximum(others.max(dim=1).values, r[:, 6])
+        margin = torch.where(torch.isfinite(r[:, 0]) & torch.isfinite(sec),
+                             (r[:, 0] - sec) / torch.clamp(r[:, 0].abs(), min=1e-15),
+                             float("inf"))
+        parts.append(margin[:, None])
+    out = []
+    for vals in torch.cat(parts, dim=1).tolist():
+        gain = vals[0] if np.isfinite(vals[1]) else float("-inf")
+        cand = SplitCandidate(gain, int(vals[10]), int(vals[2]), vals[3] > 0.5, vals[4],
+                              vals[5], vals[6], vals[7], vals[8], vals[9])
+        out.append((cand, vals[11]) if with_margin else cand)
+    return out
+
+
+def _leaves_and_ties():
+    """[(hist, parent, num_bins, nan_bins)]: the random leaves of CASES and
+    the three exactly tied leaves of ``_tied_leaves``."""
+    out = [_leaf(n, f, b, seed=5 * n + f, nan_frac=nan_frac) for n, f, b, nan_frac in CASES]
+    hist, nan_bins = _tied_leaves()
+    for i in range(hist.shape[0]):
+        out.append((hist[i], hist[i, 0].sum(axis=0), np.full(2, 3, np.int32), nan_bins[i]))
+    return out
+
+
+@pytest.mark.parametrize("case_major", [False, True])
+@pytest.mark.parametrize("with_margin", [False, True])
+@pytest.mark.parametrize("hp", HYPER)
+def test_packed_candidates_equal_the_old_candidates(hp, with_margin, case_major):
+    """candidates_plain, unpacked, is the old host reduction of the same
+    rows, bit for bit (gains, statistics, margins), on random leaves and on
+    exact ties, under both tie rules."""
+    hp = {**hp, "min_data_in_leaf": 1} if hp is HYPER[0] else hp
+    scan_kw = {k: v for k, v in hp.items() if k != "min_gain_to_split"}
+    for hist, parent, num_bins, nan_bins in _leaves_and_ties():
+        f = hist.shape[0]
+        rows = split_scan(torch.as_tensor(hist), torch.as_tensor(parent),
+                          torch.as_tensor(num_bins), torch.as_tensor(nan_bins),
+                          torch.ones(f, dtype=torch.bool), **scan_kw)[None]
+        par = torch.as_tensor(parent, dtype=torch.float32)[None]
+        packed = candidates_plain(rows, par, lambda_l1=hp["lambda_l1"],
+                                  lambda_l2=hp["lambda_l2"],
+                                  min_gain_to_split=hp["min_gain_to_split"],
+                                  case_major=case_major)
+        assert packed.shape == (1, CAND_COLS) and packed.dtype == torch.float32
+        want = _old_candidates(rows, par, lambda_l1=hp["lambda_l1"], lambda_l2=hp["lambda_l2"],
+                               min_gain_to_split=hp["min_gain_to_split"],
+                               with_margin=with_margin, case_major=case_major)
+        assert unpack_candidates(packed.tolist(), with_margin) == want
+
+
+def _jax_kw(hp):
+    return dict(lambda_l1=hp["lambda_l1"], lambda_l2=hp["lambda_l2"],
+                min_data_in_leaf=hp["min_data_in_leaf"],
+                min_sum_hessian_in_leaf=hp["min_sum_hessian_in_leaf"],
+                min_gain_to_split=hp["min_gain_to_split"])
+
+
+@pytest.mark.parametrize("with_margin", [False, True])
+@pytest.mark.parametrize("n,f,b,nan_frac", CASES)
+def test_packed_candidate_agrees_with_jax_fused_best_split(n, f, b, nan_frac, with_margin):
+    """The port's candidate (the plain scan, then candidates_plain) against
+    the JAX package's fused_best_split, its Pallas scan in interpret mode:
+    the same feature, bin and direction; gain, statistics and margin within
+    1e-5 relative (the TPU kernel's prefix sums go through bf16 digits)."""
+    hp = HYPER[1]
+    hist, parent, num_bins, nan_bins = _leaf(n, f, b, seed=11 * n + f, nan_frac=nan_frac)
+    got = fused_best_split(torch.as_tensor(hist), *map(float, parent), torch.as_tensor(num_bins),
+                           torch.as_tensor(nan_bins), torch.ones(f, dtype=torch.bool),
+                           with_margin=with_margin, **hp)
+    want = jax_fused_best_split(jnp.asarray(hist), *map(jnp.float32, parent),
+                                jnp.asarray(num_bins), jnp.asarray(nan_bins), jnp.ones(f, bool),
+                                interpret=True, with_margin=with_margin, **_jax_kw(hp))
+    if with_margin:
+        (got, margin), (want, want_margin) = got, want
+        np.testing.assert_allclose(margin, float(want_margin), rtol=1e-4, atol=1e-6)
+    assert (got.feature, got.bin, got.default_left) == (
+        int(want.feature), int(want.bin), bool(want.default_left))
+    for k in ("gain", "left_g", "left_h", "left_cnt", "right_g", "right_h", "right_cnt"):
+        np.testing.assert_allclose(getattr(got, k), float(getattr(want, k)), rtol=1e-5,
+                                   atol=1e-4, err_msg=k)
+
+
+def test_packed_candidates_on_exact_ties_agree_with_jax():
+    """The three tied leaves: the kernel rule against the JAX package's
+    fused_best_split (interpret mode), the case-major rule against its
+    best_split; margin 0 in both (an exact tie)."""
+    hist, nan_bins = _tied_leaves()
+    hp = dict(lambda_l1=0.0, lambda_l2=0.0, min_data_in_leaf=1,
+              min_sum_hessian_in_leaf=0.0, min_gain_to_split=0.0)
+    num_bins = np.full(2, 3, np.int32)
+    mask = np.ones(2, bool)
+    for i in range(hist.shape[0]):
+        parent = hist[i, 0].sum(axis=0)
+        targs = (torch.as_tensor(hist[i]), *map(float, parent), torch.as_tensor(num_bins),
+                 torch.as_tensor(nan_bins[i]), torch.as_tensor(mask))
+        jargs = (jnp.asarray(hist[i]), *map(jnp.float32, parent), jnp.asarray(num_bins),
+                 jnp.asarray(nan_bins[i]), jnp.asarray(mask))
+        for case_major in (False, True):
+            got, margin = fused_best_split(*targs, with_margin=True, case_major=case_major, **hp)
+            if case_major:
+                want, want_margin = jax_best_split(*jargs, with_margin=True, **hp)
+            else:
+                want, want_margin = jax_fused_best_split(*jargs, interpret=True, with_margin=True,
+                                                         **_jax_kw(hp))
+            assert (got.feature, got.bin, got.default_left) == (
+                int(want.feature), int(want.bin), bool(want.default_left)), (i, case_major)
+            assert got.gain == float(want.gain)
+            assert margin == float(want_margin) == 0.0
+
+
+@pytest.mark.parametrize("case_major", [False, True])
+def test_two_children_in_one_call_equal_two_single_calls(case_major):
+    """The serial loop's M = 2 call (two separate [F, B, 3] histograms, as
+    the grower passes a split's children) against one call a child: the same
+    candidates and margins, bit for bit."""
+    hp = HYPER[1]
+    (h0, p0, num_bins, nan_bins), (h1, p1, _, _) = [
+        _leaf(4000, 8, 64, seed=s, nan_frac=0.5) for s in (21, 22)]
+    args = (torch.as_tensor(num_bins), torch.as_tensor(nan_bins), torch.ones(8, dtype=torch.bool))
+    both = fused_best_split_batch([torch.as_tensor(h0), torch.as_tensor(h1)],
+                                  [tuple(map(float, p0)), tuple(map(float, p1))], *args,
+                                  with_margin=True, case_major=case_major, **hp)
+    one = [fused_best_split(torch.as_tensor(h), *map(float, p), *args, with_margin=True,
+                            case_major=case_major, **hp) for h, p in ((h0, p0), (h1, p1))]
+    assert both == one
+
+
+def test_kernel_source_agrees_with_the_wrapper():
+    """csrc/split_scan.cu's constants and C entry as ops/split_scan.py calls
+    it (the kernel builds only on the card): the members a launch, the
+    packed row's columns, the arity _build gives, the ticket counter reset
+    by the member's last block, one copy to the host and -fmad=false (the
+    improvement and margin round as candidates_plain's f32 operations)."""
+    import os
+    import re
+
+    from lightgbm_tpu_torch import _build
+    from lightgbm_tpu_torch.ops import split_scan as ss
+
+    with open(os.path.join(_build.CSRC, "split_scan.cu")) as fh:
+        src = fh.read()
+    assert int(re.search(r"kMaxMembers = (\d+);", src).group(1)) == ss.MAX_MEMBERS
+    assert int(re.search(r"kCandCols = (\d+);", src).group(1)) == ss.CAND_COLS == 12
+    decl = re.search(r'extern "C" int lgbt_split_scan\(([^)]*)\)', src).group(1)
+    assert len(decl.split(",")) == len(_build.SIGNATURES["split_scan"])
+    assert "if (last) tickets[member] = 0;" in src
+    assert src.count("cudaMemcpyAsync(") == 1 and "cudaMemcpyDeviceToHost" in src
+    assert "cudaMemcpyHostToDevice" not in src
+    assert "-fmad=false" in _build.NVCC_FLAGS
