@@ -40,7 +40,14 @@ Phases (any failed check raises, and the script exits non-zero):
            near-tie f32 refine) for 10 rounds on the card, then predict()
            on the same rows; launch counts of its kernels (each must be
            > 0), near-tie refines per tree, and the training log-loss per
-           round (it must fall); one more iteration under torch.profiler
+           round (it must fall); one warm predict split into its phases
+           (the host's f64 copy, column gather and f32 conversion, the
+           binning tables, copy to the card, bin_numeric, suspect rows,
+           walk, copy back); the walk kernel's scores bit-equal to the
+           plain walker's, every row in the same leaf of every tree, then
+           the same at 500 trees (the 10 trees' records repeated 50 times,
+           the Higgs run's forest size), timed; one more iteration under
+           torch.profiler
            (with the tree's fused steps, and its segment histograms of the
            near-tie refine, against their bounds and the rows of their
            windows)
@@ -762,19 +769,30 @@ def _hist_f64(rows, n, b):
 
 
 def check_forest_walk(booster, x, dev):
-    """The walk of the trained model over all rows, kernel vs plain."""
+    """The walk of the trained model over all rows, kernel vs plain (the
+    same bits), the same leaves in every tree; then the Higgs run's forest
+    size, the 10 trees' records repeated 50 times (500 trees)."""
+    from lightgbm_tpu_torch._bench import device_profile
+    from lightgbm_tpu_torch.bench_forest_walk import plain as plain_in_blocks
     from lightgbm_tpu_torch.ops import forest_walk as fw
     from lightgbm_tpu_torch.predict import predict_bins_leaves, stack_bin_trees
 
     tables = booster._walk_tables()
-    xs = torch.as_tensor(x[:, booster.used_features], device=dev)
+    # the bins as Booster.predict gives them to the walk: its f32 rows are
+    # C-contiguous, so bin_numeric's bins and their u8 cast are row-major
+    # and the wrapper walks them with no copy
+    xs = torch.as_tensor(np.ascontiguousarray(x[:, booster.used_features], dtype=np.float32),
+                         device=dev)
     dbt = fw.build_devbin_tables(booster.bin_mappers, booster.used_features, dev)
     bins = fw.bin_numeric(xs, *dbt)[0].to(torch.uint8)
+    if not bins.is_contiguous():
+        raise AssertionError("forest_walk: predict's bins reach the walk feature-major")
     sk = fw.forest_walk(bins, tables, 1)
     sp = fw.forest_walk_plain(bins, tables, 1)
     err = float((sk - sp).abs().max())
-    if err > 1e-5:
-        raise AssertionError(f"forest_walk: scores off by {err}")
+    if not torch.equal(sk, sp):
+        raise AssertionError(f"forest_walk: scores differ from the plain walker's bits "
+                             f"(max |err| {err})")
     # same leaves: walk each tree alone with leaf values set to the leaf index
     batch = stack_bin_trees([t.record() for t in booster.trees], booster.nan_bins, dev)
     leaves = predict_bins_leaves(batch, bins)
@@ -790,15 +808,123 @@ def check_forest_walk(booster, x, dev):
     )
     visits = float(depth[torch.arange(len(booster.trees), device=dev)[None, :], leaves].sum())
     n, f = bins.shape
-    table_bytes = sum(t.numel() * t.element_size() for t in (tables.node, tables.child, tables.leaf))
-    print(f"kernel forest_walk: same leaves in every tree, scores max |err| {err:.3g} "
-          f"vs the plain walker (tolerance 1e-5), {visits:.0f} node visits")
-    return with_device(kernel_entry(
+    table_bytes = tables.tables.numel() * 4
+    print(f"kernel forest_walk: same leaves in every tree, scores bit-equal to the plain walker "
+          f"(max |err| {err:.3g}), {visits:.0f} node visits "
+          f"({visits / (n * len(booster.trees)):.3f} a row-tree)")
+    entry = with_device(kernel_entry(
         "forest_walk", err,
         time_ms(lambda: fw.forest_walk(bins, tables, 1)),
         time_ms(lambda: fw.forest_walk_plain(bins, tables, 1), reps=3),
         bound_ms(n * f + table_bytes + n * 4, ops=visits), None,
     ), lambda: fw.forest_walk(bins, tables, 1))
+    # the call on the feature-major bins that a column gather of a row-major
+    # array gives (what this check timed before it made the bins as predict
+    # does): the wrapper copies them into rows before the kernel
+    bins_fm = bins.T.contiguous().T
+    if not torch.equal(fw.forest_walk(bins_fm, tables, 1), sk):
+        raise AssertionError("forest_walk: feature-major bins give other scores")
+    entry["feature_major_ms"] = time_ms(lambda: fw.forest_walk(bins_fm, tables, 1))
+    entry["feature_major_device_ms"], entry["feature_major_ops"] = device_profile(
+        lambda: fw.forest_walk(bins_fm, tables, 1))
+    print(f"kernel forest_walk on feature-major bins (the wrapper's copy into rows included): "
+          f"{entry['feature_major_ms']:.4f} ms event time, {entry['feature_major_device_ms']:.4f} "
+          f"ms device time in {entry['feature_major_ops']:.0f} device operations a call")
+    del bins_fm
+
+    # the Higgs run's 500 trees (docs/Experiments.rst): the trained records
+    # repeated 50 times, each row's leaf values added in tree order
+    recs = [t.record() for t in booster.trees] * 50
+    big = fw.build_tables(recs, booster.nan_bins, dev)
+    sk = fw.forest_walk(bins, big, 1)
+    sp = plain_in_blocks(bins, big, 1)
+    if not torch.equal(sk, sp):
+        raise AssertionError(f"forest_walk at {len(recs)} trees: scores differ from the plain "
+                             f"walker's bits (max |err| {float((sk - sp).abs().max())})")
+    big_ms = time_ms(lambda: fw.forest_walk(bins, big, 1), reps=10)
+    big_dev, big_ops = device_profile(lambda: fw.forest_walk(bins, big, 1))
+    t0 = time.perf_counter()
+    plain_in_blocks(bins, big, 1)
+    torch.cuda.synchronize()
+    big_plain = (time.perf_counter() - t0) * 1e3
+    bound = bound_ms(n * f + big.tables.numel() * 4 + n * 4, ops=visits * 50)
+    print(f"kernel forest_walk at {len(recs)} trees ({n} rows): scores bit-equal to the plain "
+          f"walker; {big_ms:.4f} ms event time, {big_dev:.4f} ms device time in {big_ops:.0f} "
+          f"device operations a call, bound {bound[0]:.5f} ms by {bound[1]}; plain "
+          f"{big_plain:.1f} ms")
+    return entry
+
+
+def predict_phases(booster, x) -> dict:
+    """One warm predict, split: the host's f64 copy of the input, its column
+    gather and f32 conversion, the device binning tables, the copy to the
+    card, bin_numeric, the suspect rows (their count read to the host, their
+    host re-binning and the patch copied back), the walk (the cast to u8,
+    the kernel), and the scores' conversion and
+    copy back; each phase ends in a synchronize.  The steps are
+    Booster.predict's (its result must equal predict's to the bit)."""
+    from lightgbm_tpu_torch._bench import device_profile
+    from lightgbm_tpu_torch.boosting.gbdt import PREDICT_CHUNK
+    from lightgbm_tpu_torch.ops import forest_walk as fw
+
+    dev = booster.device
+    want = booster.predict(x)  # warm
+    ph = dict.fromkeys(("f64 copy", "gather + f32", "binning tables", "to card", "bin_numeric",
+                        "suspects", "walk", "back to host"), 0.0)
+    n_suspect = 0
+    torch.cuda.synchronize()
+    t_all = t = time.perf_counter()
+    xd = np.asarray(x, dtype=np.float64)
+    ph["f64 copy"] = time.perf_counter() - t
+    t = time.perf_counter()
+    dbt = fw.build_devbin_tables(booster.bin_mappers, booster.used_features, dev)
+    torch.cuda.synchronize()
+    ph["binning tables"] = time.perf_counter() - t
+    parts = []
+    for lo in range(0, len(xd), PREDICT_CHUNK):
+        t = time.perf_counter()
+        xo = xd[lo:lo + PREDICT_CHUNK]
+        host = np.ascontiguousarray(xo[:, booster.used_features], dtype=np.float32)
+        ph["gather + f32"] += time.perf_counter() - t
+        t = time.perf_counter()
+        xs = torch.as_tensor(host, device=dev)
+        torch.cuda.synchronize()
+        ph["to card"] += time.perf_counter() - t
+        t = time.perf_counter()
+        bins, suspect = fw.bin_numeric(xs, *dbt)
+        torch.cuda.synchronize()
+        ph["bin_numeric"] += time.perf_counter() - t
+        t = time.perf_counter()
+        sidx = torch.nonzero(suspect)[:, 0].cpu().numpy()
+        n_suspect += len(sidx)
+        if len(sidx):
+            patch = booster._bin_host(xo[sidx])
+            bins[torch.as_tensor(sidx, device=dev)] = torch.as_tensor(patch.astype(np.int32),
+                                                                      device=dev)
+        torch.cuda.synchronize()
+        ph["suspects"] += time.perf_counter() - t
+        t = time.perf_counter()
+        parts.append(booster.predict_raw_bins(bins.to(torch.uint8)))
+        torch.cuda.synchronize()
+        ph["walk"] += time.perf_counter() - t
+    # the last chunk's walk alone on the card: the cast to u8, then the
+    # kernel (row-major bins, so no copy between them)
+    walk_dev, walk_ops = device_profile(lambda: booster.predict_raw_bins(bins.to(torch.uint8)))
+    t = time.perf_counter()
+    got = booster._finish_predict(torch.cat(parts), False)
+    ph["back to host"] = time.perf_counter() - t
+    total = time.perf_counter() - t_all
+    if not np.array_equal(got, want):
+        raise AssertionError("predict phases: the split steps differ from Booster.predict")
+    ms = {k: v * 1e3 for k, v in ph.items()}
+    print(f"main: predict phases of one warm predict of {len(xd)} rows, {total * 1e3:.1f} ms "
+          f"({len(xd) / total:.0f} rows/s): "
+          + ", ".join(f"{k} {v:.2f} ms" for k, v in ms.items())
+          + f"; {n_suspect} suspect rows re-binned on the host; the last chunk's walk "
+          f"{walk_dev:.4f} ms device time in {walk_ops:.0f} device operations, its u8 bins "
+          f"{'row-major' if bins.to(torch.uint8).is_contiguous() else 'feature-major'}")
+    return {"total_ms": total * 1e3, "suspect_rows": n_suspect, "walk_device_ms": walk_dev,
+            "walk_ops": walk_ops, **ms}
 
 
 def profile_iteration(booster, label: str = "profile") -> None:
@@ -1239,6 +1365,7 @@ def main() -> int:
         raise AssertionError(f"predict log-loss {pred_loss} vs train {losses[-1]}")
     print(f"main: predict log-loss {pred_loss:.6f} matches the training score")
 
+    predict_phases(booster, x)
     kernels["forest_walk"] = check_forest_walk(booster, x, dev)
     profile_iteration(booster)
     del booster

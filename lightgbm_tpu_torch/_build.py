@@ -49,7 +49,7 @@ SIGNATURES: Dict[str, Sequence] = {
     "partition": (_VP,) * 5 + (_I64, _I32, _VP, _I32, _I32, _VP, _VP, _I64, _VP, _VP, _VP,
                                 ctypes.c_uint, _VP, _VP),
     "split_scan": (_VP,) * 5 + (_I32,) * 4 + (_F32,) * 4 + (_VP, _F32, _I32) + (_VP,) * 4,
-    "forest_walk": (_VP,) * 4 + (_I64,) + (_I32,) * 5 + (_VP,) * 2,
+    "forest_walk": (_VP,) * 3 + (_I64,) + (_I32,) * 9 + (_VP,) * 2,
     "ordered_hist": (_VP, _I64) + (_VP,) * 5 + (_I32,) * 3 + (_VP, _VP, _I64, _VP, _VP),
 }
 # further C entries of a source: name -> (source, argtypes, restype)

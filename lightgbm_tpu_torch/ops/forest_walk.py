@@ -8,8 +8,9 @@ Counterpart of ``lightgbm_tpu/ops/pallas/forest_walk.py``:
     then walks with the plain level-synchronous walker of predict.py on
     the same device, as the JAX package falls back to its XLA walker;
   * ``build_tables`` (:158) stacks bin-space tree records into per-tree
-    node tables, in the port's own encoding (one i32 of split data and one
-    i32 of two i16 children per node, see ``csrc/forest_walk.cu``);
+    tables in the port's own encoding (an 8-byte record a node, then the
+    leaf values, and the NaN-left words; see ``csrc/forest_walk.cu``), and
+    ``walk_plan`` gives the kernel's launch plan for a call's shapes;
   * ``bin_numeric`` (:512) is value -> bin on the device in f32, flagging
     the rows whose f32 compare could disagree with the exact f64 host
     binning; the caller re-bins those rows on the host;
@@ -29,12 +30,23 @@ from .. import _build
 from ..binning import K_ZERO_THRESHOLD, MissingType
 from ..predict import BinTreeBatch, predict_bins_raw
 
-MAX_BIN_VALUE = 256  # bins are bytes; thresholds and NaN bins fit 9 bits
-MAX_F = 512  # 9-bit feature field of a node
-MAX_NODES = 1 << 15  # children are i16 node indices
-# dynamic shared memory of csrc/forest_walk.cu (kSharedBytes): one tree's
-# tables, 8 bytes a node and 4 a leaf, must fit
+MAX_BIN_VALUE = 256  # bins, thresholds and NaN bins are bytes
+MAX_F = 512  # a node's staged word, NaN-left ones included, fits a byte (kMaxF)
+MAX_NODES = 1 << 15  # splits a tree, at most (the table size below binds first)
+# one tree's tables, counted as 8 bytes a node and 4 a leaf, must fit this
+# many bytes (the earlier kernel's check, kept); every chunk of the kernel
+# then holds at least one tree (walk_plan)
 SHARED_TABLE_BYTES = 48 * 1024
+
+# the launch plan of csrc/forest_walk.cu (FW_ROWS, kMaxThreads, kSinkBytes
+# there; tests/test_torch_forest_walk.py checks the source)
+ROWS_PER_THREAD = 2
+MAX_THREADS = 512
+SINK_BYTES = 16
+BLOCK_SHARED = 113 * 1024  # a block's shared memory: two blocks a multiprocessor
+MAX_BLOCK_SHARED = 227 * 1024  # the most a block can take (one a multiprocessor)
+BIN_SHARED = 64 * 1024  # at most this much of it for a tile's staged words
+MAX_GROUPS = MAX_THREADS // 16  # groups of threads on a tile's rows, at most
 
 
 def walk_reject_reason(
@@ -66,34 +78,79 @@ def walk_reject_reason(
 
 
 class ForestTables(NamedTuple):
-    """Walk tables of T trees, M nodes and Lm leaves per tree at most."""
+    """Walk tables of T trees for rows of ``n_words`` staged words (``F``
+    bins, 4 a word): one row of ``2 * m_nodes + m_leaves`` words a tree, the
+    node records then the leaf values, and the NaN-left words
+    (``build_tables``)."""
 
-    node: torch.Tensor  # [T, M] i32: thr | feat<<9 | dl<<18 | (nanb+1)<<19
-    child: torch.Tensor  # [T, M] i32: (left & 0xFFFF) | right<<16, i16 each
-    leaf: torch.Tensor  # [T, Lm] f32 leaf values
+    tables: torch.Tensor  # [T, 2M + Lm] i32
+    nan_words: torch.Tensor  # [W_A, 3] i32: (word, its features' NaN bins, 0xFF mask)
+    nan_bins: torch.Tensor  # [F] i64, -1 where a feature has none
+    n_words: int  # W = ceil(F / 4)
+    m_nodes: int  # M: node records a tree, even
+    m_leaves: int  # Lm: leaf values a tree, a multiple of 4
     n_trees: int
+
+
+def _nan_words(nan_bins: np.ndarray) -> np.ndarray:
+    """[W_A, 3] u32 of the words that hold a feature with a NaN bin: (the
+    word, its four features' NaN bins as bytes, a 0xFF mask of the bytes
+    that have one)."""
+    f = len(nan_bins)
+    nb = np.full(4 * (-(-f // 4)), -1, np.int64)
+    nb[:f] = nan_bins
+    nb = nb.reshape(-1, 4)
+    has = nb >= 0
+    shift = np.arange(0, 32, 8)
+    rows = [(q, int((np.where(has[q], nb[q], 0) << shift).sum()),
+             int((np.where(has[q], 0xFF, 0) << shift).sum()))
+            for q in range(len(nb)) if has[q].any()]
+    return np.asarray(rows, np.uint32).reshape(-1, 3)
+
+
+def _split_word(sf, thr, dl, nan_bins, n_words, nan_word_of):
+    """The node records' first word: the selector bytes 0x54, 0x06 | (feat
+    & 3) << 4 (the byte permute that puts the feature's byte of the staged
+    word in place of thr), the staged word (bits 16-23: the row's word
+    feat >> 2, or its NaN-left word where the node sends missing values left
+    and the feature has a NaN bin) and thr (bits 24-31)."""
+    nan_left = (dl != 0) & (nan_bins[sf] >= 0)
+    word = np.where(nan_left, n_words + nan_word_of[sf >> 2], sf >> 2)
+    return 0x54 | ((0x06 | (sf & 3) << 4) << 8) | (word << 16) | (thr << 24)
 
 
 def build_tables(
     records: Sequence[dict], nan_bins: np.ndarray, device
 ) -> ForestTables:
     """Stack bin-space records (split_feature, split_bin, default_left,
-    left_child, right_child, leaf_value) into walk tables on ``device``."""
+    left_child, right_child, leaf_value) into walk tables on ``device``:
+    per tree M node records of two words (``_split_word``; left | right <<
+    16, each the u16 byte offset of the child in the tree's tables: 8 * i
+    for node i, 8 * M + 4 * j for leaf j), then Lm f32 leaf values, M even
+    and Lm a multiple of 4 so every tree is 16-byte aligned; and the
+    NaN-left words of the features' NaN bins (``nan_bins``, one a used
+    feature)."""
     t = len(records)
     m = max([len(r["split_feature"]) for r in records] + [1])
+    m += m % 2
     lm = max(len(r["leaf_value"]) for r in records)
-    node = np.zeros((t, m), np.int64)
-    child = np.zeros((t, m), np.int64)
-    leaf = np.zeros((t, lm), np.float32)
+    lm = -(-lm // 4) * 4
+    if 8 * m + 4 * lm > 0x10000:
+        raise ValueError("a tree's tables pass the u16 child offsets of the walk tables")
     nan_bins = np.asarray(nan_bins, np.int64)
+    n_words = -(-len(nan_bins) // 4)
+    nan_words = _nan_words(nan_bins)
+    nan_word_of = np.zeros(max(n_words, 1), np.int64)
+    nan_word_of[nan_words[:, 0].astype(np.int64)] = np.arange(len(nan_words))
+    words = np.zeros((t, 2 * m + lm), np.uint32)
     for i, r in enumerate(records):
         sf = np.asarray(r["split_feature"], np.int64)
         nn = len(sf)
         lv = np.asarray(r["leaf_value"], np.float32)
-        leaf[i, : len(lv)] = lv
+        words[i, 2 * m: 2 * m + len(lv)] = lv.view(np.uint32)
         if nn == 0:
             # single-leaf tree: node 0 sends every row to leaf 0
-            child[i, 0] = (~0 & 0xFFFF) | ((~0 & 0xFFFF) << 16)
+            words[i, 1] = 8 * m | (8 * m) << 16
             continue
         thr = np.asarray(r["split_bin"], np.int64)
         if thr.max() >= MAX_BIN_VALUE or sf.max() >= MAX_F:
@@ -101,38 +158,116 @@ def build_tables(
         dl = np.asarray(r["default_left"], np.int64)
         lc = np.asarray(r["left_child"], np.int64)
         rc = np.asarray(r["right_child"], np.int64)
-        node[i, :nn] = thr | (sf << 9) | (dl << 18) | ((nan_bins[sf] + 1) << 19)
-        child[i, :nn] = (lc & 0xFFFF) | ((rc & 0xFFFF) << 16)
-    as_i32 = lambda a: torch.as_tensor(a.astype(np.uint32).view(np.int32), device=device)
+        words[i, 0: 2 * nn: 2] = _split_word(sf, thr, dl, nan_bins, n_words, nan_word_of)
+        off = lambda c: np.where(c >= 0, 8 * c, 8 * m + 4 * ~c)  # noqa: E731
+        words[i, 1: 2 * nn: 2] = off(lc) | (off(rc) << 16)
     return ForestTables(
-        node=as_i32(node),
-        child=as_i32(child),
-        leaf=torch.as_tensor(leaf, device=device),
-        n_trees=t,
+        tables=torch.as_tensor(words.view(np.int32), device=device),
+        nan_words=torch.as_tensor(nan_words.view(np.int32), device=device),
+        nan_bins=torch.as_tensor(nan_bins, device=device),
+        n_words=n_words, m_nodes=m, m_leaves=lm, n_trees=t,
+    )
+
+
+def decode_tables(tables: ForestTables) -> BinTreeBatch:
+    """The stacked trees of the plain walker that route every row as the
+    tables do: a node that reads a NaN-left word sends missing values left."""
+    m, nw = tables.m_nodes, tables.n_words
+    w = tables.tables.long() & 0xFFFFFFFF
+    x, y = w[:, 0: 2 * m: 2], w[:, 1: 2 * m: 2]
+    word = (x >> 16) & 0xFF
+    nan_left = word >= nw
+    q_of = torch.cat([torch.arange(nw, device=w.device), tables.nan_words[:, 0].long()])
+    feat = q_of[word] * 4 + ((x >> 12) & 3)
+    # a child's byte offset -> node index, or ~leaf past the node records
+    child = lambda off: torch.where(off < 8 * m, off // 8, ~((off - 8 * m) // 4))  # noqa: E731
+    nan_bins = torch.cat([tables.nan_bins, torch.full((4 * nw - len(tables.nan_bins),), -1,
+                                                      device=w.device, dtype=torch.long)])
+    return BinTreeBatch(
+        split_feature=feat,
+        split_bin=x >> 24,
+        default_left=nan_left,
+        nan_bin=nan_bins[feat],
+        left_child=child(y & 0xFFFF),
+        right_child=child(y >> 16),
+        leaf_value=tables.tables[:, 2 * m:].contiguous().view(torch.float32),
     )
 
 
 def forest_walk_plain(bins: torch.Tensor, tables: ForestTables, k: int) -> torch.Tensor:
     """The plain version: decode the tables and run the level-synchronous
     walker of predict.py.  bins [N, F] u8 -> [N, k] f32."""
-    node = tables.node.long()
-    child = tables.child.long()
-    i16 = lambda x: torch.where(x >= 0x8000, x - 0x10000, x)
-    batch = BinTreeBatch(
-        split_feature=(node >> 9) & 0x1FF,
-        split_bin=node & 0x1FF,
-        default_left=((node >> 18) & 1) != 0,
-        nan_bin=((node >> 19) & 0x1FF) - 1,
-        left_child=i16(child & 0xFFFF),
-        right_child=i16((child >> 16) & 0xFFFF),
-        leaf_value=tables.leaf,
-    )
-    return predict_bins_raw(batch, bins, k)
+    return predict_bins_raw(decode_tables(tables), bins, k)
+
+
+class WalkPlan(NamedTuple):
+    threads: int  # a block
+    chunk_trees: int  # trees staged in a block's shared memory at once
+    groups: int  # groups of threads on the same rows, each walking every groups-th tree
+
+
+def walk_plan(n: int, f: int, n_trees: int, m_nodes: int, m_leaves: int, sms: int,
+              n_nan_words: int = 0) -> WalkPlan:
+    """The kernel's launch plan, a function of the shapes and the card's
+    multiprocessors: a group of threads takes ROWS_PER_THREAD rows each, as
+    many as give two blocks a multiprocessor a tile each (a multiple of 32
+    threads, at most MAX_THREADS) and as the tile's staged words allow
+    within BIN_SHARED; where the rows, not the words, make that fewer than
+    MAX_THREADS, groups of at least 16 threads sized the same way (a
+    multiple of 16), up to MAX_GROUPS of them (a power of two), share a
+    tile's rows, each walking every groups-th tree of a chunk into a stash
+    (at 4,096 rows 3.5x one group; on wide rows, where the words limit the
+    tile, groups were slower), if at least two such groups fit a block;
+    and a chunk holds as many trees as BLOCK_SHARED leaves room for beside
+    the words and the stash (a tree too large for that takes a block of
+    MAX_BLOCK_SHARED).  Every plan meets the C entry's checks: threads a
+    multiple of 32 and of groups."""
+    return _walk_plan(n, f, n_trees, m_nodes, m_leaves, sms, n_nan_words, MAX_GROUPS)
+
+
+def _walk_plan(n, f, n_trees, m_nodes, m_leaves, sms, n_nan_words, max_groups) -> WalkPlan:
+    """``walk_plan`` with at most ``max_groups`` groups (1: one group of
+    threads a block at every size, the plan the bench compares with)."""
+    rows_threads = -(-n // (2 * sms * ROWS_PER_THREAD))
+    group_threads = min(MAX_THREADS, max(32, -(-rows_threads // 32) * 32))
+    per_thread = ROWS_PER_THREAD * (-(-f // 4) + n_nan_words) * 4
+    words_cap = max(32, BIN_SHARED // per_thread // 32 * 32)
+    # the rows are few: groups (of half a warp at the fewest) on them fill
+    # the block, where two of them fit it (a lone group of an odd number of
+    # half warps would not be a multiple of 32 threads)
+    half_warps = max(16, -(-rows_threads // 16) * 16)
+    groups = 1
+    if (group_threads < min(words_cap, MAX_THREADS) and max_groups > 1
+            and 2 * half_warps <= MAX_THREADS):
+        group_threads = half_warps
+        while groups * 2 <= max_groups and group_threads * groups * 2 <= MAX_THREADS:
+            groups *= 2
+    group_threads = min(group_threads, words_cap)
+    tile_rows = group_threads * ROWS_PER_THREAD
+    bins_bytes = group_threads * per_thread
+    tree_bytes = 8 * m_nodes + 4 * m_leaves + (4 * tile_rows if groups > 1 else 0)
+    for budget in (BLOCK_SHARED, MAX_BLOCK_SHARED):
+        chunk = min(n_trees, (budget - SINK_BYTES - bins_bytes) // tree_bytes)
+        if chunk >= 1:
+            return WalkPlan(group_threads * groups, chunk, groups)
+    raise ValueError(f"a tree's tables ({tree_bytes} bytes) do not fit the walk kernel")
+
+
+_SMS = {}
+
+
+def sm_count(device) -> int:
+    """Multiprocessors of a CUDA device (cached)."""
+    idx = torch.device(device).index
+    idx = torch.cuda.current_device() if idx is None else idx
+    if idx not in _SMS:
+        _SMS[idx] = torch.cuda.get_device_properties(idx).multi_processor_count
+    return _SMS[idx]
 
 
 def forest_walk(bins: torch.Tensor, tables: ForestTables, k: int) -> torch.Tensor:
     """Raw scores [N, k] of bins [N, F] u8: plain version on the CPU, the
-    ``csrc/forest_walk.cu`` kernel on a CUDA device."""
+    ``csrc/forest_walk.cu`` kernel on a CUDA device at ``walk_plan``'s plan."""
     if bins.device.type == "cpu":
         return forest_walk_plain(bins, tables, k)
     if bins.device.type != "cuda":
@@ -141,13 +276,18 @@ def forest_walk(bins: torch.Tensor, tables: ForestTables, k: int) -> torch.Tenso
         raise ValueError("forest walk takes [N, F] u8 bins")
     bins = bins.contiguous()
     n, f = bins.shape
+    if -(-f // 4) != tables.n_words:
+        raise ValueError(f"tables built for {tables.n_words} words of bins, not {f} features")
+    n_nan = int(tables.nan_words.shape[0])
+    plan = walk_plan(n, f, tables.n_trees, tables.m_nodes, tables.m_leaves,
+                     sm_count(bins.device), n_nan)
     out = torch.empty((n, k), dtype=torch.float32, device=bins.device)
     fn = _build.entry("forest_walk")
     rc = fn(
-        bins.data_ptr(), tables.node.data_ptr(), tables.child.data_ptr(),
-        tables.leaf.data_ptr(), n, f, tables.n_trees,
-        int(tables.node.shape[1]), int(tables.leaf.shape[1]), int(k),
-        out.data_ptr(), torch.cuda.current_stream(bins.device).cuda_stream,
+        bins.data_ptr(), tables.tables.data_ptr(), tables.nan_words.data_ptr(), n, f, n_nan,
+        tables.n_trees, tables.m_nodes, tables.m_leaves, int(k), plan.threads,
+        plan.chunk_trees, plan.groups, out.data_ptr(),
+        torch.cuda.current_stream(bins.device).cuda_stream,
     )
     _build.check(rc, "forest_walk kernel")
     _build.LAUNCHES["forest_walk"] += 1
