@@ -71,6 +71,26 @@ Phases (any failed check raises, and the script exits non-zero):
   parity   the default parameters for 3 rounds at 65,536 rows on the card
            and on the CPU with the int8 accumulation on there
            (grower.INT8_ON_CPU): share of identical splits, log-loss
+  io       the train API, evaluation and model text on the card: the
+           Higgs-shaped rows with seeded weights (uniform in [0.5, 1.5)) and
+           a 262,144-row validation set binned with reference= the training
+           set, 10 rounds of train() with metric binary_logloss and auc,
+           record_evaluation and early_stopping(5), the training set
+           evaluated too; the training log-loss must fall every round, the
+           forest walk must run once a tree on the validation set (its
+           score = predict_raw_bins of its bins within 1e-6 relative, the
+           bias folded into the first tree adding in another order there),
+           the recorded validation log-loss must equal the f64 host
+           log-loss of predict() within 1e-5 relative; save_model, then the
+           file loaded into Booster(model_file=) on the card: its
+           real-space predict of the 1,048,576 rows within rtol 1e-6, atol
+           1e-6 of the trained booster's bin-space predict, every row in
+           the same leaf of every tree, its model_to_string byte-equal to
+           the file; the reference LightGBM's tests/golden/
+           scen_weighted.model.txt predicts scen_weighted.train.csv within
+           rtol 1e-4, atol 1e-5 of its preds.txt.  Printed: the eval time a
+           round against the round's wall time, save, load and predict
+           times, real-space and bin-space rows/s
   wide data  an Expo-shaped table (binary, 1,048,576 x 700 numeric
            features, 2% NaN, values on a grid of 1/32), binned (and the
            seconds of the bundling check); the ordered histograms (f32 and
@@ -102,6 +122,7 @@ off, batch-off, wide, wide-batch and wide-quant runs), the card, and
 from __future__ import annotations
 
 import json
+import pathlib
 import re
 import statistics
 import subprocess
@@ -118,6 +139,10 @@ OFF_ROUNDS = 3
 PARITY_ROWS = 1 << 16
 PARITY_ROUNDS = 3
 PARAMS = {"objective": "binary", "num_leaves": 255, "max_bin": 255, "learning_rate": 0.1}
+IO_VALID_ROWS = 1 << 18
+IO_ROUNDS = 10
+IO_PARAMS = {**PARAMS, "metric": ["binary_logloss", "auc"], "verbosity": -1}
+GOLDEN = pathlib.Path(__file__).resolve().parent / "tests" / "golden"
 # the two-launch path: a partition and a histogram launch per split, f32 sums
 OFF_PARAMS = {**PARAMS, "grow_fused": "off", "hist_acc": "bf16", "fused_split_scan": True}
 # bench.py's _PARAMS (less its logging keys): frontier batching, K = 4
@@ -1183,6 +1208,154 @@ def batch_phase(lt, _build, ds):
     return launches
 
 
+def io_phase(lt, _build, rows, dev):
+    """Weighted training with a validation set through train(), its
+    evaluation records, the model text written and read on the card, and
+    the reference's own model.  Returns the training run's kernel
+    launches."""
+    from lightgbm_tpu_torch.ops import forest_walk as fw
+    from lightgbm_tpu_torch.predict import (predict_bins_leaves, predict_real_leaves,
+                                            stack_bin_trees, stack_real_trees)
+
+    # one draw of the task: the training rows, then the validation rows
+    x, y = make_data(rows + IO_VALID_ROWS, FEATURES, seed=17)
+    x, xv, y, yv = x[:rows], x[rows:], y[:rows], y[rows:]
+    weight = np.random.default_rng(5).uniform(0.5, 1.5, rows)
+    ds = lt.Dataset(x, y, weight=weight, params=IO_PARAMS)
+    vs = lt.Dataset(xv, yv, reference=ds)
+    rec, stamps = {}, []
+
+    def start(env):
+        torch.cuda.synchronize()
+        stamps.append([time.perf_counter()])
+
+    def end(env):
+        torch.cuda.synchronize()
+        stamps[-1].append(time.perf_counter())
+
+    # end runs after record_evaluation (order 20), before early_stopping (30),
+    # which raises at the last round
+    start.before_iteration, start.order, end.order = True, 0, 25
+    _build.LAUNCHES.clear()
+    booster = lt.train(IO_PARAMS, ds, IO_ROUNDS, valid_sets=[ds, vs],
+                       valid_names=["training", "valid"], device=dev,
+                       callbacks=[lt.record_evaluation(rec), lt.early_stopping(5, verbose=False),
+                                  start, end])
+    torch.cuda.synchronize()
+    launches = dict(_build.LAUNCHES)
+    n_trees = booster.num_trees()
+    round_ms = [(b - a) * 1e3 for a, b in stamps]
+    losses = rec["training"]["binary_logloss"]
+    print(f"io: {n_trees} trees, best iteration {booster.best_iteration}, best score "
+          f"{json.dumps(booster.best_score)}")
+    print("io: weighted training log-loss per round " + " ".join(f"{v:.6f}" for v in losses))
+    print("io: validation log-loss per round "
+          + " ".join(f"{v:.6f}" for v in rec["valid"]["binary_logloss"])
+          + "; auc " + " ".join(f"{v:.6f}" for v in rec["valid"]["auc"]))
+    print(f"io: kernel launches {json.dumps(launches)}")
+    if not falls(losses, IO_ROUNDS):
+        raise AssertionError("io: weighted training log-loss did not fall every round")
+    require_launches(launches, ("fused_grow_step", "seg_hist_int8", "split_scan",
+                                "forest_walk"), "io training")
+    if launches["forest_walk"] != n_trees:
+        raise AssertionError(f"io: {launches['forest_walk']} forest walks for {n_trees} trees "
+                             "on one validation set")
+
+    entry = booster._valid[0]
+    want = booster.predict_raw_bins(entry.bins)
+    if not torch.allclose(entry.score, want, rtol=1e-6, atol=1e-6):
+        raise AssertionError(f"io: validation score differs from predict_raw_bins "
+                             f"(max |diff| {float((entry.score - want).abs().max())})")
+    p = np.clip(booster.predict(xv, num_iteration=n_trees), 1e-15, 1 - 1e-15)
+    host = float(-np.mean(yv * np.log(p) + (1 - yv) * np.log(1 - p)))
+    got = rec["valid"]["binary_logloss"][-1]
+    print(f"io: recorded validation log-loss {got:.8f}, host f64 from predict {host:.8f} "
+          f"(relative {abs(got - host) / host:.3g}); validation score = predict_raw_bins "
+          f"(max |diff| {float((entry.score - want).abs().max()):.3g})")
+    if abs(got - host) > 1e-5 * host:
+        raise AssertionError("io: recorded log-loss differs from the host's")
+
+    # the validation walk of one tree: the kernel alone, and the whole step
+    # (the tree's table built on the host, copied, walked, added)
+    tables = fw.build_tables([booster.trees[-1].record()], booster.nan_bins, dev)
+    nv, nf = entry.bins.shape
+    walk_ms = time_ms(lambda: fw.forest_walk(entry.bins, tables, 1))
+    walk_bound = bound_ms(nv * nf + tables.tables.numel() * 4 + nv * 4)
+    reps = 5
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        entry.score + booster._walk_one(booster.trees[-1].record(), entry.bins)
+    torch.cuda.synchronize()
+    step_ms = (time.perf_counter() - t0) * 1e3 / reps
+    print(f"io: validation walk of one tree over {nv} rows: kernel {walk_ms:.4f} ms event time "
+          f"(bound {walk_bound[0]:.5f} ms by {walk_bound[1]}), the whole step {step_ms:.3f} ms "
+          "host wall (table, copy, walk, add)")
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        booster.eval_train()
+        booster.eval_valid()
+    eval_ms = (time.perf_counter() - t0) * 1e3 / reps
+    print(f"io: eval of the training and validation sets {eval_ms:.2f} ms a round; round wall "
+          f"time median {statistics.median(round_ms):.1f} ms (eval share "
+          f"{eval_ms / statistics.median(round_ms):.4f}); rounds "
+          + " ".join(f"{v:.1f}" for v in round_ms) + " ms")
+
+    # model text: save, load on the card, predict in real space
+    path = pathlib.Path(lt.__file__).resolve().parent / "build" / "io_model.txt"
+    path.parent.mkdir(exist_ok=True)
+    t0 = time.perf_counter()
+    booster.save_model(str(path))
+    save_ms = (time.perf_counter() - t0) * 1e3
+    text = path.read_text()
+    t0 = time.perf_counter()
+    loaded = lt.Booster(model_file=str(path), device=dev)
+    load_ms = (time.perf_counter() - t0) * 1e3
+    if loaded.model_to_string() != text:
+        raise AssertionError("io: the loaded model's text differs from the file")
+    real = loaded.predict(x)  # warm
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    real = loaded.predict(x)
+    real_s = time.perf_counter() - t0
+    bins_pred = booster.predict(x)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    bins_pred = booster.predict(x)
+    bin_s = time.perf_counter() - t0
+    diff = float(np.abs(real - bins_pred).max())
+    if not np.allclose(real, bins_pred, rtol=1e-6, atol=1e-6):
+        raise AssertionError(f"io: real-space predict differs from bin-space (max |diff| {diff})")
+    t_end = booster._tree_range(0, None)[1]
+    records = [t.record() for t in booster.trees[:t_end]]
+    bin_leaves = predict_bins_leaves(
+        stack_bin_trees(records, booster.nan_bins, dev),
+        torch.as_tensor(ds.bins, device=dev))
+    real_leaves = predict_real_leaves(stack_real_trees(loaded.trees, dev),
+                                      torch.as_tensor(x, dtype=torch.float64, device=dev))
+    if not torch.equal(bin_leaves, real_leaves):
+        raise AssertionError("io: the loaded model routes rows to other leaves")
+    print(f"io: save_model {save_ms:.1f} ms ({len(text)} bytes, {len(loaded.trees)} trees), "
+          f"load {load_ms:.1f} ms; real-space predict {len(x) / real_s:.0f} rows/s "
+          f"({real_s * 1e3:.1f} ms), bin-space {len(x) / bin_s:.0f} rows/s "
+          f"({bin_s * 1e3:.1f} ms); max |diff| {diff:.3g}, every row in the same leaf of every "
+          "tree; the loaded model's text byte-equal to the file")
+
+    # the reference LightGBM's own model
+    arr = np.loadtxt(GOLDEN / "scen_weighted.train.csv", delimiter=",")
+    ref = lt.Booster(model_file=str(GOLDEN / "scen_weighted.model.txt"), device=dev)
+    gp = ref.predict(arr[:, 1:])
+    gw = np.loadtxt(GOLDEN / "scen_weighted.preds.txt", ndmin=1)
+    if not np.allclose(gp, gw, rtol=1e-4, atol=1e-5):
+        raise AssertionError("io: scen_weighted.model.txt does not predict its preds.txt")
+    print(f"io: the reference's scen_weighted.model.txt on the card: {len(gp)} rows, max |diff| "
+          f"from its preds.txt {float(np.abs(gp - gw).max()):.3g}")
+    path.unlink()
+    return launches
+
+
 def falls(losses, rounds) -> bool:
     return len(losses) == rounds and all(b < a for a, b in zip(losses, losses[1:]))
 
@@ -1432,6 +1605,8 @@ def main() -> int:
     if share < 0.95 or abs(lc - lp) > 1e-4 * abs(lp):
         raise AssertionError("card and CPU training disagree")
     del runs, xs, ys, x, ds
+
+    phases["io"] = io_phase(lt, _build, ROWS, dev)
 
     wide_kernels, wide_launches = wide_phases(lt, _build, dev)
     kernels.update({k["name"]: k for k in wide_kernels})

@@ -179,16 +179,28 @@ def transfers(fn: Callable) -> Dict[str, float]:
     device-to-host copies, other (memsets), from torch.profiler."""
     fn()
     reps = 5
-    for _ in range(3):  # a trace that lost its device events is taken again
-        kinds = {"kernels": 0, "HtoD": 0, "DtoH": 0, "other": 0}
+    # a trace can lose device events but never adds one, and every call does
+    # the same operations: each kind's count is the largest of three traces
+    # whose counts are whole multiples of the calls (another is taken again;
+    # a process's first traces on the card have come back empty up to 6 times)
+    most = {"kernels": 0, "HtoD": 0, "DtoH": 0, "other": 0}
+    whole = 0
+    for _ in range(32):
+        kinds = dict.fromkeys(most, 0)
         for e in _device_events(fn, reps, None):
             name = e.name
             kind = ("HtoD" if "HtoD" in name else "DtoH" if "DtoH" in name else
                     "other" if name.startswith(("Memcpy", "Memset")) else "kernels")
             kinds[kind] += 1
-        if kinds["kernels"]:
+        if not kinds["kernels"] or any(v % reps for v in kinds.values()):
+            print(f"transfers: a trace of {reps} calls lost events ({kinds}); taken again",
+                  file=sys.stderr)
+            continue
+        most = {k: max(v, kinds[k]) for k, v in most.items()}
+        whole += 1
+        if whole == 3:
             break
-    return {k: v / reps for k, v in kinds.items()}
+    return {k: v / reps for k, v in most.items()}
 
 
 def check_case(name, hist, parents, inputs) -> None:

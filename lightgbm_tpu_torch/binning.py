@@ -148,6 +148,8 @@ class BinMapper:
     missing_type: int = MissingType.NONE
     num_bins: int = 1  # total bins incl. the NaN bin if present
     nan_bin: int = -1  # bin index NaN maps to, -1 if none
+    min_value: float = 0.0  # the sample's smallest and largest finite values
+    max_value: float = 0.0
 
     @property
     def is_trivial(self) -> bool:
@@ -174,7 +176,8 @@ class BinMapper:
         if missing_type == MissingType.NAN:
             nan_bin = num_bins
             num_bins += 1
-        return cls(np.asarray(bounds, np.float64), missing_type, num_bins, nan_bin)
+        return cls(np.asarray(bounds, np.float64), missing_type, num_bins, nan_bin,
+                   float(finite.min()), float(finite.max()))
 
     def values_to_bins(self, values: np.ndarray) -> np.ndarray:
         """Vectorized value -> bin (reference BinMapper::ValueToBin)."""
@@ -187,6 +190,12 @@ class BinMapper:
         elif self.missing_type == MissingType.NAN and self.nan_bin >= 0:
             out[nan_mask] = self.nan_bin
         return out
+
+    def feature_info_str(self) -> str:
+        """The feature's ``feature_infos`` entry of the model text."""
+        if self.is_trivial:
+            return "none"
+        return f"[{self.min_value:g}:{self.max_value:g}]"
 
     def bin_to_threshold(self, bin_idx: int) -> float:
         """Real-valued split threshold for 'bin <= bin_idx goes left'."""

@@ -10,21 +10,39 @@ commit-rate clamp, and ``predict`` through the forest walk (or the plain
 walker on the same device when the kernel rejects the model), with device
 binning and an exact host re-bin of the rows whose f32 binning is in
 doubt.
+
+Evaluation (:1569, :2458-2515): validation sets added with ``add_valid``
+keep a score on the device that each new tree is added to by the
+forest-walk kernel on their row-major bins (a one-tree table; the plain
+walker past ``walk_reject_reason``'s limits), the replacement of the JAX
+package's XLA walk ``_apply_tree_valid_score`` (:78-110); their metrics
+and the training set's (``metrics.py``) read the scores where they lie.
+Row weights and ``init_score`` come from the Dataset (an init score starts
+the score and turns ``boost_from_average`` off, :712-717, :2071-2082).
+
+Model text (:3186-3421): ``model_to_string`` / ``save_model`` write
+LightGBM's format; ``Booster(model_file=...)`` / ``Booster(model_str=...)``
+/ ``model_from_string`` read it.  A model read from text has no bin
+mappers: it predicts through the real-space walker (``predict.py``) on the
+booster's device.  Its ``parameters:`` block is kept as text and written
+back as it was.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import os
 import warnings
 from typing import Any, Dict, List, Optional
 
 import numpy as np
 import torch
 
-from ..config import Config
+from ..config import _OBJECTIVE_ALIASES, Config
 from ..dataset import Dataset
 from ..device import resolve_device
-from ..objectives import create_objective
+from ..metrics import create_metrics
+from ..objectives import create_objective, objective_for_output
 from ..ops.forest_walk import (
     ForestTables,
     bin_numeric,
@@ -35,12 +53,14 @@ from ..ops.forest_walk import (
 )
 from ..ops.grower import GrowerParams, grow_tree, int8_acc_eligible
 from ..ops.histogram import row_major_bins
-from ..predict import predict_bins_raw, stack_bin_trees
+from ..predict import predict_bins_raw, predict_real_raw, stack_bin_trees, stack_real_trees
 from ..quantize import hist_acc_scales, quantize_gradients
 from ..tree import Tree
 
 _EPS = 1e-15
+_MODEL_VERSION = "v4"
 PREDICT_CHUNK = 1 << 20  # rows binned and walked per launch
+REAL_WALK_CELLS = 1 << 24  # rows x trees of one real-space walk
 # the seg layout's feature budget at max_bin <= 256 (boosting/gbdt.py:1318)
 SEG_MAX_FEATURES = 242
 
@@ -63,14 +83,29 @@ def resolve_hist_mode(n_used: int, max_bin_padded: int) -> str:
     return "ordered"
 
 
+class _EvalEntry:
+    """A validation set: its row-major bins and f32 score on the device,
+    and its metrics."""
+
+    def __init__(self, name: str, dataset: Dataset, metrics, bins, score):
+        self.name = name
+        self.dataset = dataset
+        self.metrics = metrics
+        self.bins = bins  # [N, F_used] u8
+        self.score = score  # [N] f32
+
+
 class Booster:
     """Trains on ``device`` (the CUDA card unless ``device='cpu'``) and
-    predicts through the forest walk."""
+    predicts through the forest walk; or reads a model from text
+    (``model_file`` / ``model_str``) and predicts it in real space."""
 
     def __init__(
         self,
         params: Optional[Dict[str, Any]] = None,
         train_set: Optional[Dataset] = None,
+        model_file: Optional[str] = None,
+        model_str: Optional[str] = None,
         device=None,
     ) -> None:
         self.params: Dict[str, Any] = dict(params or {})
@@ -80,8 +115,25 @@ class Booster:
         self.trees: List[Tree] = []
         self.train_set: Optional[Dataset] = None
         self.objective = None
+        self.bin_mappers = None  # None: a model read from text, walked in real space
+        self.best_iteration = -1
+        self.best_score: Dict[str, Dict[str, float]] = {}
+        self.feature_names: List[str] = []
+        self.feature_infos: List[str] = []
+        self.max_feature_idx = -1
+        self._iter = 0
+        self._valid: List[_EvalEntry] = []
+        self._train_metrics: list = []
+        self._has_init_score = False
+        # model text: the objective's string, the header's version, and the
+        # text from the parameters block on (kept as read, or made from
+        # params at the first model_to_string of a trained booster)
+        self._objective_str = self.config.objective
+        self._version = _MODEL_VERSION
+        self._params_tail: Optional[str] = None
         self._finished = False
-        self._tables = None
+        # walk tables by tree range: (t0, t1) bin space, ("real", t0, t1)
+        self._tables: Dict[tuple, Any] = {}
         self._warned_walk_fallback = False
         self.hist_mode: Optional[str] = None  # the resolved training layout
         # per trained tree: near-tie f32 refines of the int8 accumulation,
@@ -101,7 +153,12 @@ class Booster:
         # convert.booster_from_arrays); training folds its init score into
         # the first tree instead
         self.init_score = 0.0
-        if train_set is not None:
+        if model_file is not None:
+            with open(model_file) as f:
+                model_str = f.read()
+        if model_str is not None:
+            self._load_model_string(model_str)
+        elif train_set is not None:
             self._init_train(train_set)
 
     # ------------------------------------------------------------- training
@@ -113,8 +170,14 @@ class Booster:
         self.bin_mappers = ds.bin_mappers
         self.used_features = list(ds.used_features)
         n = ds.num_data
-        self.objective = create_objective(cfg.objective, ds.label, dev)
-        self.score = torch.zeros(n, dtype=torch.float32, device=dev)
+        self.objective = create_objective(cfg.objective, ds.label, dev, ds.weight)
+        self._objective_str = self.objective.to_string()
+        self._has_init_score = ds.init_score is not None
+        self.score = self._start_score(ds)
+        self._train_metrics = create_metrics(cfg, ds.label, ds.weight, dev)
+        self.feature_names = list(ds.feature_names)
+        self.feature_infos = [m.feature_info_str() for m in ds.bin_mappers]
+        self.max_feature_idx = ds.num_total_features - 1
         self.hist_mode = cfg.hist_mode or resolve_hist_mode(
             len(self.used_features), ds.max_bin_padded
         )
@@ -126,6 +189,7 @@ class Booster:
             row_major_bins(ds.bins, dev) if self.hist_mode == "ordered" else None
         )
         self.nan_bins = ds.nan_bins()
+        self._max_bin = ds.max_bin_padded
         self._num_bins_t = torch.as_tensor(ds.num_bins(), device=dev)
         self._nan_bins_t = torch.as_tensor(self.nan_bins, device=dev)
         self._feature_mask = torch.ones(
@@ -202,11 +266,11 @@ class Booster:
             return True
         cfg = self.config
         init_score = 0.0
-        if not self.trees and cfg.boost_from_average:
+        if not self.trees and cfg.boost_from_average and not self._has_init_score:
             s = self.objective.boost_from_score()
             if abs(s) > _EPS:
                 init_score = s
-                self.score += s
+                self._add_to_scores(s)
         grad, hess = self.objective.get_gradients(self.score)
         n_leaves, refines, steps = 1, 0, 0
         k = self._grower_params.leaf_batch
@@ -226,26 +290,52 @@ class Booster:
             # without boost_from_average its value is the objective's
             # init score, added to the scores (boosting/gbdt.py:2256-2267)
             if not self.trees:
-                if not cfg.boost_from_average:
+                if not cfg.boost_from_average and not self._has_init_score:
                     init_score = self.objective.boost_from_score()
-                    self.score += init_score
-                tree = Tree.from_record(_constant_record(init_score))
-                self.trees.append(tree)
+                    self._add_to_scores(init_score)
+                self.trees.append(Tree.constant(init_score))
                 self._note_tree(refines, steps, k, n_leaves)
-                self._tables = None
+                self._tables = {}
             self._finished = True
             return True
         tree = Tree.from_tree_arrays(ta, self.bin_mappers, self.used_features)
         self._note_tree(refines, steps, k, n_leaves)
         tree.apply_shrinkage(cfg.learning_rate)
-        rate = torch.tensor(np.float32(cfg.learning_rate), device=self.device)
-        shrunk = torch.as_tensor(ta.leaf_value, device=self.device) * rate
-        self.score += shrunk[leaf_id.long()]
+        rate = np.float32(cfg.learning_rate)
+        shrunk = np.asarray(ta.leaf_value, np.float32)[: ta.num_leaves] * rate
+        self.score += torch.as_tensor(shrunk, device=self.device)[leaf_id.long()]
+        if self._valid:
+            # the new tree without the bias, which _add_to_scores added
+            rec = {**tree.record(), "leaf_value": shrunk}
+            for entry in self._valid:
+                entry.score += self._walk_one(rec, entry.bins)
         if init_score:
             tree.add_bias(init_score)
         self.trees.append(tree)
-        self._tables = None
+        self._tables = {}
+        self._iter += 1
         return False
+
+    def _start_score(self, ds: Dataset) -> torch.Tensor:
+        """[N] f32 score a Dataset's rows start from: its init_score, or 0."""
+        if ds.init_score is None:
+            return torch.zeros(ds.num_data, dtype=torch.float32, device=self.device)
+        return torch.as_tensor(ds.init_score.astype(np.float32), device=self.device)
+
+    def _add_to_scores(self, val: float) -> None:
+        """The init score, added to the training and validation scores."""
+        self.score += val
+        for entry in self._valid:
+            entry.score += val
+
+    def _walk_one(self, rec: dict, bins: torch.Tensor) -> torch.Tensor:
+        """[N] f32 leaf values of one tree's record on rows ``bins``: the
+        forest-walk kernel (plain version on the CPU), or the plain walker
+        when the kernel rejects the tree."""
+        tables = self._tables_of([rec])
+        if isinstance(tables, ForestTables):
+            return forest_walk(bins, tables, 1)[:, 0]
+        return predict_bins_raw(tables, bins, 1)[:, 0]
 
     def _grow_inputs(self, grad, hess):
         """(grad, hess, quant_scales) the tree grows on.  Quantized training
@@ -284,54 +374,69 @@ class Booster:
         return self.objective.train_loss(self.score)
 
     # ------------------------------------------------------------ prediction
-    def _walk_tables(self):
-        """Walk tables of the model: the forest-walk kernel's, or, when the
-        kernel rejects the model (``walk_reject_reason``), the stacked trees
+    def _walk_tables(self, t0: int = 0, t1: Optional[int] = None):
+        """Walk tables of trees [t0, t1) (all by default), cached."""
+        key = (t0, len(self.trees) if t1 is None else t1)
+        if key not in self._tables:
+            self._tables[key] = self._tables_of([t.record() for t in self.trees[key[0]:key[1]]])
+        return self._tables[key]
+
+    def _tables_of(self, records):
+        """The forest-walk kernel's tables of bin-space records, or, when
+        the kernel rejects them (``walk_reject_reason``), the stacked trees
         of the plain walker (the JAX package's XLA fallback,
-        boosting/gbdt.py:2646-2694)."""
-        if self._tables is None:
-            records = [t.record() for t in self.trees]
-            nb = [self.bin_mappers[j].num_bins for j in self.used_features]
-            max_bin = 1 << max(0, (max(nb, default=2) - 1).bit_length())
-            reason = walk_reject_reason(records, self.nan_bins, len(self.used_features), max_bin)
-            if reason is None:
-                self._tables = build_tables(records, self.nan_bins, self.device)
-            else:
-                if not self._warned_walk_fallback:
-                    self._warned_walk_fallback = True
-                    warnings.warn(
-                        "prediction fast path (forest-walk kernel) unavailable: "
-                        + reason + "; using the slower plain walker", stacklevel=3,
-                    )
-                self._tables = stack_bin_trees(records, self.nan_bins, self.device)
-        return self._tables
+        boosting/gbdt.py:2646-2694), with a warning the first time."""
+        nf = len(self.used_features)
+        reason = walk_reject_reason(records, self.nan_bins, nf, self._max_bin)
+        if reason is None:
+            return build_tables(records, self.nan_bins, self.device)
+        if not self._warned_walk_fallback:
+            self._warned_walk_fallback = True
+            warnings.warn(
+                "prediction fast path (forest-walk kernel) unavailable: "
+                + reason + "; using the slower plain walker", stacklevel=4,
+            )
+        return stack_bin_trees(records, self.nan_bins, self.device)
 
     def _bin_host(self, x: np.ndarray) -> np.ndarray:
         """Exact f64 host binning of rows x [n, F_total] -> [n, F_used]."""
         cols = [self.bin_mappers[j].values_to_bins(x[:, j]) for j in self.used_features]
         return np.stack(cols, axis=1) if cols else np.zeros((len(x), 0), np.int32)
 
-    def predict_raw_bins(self, bins: torch.Tensor) -> torch.Tensor:
+    def predict_raw_bins(self, bins: torch.Tensor, t0: int = 0,
+                         t1: Optional[int] = None) -> torch.Tensor:
         """Raw scores [N] of already-binned rows [N, F_used] u8 on the
-        booster's device."""
-        tables = self._walk_tables()
+        booster's device, through trees [t0, t1) (all by default)."""
+        tables = self._walk_tables(t0, t1)
         if isinstance(tables, ForestTables):
             raw = forest_walk(bins, tables, self.num_class)[:, 0]
         else:
             raw = predict_bins_raw(tables, bins, self.num_class)[:, 0]
         return raw + self.init_score if self.init_score else raw
 
-    def predict(self, data: np.ndarray, raw_score: bool = False) -> np.ndarray:
+    def predict(self, data: np.ndarray, start_iteration: int = 0,
+                num_iteration: Optional[int] = None, raw_score: bool = False) -> np.ndarray:
         """Scores of rows ``data`` [N, F] (probabilities for binary unless
-        ``raw_score``).  Rows are binned on the device in f32; rows within
-        f32 rounding of a bin boundary are re-binned on the host in f64,
-        so the bins equal the training Dataset's."""
+        ``raw_score``) through iterations [start_iteration, start_iteration
+        + num_iteration) (``_tree_range``: by default up to the best
+        iteration once early stopping has set one).  A trained booster
+        bins the rows on the device in f32; rows within f32 rounding of a
+        bin boundary are re-binned on the host in f64, so the bins equal
+        the training Dataset's.  A model read from text walks the raw
+        values in real space."""
         x = np.asarray(data, dtype=np.float64)
         if x.ndim != 2:
             raise ValueError(f"data must be 2-D, got shape {x.shape}")
         n = x.shape[0]
-        if not self.trees:
+        if not raw_score and self.objective is None and self.trees:
+            raise NotImplementedError(
+                f"objective {self._objective_str!r} of this model not yet ported to "
+                "lightgbm_tpu_torch (only raw_score=True predicts it)")
+        t0, t1 = self._tree_range(start_iteration, num_iteration)
+        if t1 <= t0:
             return np.zeros(n)
+        if self.bin_mappers is None:
+            return self._finish_predict(self._predict_real(x, t0, t1), raw_score)
         dbt = build_devbin_tables(self.bin_mappers, self.used_features, self.device)
         parts = []
         for lo in range(0, n, PREDICT_CHUNK):
@@ -347,9 +452,194 @@ class Booster:
                 bins[torch.as_tensor(sidx, device=self.device)] = torch.as_tensor(
                     patch.astype(np.int32), device=self.device
                 )
-            parts.append(self.predict_raw_bins(bins.to(torch.uint8)))
+            parts.append(self.predict_raw_bins(bins.to(torch.uint8), t0, t1))
         raw = torch.cat(parts) if parts else torch.zeros(0, device=self.device)
         return self._finish_predict(raw, raw_score)
+
+    def _predict_real(self, x: np.ndarray, t0: int, t1: int) -> torch.Tensor:
+        """Raw scores [N] f64 of trees [t0, t1) by the real-space walker, in
+        chunks of at most REAL_WALK_CELLS rows x trees."""
+        nf = max([int(t.split_feature_real.max()) + 1 for t in self.trees[t0:t1]
+                  if t.num_leaves > 1] + [0])
+        if x.shape[1] < nf:
+            raise ValueError(f"data has {x.shape[1]} columns, the model splits on {nf}")
+        key = ("real", t0, t1)
+        if key not in self._tables:
+            self._tables[key] = stack_real_trees(self.trees[t0:t1], self.device)
+        batch = self._tables[key]
+        step = max(1, REAL_WALK_CELLS // (t1 - t0))
+        parts = [predict_real_raw(batch, torch.as_tensor(x[lo: lo + step], device=self.device))
+                 for lo in range(0, x.shape[0], step)]
+        return torch.cat(parts) if parts else torch.zeros(0, dtype=torch.float64,
+                                                          device=self.device)
+
+    def _tree_range(self, start_iteration: int, num_iteration: Optional[int]):
+        """Trees [t0, t1) of a predict or a model text
+        (boosting/gbdt.py:2568-2580): ``num_iteration`` None runs to the best
+        iteration when early stopping set one, <= 0 to the last."""
+        total = len(self.trees)
+        start = max(0, start_iteration)
+        if num_iteration is None:
+            end = self.best_iteration if self.best_iteration > 0 else total
+            end = min(end, total)
+        elif num_iteration <= 0:
+            end = total
+        else:
+            end = min(total, start + num_iteration)
+        return start, max(end, start)
+
+    def current_iteration(self) -> int:
+        """Iterations that added a tree."""
+        return self._iter
+
+    def num_trees(self) -> int:
+        return len(self.trees)
+
+    # ------------------------------------------------------------ evaluation
+    def add_valid(self, data: Dataset, name: str) -> "Booster":
+        """Evaluate ``data`` (made with ``reference=`` the training set)
+        after every iteration: its score starts at its init_score and the
+        trees already grown are walked onto it (boosting/gbdt.py:1569)."""
+        if self.train_set is None:
+            raise ValueError("a validation set needs a Booster that trains")
+        data.construct()
+        if data.bin_mappers is not self.bin_mappers:
+            raise ValueError(
+                "a validation set must be binned like the training set: make it "
+                "with Dataset(..., reference=train_set)")
+        metrics = create_metrics(self.config, data.label, data.weight, self.device)
+        bins = torch.as_tensor(data.bins, device=self.device)
+        score = self._start_score(data)
+        for tree in self.trees:
+            if tree.num_leaves <= 1:
+                score += float(tree.leaf_value[0])
+            else:
+                score += self._walk_one(tree.record(), bins)
+        self._valid.append(_EvalEntry(name, data, metrics, bins, score))
+        return self
+
+    def _eval(self, name: str, score: torch.Tensor, metrics, dataset, feval):
+        out = []
+        for m in metrics:
+            for mname, val in m.eval(score, self.objective):
+                out.append((name, mname, val, m.is_higher_better))
+        if feval is not None:
+            # feval takes output-space predictions (GBDT::GetPredictAt)
+            pred = self.objective.convert_output(score.double()).cpu().numpy()
+            for f in (feval if isinstance(feval, (list, tuple)) else [feval]):
+                res = f(pred, dataset)
+                for fname, val, hib in (res if isinstance(res, list) else [res]):
+                    out.append((name, fname, val, hib))
+        return out
+
+    def eval_train(self, feval=None):
+        """[('training', metric, value, is_higher_better)] of the training score."""
+        return self._eval("training", self.score, self._train_metrics, self.train_set, feval)
+
+    def eval_valid(self, feval=None):
+        """The same of every validation set, in the order they were added."""
+        out = []
+        for e in self._valid:
+            out.extend(self._eval(e.name, e.score, e.metrics, e.dataset, feval))
+        return out
+
+    # ------------------------------------------------------------ model text
+    def _split_counts(self, t1: int) -> np.ndarray:
+        """Splits on each original feature in the first ``t1`` trees."""
+        counts = np.zeros(self.max_feature_idx + 1)
+        for tree in self.trees[:t1]:
+            counts += np.bincount(tree.split_feature_real, minlength=len(counts))
+        return counts
+
+    def model_to_string(self, num_iteration: Optional[int] = None,
+                        start_iteration: int = 0) -> str:
+        """LightGBM's model text (GBDT::SaveModelToString,
+        gbdt_model_text.cpp:314): the header, the trees of ``_tree_range``,
+        the split counts of their features, the parameters block."""
+        t0, t1 = self._tree_range(start_iteration, num_iteration)
+        tree_strs = [self.trees[i].to_string(i - t0) for i in range(t0, t1)]
+        lines = [
+            "tree",
+            f"version={self._version}",
+            f"num_class={self.num_class}",
+            "num_tree_per_iteration=1",
+            "label_index=0",
+            f"max_feature_idx={self.max_feature_idx}",
+            f"objective={self._objective_str}",
+            "feature_names=" + " ".join(self.feature_names),
+            "feature_infos=" + " ".join(self.feature_infos),
+            "tree_sizes=" + " ".join(str(len(t) + 1) for t in tree_strs),
+            "",
+        ]
+        body = "\n".join(tree_strs)
+        out = "\n".join(lines) + "\n" + body + ("\n" if body else "") + "end of trees\n"
+        imp = self._split_counts(t1)
+        pairs = sorted([(imp[i], self.feature_names[i]) for i in range(len(imp)) if imp[i] > 0],
+                       key=lambda p: -p[0])
+        out += "\nfeature_importances:\n"
+        for v, fname in pairs:
+            out += f"{fname}={int(v)}\n"
+        if self._params_tail is None:
+            out += "\nparameters:\n"
+            for key, val in self.params.items():
+                if isinstance(val, (list, tuple)):
+                    val = ",".join(str(v) for v in val)
+                out += f"[{key}: {val}]\n"
+            return out + "end of parameters\n\npandas_categorical:null\n"
+        return out + self._params_tail
+
+    def save_model(self, filename: str, num_iteration: Optional[int] = None,
+                   start_iteration: int = 0) -> "Booster":
+        """Write ``model_to_string`` to ``filename`` (through a temporary file
+        and a rename: a save cut short leaves the earlier file whole)."""
+        text = self.model_to_string(num_iteration, start_iteration)
+        tmp = f"{filename}.tmp"
+        with open(tmp, "w") as f:
+            f.write(text)
+        os.replace(tmp, filename)
+        return self
+
+    def model_from_string(self, model_str: str) -> "Booster":
+        """Replace this booster's model by the one in ``model_str``."""
+        self._load_model_string(model_str)
+        return self
+
+    def _load_model_string(self, s: str) -> None:
+        """GBDT::LoadModelFromString (gbdt_model_text.cpp:468), numeric
+        trees of one model per iteration.  The text from the parameters
+        block on is kept as it was; it does not configure this booster."""
+        _, marker, rest = s.rpartition("\nparameters:\n")
+        self._params_tail = marker + rest if marker else ""
+        header, _, trees_part = s.partition("Tree=")
+        kv = {}
+        for line in header.splitlines():
+            line = line.strip()
+            if "=" in line:
+                key, v = line.split("=", 1)
+                kv[key] = v
+            elif line == "average_output":
+                raise NotImplementedError(
+                    "average_output (random forest) models not yet ported to lightgbm_tpu_torch")
+        if int(kv.get("num_class", 1)) != 1 or int(kv.get("num_tree_per_iteration", 1)) != 1:
+            raise NotImplementedError(
+                "model text with more than one tree an iteration (multiclass) not yet "
+                "ported to lightgbm_tpu_torch")
+        self._version = kv.get("version", _MODEL_VERSION)
+        self.max_feature_idx = int(kv.get("max_feature_idx", -1))
+        self.feature_names = kv.get("feature_names", "").split()
+        self.feature_infos = kv.get("feature_infos", "").split()
+        self._objective_str = kv.get("objective", "")
+        self.objective = _output_objective(self._objective_str, self.device)
+        blocks = ("Tree=" + trees_part).partition("end of trees")[0].split("Tree=")
+        self.trees = [Tree.from_string(b) for b in blocks if b.strip()]
+        self.train_set = None
+        self.bin_mappers = None
+        self._valid = []
+        self._train_metrics = []
+        self._iter = len(self.trees)
+        self.best_iteration = -1
+        self.init_score = 0.0
+        self._tables = {}
 
     def _finish_predict(self, raw: torch.Tensor, raw_score: bool) -> np.ndarray:
         """Raw scores -> output space (gbdt.py:2826)."""
@@ -358,13 +648,17 @@ class Booster:
         return raw.double().cpu().numpy()
 
 
-def _constant_record(val: float) -> dict:
-    return {
-        "split_feature": np.zeros(0, np.int32),
-        "split_bin": np.zeros(0, np.int32),
-        "default_left": np.zeros(0, bool),
-        "left_child": np.zeros(0, np.int32),
-        "right_child": np.zeros(0, np.int32),
-        "leaf_value": np.array([val], np.float32),
-    }
+def _output_objective(text: str, device):
+    """The objective that converts a model's raw scores, from the model
+    text's ``objective=`` line; None for an objective not yet ported (its
+    model predicts only raw scores)."""
+    parts = text.split()
+    name = _OBJECTIVE_ALIASES.get(parts[0]) if parts else None
+    if name is None or "sqrt" in parts[1:]:
+        return None
+    obj = objective_for_output(name, device)
+    for tok in parts[1:]:
+        if tok.startswith("sigmoid:"):
+            obj.sigmoid = float(tok.split(":", 1)[1])
+    return obj
 

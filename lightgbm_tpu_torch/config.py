@@ -33,6 +33,12 @@ The path parameters take the JAX package's defaults and values
   serial loop), with ``leaf_batch_adaptive`` (halve K when the commit
   rate's EMA falls below ``leaf_batch_min_commit_rate``) as in
   boosting/gbdt.py:291-335;
+* the train API's keys: ``num_iterations`` (the rounds ``train`` runs when
+  the params carry it), ``verbosity``, ``metric`` (a list, or a
+  comma-separated string; empty: the objective's default metric),
+  ``metric_freq``, ``is_provide_training_metric``, ``early_stopping_round``
+  (> 0 adds the early-stopping callback) with ``early_stopping_min_delta``
+  and ``first_metric_only``;
 * ``enable_bundle`` (default True, aliases ``is_enable_bundle`` and
   ``bundle``) with ``max_conflict_rate``: Exclusive Feature Bundling is not
   ported, so data whose columns the JAX package would bundle raises at
@@ -42,7 +48,7 @@ The path parameters take the JAX package's defaults and values
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Dict, Optional
+from typing import Any, Dict, List, Optional
 
 _PARAM_ALIASES: Dict[str, str] = {
     "objective_type": "objective",
@@ -74,6 +80,26 @@ _PARAM_ALIASES: Dict[str, str] = {
     "data_seed": "data_random_seed",
     "is_enable_bundle": "enable_bundle",
     "bundle": "enable_bundle",
+    "num_iteration": "num_iterations",
+    "n_iter": "num_iterations",
+    "num_tree": "num_iterations",
+    "num_trees": "num_iterations",
+    "num_round": "num_iterations",
+    "num_rounds": "num_iterations",
+    "nrounds": "num_iterations",
+    "num_boost_round": "num_iterations",
+    "n_estimators": "num_iterations",
+    "max_iter": "num_iterations",
+    "early_stopping_rounds": "early_stopping_round",
+    "early_stopping": "early_stopping_round",
+    "n_iter_no_change": "early_stopping_round",
+    "verbose": "verbosity",
+    "metrics": "metric",
+    "metric_types": "metric",
+    "output_freq": "metric_freq",
+    "training_metric": "is_provide_training_metric",
+    "is_training_metric": "is_provide_training_metric",
+    "train_metric": "is_provide_training_metric",
 }
 
 _OBJECTIVE_ALIASES: Dict[str, str] = {
@@ -106,6 +132,15 @@ def _to_bool(v: Any) -> bool:
     if s in ("false", "0", "no", "-"):
         return False
     raise ValueError(f"cannot parse boolean from {v!r}")
+
+
+def _to_str_list(v: Any) -> List[str]:
+    """A list of names from a list or a comma-separated string."""
+    if v is None or v == "":
+        return []
+    if isinstance(v, (list, tuple)):
+        return [str(x) for x in v]
+    return [s for s in str(v).split(",") if s != ""]
 
 
 @dataclasses.dataclass
@@ -141,6 +176,17 @@ class Config:
     fused_split_scan: bool = False
     hist_acc: str = "auto"
     hist_near_tie_tol: float = 1e-3
+    # the train API (engine.train, the Booster's metrics)
+    num_iterations: int = 100
+    verbosity: int = 1
+    metric: List[str] = dataclasses.field(default_factory=list)
+    metric_freq: int = 1
+    is_provide_training_metric: bool = False
+    early_stopping_round: int = 0
+    early_stopping_min_delta: float = 0.0
+    first_metric_only: bool = False
+    # the canonical keys the params gave, with their values
+    raw: Dict[str, Any] = dataclasses.field(default_factory=dict, repr=False)
 
     @classmethod
     def from_params(cls, params: Optional[Dict[str, Any]]) -> "Config":
@@ -152,7 +198,7 @@ class Config:
             if canon in resolved and canon != key:
                 continue
             resolved[canon] = value
-        fields = {f.name: f for f in dataclasses.fields(cls)}
+        fields = {f.name: f for f in dataclasses.fields(cls) if f.name != "raw"}
         unknown = sorted(k for k in resolved if k not in fields)
         if unknown:
             raise ValueError(
@@ -168,10 +214,13 @@ class Config:
                     setattr(cfg, name, int(float(v)))
                 elif typ in ("float", float):
                     setattr(cfg, name, float(v))
+                elif name == "metric":
+                    setattr(cfg, name, _to_str_list(v))
                 else:
                     setattr(cfg, name, str(v))
             except (TypeError, ValueError) as exc:
                 raise ValueError(f"bad value for parameter {name!r}: {v!r}") from exc
+        cfg.raw = resolved
         obj = _OBJECTIVE_ALIASES.get(cfg.objective)
         if obj is None:
             raise ValueError(
@@ -265,6 +314,10 @@ class Config:
                 "lightgbm_tpu_torch (quantized training runs on the ordered "
                 "layout: set hist_mode='ordered')"
             )
+
+    def default_metric(self) -> List[str]:
+        """The objective's metric when ``metric`` names none."""
+        return {"regression": ["l2"], "binary": ["binary_logloss"]}[self.objective]
 
     def resolved_grow_fused(self) -> bool:
         """'on' and 'auto' fuse on the seg layout (the Booster ignores the

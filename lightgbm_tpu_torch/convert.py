@@ -57,5 +57,7 @@ def booster_from_arrays(
     b.bin_mappers = mappers
     b.used_features = used
     b.nan_bins = np.asarray(nan_bins, np.int32)
+    nb = [m.num_bins for m in mappers if m is not None]
+    b._max_bin = 1 << max(0, (max(nb, default=2) - 1).bit_length())
     b.init_score = float(init_score)
     return b

@@ -9,6 +9,12 @@ form the ``[N, F]`` uint8 matrix the trainer consumes.  The matrix stays on
 the host; the booster moves it to its device.  With ``enable_bundle`` (the
 default) columns that the JAX package would bundle are refused
 (``bundling.refuse_bundles``): bundling is not ported yet.
+
+The metadata of ``lightgbm_tpu/dataset.py`` (:565-579): row ``weight`` and
+``init_score`` (the raw score a row starts from), and ``reference``: a
+validation set is binned with its reference's mappers and used features
+(the row-major u8 bins the forest walk reads), so a tree of the training
+set walks it in bin space.
 """
 
 from __future__ import annotations
@@ -25,6 +31,18 @@ from .config import Config
 MIN_DATA_IN_BIN = 3
 
 
+def _row_array(v, n: int, what: str) -> Optional[np.ndarray]:
+    """A per-row f64 array of length ``n`` (None stays None)."""
+    if v is None:
+        return None
+    a = np.asarray(v, dtype=np.float64).ravel()
+    if len(a) != n:
+        raise ValueError(f"{what} length {len(a)} != num rows {n}")
+    if not np.all(np.isfinite(a)):
+        raise ValueError(f"{what} contains NaN or inf")
+    return a
+
+
 def ceil_pow2(x: int) -> int:
     return max(1, 1 << (int(x) - 1).bit_length())
 
@@ -36,16 +54,27 @@ class Dataset:
         self,
         data: np.ndarray,
         label: Optional[np.ndarray] = None,
+        *,
+        reference: Optional["Dataset"] = None,
+        weight: Optional[np.ndarray] = None,
+        init_score: Optional[np.ndarray] = None,
         params: Optional[Dict[str, Any]] = None,
     ) -> None:
         self.params: Dict[str, Any] = dict(params or {})
         self._raw_data = data
         self._label = label
+        self._weight = weight
+        self._init_score = init_score
+        self.reference = reference
         self.constructed = False
         self.bin_mappers: List[BinMapper] = []
         self.used_features: List[int] = []
-        self.bins: Optional[np.ndarray] = None  # [N, F_used] uint8
+        self.feature_names: List[str] = []
+        self.num_total_features = 0
+        self.bins: Optional[np.ndarray] = None  # [N, F_used] uint8, row-major
         self.label: Optional[np.ndarray] = None  # [N] float64
+        self.weight: Optional[np.ndarray] = None  # [N] float64 or None
+        self.init_score: Optional[np.ndarray] = None  # [N] float64 or None
         self.bundle_check_s = 0.0  # seconds of the bundling check
 
     def construct(self) -> "Dataset":
@@ -63,7 +92,37 @@ class Dataset:
             raise ValueError(f"label length {len(label)} != num rows {n}")
         if not np.all(np.isfinite(label)):
             raise ValueError("label contains NaN or inf")
+        self.weight = _row_array(self._weight, n, "weight")
+        self.init_score = _row_array(self._init_score, n, "init_score")
+        self.feature_names = [f"Column_{i}" for i in range(f)]
+        self.num_total_features = f
+        if self.reference is not None:
+            self._bin_like(self.reference.construct(), data)
+        else:
+            self._fit_bins(cfg, data)
+        self.label = label
+        self.constructed = True
+        self._raw_data = None
+        return self
 
+    def _bin_like(self, ref: "Dataset", data: np.ndarray) -> None:
+        """Bins of a validation set: the reference's mappers and used
+        features."""
+        if data.shape[1] != ref.num_total_features:
+            raise ValueError(f"data has {data.shape[1]} columns, its reference "
+                             f"{ref.num_total_features}")
+        self.bin_mappers = ref.bin_mappers
+        self.used_features = list(ref.used_features)
+        self.bins = self._binned(data)
+
+    def _binned(self, data: np.ndarray) -> np.ndarray:
+        bins = np.zeros((data.shape[0], len(self.used_features)), np.uint8)
+        for ci, j in enumerate(self.used_features):
+            bins[:, ci] = self.bin_mappers[j].values_to_bins(data[:, j])
+        return bins
+
+    def _fit_bins(self, cfg: Config, data: np.ndarray) -> None:
+        n, f = data.shape
         sample_cnt = min(n, cfg.bin_construct_sample_cnt)
         if sample_cnt < n:
             rng = np.random.default_rng(cfg.data_random_seed)
@@ -84,14 +143,16 @@ class Dataset:
             refuse_bundles(self.used_features, self.bin_mappers, sample,
                            cfg.max_conflict_rate)
             self.bundle_check_s = time.perf_counter() - t0
-        bins = np.zeros((n, len(self.used_features)), np.uint8)
-        for ci, j in enumerate(self.used_features):
-            bins[:, ci] = self.bin_mappers[j].values_to_bins(data[:, j])
-        self.bins = bins
-        self.label = label
-        self.constructed = True
-        self._raw_data = None
-        return self
+        self.bins = self._binned(data)
+
+    def get_label(self) -> np.ndarray:
+        return self.construct().label
+
+    def get_weight(self) -> Optional[np.ndarray]:
+        return self.construct().weight
+
+    def get_init_score(self) -> Optional[np.ndarray]:
+        return self.construct().init_score
 
     @property
     def num_data(self) -> int:

@@ -1,4 +1,4 @@
-"""Stacked bin-space trees and the plain level-synchronous walker.
+"""Stacked trees and the plain level-synchronous walkers.
 
 Counterpart of ``lightgbm_tpu/predict.py``: ``stack_bin_trees`` pads the
 per-tree records into ``[T, M]`` arrays and ``predict_bins_leaves`` /
@@ -7,6 +7,13 @@ per-tree records into ``[T, M]`` arrays and ``predict_bins_leaves`` /
 forest-walk kernel (``ops/forest_walk.py``) is held against, and the
 booster's walker for a model the kernel rejects (``walk_reject_reason``),
 on the booster's device: the JAX package's XLA fallback.
+
+``stack_real_trees`` / ``predict_real_leaves`` / ``predict_real_raw`` are
+the real-space walker of a model read from text, which has no bin mappers
+(predict.py:133-284 and ``Tree._decide``, tree.py:286-305): NumericalDecision
+on the raw values, with the None, Zero and NaN missing types.  It decides
+in f64 (the JAX package walks in f32 and re-walks the rows near a threshold
+in f64, so its decisions are the f64 ones) and sums f64 leaf values.
 """
 
 from __future__ import annotations
@@ -15,6 +22,9 @@ from typing import NamedTuple, Sequence
 
 import numpy as np
 import torch
+
+from .binning import K_ZERO_THRESHOLD
+from .tree import MISSING_NAN, MISSING_ZERO, missing_type_of
 
 
 class BinTreeBatch(NamedTuple):
@@ -88,3 +98,76 @@ def predict_bins_raw(batch: BinTreeBatch, bins: torch.Tensor, k: int) -> torch.T
     for i in range(t):
         out[:, i % k] += vals[:, i]
     return out
+
+
+class RealTreeBatch(NamedTuple):
+    split_feature: torch.Tensor  # [T, M] i64 original feature index
+    threshold: torch.Tensor  # [T, M] f64
+    missing_type: torch.Tensor  # [T, M] i64
+    default_left: torch.Tensor  # [T, M] bool
+    left_child: torch.Tensor  # [T, M] i64 (neg = ~leaf)
+    right_child: torch.Tensor  # [T, M] i64
+    leaf_value: torch.Tensor  # [T, Lm] f64
+
+
+def stack_real_trees(trees: Sequence, device) -> RealTreeBatch:
+    """Pad real-space trees (``tree.Tree``) to [T, M]; a single-leaf tree
+    routes every row to leaf 0 from node 0."""
+    t = len(trees)
+    m = max([tr.num_leaves - 1 for tr in trees] + [1])
+    lm = max([tr.num_leaves for tr in trees] + [1])
+    sf = np.zeros((t, m), np.int64)
+    dt = np.zeros((t, m), np.int64)
+    thr = np.zeros((t, m), np.float64)
+    lc = np.full((t, m), -1, np.int64)
+    rc = np.full((t, m), -1, np.int64)
+    leaf = np.zeros((t, lm), np.float64)
+    for i, tr in enumerate(trees):
+        nn = tr.num_leaves - 1
+        sf[i, :nn] = tr.split_feature_real
+        dt[i, :nn] = tr.decision_type
+        thr[i, :nn] = tr.threshold
+        lc[i, :nn] = tr.left_child
+        rc[i, :nn] = tr.right_child
+        leaf[i, : tr.num_leaves] = tr.leaf_value
+    as_t = lambda a: torch.as_tensor(a, device=device)  # noqa: E731
+    return RealTreeBatch(
+        split_feature=as_t(sf),
+        threshold=as_t(thr),
+        missing_type=as_t(missing_type_of(dt)),
+        default_left=as_t((dt & 2) != 0),
+        left_child=as_t(lc),
+        right_child=as_t(rc),
+        leaf_value=as_t(leaf),
+    )
+
+
+def predict_real_leaves(batch: RealTreeBatch, x: torch.Tensor) -> torch.Tensor:
+    """Leaf index [N, T] of every row in every tree; x [N, F] f64 raw
+    values.  A NaN is 0 unless the node's missing type is NaN; a missing
+    value (NaN for NaN, |v| <= 1e-35 for Zero) takes the default side,
+    else ``v <= threshold`` goes left."""
+    n = x.shape[0]
+    t = batch.split_feature.shape[0]
+    trees = torch.arange(t, device=x.device)[None, :]
+    nodes = torch.zeros((n, t), dtype=torch.int64, device=x.device)
+    while bool((nodes >= 0).any()):
+        cur = torch.clamp(nodes, min=0)
+        fval = torch.gather(x, 1, batch.split_feature[trees, cur])
+        mt = batch.missing_type[trees, cur]
+        isnan = torch.isnan(fval)
+        fval = torch.where(isnan & (mt != MISSING_NAN), torch.zeros_like(fval), fval)
+        missing = ((mt == MISSING_ZERO) & (fval.abs() <= K_ZERO_THRESHOLD)) | (
+            (mt == MISSING_NAN) & isnan)
+        gl = torch.where(missing, batch.default_left[trees, cur],
+                         fval <= batch.threshold[trees, cur])
+        nxt = torch.where(gl, batch.left_child[trees, cur], batch.right_child[trees, cur])
+        nodes = torch.where(nodes >= 0, nxt, nodes)
+    return ~nodes
+
+
+def predict_real_raw(batch: RealTreeBatch, x: torch.Tensor) -> torch.Tensor:
+    """Raw scores [N] f64: the trees' leaf values summed."""
+    leaves = predict_real_leaves(batch, x)
+    trees = torch.arange(leaves.shape[1], device=x.device)[None, :]
+    return batch.leaf_value[trees, leaves].sum(dim=1)

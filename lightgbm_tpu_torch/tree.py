@@ -1,42 +1,101 @@
-"""One decision tree: the bin-space record the forest walk reads, and the
-real-valued thresholds a reader of the model sees.
+"""One decision tree: the bin-space record the forest walk reads, the
+real-valued split a reader of the model sees, and its model text.
 
-Counterpart of ``lightgbm_tpu/tree.py`` (``Tree.from_device_arrays`` :100,
-``apply_shrinkage`` :236, ``add_bias`` :259) for numeric splits, and of the
-bin-space record dicts of ``boosting/gbdt.py`` (``_bin_records``).
+Counterpart of ``lightgbm_tpu/tree.py`` for numeric splits:
+``Tree.from_device_arrays`` (:100), ``apply_shrinkage`` (:236),
+``add_bias`` (:259), the ``decision_type`` bit field (:35-47) with the
+three missing types (None, Zero, NaN), ``to_string`` (:391) and
+``from_string`` (:435) in LightGBM's text format; and of the bin-space
+record dicts of ``boosting/gbdt.py`` (``_bin_records``).  A tree read from
+model text has no bin-space form: it is walked in real space
+(``predict.predict_real_raw``).  A block with categorical splits or linear
+leaves raises ``NotImplementedError``.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, Sequence
+from typing import Dict, Optional, Sequence
 
 import numpy as np
 
 from .binning import BinMapper
 
+# decision_type bit layout (reference include/LightGBM/tree.h:21-22, :283)
+K_CATEGORICAL_MASK = 1
+K_DEFAULT_LEFT_MASK = 2
+
+MISSING_NONE = 0
+MISSING_ZERO = 1
+MISSING_NAN = 2
+
+
+def make_decision_type(default_left, missing_type) -> np.ndarray:
+    """Numeric decision types: the default-left bit and the missing type."""
+    dl = np.asarray(default_left, bool).astype(np.int64)
+    mt = np.asarray(missing_type, np.int64)
+    return (dl * K_DEFAULT_LEFT_MASK | (mt & 3) << 2).astype(np.int8)
+
+
+def missing_type_of(decision_type) -> np.ndarray:
+    return (np.asarray(decision_type, np.int64) >> 2) & 3
+
+
+def _fmt(x: float) -> str:
+    """High-precision float formatting like the reference's ArrayToString<true>."""
+    return repr(float(x)) if np.isfinite(x) else ("inf" if x > 0 else "-inf")
+
+
+def _arr_str(arr, high_precision: bool = False) -> str:
+    if high_precision:
+        return " ".join(_fmt(v) for v in arr)
+    out = []
+    for v in arr:
+        if isinstance(v, (bool, np.bool_, int, np.integer)):
+            out.append(str(int(v)))
+        else:
+            out.append(f"{float(v):g}")
+    return " ".join(out)
+
 
 @dataclasses.dataclass
 class Tree:
     """Structure of arrays over nodes and leaves.  Child pointers >= 0 are
-    internal nodes, negative ones ``~leaf``."""
+    internal nodes, negative ones ``~leaf``.  ``split_feature``,
+    ``split_bin`` are the bin-space split (used-feature index, bin <=
+    split_bin goes left) of a tree the port grew, None for a tree read from
+    model text."""
 
     num_leaves: int
-    split_feature: np.ndarray  # [n-1] i32 used-feature index (bin space)
-    split_bin: np.ndarray  # [n-1] i32: bin <= split_bin goes left
-    default_left: np.ndarray  # [n-1] bool: the NaN bin goes left
+    split_feature_real: np.ndarray  # [n-1] i32 original feature index
+    threshold: np.ndarray  # [n-1] f64: value <= threshold goes left
+    decision_type: np.ndarray  # [n-1] i8: default-left bit, missing type
     left_child: np.ndarray  # [n-1] i32
     right_child: np.ndarray  # [n-1] i32
     leaf_value: np.ndarray  # [n] f64
-    split_feature_real: np.ndarray  # [n-1] i32 original feature index
-    threshold: np.ndarray  # [n-1] f64: value <= threshold goes left
+    split_gain: np.ndarray  # [n-1] f64
+    leaf_weight: np.ndarray  # [n] f64: sum of hessians
+    leaf_count: np.ndarray  # [n] i64
+    internal_value: np.ndarray  # [n-1] f64
+    internal_weight: np.ndarray  # [n-1] f64
+    internal_count: np.ndarray  # [n-1] i64
+    shrinkage: float = 1.0
+    split_feature: Optional[np.ndarray] = None  # [n-1] i32 used-feature index
+    split_bin: Optional[np.ndarray] = None  # [n-1] i32
 
+    @property
+    def default_left(self) -> np.ndarray:
+        """[n-1] bool: missing values go left."""
+        return (np.asarray(self.decision_type, np.int64) & K_DEFAULT_LEFT_MASK) != 0
+
+    # ------------------------------------------------------------------ build
     @classmethod
     def from_tree_arrays(
         cls, ta, bin_mappers: Sequence[BinMapper], used_features: Sequence[int]
     ) -> "Tree":
         """Bin-space grower output -> Tree, thresholds from the bin upper
-        bounds of the training Dataset's mappers."""
+        bounds of the training Dataset's mappers, the node and leaf
+        statistics of the grower."""
         n = int(ta.num_leaves)
         nn = max(n - 1, 0)
         sf = np.asarray(ta.split_feature, np.int32)[:nn]
@@ -46,49 +105,82 @@ class Tree:
             [bin_mappers[r].bin_to_threshold(int(b)) for r, b in zip(real, sb)],
             np.float64,
         )
+        mt = [bin_mappers[r].missing_type for r in real]
         return cls(
             num_leaves=n,
-            split_feature=sf,
-            split_bin=sb,
-            default_left=np.asarray(ta.default_left, bool)[:nn],
+            split_feature_real=real,
+            threshold=thr,
+            decision_type=make_decision_type(np.asarray(ta.default_left, bool)[:nn], mt),
             left_child=np.asarray(ta.left_child, np.int32)[:nn],
             right_child=np.asarray(ta.right_child, np.int32)[:nn],
             leaf_value=np.asarray(ta.leaf_value, np.float64)[:n],
-            split_feature_real=real,
-            threshold=thr,
+            split_gain=np.asarray(ta.split_gain, np.float64)[:nn],
+            leaf_weight=np.asarray(ta.leaf_weight, np.float64)[:n],
+            leaf_count=np.asarray(ta.leaf_count, np.int64)[:n],
+            internal_value=np.asarray(ta.internal_value, np.float64)[:nn],
+            internal_weight=np.asarray(ta.internal_weight, np.float64)[:nn],
+            internal_count=np.asarray(ta.internal_count, np.int64)[:nn],
+            split_feature=sf,
+            split_bin=sb,
         )
 
     @classmethod
     def from_record(cls, rec: Dict[str, np.ndarray]) -> "Tree":
-        """A tree from an exported bin-space record (no real thresholds)."""
+        """A tree from an exported bin-space record (no real thresholds,
+        no statistics)."""
         sf = np.asarray(rec["split_feature"], np.int32)
         nn = len(sf)
         return cls(
             num_leaves=nn + 1,
-            split_feature=sf,
-            split_bin=np.asarray(rec["split_bin"], np.int32),
-            default_left=np.asarray(rec["default_left"], bool),
+            split_feature_real=sf.copy(),
+            threshold=np.full(nn, np.nan),
+            decision_type=make_decision_type(rec["default_left"], np.zeros(nn)),
             left_child=np.asarray(rec["left_child"], np.int32),
             right_child=np.asarray(rec["right_child"], np.int32),
             leaf_value=np.asarray(rec["leaf_value"], np.float64)[: nn + 1],
-            split_feature_real=sf.copy(),
-            threshold=np.full(nn, np.nan),
+            split_gain=np.zeros(nn),
+            leaf_weight=np.zeros(nn + 1),
+            leaf_count=np.zeros(nn + 1, np.int64),
+            internal_value=np.zeros(nn),
+            internal_weight=np.zeros(nn),
+            internal_count=np.zeros(nn, np.int64),
+            split_feature=sf,
+            split_bin=np.asarray(rec["split_bin"], np.int32),
         )
 
+    @classmethod
+    def constant(cls, val: float) -> "Tree":
+        """Tree::AsConstantTree: one leaf of value ``val``."""
+        z = np.zeros(0, np.int32)
+        return cls(
+            num_leaves=1, split_feature_real=z, threshold=np.zeros(0),
+            decision_type=np.zeros(0, np.int8), left_child=z, right_child=z,
+            leaf_value=np.array([float(val)]), split_gain=np.zeros(0),
+            leaf_weight=np.zeros(1), leaf_count=np.zeros(1, np.int64),
+            internal_value=np.zeros(0), internal_weight=np.zeros(0),
+            internal_count=np.zeros(0, np.int64), split_feature=z, split_bin=z,
+        )
+
+    # ----------------------------------------------------------------- mutate
     def apply_shrinkage(self, rate: float) -> None:
         """Tree::Shrinkage (tree.h:197).  The rate is rounded to f32 first:
         the train-score update adds leaf(f32) * rate(f32) in f32, and this
         f64 product of two f32 values rounds back to exactly that addend."""
         r = float(np.float32(rate))
         self.leaf_value = self.leaf_value * r
+        self.internal_value = self.internal_value * r
+        self.shrinkage *= rate
 
     def add_bias(self, val: float) -> None:
         """Tree::AddBias — boost_from_average folds the init score into the
         first tree."""
         self.leaf_value = self.leaf_value + val
+        self.internal_value = self.internal_value + val
 
     def record(self) -> Dict[str, np.ndarray]:
         """The bin-space record the forest walk stacks (leaf values f32)."""
+        if self.split_feature is None:
+            raise ValueError("a tree read from model text has no bin-space form")
         return {
             "split_feature": self.split_feature,
             "split_bin": self.split_bin,
@@ -97,3 +189,80 @@ class Tree:
             "right_child": self.right_child,
             "leaf_value": self.leaf_value.astype(np.float32),
         }
+
+    # ---------------------------------------------------------- model text
+    def to_string(self, tree_index: int) -> str:
+        """LightGBM text format (reference Tree::ToString, src/io/tree.cpp:343)."""
+        lines = [
+            f"Tree={tree_index}",
+            f"num_leaves={self.num_leaves}",
+            "num_cat=0",
+            "split_feature=" + _arr_str(self.split_feature_real),
+            "split_gain=" + _arr_str(self.split_gain),
+            "threshold=" + _arr_str(self.threshold, high_precision=True),
+            "decision_type=" + _arr_str(self.decision_type),
+            "left_child=" + _arr_str(self.left_child),
+            "right_child=" + _arr_str(self.right_child),
+            "leaf_value=" + _arr_str(self.leaf_value, high_precision=True),
+            "leaf_weight=" + _arr_str(self.leaf_weight, high_precision=True),
+            "leaf_count=" + _arr_str(self.leaf_count),
+            "internal_value=" + _arr_str(self.internal_value),
+            "internal_weight=" + _arr_str(self.internal_weight),
+            "internal_count=" + _arr_str(self.internal_count),
+            "is_linear=0",
+            f"shrinkage={self.shrinkage:g}",
+            "",
+            "",
+        ]
+        return "\n".join(lines)
+
+    @classmethod
+    def from_string(cls, block: str) -> "Tree":
+        """Parse one ``Tree=`` block of a model file (reference Tree ctor
+        from string, src/io/tree.cpp:714), numeric splits only."""
+        kv = {}
+        for line in block.splitlines():
+            line = line.strip()
+            if "=" in line and not line.startswith("Tree="):
+                k, v = line.split("=", 1)
+                kv[k] = v
+        if int(kv.get("num_cat", 0)) > 0:
+            raise NotImplementedError(
+                "categorical splits in model text not yet ported to lightgbm_tpu_torch "
+                "(ROADMAP Queue 1, item 6)")
+        if int(kv.get("is_linear", 0)):
+            raise NotImplementedError(
+                "linear trees in model text not yet ported to lightgbm_tpu_torch "
+                "(ROADMAP Queue 1, item 6)")
+        n = int(kv["num_leaves"])
+        nn = max(n - 1, 0)
+
+        def arr(key, size, dtype):
+            if key not in kv:
+                return np.zeros(size, dtype)
+            vals = [float(x) for x in kv[key].split()]
+            if len(vals) != size:
+                raise ValueError(f"model text: {key} has {len(vals)} values, not {size}")
+            return np.asarray(vals, np.float64).astype(dtype)
+
+        dt = arr("decision_type", nn, np.int8)
+        if np.any(dt & K_CATEGORICAL_MASK):
+            raise NotImplementedError(
+                "categorical splits in model text not yet ported to lightgbm_tpu_torch "
+                "(ROADMAP Queue 1, item 6)")
+        return cls(
+            num_leaves=n,
+            split_feature_real=arr("split_feature", nn, np.int32),
+            threshold=arr("threshold", nn, np.float64),
+            decision_type=dt,
+            left_child=arr("left_child", nn, np.int32),
+            right_child=arr("right_child", nn, np.int32),
+            leaf_value=arr("leaf_value", n, np.float64),
+            split_gain=arr("split_gain", nn, np.float64),
+            leaf_weight=arr("leaf_weight", n, np.float64),
+            leaf_count=arr("leaf_count", n, np.int64),
+            internal_value=arr("internal_value", nn, np.float64),
+            internal_weight=arr("internal_weight", nn, np.float64),
+            internal_count=arr("internal_count", nn, np.int64),
+            shrinkage=float(kv.get("shrinkage", 1.0)),
+        )

@@ -409,3 +409,28 @@ def test_kernel_source_agrees_with_the_wrapper():
     assert src.count("cudaMemcpyAsync(") == 1 and "cudaMemcpyDeviceToHost" in src
     assert "cudaMemcpyHostToDevice" not in src
     assert "-fmad=false" in _build.NVCC_FLAGS
+
+
+@pytest.mark.parametrize("extra", [0, 1])
+def test_transfers_reads_every_call_through_traces_that_lost_events(monkeypatch, extra):
+    """bench_split_scan.transfers, which the card's check of one launch and
+    one device-to-host copy a call reads: a trace of five calls may lose
+    device events (one seen on the card kept a single call's), so a trace
+    whose counts are not whole multiples of the calls is taken again, and
+    each kind's count is the largest of three whole traces. Traces that
+    lose events never hide an extra launch that every call makes."""
+    from types import SimpleNamespace
+
+    from lightgbm_tpu_torch import bench_split_scan as bss
+
+    def trace(kernels, copies):
+        return ([SimpleNamespace(name="split_scan_kernel")] * kernels +
+                [SimpleNamespace(name="Memcpy DtoH (Device -> Pinned)")] * copies)
+
+    k = 5 * (1 + extra)
+    traces = iter([trace(1 + extra, 1), trace(0, 0), trace(k, 5), trace(k, 0), trace(k, 5)])
+    monkeypatch.setattr(bss, "_device_events", lambda fn, reps, setup: next(traces))
+    calls = []
+    kinds = bss.transfers(lambda: calls.append(1))
+    assert kinds == {"kernels": 1 + extra, "HtoD": 0, "DtoH": 1, "other": 0}
+    assert len(calls) == 1 and next(traces, None) is None
