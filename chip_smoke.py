@@ -91,9 +91,33 @@ Phases (any failed check raises, and the script exits non-zero):
            rtol 1e-4, atol 1e-5 of its preds.txt.  Printed: the eval time a
            round against the round's wall time, save, load and predict
            times, real-space and bin-space rows/s
+  efb      Exclusive Feature Bundling at the Expo / Flight Delay shape
+           (binary, 700 one-hot columns; rows cut from 11,000,000 to
+           1,048,576): 8 categorical variables of EFB_LEVELS levels, Zipf
+           s = 1.1, made as f64 (the block structure is this script's: the
+           dataset's own variables are not in the repo); the planes, the
+           bundle search and construct seconds; the partition and the fused
+           step (int8, f32) in table mode against their plain versions at
+           the root (the root's own bundle-plane split) and on K=4 windows,
+           timed beside the threshold mode at the same bins and that
+           threshold's own table (the same rows left), then
+           bench_partition's table-mode edge cases (order and nl bit-equal,
+           int8 exact, f32 the same bits on two calls); 10 rounds with no
+           path parameters and 10 at bench.py's parameters (K=4):
+           iterations/s, log-loss falling, launches (the fused step must
+           launch in table mode, the split-scan kernel never: best_split
+           decides every leaf), one iteration each under the profiler
+           (launches per split, best_split calls); predict of the rows
+           against the training score (1e-5 relative); the model text read
+           back: its real-space predict may differ from the bundled predict
+           only on rows with two nonzero members in one plane (counted);
+           2 rounds each of the two-launch path at K=1 and K=4 (the
+           partition in table mode); card vs CPU at 65,536 rows, int8 on
+           both; the same rows with enable_bundle=False (the ordered layout;
+           cut to 262,144 rows if the phase has passed 240 s) for its rate
   wide data  an Expo-shaped table (binary, 1,048,576 x 700 numeric
            features, 2% NaN, values on a grid of 1/32), binned (and the
-           seconds of the bundling check); the ordered histograms (f32 and
+           seconds of the bundle search); the ordered histograms (f32 and
            int8) against their plain versions on the cases of
            lightgbm_tpu_torch/bench_ordered.py (the root with no index, K=2
            windows of a shuffled index, windows of 14,000 and 4,000 rows,
@@ -115,7 +139,9 @@ Phases (any failed check raises, and the script exits non-zero):
   wide-parity  65,536 of the wide rows for 3 rounds, card vs CPU, f32 and
            quantized: share of identical splits, log-loss
 The last lines: the kernels JSON (launches summed over the main, batch,
-off, batch-off, wide, wide-batch and wide-quant runs), the card, and
+off, batch-off, io, efb, efb-batch, efb-off, efb-batch-off, efb-flat,
+wide, wide-batch and wide-quant runs; the table modes of the partition
+and the fused step are entries of their own), the card, and
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 """
 
@@ -160,6 +186,20 @@ WIDE_BATCH_ROUNDS = 3
 WIDE_QUANT_ROUNDS = 3
 QUANT_PARAMS = {**PARAMS, "use_quantized_grad": True, "stochastic_rounding": False,
                 "num_grad_quant_bins": 4, "hist_method": "pallas_int8"}
+# the efb phase: the Expo / Flight Delay shape of the reference's experiment
+# table (binary, 11,000,000 x 700, one-hot coded), rows cut for the time
+# limit, widths not; that dataset's own variables are not in the repo, so
+# the block structure is this script's: 8 categorical variables of these
+# levels (700 columns), level frequencies Zipf-like (s = 1.1)
+EFB_ROWS = 1 << 20
+EFB_LEVELS = (12, 31, 7, 24, 20, 300, 300, 6)
+EFB_ZIPF = 1.1
+EFB_ROUNDS = 10
+EFB_OFF_ROUNDS = 2
+EFB_FLAT_ROUNDS = 3
+# the unbundled run's rows when the phase has taken more than its budget
+EFB_FLAT_CUT_ROWS = 1 << 18
+EFB_BUDGET_S = 240.0
 
 # H100 SXM published peaks: HBM bytes/s and
 # f32 operations/s outside the tensor cores
@@ -184,6 +224,13 @@ SOURCES = {
                      "lightgbm_tpu/ops/pallas/histogram.py:140"),
     "ordered_hist_int8": ("lightgbm_tpu_torch/csrc/ordered_hist.cu",
                           "lightgbm_tpu/ops/pallas/histogram_int8.py:43"),
+    # the table mode (cat_ref) of rows 2, 5 and 6: EFB bundle-plane splits
+    "partition_table": ("lightgbm_tpu_torch/csrc/partition.cu",
+                        "lightgbm_tpu/ops/pallas/partition.py:446"),
+    "partition_batch_table": ("lightgbm_tpu_torch/csrc/partition.cu",
+                              "lightgbm_tpu/ops/pallas/partition.py:525"),
+    "fused_grow_step_table": ("lightgbm_tpu_torch/csrc/grow_step.cu",
+                              "lightgbm_tpu/ops/pallas/grow_step.py:260"),
 }
 # CUDA launches per split of the profiled iterations with the rows-only scan
 # and its candidates in PyTorch operators on the host side (PERF.md section 5)
@@ -191,6 +238,7 @@ EARLIER_LAUNCHES_PER_SPLIT = {"profile": 100.6, "batch profile": 20.7, "off prof
                               "wide profile": 68.1}
 # kernels that only the seg layout launches
 SEG_KERNELS = ("seg_hist", "seg_hist_int8", "fused_grow_step", "partition", "partition_batch")
+TABLE_KERNELS = ("fused_grow_step_table", "partition_table", "partition_batch_table")
 
 
 def make_data(n_rows: int, n_features: int, seed: int = 42):
@@ -630,7 +678,7 @@ def check_fused_step(ds, bins_fn, grad, hess, ones, ck, scales):
     for mode, qs in (("int8", scales), ("f32", None)):
         for where, mem in members.items():
             rows = seg.pack_rows(bins_fn, grad, hess, ones)
-            marr = grow_step._members(*mem, None)
+            marr = seg.split_members(*mem)
             res = bg.run_case(f"{where} {mode}", rows, marr, b, qs, wrapper, reps=20,
                               timed=where == "root", plain_reps=5)
             got = "bit-equal" if qs is not None else "within f32_tol"
@@ -975,6 +1023,15 @@ def profile_iteration(booster, label: str = "profile") -> None:
         scans.append((len(hists), (time.perf_counter() - t0) * 1e3))
         return got
 
+    best = []  # (leaves, host ms) of each best_split call of the grower (EFB trees)
+    best_call = grower.best_split_batch
+
+    def best_timed(*a, **k):
+        t0 = time.perf_counter()
+        got = best_call(*a, **k)
+        best.append((len(got), (time.perf_counter() - t0) * 1e3))
+        return got
+
     ordered = []  # (rows, windows) of each ordered histogram call
     launch = oh._launch
 
@@ -1005,6 +1062,7 @@ def profile_iteration(booster, label: str = "profile") -> None:
 
     oh._launch = recorded
     grower.fused_best_split_batch = scan_timed
+    grower.best_split_batch = best_timed
     seg._partition_launch = part_recorded
     grow_step._launch = step_recorded
     seg._seg_hist_launch = hist_recorded
@@ -1017,6 +1075,7 @@ def profile_iteration(booster, label: str = "profile") -> None:
     finally:
         oh._launch = launch
         grower.fused_best_split_batch = scan_call
+        grower.best_split_batch = best_call
         seg._partition_launch = part_launch
         grow_step._launch = step_launch
         seg._seg_hist_launch = hist_launch
@@ -1052,7 +1111,7 @@ def profile_iteration(booster, label: str = "profile") -> None:
     if ordered:
         # the tree's ordered histograms against their bound: each launch
         # reads rows * (F + 16) bytes and writes K * F * B * 12
-        f, b = len(booster.used_features), booster._grower_params.max_bin
+        f, b = int(booster._bins_fn.shape[0]), booster._grower_params.max_bin
         nbytes = sum(r * (f + 16) + k * f * b * 12 for r, k in ordered)
         hist_us = sum(us for key, (us, _) in dev_us.items() if "ordered_hist_" in key)
         rows = sorted(r for r, _ in ordered)
@@ -1066,7 +1125,7 @@ def profile_iteration(booster, label: str = "profile") -> None:
         # read and written once, F + 16 bytes a row
         part_us = sum(us for key, (us, _) in dev_us.items() if "partition_" in key)
         wins = sorted(parts)
-        pbound = 2 * sum(wins) * (len(booster.used_features) + 16) / HBM_BYTES_PER_S * 1e3
+        pbound = 2 * sum(wins) * (int(booster._bins_fn.shape[0]) + 16) / HBM_BYTES_PER_S * 1e3
         print(f"{label}: partition {part_us / 1e3:.3f} ms over {len(wins)} windows against a bound "
               f"of {pbound:.3f} ms; rows a window median {wins[len(wins) // 2]}, mean "
               f"{sum(wins) / len(wins):.0f}, largest {wins[-1]}")
@@ -1074,7 +1133,7 @@ def profile_iteration(booster, label: str = "profile") -> None:
         # the tree's fused grow steps against their bound: each window's
         # rows read and written once, F + 16 bytes a row, and each call's
         # K * F * B * 12 output bytes
-        f, b = len(booster.used_features), booster._grower_params.max_bin
+        f, b = int(booster._bins_fn.shape[0]), booster._grower_params.max_bin
         step_us = lane_us["step"] + sum(us for key, (us, _) in dev_us.items()
                                         if "partition_" in key)
         wins = sorted(c for call in steps for c in call)
@@ -1090,7 +1149,7 @@ def profile_iteration(booster, label: str = "profile") -> None:
         # the tree's segment histograms against their bound: each window's
         # rows read once, F + 12 bytes a row, and each call's K * F * B * 12
         # output bytes (f32: the near-tie refine on the fused path)
-        f, b = len(booster.used_features), booster._grower_params.max_bin
+        f, b = int(booster._bins_fn.shape[0]), booster._grower_params.max_bin
         wins = sorted(c for call in calls for c in call)
         live = [c for c in wins if c > 0]
         hbound = (sum(wins) * (f + 12) + len(wins) * f * b * 12) / HBM_BYTES_PER_S * 1e3
@@ -1113,6 +1172,11 @@ def profile_iteration(booster, label: str = "profile") -> None:
     print(f"{label}: split scan {len(scans)} calls ({sum(k for k, _ in scans)} leaves, "
           f"{len(scans) / splits:.2f} a split), wrapper {scan_ms:.2f} ms in all under the "
           f"profiler, {scan_ms / max(1, len(scans)):.4f} ms a call; device {scan_us / 1e3:.3f} ms")
+    if best:
+        ms = sum(t for _, t in best)
+        print(f"{label}: best_split (every leaf of an EFB tree, plain PyTorch on the card) "
+              f"{len(best)} calls ({sum(k for k, _ in best)} leaves, {len(best) / splits:.2f} a "
+              f"split), {ms:.2f} ms in all under the profiler, {ms / len(best):.4f} ms a call")
     print(f"{label}: host operators {host_ms:.1f} ms self time ({host_ms / wall_ms:.3f} of wall), "
           f"{sum(e.count for e in host)} calls; top by self time:")
     for e in sorted(host, key=lambda e: -e.self_cpu_time_total)[:10]:
@@ -1356,6 +1420,308 @@ def io_phase(lt, _build, rows, dev):
     return launches
 
 
+def make_efb_data(n_rows: int, seed: int = 42):
+    """The efb phase's table, f64 (what ``Dataset.construct`` reads, so
+    that it makes no copy): the ``EFB_LEVELS`` categorical variables, each
+    level drawn with probability proportional to 1 / k ** EFB_ZIPF and
+    one-hot coded; the label drawn from a logistic of the summed per-level
+    effects (normal, from the seed) plus standard normal noise."""
+    rng = np.random.default_rng(seed)
+    x = np.zeros((n_rows, sum(EFB_LEVELS)))
+    z = rng.normal(size=n_rows)
+    rows, col = np.arange(n_rows), 0
+    for levels in EFB_LEVELS:
+        p = 1.0 / np.arange(1, levels + 1) ** EFB_ZIPF
+        codes = rng.choice(levels, size=n_rows, p=p / p.sum())
+        x[rows, col + codes] = 1.0
+        z += rng.normal(size=levels)[codes]
+        col += levels
+    y = (rng.random(n_rows) < 1.0 / (1.0 + np.exp(-z))).astype(np.float64)
+    return x, y
+
+
+def efb_members(ds, ck):
+    """Members of the efb table's table-mode checks: the root split by the
+    root's bundle-plane candidate ``ck``, and K=4 windows (the second one
+    empty, none on a tile boundary) each split by the table of one member
+    of a bundle plane; beside them the same windows split by a threshold at
+    the same plane bins, and by that threshold's own table (the same rows
+    left: the table mode's cost alone).  {name: (table members, threshold
+    members, threshold-table members)}."""
+    from lightgbm_tpu_torch.ops import seg
+    from lightgbm_tpu_torch.ops.split import bundle_table
+
+    n, b, lay = ds.num_data, ds.max_bin_padded, ds.bundle_layout
+    root = ([0], [n], [ck.feature], [ck.bin], [0], [-1])
+    bundles = [p for p in range(lay.num_planes) if lay.is_bundle(p)]
+    planes = [ck.feature] + [bundles[i % len(bundles)] for i in (1, 2, 3)]
+    # each window's member: the plane's first, then one of its widest
+    pick = [0, 0, int(np.argmax(lay.widths[planes[2]])), len(lay.planes[planes[3]]) - 1]
+    tb = [lay.starts[p][k] for p, k in zip(planes, pick)]
+    ends = [lay.starts[p][k] + lay.widths[p][k] - 1 for p, k in zip(planes, pick)]
+    k4 = ([37, n // 4 + 5, n // 4 + 5, n // 2 + 1001],
+          [n // 4 - 100, 0, n // 4 - 900, n // 2 - 2000], planes, tb, [0] * 4, [-1] * 4)
+    out = {}
+    for name, cols, tables in (("root", root, [ck.table]),
+                               ("K=4", k4, [bundle_table(t, e, b) for t, e in zip(tb, ends)])):
+        twins = [np.arange(b) <= t for t in cols[3]]  # dl 0, no NaN bin on a bundle plane
+        out[name] = (seg.split_members(*cols, [1] * len(tables), tables),
+                     seg.split_members(*cols),
+                     seg.split_members(*cols, [1] * len(twins), twins))
+    return out
+
+
+def check_efb_kernels(ds, dev):
+    """The partition and the fused step (int8 and f32) in table mode on the
+    efb table's rows, through the wrappers, against their plain versions
+    (``bench_partition.run_case`` / ``bench_grow_step.run_case``: nl, dec
+    and every column of the rows exactly, int8 histograms bit-equal, f32
+    ones within f32_tol and the same bits on two calls): at the root (the
+    root's own bundle-plane split) and on K=4 windows, timed beside the
+    threshold mode on the same windows; then the table-mode edge cases of
+    ``bench_partition``.  Returns the three table-mode kernel entries."""
+    from lightgbm_tpu_torch import bench_grow_step as bg
+    from lightgbm_tpu_torch import bench_partition as bp
+    from lightgbm_tpu_torch.objectives import create_objective
+    from lightgbm_tpu_torch.ops import seg
+    from lightgbm_tpu_torch.ops.split import best_split
+    from lightgbm_tpu_torch.quantize import hist_acc_scales
+
+    n, f = ds.bins.shape
+    b = ds.max_bin_padded
+    obj = create_objective("binary", ds.label, dev)
+    score = torch.full((n,), obj.boost_from_score(), dtype=torch.float32, device=dev)
+    grad, hess = obj.get_gradients(score)
+    bins_fn = torch.as_tensor(np.ascontiguousarray(ds.bins.T), device=dev)
+    ones = torch.ones(n, dtype=torch.float32, device=dev)
+    rows = seg.pack_rows(bins_fn, grad, hess, ones)
+    hist = seg.seg_hist(rows, 0, n, b)
+    tot = hist[0].sum(0).tolist()
+    ck = best_split(hist, *tot, torch.as_tensor(ds.num_bins(), device=dev),
+                    torch.as_tensor(ds.nan_bins(), device=dev),
+                    torch.ones(f, dtype=torch.bool, device=dev), lambda_l1=0.0,
+                    lambda_l2=0.0, min_data_in_leaf=20, min_sum_hessian_in_leaf=1e-3,
+                    min_gain_to_split=0.0,
+                    bundle_end=torch.as_tensor(ds.bundle_layout.bundle_end_array(b), device=dev))
+    if ck.table is None:
+        raise AssertionError("efb: the root's best split is not on a bundle plane")
+    print(f"efb kernels: the root's split is plane {ck.feature} (members "
+          f"{len(ds.bundle_layout.planes[ck.feature])}) at plane bin {ck.bin}, "
+          f"{int((~ck.table).sum())} of {b} bins right")
+    members = efb_members(ds, ck)
+    out = {}
+    for where, name in (("root", "partition_table"), ("K=4", "partition_batch_table")):
+        table, thresh, twin = members[where]
+        entry = partition_entry(name, rows, table, f"{where} of the efb table, table mode",
+                                plain_reps=3)
+        res = bp.run_case(f"{where} threshold", rows, thresh, {"wrapper": bp.wrapper_launch},
+                          reps=20)
+        tw = bp.run_case(f"{where} threshold's table", rows, twin, {"wrapper": bp.wrapper_launch},
+                         reps=20)
+        entry.update(threshold_ms=res["wrapper"], threshold_device_ms=res["wrapper device"],
+                     threshold_table_ms=tw["wrapper"], threshold_table_device_ms=tw["wrapper device"])
+        print(f"kernel {name}: threshold mode on the same windows {res['wrapper']:.4f} ms "
+              f"(device {res['wrapper device']:.4f} ms), the same split by its table "
+              f"{tw['wrapper']:.4f} ms (device {tw['wrapper device']:.4f} ms)")
+        out[name] = entry
+    scales = hist_acc_scales(grad, hess, ones)
+    wrapper = {"wrapper": bg.this_launcher()}
+    step = {}
+    for mode, qs in (("int8", scales), ("f32", None)):
+        for where in ("root", "K=4"):
+            table, thresh, twin = members[where]
+            for kind, mem in (("table", table), ("threshold", thresh),
+                              ("threshold's table", twin)):
+                res = bg.run_case(f"efb {where} {mode} {kind}", rows, mem, b, qs, wrapper, reps=20,
+                                  plain_reps=3 if kind == "table" and where == "root" else 0)
+                repeatable(res, qs, f"efb {where} {mode} {kind}")
+                step[mode, where, kind] = res
+                print(f"kernel fused_grow_step {mode} {kind} mode, {where} of the efb table "
+                      f"(windows {mem[:, :2].tolist()}): dec and every column equal to the plain "
+                      f"version, histogram {'bit-equal' if qs is not None else 'within f32_tol, the same bits on two calls'}; "
+                      f"{res['wrapper']:.4f} ms (device {res['wrapper device']:.4f} ms), bound "
+                      f"{res['bound']:.5f} ms, pair {res['pair']:.4f} ms, composite "
+                      f"{res['composite']:.4f} ms")
+    r = step["int8", "root", "table"]
+    entry = kernel_entry("fused_grow_step_table", 0.0, r["wrapper"], r["plain"],
+                         bound_ms(2 * n * (f + 16) + f * b * 12), r["composite"])
+    entry.update(device_ms=r["wrapper device"], launches_per_call=r["wrapper ops"],
+                 pair_ms=r["pair"], f32_ms=step["f32", "root", "table"]["wrapper"],
+                 f32_device_ms=step["f32", "root", "table"]["wrapper device"],
+                 threshold_ms=step["int8", "root", "threshold"]["wrapper"],
+                 threshold_device_ms=step["int8", "root", "threshold"]["wrapper device"],
+                 threshold_table_device_ms=step["int8", "root", "threshold's table"][
+                     "wrapper device"],
+                 k4_ms=step["int8", "K=4", "table"]["wrapper"],
+                 k4_device_ms=step["int8", "K=4", "table"]["wrapper device"],
+                 k4_threshold_ms=step["int8", "K=4", "threshold"]["wrapper"],
+                 library_call="composite: stable torch.sort of the go-left keys, index_select "
+                 "of every column, copy_ back, index_add_ of the child's i32 digit rows")
+    out["fused_grow_step_table"] = entry
+    nb = ds.num_bins()
+    for cname, mem in bp.table_edge_cases(n, nb).items():
+        bp.run_case(cname, rows, mem, {"wrapper": bp.wrapper_launch}, reps=0, timed=False)
+        for q in (scales, None):
+            repeatable(bg.run_case(cname, rows, mem, b, q, wrapper, reps=0, timed=False), q, cname)
+        print(f"kernel table-mode edge case {cname}: windows {mem[:, :2].tolist()}: partition and "
+              "fused step (int8, f32) exact")
+    del rows
+    torch.cuda.empty_cache()
+    return out
+
+
+def repeatable(res, qs, where) -> None:
+    """An f32 fused step must give the same bits on two calls
+    (``bench_grow_step.run_case`` records it for each build)."""
+    if qs is None and res.get("wrapper repeatable") != 1.0:
+        raise AssertionError(f"fused_grow_step {where}: f32 sums differ between two calls")
+
+
+def conflict_rows(x, layout) -> np.ndarray:
+    """[N] bool: rows with two nonzero members in one bundle plane."""
+    out = np.zeros(x.shape[0], bool)
+    for lo in range(0, x.shape[0], 1 << 16):
+        blk = x[lo:lo + (1 << 16)]
+        for feats in layout.planes:
+            if len(feats) > 1:
+                out[lo:lo + len(blk)] |= (blk[:, feats] != 0).sum(1) >= 2
+    return out
+
+
+def efb_phase(lt, _build, dev):
+    """Exclusive Feature Bundling on the card at the efb table's shape.
+    Returns (the table-mode kernel entries, {phase: kernel launches})."""
+    from lightgbm_tpu_torch.ops import grower
+
+    t_phase = time.perf_counter()
+    x, y = make_efb_data(EFB_ROWS)
+    t1 = time.perf_counter()
+    ds = lt.Dataset(x, y, params=PARAMS).construct()
+    lay = ds.bundle_layout
+    if lay is None:
+        raise AssertionError("efb: nothing bundled")
+    print(f"efb data: {EFB_ROWS} x {x.shape[1]} one-hot columns of {len(EFB_LEVELS)} variables "
+          f"{list(EFB_LEVELS)} (Zipf s = {EFB_ZIPF}) made in {t1 - t_phase:.1f} s; constructed "
+          f"in {time.perf_counter() - t1:.1f} s, the bundle search {ds.bundle_check_s:.2f} s of it; "
+          f"{len(ds.used_features)} used columns in {ds.num_planes} planes of "
+          f"{lay.plane_bins} bins (members {[len(p) for p in lay.planes]})")
+    kernels = check_efb_kernels(ds, dev)
+    phases = {}
+    runs = {}
+    for name, params in (("efb", PARAMS), ("efb-batch", BATCH_PARAMS)):
+        _build.LAUNCHES.clear()
+        booster, losses, train_s, setup_s = train_rounds(lt, params, ds, EFB_ROUNDS)
+        phases[name] = launches = dict(_build.LAUNCHES)
+        runs[name] = len(losses) / train_s
+        print(f"{name}: leaf_batch {params.get('leaf_batch', 1)}: hist_mode {booster.hist_mode!r}, "
+              f"{len(booster.trees)} trees of {[t.num_leaves for t in booster.trees]} leaves, "
+              f"{runs[name]:.3f} iterations/s (set-up {setup_s:.1f} s)")
+        print(f"{name}: training log-loss per round " + " ".join(f"{v:.6f}" for v in losses))
+        print(f"{name}: near-tie f32 refines per tree {booster.refine_counts}; bundle-plane "
+              f"splits per tree {[int(t.split_is_cat.sum()) for t in booster.trees]}")
+        print(f"{name}: kernel launches {json.dumps(launches)}")
+        if booster.hist_mode != "seg" or not falls(losses, EFB_ROUNDS):
+            raise AssertionError(f"{name}: layout {booster.hist_mode!r}, or the log-loss did not "
+                                 "fall every round")
+        require_launches(launches, ("fused_grow_step", "fused_grow_step_table", "seg_hist_int8"),
+                         f"{name} path")
+        if launches.get("split_scan", 0) or launches.get("split_scan_batch", 0):
+            raise AssertionError(f"{name}: the split-scan kernel decided a bundled leaf")
+        if name == "efb":
+            efb_predict_and_text(lt, booster, x, y, losses[-1], lay)
+        profile_iteration(booster, f"{name} profile")
+        del booster
+
+    # the two-launch path: the partition kernel's table mode at K = 1 and 4
+    for name, params in (("efb-off", OFF_PARAMS), ("efb-batch-off", BATCH_OFF_PARAMS)):
+        _build.LAUNCHES.clear()
+        ob, losses, train_s, _ = train_rounds(lt, params, ds, EFB_OFF_ROUNDS)
+        phases[name] = launches = dict(_build.LAUNCHES)
+        print(f"{name}: {len(losses) / train_s:.3f} iterations/s, log-loss per round "
+              + " ".join(f"{v:.6f}" for v in losses) + f"; kernel launches {json.dumps(launches)}")
+        want = "partition_table" if name == "efb-off" else "partition_batch_table"
+        require_launches(launches, (want, "seg_hist"), f"{name} path")
+        if not falls(losses, EFB_OFF_ROUNDS):
+            raise AssertionError(f"{name}: log-loss did not fall every round")
+        del ob
+
+    # card vs CPU on the first rows, int8 accumulation on both
+    xs, ys = x[:PARITY_ROWS].copy(), y[:PARITY_ROWS].copy()
+    pr = {}
+    grower.INT8_ON_CPU = True
+    try:
+        for d in ("cuda", "cpu"):
+            t0 = time.perf_counter()
+            pr[d] = lt.train(PARAMS, lt.Dataset(xs, ys, params=PARAMS), PARITY_ROUNDS, device=d)
+            print(f"efb-parity: {d} trained {PARITY_ROUNDS} rounds in "
+                  f"{time.perf_counter() - t0:.1f} s ({pr[d].hist_mode}, "
+                  f"{pr[d].train_set.num_planes} planes), refines per tree {pr[d].refine_counts}")
+    finally:
+        grower.INT8_ON_CPU = False
+    share = split_share(pr["cuda"], pr["cpu"])
+    lc, lp = pr["cuda"].train_loss(), pr["cpu"].train_loss()
+    print(f"efb-parity: {share:.4f} of splits identical, log-loss cuda {lc:.7f} cpu {lp:.7f}")
+    if share < 0.95 or abs(lc - lp) > 1e-4 * abs(lp):
+        raise AssertionError("efb-parity: card and CPU training disagree")
+    del pr, xs, ys, ds
+
+    # the same rows unbundled: 700 columns take the ordered layout
+    spent = time.perf_counter() - t_phase
+    flat_rows = EFB_ROWS if spent <= EFB_BUDGET_S else EFB_FLAT_CUT_ROWS
+    if flat_rows != EFB_ROWS:
+        print(f"efb-flat: the phase has taken {spent:.0f} s > {EFB_BUDGET_S:.0f} s: the unbundled "
+              f"run is cut to its first {flat_rows} rows")
+    flat = {**PARAMS, "enable_bundle": False}
+    t0 = time.perf_counter()
+    fds = lt.Dataset(x[:flat_rows], y[:flat_rows], params=flat).construct()
+    print(f"efb-flat: enable_bundle=False, {flat_rows} rows constructed in "
+          f"{time.perf_counter() - t0:.1f} s, {fds.num_planes} columns")
+    del x
+    _build.LAUNCHES.clear()
+    fb, losses, train_s, setup_s = train_rounds(lt, flat, fds, EFB_FLAT_ROUNDS)
+    phases["efb-flat"] = launches = dict(_build.LAUNCHES)
+    print(f"efb-flat: hist_mode {fb.hist_mode!r}, {len(losses) / train_s:.3f} iterations/s (set-up "
+          f"{setup_s:.1f} s) against the bundled {runs['efb']:.3f} at {EFB_ROWS} rows; log-loss "
+          "per round " + " ".join(f"{v:.6f}" for v in losses)
+          + f"; kernel launches {json.dumps(launches)}")
+    if fb.hist_mode != "ordered" or not falls(losses, EFB_FLAT_ROUNDS):
+        raise AssertionError("efb-flat: not the ordered layout, or the log-loss did not fall")
+    del fb, fds
+    torch.cuda.empty_cache()
+    print(f"efb: phase {time.perf_counter() - t_phase:.1f} s")
+    return kernels, phases
+
+
+def efb_predict_and_text(lt, booster, x, y, train_loss, lay):
+    """Predict of the efb rows against the training score, then the model
+    saved and read back: its real-space predict may differ from the bundled
+    predict only on rows with two nonzero members in one plane."""
+    t0 = time.perf_counter()
+    raw = booster.predict(x, raw_score=True)
+    torch.cuda.synchronize()
+    pred_s = time.perf_counter() - t0
+    score = booster.score.double().cpu().numpy()
+    err = float(np.max(np.abs(raw - score) / np.maximum(np.abs(score), 1.0)))
+    p = np.clip(1.0 / (1.0 + np.exp(-raw)), 1e-15, 1 - 1e-15)
+    loss = float(-np.mean(y * np.log(p) + (1 - y) * np.log(1 - p)))
+    print(f"efb: predict {EFB_ROWS / pred_s:.0f} rows/s through the plain walker with tables; raw "
+          f"scores vs the training score max relative |diff| {err:.3g}, log-loss {loss:.7f} vs "
+          f"training {train_loss:.7f}")
+    if err > 1e-5 or abs(loss - train_loss) > 1e-5 * train_loss:
+        raise AssertionError("efb: predict disagrees with the training score")
+    text = booster.model_to_string()
+    loaded = lt.Booster(model_str=text, device="cuda")
+    real = loaded.predict(x, raw_score=True)
+    differ = np.abs(real - raw) > 1e-5 * np.maximum(np.abs(raw), 1.0)
+    conflict = conflict_rows(x, lay)
+    print(f"efb: the model read back from its text ({len(text)} bytes) walks real values: "
+          f"{int(differ.sum())} rows differ from the bundled predict, {int(conflict.sum())} rows "
+          f"have two nonzero members in one plane, {int((differ & ~conflict).sum())} rows "
+          "differ without one")
+    if (differ & ~conflict).any():
+        raise AssertionError("efb: the real-space predict differs on a row without a conflict")
+
+
 def falls(losses, rounds) -> bool:
     return len(losses) == rounds and all(b < a for a, b in zip(losses, losses[1:]))
 
@@ -1369,7 +1735,7 @@ def wide_data(lt):
     print(f"wide data: {WIDE_ROWS} x {WIDE_FEATURES} made in {t1 - t0:.1f} s, binned in "
           f"{time.perf_counter() - t1:.1f} s; {len(ds.used_features)} used features, "
           f"{int(ds.num_bins().min())}-{int(ds.num_bins().max())} bins a feature, "
-          f"{ds.max_bin_padded} histogram bins; the bundling check took "
+          f"{ds.max_bin_padded} histogram bins; the bundle search took "
           f"{ds.bundle_check_s:.2f} s (no bundle: every column has NaNs)")
     return x, y, ds
 
@@ -1607,6 +1973,10 @@ def main() -> int:
     del runs, xs, ys, x, ds
 
     phases["io"] = io_phase(lt, _build, ROWS, dev)
+
+    efb_kernels, efb_launches = efb_phase(lt, _build, dev)
+    kernels.update(efb_kernels)
+    phases.update(efb_launches)
 
     wide_kernels, wide_launches = wide_phases(lt, _build, dev)
     kernels.update({k["name"]: k for k in wide_kernels})

@@ -25,7 +25,10 @@ whose f32 sums may change from call to call).  The edge cases
 (``edge_cases``: every row left, every row right, an empty window among K,
 windows under 32 rows, a NaN-bin split with missing values left, a window
 whose two children are equal in size; ``few_bins``: the root of a table of
-64 bins) are checked, not timed.
+64 bins) are checked, not timed.  The table mode (a window going left by
+the goes-left table of an EFB bundle-plane split): ``bench_partition``'s
+``table_cases`` timed and ``table_edge_cases`` checked, in both modes, on
+this interface's builds.
 
 Times: the builds in turns (baseline, this source, variants, then the
 reverse order) by CUDA events through the wrapper, one call at a time with
@@ -80,6 +83,7 @@ from .bench_partition import (ROOT_FEATURES, WIDE_FEATURES, _clone_rows, _copy_r
                               kernel_name, same_rows, sort_keys, synthetic_rows, window_rows)
 from .bench_partition import cases as partition_cases
 from .bench_partition import edge_cases as partition_edge_cases
+from .bench_partition import table_cases, table_edge_cases
 from .ops import grow_step, seg
 from .quantize import hist_acc_scales
 
@@ -87,7 +91,7 @@ MODES = ("f32", "int8")
 
 
 def cases(n: int, nb) -> Dict[str, np.ndarray]:
-    """{name: [K, 6] members} of the timed cases: the partition bench's, and
+    """{name: [K, MEMBER_COLS] members} of the timed cases: the partition bench's, and
     one window of 14,012 rows (the median window of a default tree's fused
     steps) at an unaligned start."""
     out = partition_cases(n, nb)
@@ -97,7 +101,7 @@ def cases(n: int, nb) -> Dict[str, np.ndarray]:
 
 def equal_children(rows: seg.SegRows, nb, start: int = 77, feat: int = 5,
                    least: int = 1000) -> np.ndarray:
-    """[1, 6] members of a window at ``start`` whose split of ``feat`` sends
+    """[1, MEMBER_COLS] members of a window at ``start`` whose split of ``feat`` sends
     exactly half its rows left (nl == nr, so the left child is elected):
     the shortest such window of at least ``least`` rows, at the threshold
     bins nearest an even split first."""
@@ -116,7 +120,7 @@ def equal_children(rows: seg.SegRows, nb, start: int = 77, feat: int = 5,
 
 
 def edge_cases(rows: seg.SegRows, nb) -> Dict[str, np.ndarray]:
-    """{name: [K, 6] members} checked but not timed: the partition bench's
+    """{name: [K, MEMBER_COLS] members} checked but not timed: the partition bench's
     edge cases and a window with equal children."""
     out = dict(partition_edge_cases(rows.n, nb))
     out["nl == nr"] = equal_children(rows, nb)
@@ -160,7 +164,7 @@ def earlier_launcher(lib: str) -> Callable:
     fn.restype = ctypes.c_int
 
     def launch(rows: seg.SegRows, mem: np.ndarray, b: int, qs) -> tuple:
-        mem = grow_step._members(*mem.T, None)
+        mem = np.ascontiguousarray(mem[:, :6])  # its rows: no table mode
         k, f, dev = mem.shape[0], rows.f, rows.device
         total = int(mem[:, 1].sum())
         planes = 3 if qs is None else 5
@@ -191,8 +195,10 @@ def this_launcher(fn=None) -> Callable:
     launch alone, (dec [K, 4], hist)."""
     def launch(rows: seg.SegRows, mem: np.ndarray, b: int, qs) -> tuple:
         if fn is not None:
-            return grow_step._launch(rows, grow_step._members(*mem.T, None), b, qs, fn)
-        return grow_step.fused_grow_step(rows, *mem.T, b, quant_scales=qs)
+            return grow_step._launch(rows, mem, b, qs, fn)
+        cols, iscats, tables = seg.member_args(mem)
+        return grow_step.fused_grow_step(rows, *cols, b, quant_scales=qs, iscats=iscats,
+                                         tables=tables)
 
     return launch
 
@@ -454,6 +460,23 @@ def main(argv: Optional[List[str]] = None) -> int:
                          builds, args.reps, timed=False)
             print("edge case root at 64 bins: every build equals the plain version in both modes")
             del small
+            # the table mode: builds of this interface (the earlier design has none)
+            table_builds = {k: v for k, v in builds.items() if k != "baseline"}
+            for cname, mem in table_cases(rows.n, nb).items():
+                for mode in MODES:
+                    key = f"{cname} {mode}"
+                    results[key] = res = run_case(key, rows, mem, 256,
+                                                  scales if mode == "int8" else None,
+                                                  table_builds, args.reps)
+                    print(f"case {key}: " + ", ".join(
+                        f"{k} {v:.4f}" + ("" if k.endswith("ops") else " ms")
+                        for k, v in res.items()))
+            for cname, mem in table_edge_cases(rows.n, nb).items():
+                for mode in MODES:
+                    run_case(cname, rows, mem, 256, scales if mode == "int8" else None,
+                             table_builds, args.reps, timed=False)
+                print(f"edge case {cname}: windows {mem[:, :2].tolist()}: every build equals the "
+                      "plain version in both modes")
         del rows
         torch.cuda.empty_cache()
     print(json.dumps({"card": card, "cases": results}))

@@ -34,7 +34,13 @@ median bin; K=4 windows laid out as chip_smoke.py's ``k4_members``
 root at F = 242, the widest table the seg layout takes.  The edge cases
 (``edge_cases``: every row left, every row right, an empty window among K,
 windows of fewer than 32 rows, a NaN-bin split with missing values left)
-are checked, not timed.
+are checked, not timed.  The table mode (an EFB bundle-plane split: a
+window's rows go left by its goes-left table, every bin outside [t, end]):
+``table_cases`` (the root and the K=4 layout, every window by a table) and
+``table_edge_cases`` (table and threshold windows in one call, t at the
+first bin, a range ending at bin 255, an empty window among K, windows
+under 32 rows), checked and timed as the others; chip_smoke.py checks them
+at the efb phase's planes.
 
 ``--baseline`` builds another version of the source with the C interface
 of the earlier design (four launches over wrapper-allocated scratch, as
@@ -61,6 +67,7 @@ from . import _build
 from ._bench import (HBM_BYTES_PER_S, build_library, card_line, device_by_name, device_profile,
                      time_ms)
 from .ops import seg
+from .ops.split import bundle_table
 
 ROOT_FEATURES = 28
 WIDE_FEATURES = 242  # the seg layout's widest table (boosting/gbdt.py)
@@ -91,7 +98,7 @@ def synthetic_rows(n: int, f: int, dev, seed: int = 0):
 
 
 def _members(nb, starts, cnts, feats, dls, tbins=None) -> np.ndarray:
-    """[K, 6] split members: each split at its feature's median bin unless
+    """[K, MEMBER_COLS] split members: each split at its feature's median bin unless
     ``tbins`` names the bins, the feature's NaN bin as nanb."""
     nb = np.asarray(nb)
     feats = [int(j) % len(nb) for j in feats]
@@ -99,8 +106,47 @@ def _members(nb, starts, cnts, feats, dls, tbins=None) -> np.ndarray:
     return seg.split_members(starts, cnts, feats, tb, dls, [int(nb[j]) - 1 for j in feats])
 
 
+def _table_members(nb, starts, cnts, feats, ranges) -> np.ndarray:
+    """[K, MEMBER_COLS] split members: window i goes left by the table of a
+    bundle-plane split excluding plane bins [t, end] where ``ranges[i]`` is
+    (t, end), else by a split at its feature's median bin."""
+    nb = np.asarray(nb)
+    feats = [int(j) % len(nb) for j in feats]
+    tables = [None if r is None else bundle_table(r[0], r[1], seg.TABLE_BINS) for r in ranges]
+    return seg.split_members(starts, cnts, feats, [int(nb[j]) // 2 for j in feats],
+                             [0] * len(feats), [int(nb[j]) - 1 for j in feats],
+                             [r is not None for r in ranges], tables)
+
+
+def table_cases(n: int, nb) -> Dict[str, np.ndarray]:
+    """{name: members} of the timed table-mode cases: the root and the K=4
+    layout of ``cases``, every window by a table."""
+    return {
+        "root, table": _table_members(nb, [0], [n], [3], [(60, 140)]),
+        "K=4, table": _table_members(nb, [37, n // 4 + 5, n // 4 + 5, n // 2 + 1001],
+                                     [n // 4 - 100, 0, n // 4 - 900, n // 2 - 2000],
+                                     [3, 4, 4, 5], [(60, 140), (1, 30), (90, 91), (2, 200)]),
+    }
+
+
+def table_edge_cases(n: int, nb) -> Dict[str, np.ndarray]:
+    """{name: members} of the table mode, checked but not timed."""
+    w = max(64, n // 16)
+    return {
+        "table and threshold among K": _table_members(
+            nb, [5, n // 8 + 3, n // 2 + 7, n - 40], [n // 8 - 20, n // 8, n // 4, 17],
+            [1, 2, 3, 4], [(40, 90), None, (100, 200), None]),
+        "t at the first bin": _table_members(nb, [101], [w], [2], [(1, 1)]),
+        "range ending at bin 255": _table_members(nb, [203], [w], [6], [(180, 255)]),
+        "cnt 0 among K, table": _table_members(nb, [5, 9_000, 9_000], [5_000, 0, 3_000],
+                                               [1, 2, 2], [(10, 20), (30, 40), (50, 60)]),
+        "cnt < 32, table": _table_members(nb, [3, 1_000, 2_000], [17, 31, 1], [4, 5, 6],
+                                          [(20, 100), None, (5, 250)]),
+    }
+
+
 def cases(n: int, nb) -> Dict[str, np.ndarray]:
-    """{name: [K, 6] members} of the timed cases at n rows (the root and
+    """{name: [K, MEMBER_COLS] members} of the timed cases at n rows (the root and
     chip_smoke.py's K=4 layout scale with n; the small windows do not)."""
     small = [(16_384, 12_345), (4_096, n // 3 + 5)]
     out = {
@@ -117,7 +163,7 @@ def cases(n: int, nb) -> Dict[str, np.ndarray]:
 
 
 def edge_cases(n: int, nb) -> Dict[str, np.ndarray]:
-    """{name: [K, 6] members} checked but not timed."""
+    """{name: [K, MEMBER_COLS] members} checked but not timed."""
     w = max(64, n // 16)
     return {
         "all left": _members(nb, [101], [w], [2], [0], tbins=[255]),
@@ -144,9 +190,9 @@ def window_rows(mem: np.ndarray, dev) -> torch.Tensor:
 def sort_keys(rows: seg.SegRows, mem: np.ndarray) -> torch.Tensor:
     """One stable-sort key a window row: goes right (u8) for one window,
     2 * window + goes right (i32) for K."""
-    keys = [(~seg.go_left(rows.bins[int(ft), int(s):int(s) + int(c)], int(tb), bool(dl),
-                          int(nb))).to(torch.int32) + 2 * i
-            for i, (s, c, ft, tb, dl, nb) in enumerate(mem)]
+    keys = [(~seg.member_go_left(rows.bins[int(r[2]), int(r[0]):int(r[0]) + int(r[1])],
+                                 r)).to(torch.int32) + 2 * i
+            for i, r in enumerate(mem)]
     out = torch.cat(keys)
     return out.to(torch.uint8) if len(mem) == 1 else out
 
@@ -207,8 +253,9 @@ def earlier_launcher(lib: str) -> Callable:
         s_ridx = torch.empty((total,), dtype=torch.int32, device=dev)
         tile_counts = torch.empty((max(tiles, 1),), dtype=torch.int32, device=dev)
         nl = torch.empty((k,), dtype=torch.int32, device=dev)
+        mem6 = np.ascontiguousarray(mem[:, :6])  # its rows: no table mode
         rc = fn(rows.bins.data_ptr(), rows.g.data_ptr(), rows.h.data_ptr(), rows.m.data_ptr(),
-                rows.ridx.data_ptr(), rows.n, f, mem.ctypes.data, k, s_bins.data_ptr(),
+                rows.ridx.data_ptr(), rows.n, f, mem6.ctypes.data, k, s_bins.data_ptr(),
                 s_g.data_ptr(), s_h.data_ptr(), s_m.data_ptr(), s_ridx.data_ptr(),
                 tile_counts.data_ptr(), nl.data_ptr(), torch.cuda.current_stream(dev).cuda_stream)
         _build.check(rc, "partition (the earlier design)")
@@ -246,9 +293,11 @@ def wrapper_launch(rows: seg.SegRows, mem: np.ndarray) -> torch.Tensor:
     """The public wrappers on the members: ``sort_partition`` for one,
     ``sort_partition_batch`` for K; nl [K] i32."""
     if len(mem) == 1:
-        s, c, ft, tb, dl, nb = (int(v) for v in mem[0])
-        return seg.sort_partition(rows, s, c, ft, tb, bool(dl), nb).reshape(1)
-    return seg.sort_partition_batch(rows, *mem.T)
+        s, c, ft, tb, dl, nb = (int(v) for v in mem[0, :6])
+        return seg.sort_partition(rows, s, c, ft, tb, bool(dl), nb,
+                                  seg.member_table(mem[0])).reshape(1)
+    cols, iscats, tables = seg.member_args(mem)
+    return seg.sort_partition_batch(rows, *cols, iscats, tables)
 
 
 def run_case(name: str, rows: seg.SegRows, mem: np.ndarray, builds: Dict[str, Callable],
@@ -397,6 +446,16 @@ def main(argv: Optional[List[str]] = None) -> int:
         if f == ROOT_FEATURES:
             for cname, mem in edge_cases(rows.n, nb).items():
                 run_case(cname, rows, mem, builds, args.reps, timed=False)
+                print(f"edge case {cname}: windows {mem[:, :2].tolist()}: every build equals "
+                      "the plain version")
+            # the table mode: builds of this interface (the earlier design has none)
+            table_builds = {k: v for k, v in builds.items() if k != "baseline"}
+            for cname, mem in table_cases(rows.n, nb).items():
+                results[cname] = res = run_case(cname, rows, mem, table_builds, args.reps)
+                print(f"case {cname}: " + ", ".join(
+                    f"{k} {v:.4f}" + ("" if k.endswith("ops") else " ms") for k, v in res.items()))
+            for cname, mem in table_edge_cases(rows.n, nb).items():
+                run_case(cname, rows, mem, table_builds, args.reps, timed=False)
                 print(f"edge case {cname}: windows {mem[:, :2].tolist()}: every build equals "
                       "the plain version")
         del rows

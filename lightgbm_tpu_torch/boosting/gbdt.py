@@ -20,6 +20,15 @@ and the training set's (``metrics.py``) read the scores where they lie.
 Row weights and ``init_score`` come from the Dataset (an init score starts
 the score and turns ``boost_from_average`` off, :712-717, :2071-2082).
 
+EFB (:761-786, :896-936, :2728-2735, :2872-2875): on a bundled Dataset the
+columns are planes; the layout rule counts them, every leaf is decided by
+``best_split`` with the planes' ``bundle_end``, trees keep the goes-left
+tables of their bundle-plane nodes and decode them to thresholds on the
+member features, predict packs the rows' bins into the planes, and the
+model predicts and scores its validation sets through the plain walker
+with tables (the forest-walk kernel stays the route of every unbundled
+model).
+
 Model text (:3186-3421): ``model_to_string`` / ``save_model`` write
 LightGBM's format; ``Booster(model_file=...)`` / ``Booster(model_str=...)``
 / ``model_from_string`` read it.  A model read from text has no bin
@@ -84,14 +93,14 @@ def resolve_hist_mode(n_used: int, max_bin_padded: int) -> str:
 
 
 class _EvalEntry:
-    """A validation set: its row-major bins and f32 score on the device,
-    and its metrics."""
+    """A validation set: its row-major bins (planes under EFB) and f32
+    score on the device, and its metrics."""
 
     def __init__(self, name: str, dataset: Dataset, metrics, bins, score):
         self.name = name
         self.dataset = dataset
         self.metrics = metrics
-        self.bins = bins  # [N, F_used] u8
+        self.bins = bins  # [N, P] u8
         self.score = score  # [N] f32
 
 
@@ -116,6 +125,7 @@ class Booster:
         self.train_set: Optional[Dataset] = None
         self.objective = None
         self.bin_mappers = None  # None: a model read from text, walked in real space
+        self.bundle_layout = None  # EFB planes of the training Dataset (None: unbundled)
         self.best_iteration = -1
         self.best_score: Dict[str, Dict[str, float]] = {}
         self.feature_names: List[str] = []
@@ -169,6 +179,7 @@ class Booster:
         self.train_set = ds
         self.bin_mappers = ds.bin_mappers
         self.used_features = list(ds.used_features)
+        self.bundle_layout = ds.bundle_layout
         n = ds.num_data
         self.objective = create_objective(cfg.objective, ds.label, dev, ds.weight)
         self._objective_str = self.objective.to_string()
@@ -178,9 +189,8 @@ class Booster:
         self.feature_names = list(ds.feature_names)
         self.feature_infos = [m.feature_info_str() for m in ds.bin_mappers]
         self.max_feature_idx = ds.num_total_features - 1
-        self.hist_mode = cfg.hist_mode or resolve_hist_mode(
-            len(self.used_features), ds.max_bin_padded
-        )
+        # the budget counts bin columns: EFB planes (boosting/gbdt.py:1295-1297)
+        self.hist_mode = cfg.hist_mode or resolve_hist_mode(ds.num_planes, ds.max_bin_padded)
         cfg.check_layout(self.hist_mode)
         self._bins_fn = torch.as_tensor(np.ascontiguousarray(ds.bins.T), device=dev)
         # the ordered layout reads whole rows: a row-major copy beside the
@@ -192,18 +202,18 @@ class Booster:
         self._max_bin = ds.max_bin_padded
         self._num_bins_t = torch.as_tensor(ds.num_bins(), device=dev)
         self._nan_bins_t = torch.as_tensor(self.nan_bins, device=dev)
-        self._feature_mask = torch.ones(
-            len(self.used_features), dtype=torch.bool, device=dev
-        )
+        self._feature_mask = torch.ones(ds.num_planes, dtype=torch.bool, device=dev)
+        self._bundle_end = None if self.bundle_layout is None else torch.as_tensor(
+            self.bundle_layout.bundle_end_array(self._max_bin), device=dev)
         self._count_mask = torch.ones(n, dtype=torch.float32, device=dev)
         # the JAX grower takes its split-scan kernel's tie rule only where
         # the kernel runs (fused_ok, ops/grower.py:460-478): the scan or the
         # fused step on ('on' fuses on either layout, 'auto' on seg), at
-        # most 64 features and 256 bins; best_split's rule elsewhere
+        # most 64 columns and 256 bins, no bundle; best_split's rule elsewhere
         kernel_scan = cfg.fused_split_scan or cfg.grow_fused == "on" or (
             cfg.grow_fused == "auto" and self.hist_mode == "seg")
-        kernel_ties = (kernel_scan and len(self.used_features) <= 64
-                       and ds.max_bin_padded <= 256)
+        kernel_ties = (kernel_scan and ds.num_planes <= 64 and ds.max_bin_padded <= 256
+                       and self.bundle_layout is None)
         self._grower_params = GrowerParams(
             num_leaves=cfg.num_leaves,
             max_bin=ds.max_bin_padded,
@@ -279,7 +289,7 @@ class Booster:
             ta, leaf_id = grow_tree(
                 self._bins_fn, grad, hess, self._count_mask, self._num_bins_t,
                 self._nan_bins_t, self._feature_mask, self._grower_params,
-                quant_scales=qs, bins_nf=self._bins_nf,
+                quant_scales=qs, bins_nf=self._bins_nf, bundle_end=self._bundle_end,
             )
             n_leaves, refines, steps = ta.num_leaves, ta.refine_count, ta.grow_steps
         if self._unnoted is not None:
@@ -298,7 +308,8 @@ class Booster:
                 self._tables = {}
             self._finished = True
             return True
-        tree = Tree.from_tree_arrays(ta, self.bin_mappers, self.used_features)
+        tree = Tree.from_tree_arrays(ta, self.bin_mappers, self.used_features,
+                                     self.bundle_layout, self._max_bin)
         self._note_tree(refines, steps, k, n_leaves)
         tree.apply_shrinkage(cfg.learning_rate)
         rate = np.float32(cfg.learning_rate)
@@ -385,8 +396,12 @@ class Booster:
         """The forest-walk kernel's tables of bin-space records, or, when
         the kernel rejects them (``walk_reject_reason``), the stacked trees
         of the plain walker (the JAX package's XLA fallback,
-        boosting/gbdt.py:2646-2694), with a warning the first time."""
-        nf = len(self.used_features)
+        boosting/gbdt.py:2646-2694), with a warning the first time.  An EFB
+        model always takes the plain walker, which reads its nodes' tables
+        (:2872-2875)."""
+        if self.bundle_layout is not None:
+            return stack_bin_trees(records, self.nan_bins, self.device)
+        nf = len(self.nan_bins)
         reason = walk_reject_reason(records, self.nan_bins, nf, self._max_bin)
         if reason is None:
             return build_tables(records, self.nan_bins, self.device)
@@ -405,8 +420,9 @@ class Booster:
 
     def predict_raw_bins(self, bins: torch.Tensor, t0: int = 0,
                          t1: Optional[int] = None) -> torch.Tensor:
-        """Raw scores [N] of already-binned rows [N, F_used] u8 on the
-        booster's device, through trees [t0, t1) (all by default)."""
+        """Raw scores [N] of already-binned rows [N, P] u8 (the training
+        Dataset's columns: EFB planes, or used features) on the booster's
+        device, through trees [t0, t1) (all by default)."""
         tables = self._walk_tables(t0, t1)
         if isinstance(tables, ForestTables):
             raw = forest_walk(bins, tables, self.num_class)[:, 0]
@@ -422,8 +438,9 @@ class Booster:
         iteration once early stopping has set one).  A trained booster
         bins the rows on the device in f32; rows within f32 rounding of a
         bin boundary are re-binned on the host in f64, so the bins equal
-        the training Dataset's.  A model read from text walks the raw
-        values in real space."""
+        the training Dataset's, then packed into its EFB planes where it
+        has them.  A model read from text walks the raw values in real
+        space."""
         x = np.asarray(data, dtype=np.float64)
         if x.ndim != 2:
             raise ValueError(f"data must be 2-D, got shape {x.shape}")
@@ -452,6 +469,8 @@ class Booster:
                 bins[torch.as_tensor(sidx, device=self.device)] = torch.as_tensor(
                     patch.astype(np.int32), device=self.device
                 )
+            if self.bundle_layout is not None:
+                bins = self.bundle_layout.pack_tensor(bins, self.used_features)
             parts.append(self.predict_raw_bins(bins.to(torch.uint8), t0, t1))
         raw = torch.cat(parts) if parts else torch.zeros(0, device=self.device)
         return self._finish_predict(raw, raw_score)
@@ -634,6 +653,7 @@ class Booster:
         self.trees = [Tree.from_string(b) for b in blocks if b.strip()]
         self.train_set = None
         self.bin_mappers = None
+        self.bundle_layout = None
         self._valid = []
         self._train_metrics = []
         self._iter = len(self.trees)

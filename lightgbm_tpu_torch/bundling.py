@@ -1,24 +1,30 @@
-"""Exclusive Feature Bundling: the search only, so that a Dataset whose
-columns would bundle is refused rather than trained unbundled.
+"""Exclusive Feature Bundling (EFB): mutually exclusive sparse columns share
+one bin plane.
 
-Copy (numpy only) of the part of ``lightgbm_tpu/bundling.py`` that decides
-whether any bundle forms: ``_eligible``, ``greedy_find_bundles`` and the
-candidate scan of ``build_layout`` (:156-290), over the row sample of
-``Dataset._find_bundle_layout`` (lightgbm_tpu/dataset.py:1302-1336).  The
-JAX package then packs each bundle into one bin plane; the port does not
-yet, so ``Dataset.construct`` raises where a bundle of two or more columns
-would form, and ``enable_bundle=False`` trains the columns unbundled.
+Copy (numpy, plus one torch packer) of ``lightgbm_tpu/bundling.py``:
+``BundleLayout`` (:48) with ``decode`` (:86), ``bundle_end_array`` (:108)
+and ``pack_columns`` (:121), ``_eligible``, ``greedy_find_bundles`` and
+``build_layout`` (:240), over the row sample of
+``Dataset._find_bundle_layout`` (lightgbm_tpu/dataset.py:1302-1336).
 
-Dense columns never bundle: a column with NaNs, a nonzero default bin
-(negative values) or more than half its sampled rows nonzero is no
-candidate, and is skipped before its nonzeros are gathered.
+A bundle IS a bin plane of the ``[N, P]`` bin matrix: plane bin 0 is the
+shared all-default bin, and member feature ``k`` owns the sub-range
+``[start_k, start_k + w_k)`` of its non-default bins (its local bin ``b``
+sits at plane bin ``start_k + b - 1``).  Only numeric features with no
+missing values and the value 0 in bin 0 bundle, so "a member at its
+default" always means "raw value 0" and every plane-bin split decodes to
+one threshold on one original feature (``Tree.from_tree_arrays``).  Dense
+columns never bundle: a column with NaNs, a nonzero default bin (negative
+values) or more than half its sampled rows nonzero is no candidate.
 """
 
 from __future__ import annotations
 
-from typing import Callable, List
+import dataclasses
+from typing import Callable, Dict, List, Optional, Tuple
 
 import numpy as np
+import torch
 
 from .binning import MissingType
 
@@ -30,11 +36,110 @@ MAX_SEARCH_GROUPS = 512
 MAX_BUNDLE_DENSITY = 0.5
 
 
-def default_bin(mapper) -> int:
-    """The bin of the value 0.0 (lightgbm_tpu/binning.py:366-368)."""
-    if mapper.missing_type == MissingType.ZERO:
-        return mapper.nan_bin
-    return int(np.searchsorted(mapper.bin_upper_bound, 0.0, side="left"))
+@dataclasses.dataclass
+class BundleLayout:
+    """Plane layout of a bundled dataset: ``planes[p]`` the original
+    feature ids sharing plane ``p`` (ascending; a singleton plane is the
+    identity), ``starts[p]`` / ``widths[p]`` each member's sub-range
+    (singletons: ``[0]`` / ``[num_bins]``), ``plane_bins[p]`` the plane's
+    bins, the shared bin 0 included."""
+
+    planes: List[List[int]]
+    starts: List[List[int]]
+    widths: List[List[int]]
+    plane_bins: List[int]
+
+    def __post_init__(self) -> None:
+        self._pos: Dict[int, Tuple[int, int]] = {}
+        for p, feats in enumerate(self.planes):
+            for k, j in enumerate(feats):
+                self._pos[int(j)] = (p, k)
+
+    @property
+    def num_planes(self) -> int:
+        return len(self.planes)
+
+    @property
+    def has_bundles(self) -> bool:
+        return any(len(p) > 1 for p in self.planes)
+
+    def is_bundle(self, plane: int) -> bool:
+        return len(self.planes[plane]) > 1
+
+    def feature_position(self, orig: int) -> Tuple[int, int]:
+        """(plane, member index) of an original used feature."""
+        return self._pos[int(orig)]
+
+    def decode(self, plane: int, plane_bin: int) -> Tuple[int, int]:
+        """(original feature, feature-local bin) owning ``plane_bin``.  A
+        bundle-plane candidate at plane bin ``t`` (left: every plane bin but
+        ``[t, end]``) is "local bin <= t - start goes left", the shared
+        default bin 0 always left; singleton planes are the identity."""
+        feats = self.planes[plane]
+        if len(feats) == 1:
+            return feats[0], int(plane_bin)
+        for j, s, w in zip(feats, self.starts[plane], self.widths[plane]):
+            if s <= plane_bin < s + w:
+                return j, int(plane_bin) - s
+        raise ValueError(
+            f"plane bin {plane_bin} is outside every sub-range of plane {plane} "
+            f"(starts={self.starts[plane]}, widths={self.widths[plane]})"
+        )
+
+    def bundle_end_array(self, num_bins_padded: int) -> np.ndarray:
+        """[P, B] i32: for a bundle-plane bin inside a member's sub-range,
+        the sub-range's LAST bin (``best_split``'s operand); -1 elsewhere
+        (singleton planes, the shared bin 0, padding)."""
+        out = np.full((self.num_planes, num_bins_padded), -1, np.int32)
+        for p, feats in enumerate(self.planes):
+            if len(feats) < 2:
+                continue
+            for s, w in zip(self.starts[p], self.widths[p]):
+                out[p, s : s + w] = s + w - 1
+        return out
+
+    def pack_columns(self, n: int, local_bins_of: Callable[[int], np.ndarray],
+                     dtype=np.int32) -> np.ndarray:
+        """The [N, P] plane matrix from each feature's own bin column
+        (``local_bins_of(orig) -> [n]``).  Members write their non-default
+        bins at ``start + local - 1`` in ascending feature id, so a conflict
+        row (two members nonzero, allowed up to ``max_conflict_rate``)
+        keeps the highest feature's value, in every packer alike."""
+        out = np.zeros((n, self.num_planes), dtype=dtype)
+        for p, feats in enumerate(self.planes):
+            if len(feats) == 1:
+                out[:, p] = local_bins_of(feats[0])
+                continue
+            for j, s in zip(feats, self.starts[p]):
+                local = np.asarray(local_bins_of(j))
+                nz = local > 0
+                if nz.any():
+                    out[nz, p] = (s - 1) + local[nz]
+        return out
+
+    def pack_tensor(self, local: torch.Tensor, used_features: List[int]) -> torch.Tensor:
+        """``pack_columns`` of local bins [N, F_used] (column ci is original
+        feature ``used_features[ci]``) on their device: [N, P] i32.  Each
+        plane keeps the nonzero member of the highest rank (the ascending
+        visit's last write)."""
+        n, dev = int(local.shape[0]), local.device
+        plane = np.zeros(len(used_features), np.int64)
+        rank = np.zeros(len(used_features), np.int64)
+        base = np.zeros(len(used_features), np.int64)
+        for ci, j in enumerate(used_features):
+            p, k = self.feature_position(j)
+            plane[ci], rank[ci] = p, k
+            base[ci] = self.starts[p][k] - 1 if self.is_bundle(p) else 0
+        loc = local.to(torch.int32)
+        packed = loc + torch.as_tensor(base, dtype=torch.int32, device=dev)
+        # (rank + 1) * 256 + bin where the member is nonzero: the amax over a
+        # plane's members is its highest nonzero member's bin
+        key = torch.where(loc > 0, packed + 256 * (torch.as_tensor(rank, dtype=torch.int32,
+                                                                   device=dev) + 1), 0)
+        out = torch.zeros((n, self.num_planes), dtype=torch.int32, device=dev)
+        idx = torch.as_tensor(plane, device=dev).expand(n, -1)
+        out.scatter_reduce_(1, idx, key, "amax")
+        return out % 256
 
 
 def _eligible(mapper, budget: int) -> bool:
@@ -47,6 +152,13 @@ def _eligible(mapper, budget: int) -> bool:
         and 2 <= mapper.num_bins
         and mapper.num_bins - 1 <= budget - 1
     )
+
+
+def default_bin(mapper) -> int:
+    """The bin of the value 0.0 (lightgbm_tpu/binning.py:366-368)."""
+    if mapper.missing_type == MissingType.ZERO:
+        return mapper.nan_bin
+    return int(np.searchsorted(mapper.bin_upper_bound, 0.0, side="left"))
 
 
 def greedy_find_bundles(
@@ -101,19 +213,21 @@ def greedy_find_bundles(
     return groups + extra_singletons
 
 
-def find_bundles(
+def build_layout(
     used_features: List[int],
     bin_mappers,
     nonzeros_of: Callable[[int], np.ndarray],
     sample_n: int,
     max_conflict_rate: float = 0.0,
     budget: int = MAX_PLANE_BINS,
-) -> List[List[int]]:
-    """The bundles of two or more original feature ids that the JAX
-    package's ``build_layout`` would form (empty: it returns None).
-    ``nonzeros_of(j)``: sorted sample rows where column j is nonzero."""
+) -> Optional[BundleLayout]:
+    """The plane layout, or None when nothing bundles (the bin matrix stays
+    the unbundled one).  ``nonzeros_of(j)``: sorted rows of the bundling
+    sample (``sample_n`` rows) where column j is nonzero.  Each plane sits
+    at the position of its lowest original feature, so unbundled features
+    keep their relative order."""
     if len(used_features) < 2:
-        return []
+        return None
     cand: List[int] = []
     nz_lists: List[np.ndarray] = []
     widths: List[int] = []
@@ -128,25 +242,42 @@ def find_bundles(
         nz_lists.append(nz)
         widths.append(m.num_bins - 1)
     if len(cand) < 2:
-        return []
+        return None
     groups = greedy_find_bundles(nz_lists, np.asarray(widths), sample_n,
                                  max_conflict_rate, budget)
-    return [sorted(cand[i] for i in g) for g in groups if len(g) > 1]
-
-
-def refuse_bundles(used_features, bin_mappers, sample: np.ndarray,
-                   max_conflict_rate: float) -> None:
-    """Raise NotImplementedError where a bundle would form over the binning
-    sample ``sample`` [S, F] (the rows ``_find_bundle_layout`` draws)."""
-    groups = find_bundles(used_features, bin_mappers,
-                          lambda j: np.flatnonzero(sample[:, j]), sample.shape[0],
-                          max_conflict_rate)
-    if groups:
-        shown = "; ".join(str(g) for g in groups[:3]) + ("; ..." if len(groups) > 3 else "")
-        raise NotImplementedError(
-            f"Exclusive Feature Bundling is not yet ported to lightgbm_tpu_torch "
-            f"(ROADMAP.md, Queue 1, item 3): with enable_bundle=True (the default) "
-            f"the JAX package bundles {sum(map(len, groups))} columns of this data "
-            f"into {len(groups)} planes ({shown}); pass enable_bundle=False to "
-            f"train them unbundled"
-        )
+    if not any(len(g) > 1 for g in groups):
+        return None
+    bundled_of: Dict[int, List[int]] = {}
+    for g in groups:
+        if len(g) > 1:
+            feats = sorted(cand[i] for i in g)
+            for j in feats:
+                bundled_of[j] = feats
+    planes: List[List[int]] = []
+    starts: List[List[int]] = []
+    widths_out: List[List[int]] = []
+    plane_bins: List[int] = []
+    seen = set()
+    for j in used_features:
+        if j in seen:
+            continue
+        feats = bundled_of.get(j)
+        if feats is None:
+            planes.append([j])
+            starts.append([0])
+            widths_out.append([bin_mappers[j].num_bins])
+            plane_bins.append(bin_mappers[j].num_bins)
+            continue
+        seen.update(feats)
+        ss, ww = [], []
+        s = 1  # plane bin 0: the shared all-default bin
+        for f in feats:
+            w = bin_mappers[f].num_bins - 1
+            ss.append(s)
+            ww.append(w)
+            s += w
+        planes.append(list(feats))
+        starts.append(ss)
+        widths_out.append(ww)
+        plane_bins.append(s)
+    return BundleLayout(planes=planes, starts=starts, widths=widths_out, plane_bins=plane_bins)

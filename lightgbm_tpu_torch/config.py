@@ -40,9 +40,14 @@ The path parameters take the JAX package's defaults and values
   (> 0 adds the early-stopping callback) with ``early_stopping_min_delta``
   and ``first_metric_only``;
 * ``enable_bundle`` (default True, aliases ``is_enable_bundle`` and
-  ``bundle``) with ``max_conflict_rate``: Exclusive Feature Bundling is not
-  ported, so data whose columns the JAX package would bundle raises at
-  ``Dataset.construct``; ``enable_bundle=False`` trains them unbundled.
+  ``bundle``) with ``max_conflict_rate``: Exclusive Feature Bundling, as
+  the JAX package does it (lightgbm_tpu/config.py:488): mutually exclusive
+  sparse columns share bin planes (``bundling.py``), where a sampled row may
+  have two members nonzero in at most ``max_conflict_rate`` of the sample;
+  ``enable_bundle=False`` trains every column in its own plane.  No option
+  that the JAX package refuses beside a bundle (boosting/gbdt.py:896-936:
+  monotone and interaction constraints, forced splits, extra_trees, CEGB,
+  feature- and voting-parallel learners) is ported, so none is refused here.
 """
 
 from __future__ import annotations
@@ -159,8 +164,8 @@ class Config:
     bin_construct_sample_cnt: int = 200000
     data_random_seed: int = 1
     boost_from_average: bool = True
-    # Exclusive Feature Bundling: not ported; True refuses data that would
-    # bundle (bundling.py), False trains every column unbundled
+    # Exclusive Feature Bundling (bundling.py): True bundles mutually
+    # exclusive sparse columns into shared planes, False keeps a plane a column
     enable_bundle: bool = True
     max_conflict_rate: float = 0.0
     hist_mode: Optional[str] = None  # None: the Booster's layout rule

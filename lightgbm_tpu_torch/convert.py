@@ -2,8 +2,10 @@
 
 ``booster_from_arrays`` takes plain numpy arrays and dicts — a JAX
 booster's bin-space tree records (``Booster._bin_records``) and its
-Dataset's bin mappers — and returns a port ``Booster`` that predicts what
-the JAX booster predicts, through the forest walk.
+Dataset's bin mappers, and its EFB layout where it has one
+(``layout_from_arrays``) — and returns a port ``Booster`` that predicts
+what the JAX booster predicts: through the forest walk, or, for a bundled
+model, through the plain walker with its nodes' goes-left tables.
 """
 
 from __future__ import annotations
@@ -14,6 +16,7 @@ import numpy as np
 
 from .binning import BinMapper
 from .boosting.gbdt import Booster
+from .bundling import BundleLayout
 from .device import resolve_device
 from .objectives import objective_for_output
 from .tree import Tree
@@ -29,6 +32,7 @@ def booster_from_arrays(
     num_class: int = 1,
     device=None,
     used_features: Optional[Sequence[int]] = None,
+    bundle_layout: Optional[BundleLayout] = None,
 ) -> Booster:
     """A predict-only Booster.
 
@@ -41,7 +45,10 @@ def booster_from_arrays(
     init_score: a constant added to every raw score (0 for records whose
         first tree already holds the bias);
     used_features: the original column of each used feature (default: the
-        columns of ``predict``'s input are the used features, in order).
+        columns of ``predict``'s input are the used features, in order);
+    bundle_layout: the training Dataset's EFB planes; the records' columns
+        are then planes, and a bundle-plane node carries ``split_is_cat``
+        and its ``cat_mask`` row, as the JAX package's records do.
     """
     if num_class != 1:
         raise ValueError("lightgbm_tpu_torch predicts one class per iteration (num_class=1)")
@@ -57,7 +64,22 @@ def booster_from_arrays(
     b.bin_mappers = mappers
     b.used_features = used
     b.nan_bins = np.asarray(nan_bins, np.int32)
+    b.bundle_layout = bundle_layout
+    if bundle_layout is not None:  # a bundle plane has no NaN bin
+        b.nan_bins = np.array([mappers[p[0]].nan_bin if len(p) == 1 else -1
+                               for p in bundle_layout.planes], np.int32)
     nb = [m.num_bins for m in mappers if m is not None]
     b._max_bin = 1 << max(0, (max(nb, default=2) - 1).bit_length())
     b.init_score = float(init_score)
     return b
+
+
+def layout_from_arrays(planes, starts, widths, plane_bins) -> BundleLayout:
+    """The port's ``BundleLayout`` from the lists of one (a JAX package's
+    ``BundleLayout`` carries the same four)."""
+    return BundleLayout(
+        planes=[[int(j) for j in p] for p in planes],
+        starts=[[int(v) for v in p] for p in starts],
+        widths=[[int(v) for v in p] for p in widths],
+        plane_bins=[int(v) for v in plane_bins],
+    )

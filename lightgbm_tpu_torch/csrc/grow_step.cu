@@ -11,7 +11,9 @@
 // their order, to [start, start + nl), the rest after them), the smaller
 // child is the left one when nl <= nr, and dec[k] = (nl, nr, child_start,
 // child_cnt); the histogram is the smaller child's, f32 [K, F, B, 3], summed
-// in f32 or on the int8 2-digit grid and recombined.  Numeric splits only.
+// in f32 or on the int8 2-digit grid and recombined.  A window partitions by
+// its threshold or by its goes-left table (partition.cu's table mode, the
+// TPU kernel's cat_ref, grow_step.py:95: an EFB bundle-plane split).
 //
 // The TPU kernel relies on grid programs running in order: program (i, 0)
 // partitions and writes dec, programs (i, pt > 0) read it back.  CUDA blocks
@@ -51,8 +53,9 @@ extern "C" long long lgbt_grow_step_scratch(int f, int nbins, int int8) {
 }
 
 // One fused grow step over k disjoint windows.  The arguments up to epoch are
-// lgbt_partition's (members: host i64 [k, 6] rows (start, cnt, feat, tbin, dl,
-// nanb); the partition's scratch, status and staged words, counter, epoch).
+// lgbt_partition's (members: host i64 [k, kMemberCols] rows (start, cnt, feat,
+// tbin, dl, nanb, iscat, the table's words); the partition's scratch, status
+// and staged words, counter, epoch).
 // scales: device [2] f32 for the int8 mode, null for f32; hscratch: device,
 // 16-byte aligned, of lgbt_grow_step_scratch bytes (hscratch_bytes); dec: i32
 // [k, 4] receives (nl, nr, child_start, child_cnt); out: f32 [k, f, nbins, 3],

@@ -13,10 +13,13 @@
 // rows of each window [start, start + cnt) that go left move, in their
 // order, to [start, start + nl), the rest, in their order, to
 // [start + nl, start + cnt); rows outside the windows are not touched; a
-// window with cnt = 0 is a no-op; nl is returned per window.  Numeric
-// splits only: a row goes left when its bin is <= the threshold bin, or when
-// it sits in the feature's NaN bin and missing values go left
-// (ops/segpart.py:52 _go_left).
+// window with cnt = 0 is a no-op; nl is returned per window.  A row goes
+// left by the window's rule: the threshold (its bin is <= the threshold bin,
+// or it sits in the feature's NaN bin and missing values go left,
+// ops/segpart.py:52 _go_left), or, for a table member (iscat), the bit of
+// its bin in the window's 256-bit goes-left table, the cat_ref operand of
+// the TPU kernel (partition.py:271-285): an EFB bundle-plane split, whose
+// left rows are every plane bin outside the member's [t, end].
 //
 // Layout (the port's, not the TPU's i16 planes): bins u8 feature-major
 // [f, n]; g, h, m f32 and ridx i32 columns [n], moved as 32-bit words.
@@ -52,6 +55,10 @@
 // keeps three blocks' stages on a multiprocessor, smaller for a call on few
 // rows, so that they still make a few hundred tiles.
 //
+// The table travels in the launch's parameters (8 words a window, beside
+// tbin, dl and nanb): no copy to the card and no launch more; a tile reads
+// its window's words into shared memory, and the rule is uniform per tile.
+//
 // All moves are plain loads and stores: the result is exact and the same
 // on every run, and K windows in one call equal K calls of one window.
 
@@ -67,7 +74,9 @@ constexpr int kCopyRows = 1024;  // right rows a block of the copy pass moves
 // bytes is at most 257 aligned words, a column's quarter 256 words
 constexpr int kCopyPlaneUnroll = (kCopyRows / 4 + 1 + 31) / 32;
 constexpr int kCopyColUnroll = kCopyRows / 4 / 32;
-constexpr int kMemberCols = 6;   // start, cnt, feat, tbin, dl, nanb
+constexpr int kTableWords = 8;   // the goes-left table: a bit a bin, 256 bins
+// start, cnt, feat, tbin, dl, nanb, iscat, then the table's words
+constexpr int kMemberCols = 7 + kTableWords;
 constexpr int kWriteUnroll = 2;  // rows of the columns a thread of a tile moves at a time
 constexpr int kMaxPlanes = 512;  // the stage offsets' room; the host's tile rule allows fewer
 
@@ -81,7 +90,23 @@ struct Plan {
   int tbin[kMaxWindows];
   int dl[kMaxWindows];
   int nanb[kMaxWindows];
+  int iscat[kMaxWindows];
+  unsigned table[kMaxWindows][kTableWords];
 };
+
+// Window w's table words into shared memory, by thread 0, at constant
+// offsets into the parameters (a runtime index into a parameter array
+// would copy the array to local memory); the caller synchronises.
+__device__ __forceinline__ void load_table(const Plan& P, int w, unsigned* dst) {
+  if (threadIdx.x != 0) return;
+#pragma unroll
+  for (int i = 0; i < kMaxWindows; ++i) {
+    if (i == w) {
+#pragma unroll
+      for (int j = 0; j < kTableWords; ++j) dst[j] = P.table[i][j];
+    }
+  }
+}
 
 struct Cols {
   uint32_t* c[4];  // g, h, m, ridx
@@ -145,6 +170,7 @@ __global__ void __launch_bounds__(kThreads) partition_tile_kernel(Args a, Plan P
   __shared__ int pre[T / 32];
   __shared__ unsigned red[kWarps];
   __shared__ uint8_t soff[kMaxPlanes];  // plane j's first row at stage byte soff[j]
+  __shared__ unsigned s_table[kTableWords];
   __shared__ long long s_tile;
   __shared__ int s_left;
   const long long n = a.n;
@@ -180,8 +206,17 @@ __global__ void __launch_bounds__(kThreads) partition_tile_kernel(Args a, Plan P
 
   // 2. meanwhile rank the rows and publish the tile's left count
   const int tbin = P.tbin[w], dl = P.dl[w], nanb = P.nanb[w];
+  const bool by_table = P.iscat[w] != 0;
+  if (by_table) {
+    load_table(P, w, s_table);
+    __syncthreads();
+  }
   const int tl = rank_tile<T>(
-      tt, key, [&](int v) { return go_left(v, tbin, dl, nanb); }, src_of, mask, pre, &s_left);
+      tt, key,
+      [&](int v) {
+        return by_table ? (int)((s_table[v >> 5] >> (v & 31)) & 1u) : go_left(v, tbin, dl, nanb);
+      },
+      src_of, mask, pre, &s_left);
   publish_count(a.status, t, P.tile0[w], (unsigned)tl, a.epoch);
   PART_MARK(t, 2);
 
@@ -263,7 +298,9 @@ int launch_tiles(long long tiles, const Args& a, const Plan& P, cudaStream_t st)
 }  // namespace
 
 // K stable partitions of disjoint windows in one call (K = 1: one window).
-// members: host i64 [k, 6] rows (start, cnt, feat, tbin, dl, nanb); the
+// members: host i64 [k, kMemberCols] rows (start, cnt, feat, tbin, dl, nanb,
+// iscat, then the goes-left table's 8 words, bit v & 31 of word v >> 5 for
+// bin v, read when iscat != 0); the
 // windows are cut into tiles of `tile` rows (the host's choice, one of the
 // instantiated sizes), counted over the windows in member order, and
 // window i's right run goes to the scratch at 16 plus the earlier
@@ -294,6 +331,8 @@ extern "C" int lgbt_partition(void* bins, void* g, void* h, void* m, void* ridx,
     P.tbin[i] = (int)r[3];
     P.dl[i] = (int)r[4];
     P.nanb[i] = (int)r[5];
+    P.iscat[i] = r[6] != 0;
+    for (int j = 0; j < kTableWords; ++j) P.table[i][j] = (unsigned)r[7 + j];
     P.tile0[i + 1] = P.tile0[i] + (P.cnt[i] + tile - 1) / tile;
     P.s0[i] = s0;
     s0 += (P.cnt[i] + 15) / 16 * 16;

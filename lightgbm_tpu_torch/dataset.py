@@ -7,14 +7,18 @@ fit on a row sample drawn from ``np.random.default_rng(data_random_seed)``
 features with a single bin are dropped from training, and the kept columns
 form the ``[N, F]`` uint8 matrix the trainer consumes.  The matrix stays on
 the host; the booster moves it to its device.  With ``enable_bundle`` (the
-default) columns that the JAX package would bundle are refused
-(``bundling.refuse_bundles``): bundling is not ported yet.
+default) mutually exclusive sparse columns share bin planes (EFB,
+``bundling.build_layout`` over the binning sample, as
+lightgbm_tpu/dataset.py:834-845 and :1302-1336): the matrix is then ``[N,
+P]``, one column a plane, packed by ``BundleLayout.pack_columns``, and
+``num_bins`` / ``nan_bins`` are the planes' (a bundle plane has no NaN
+bin).  Dense input only.
 
 The metadata of ``lightgbm_tpu/dataset.py`` (:565-579): row ``weight`` and
 ``init_score`` (the raw score a row starts from), and ``reference``: a
 validation set is binned with its reference's mappers and used features
-(the row-major u8 bins the forest walk reads), so a tree of the training
-set walks it in bin space.
+and bundle layout (the row-major u8 bins the walkers read), so a tree of
+the training set walks it in bin space.
 """
 
 from __future__ import annotations
@@ -25,10 +29,11 @@ from typing import Any, Dict, List, Optional
 import numpy as np
 
 from .binning import BinMapper
-from .bundling import refuse_bundles
+from .bundling import BundleLayout, build_layout
 from .config import Config
 
 MIN_DATA_IN_BIN = 3
+BIN_BLOCK_ROWS = 1 << 14  # rows binned a block (their columns made contiguous)
 
 
 def _row_array(v, n: int, what: str) -> Optional[np.ndarray]:
@@ -71,11 +76,12 @@ class Dataset:
         self.used_features: List[int] = []
         self.feature_names: List[str] = []
         self.num_total_features = 0
-        self.bins: Optional[np.ndarray] = None  # [N, F_used] uint8, row-major
+        self.bins: Optional[np.ndarray] = None  # [N, P] uint8, row-major (P planes)
+        self.bundle_layout: Optional[BundleLayout] = None  # None: a plane a used feature
         self.label: Optional[np.ndarray] = None  # [N] float64
         self.weight: Optional[np.ndarray] = None  # [N] float64 or None
         self.init_score: Optional[np.ndarray] = None  # [N] float64 or None
-        self.bundle_check_s = 0.0  # seconds of the bundling check
+        self.bundle_check_s = 0.0  # seconds of the bundle search
 
     def construct(self) -> "Dataset":
         if self.constructed:
@@ -113,13 +119,18 @@ class Dataset:
                              f"{ref.num_total_features}")
         self.bin_mappers = ref.bin_mappers
         self.used_features = list(ref.used_features)
+        self.bundle_layout = ref.bundle_layout
         self.bins = self._binned(data)
 
     def _binned(self, data: np.ndarray) -> np.ndarray:
-        bins = np.zeros((data.shape[0], len(self.used_features)), np.uint8)
-        for ci, j in enumerate(self.used_features):
-            bins[:, ci] = self.bin_mappers[j].values_to_bins(data[:, j])
-        return bins
+        """[N, P] u8 bins: each used feature's own bins, packed into the
+        layout's planes when there is one."""
+        local = local_bins(self.bin_mappers, self.used_features, data)
+        if self.bundle_layout is None:
+            return local
+        pos = {j: ci for ci, j in enumerate(self.used_features)}
+        return self.bundle_layout.pack_columns(
+            data.shape[0], lambda j: local[:, pos[j]], dtype=np.uint8)
 
     def _fit_bins(self, cfg: Config, data: np.ndarray) -> None:
         n, f = data.shape
@@ -140,8 +151,10 @@ class Dataset:
                 self.used_features.append(j)
         if cfg.enable_bundle:
             t0 = time.perf_counter()
-            refuse_bundles(self.used_features, self.bin_mappers, sample,
-                           cfg.max_conflict_rate)
+            self.bundle_layout = build_layout(
+                self.used_features, self.bin_mappers,
+                lambda j: np.flatnonzero(sample[:, j]), sample.shape[0],
+                cfg.max_conflict_rate)
             self.bundle_check_s = time.perf_counter() - t0
         self.bins = self._binned(data)
 
@@ -158,18 +171,29 @@ class Dataset:
     def num_data(self) -> int:
         return int(self.construct().bins.shape[0])
 
+    @property
+    def num_planes(self) -> int:
+        """Columns of ``bins``: EFB planes, or used features."""
+        return int(self.construct().bins.shape[1])
+
     def num_bins(self) -> np.ndarray:
-        """[F_used] int32 bins per used feature (NaN bin included)."""
+        """[P] int32 bins per column of ``bins`` (NaN bin included; a bundle
+        plane's bins, the shared bin 0 included)."""
         self.construct()
+        if self.bundle_layout is not None:
+            return np.asarray(self.bundle_layout.plane_bins, np.int32)
         return np.array(
             [self.bin_mappers[j].num_bins for j in self.used_features], np.int32
         )
 
     def nan_bins(self) -> np.ndarray:
-        """[F_used] int32 NaN-bin index per used feature, -1 if none."""
+        """[P] int32 NaN-bin index per column of ``bins``, -1 if none (a
+        bundle plane never has one)."""
         self.construct()
+        cols = ([[j] for j in self.used_features] if self.bundle_layout is None
+                else self.bundle_layout.planes)
         return np.array(
-            [self.bin_mappers[j].nan_bin for j in self.used_features], np.int32
+            [self.bin_mappers[c[0]].nan_bin if len(c) == 1 else -1 for c in cols], np.int32
         )
 
     @property
@@ -177,3 +201,16 @@ class Dataset:
         """Histogram bin axis: the next power of two over the widest feature."""
         nb = self.num_bins()
         return ceil_pow2(int(nb.max()) if len(nb) else 2)
+
+
+def local_bins(mappers, used_features, data: np.ndarray) -> np.ndarray:
+    """[N, F_used] u8: each used feature's own bins, in blocks of
+    ``BIN_BLOCK_ROWS`` rows whose columns are first made contiguous (a
+    column of a wide row-major table is a strided read)."""
+    n = data.shape[0]
+    out = np.zeros((n, len(used_features)), np.uint8)
+    for r0 in range(0, n, BIN_BLOCK_ROWS):
+        blk = np.ascontiguousarray(data[r0 : r0 + BIN_BLOCK_ROWS].T)
+        for ci, j in enumerate(used_features):
+            out[r0 : r0 + BIN_BLOCK_ROWS, ci] = mappers[j].values_to_bins(blk[j])
+    return out

@@ -191,6 +191,8 @@ def decode_tables(tables: ForestTables) -> BinTreeBatch:
         left_child=child(y & 0xFFFF),
         right_child=child(y >> 16),
         leaf_value=tables.tables[:, 2 * m:].contiguous().view(torch.float32),
+        split_is_cat=torch.zeros(x.shape, dtype=torch.bool, device=w.device),
+        cat_mask=torch.zeros(x.shape + (1,), dtype=torch.bool, device=w.device),
     )
 
 

@@ -10,7 +10,10 @@ smaller child), on a CUDA device it calls ``csrc/grow_step.cu``: the
 partition kernels of ``csrc/partition.cu`` then the histogram of
 ``csrc/lane_hist.cuh`` on each elected child, four launches with no host
 read between them, counted once a call in
-``_build.LAUNCHES['fused_grow_step']``.  Numeric splits only.
+``_build.LAUNCHES['fused_grow_step']`` (and ``'fused_grow_step_table'`` when
+a live member partitions by its goes-left table).  A member splits by its
+threshold or, as the TPU kernel's ``cat_ref`` operand (grow_step.py:95,
+:224-226), by a [B] bool goes-left table: an EFB bundle-plane split.
 """
 
 from __future__ import annotations
@@ -32,14 +35,8 @@ from .seg import (
     seg_hist_batch_plain,
     sort_partition_batch_plain,
     split_members,
+    table_mode,
 )
-
-
-def _members(sbegins, cnts, feats, tbins, dls, nanbs, iscats):
-    """[K, 6] i64 host rows (start, cnt, feat, tbin, dl, nanb)."""
-    if iscats is not None and np.any(np.asarray(iscats)):
-        raise ValueError("fused_grow_step: categorical members are not yet ported")
-    return split_members(sbegins, cnts, feats, tbins, dls, nanbs)
 
 
 def _decision(mem: np.ndarray, nl: np.ndarray) -> np.ndarray:
@@ -74,13 +71,14 @@ def fused_grow_step(
     nanbs: Sequence[int],  # [K] NaN bin of the feature, -1 if none
     num_bins: int,
     quant_scales: Optional[torch.Tensor] = None,  # [2] f32: int8 grid
-    iscats: Optional[Sequence[int]] = None,  # [K] categorical: raises
+    iscats: Optional[Sequence[int]] = None,  # [K] partition by the table
+    tables: Optional[Sequence] = None,  # [K] [B] bool goes-left tables (or None)
 ):
     """K fused partition + election + histogram steps.  Partitions the rows
     in place and returns (nl, nr, child_start, child_cnt) as [K] i32 and the
     smaller children's histograms [K, F, B, 3] f32 (int8 2-digit grid when
     ``quant_scales`` is given), all on the rows' device."""
-    mem = _members(sbegins, cnts, feats, tbins, dls, nanbs, iscats)
+    mem = split_members(sbegins, cnts, feats, tbins, dls, nanbs, iscats, tables)
     # the smaller child of a window holds at most cnt // 2 rows
     if quant_scales is not None and int(mem[:, 1].max(initial=0)) // 2 > MAX_INT8_ROWS:
         raise ValueError(
@@ -107,7 +105,7 @@ def scratch_bytes(f: int, num_bins: int, int8: bool) -> int:
 
 def _launch(rows: SegRows, mem: np.ndarray, num_bins: int, quant_scales, fn=None):
     """One call of the ``csrc/grow_step.cu`` entry (``fn``: another build of
-    it) on K members ([K, 6] i64): (dec [K, 4] i32, hist [K, F, B, 3] f32) on
+    it) on K members ([K, MEMBER_COLS] i64): (dec [K, 4] i32, hist [K, F, B, 3] f32) on
     the card.  The partition's buffers and the histogram scratch live on the
     rows; only the two outputs are allocated."""
     k, f = mem.shape[0], rows.f
@@ -132,4 +130,6 @@ def _launch(rows: SegRows, mem: np.ndarray, num_bins: int, quant_scales, fn=None
     )
     _build.check(rc, "fused grow step kernels")
     _build.LAUNCHES["fused_grow_step"] += 1
+    if table_mode(mem):
+        _build.LAUNCHES["fused_grow_step_table"] += 1
     return dec, out

@@ -40,6 +40,15 @@ no-op otherwise; its leaf stays in the frontier.  ``TreeArrays.grow_steps``
 counts the steps (serial: the splits), from which the booster's
 commit-rate clamp reads its rate.
 
+EFB (``bundle_end`` given, the JAX package's ``use_bundle``, ops/grower.py:
+769-771, :819): every leaf is decided by ``best_split`` with the
+bundle operand, near-tie refine included, as the JAX package never takes
+its scan kernel with a bundle (:460-477, ``bundle_end is None`` in
+``fused_ok``), singleton planes too; a bundle-plane winner carries its
+goes-left table, and the partition (the fused step, the partition kernel,
+or the ordered layout's PyTorch partition, :1251, :1758-1761) sends the
+rows of the plane bins outside its member's sub-range ``[t, end]`` left.
+
 Growth stops at ``num_leaves`` or when no leaf has a positive gain.  The
 loop over splits runs on the host: each split reads back the left count
 and the two children's candidates (two host syncs per split -- the cost
@@ -78,7 +87,7 @@ from .seg import (
     sort_partition,
     sort_partition_batch,
 )
-from .split import SplitCandidate, leaf_output
+from .split import SplitCandidate, best_split_batch, leaf_output
 from .split_scan import fused_best_split_batch, scan_inputs
 
 _F32 = np.float32
@@ -141,6 +150,9 @@ class TreeArrays(NamedTuple):
     num_leaves: int
     refine_count: int = 0  # decisions taken on an f32 re-accumulation
     grow_steps: int = 0  # grow-loop steps (serial: splits; batched: steps)
+    # [L-1] per node: the [B] bool goes-left table of a bundle-plane split,
+    # None for a threshold split (None altogether without EFB)
+    split_table: Optional[List[Optional[np.ndarray]]] = None
 
 
 # the cached candidate of a leaf that does not exist yet (or cannot split)
@@ -194,23 +206,25 @@ class _SegStore:
         accumulation, which only this layout runs."""
         return seg_hist_batch(self.rows, windows, self.B)
 
-    def split(self, begins, cnts, feats, tbins, dls, nanbs):
-        """Partition K disjoint windows; (nleft [K] host i64, the smaller
-        children's histograms [K, F, B, 3])."""
+    def split(self, begins, cnts, feats, tbins, dls, nanbs, tables):
+        """Partition K disjoint windows (by threshold, or by a member's
+        goes-left table where ``tables`` has one); (nleft [K] host i64, the
+        smaller children's histograms [K, F, B, 3])."""
+        iscats = [t is not None for t in tables]
         if self.fused:
             nl_t, _, _, _, sm = fused_grow_step(
                 self.rows, begins, cnts, feats, tbins, dls, nanbs, self.B,
-                quant_scales=self.qs,
+                quant_scales=self.qs, iscats=iscats, tables=tables,
             )
             return nl_t.cpu().numpy().astype(np.int64), sm
         if len(begins) == 1:  # the serial loop: the single partition
             nleft = np.array([int(sort_partition(
                 self.rows, int(begins[0]), int(cnts[0]), int(feats[0]), int(tbins[0]),
-                bool(dls[0]), int(nanbs[0]),
+                bool(dls[0]), int(nanbs[0]), tables[0],
             ))], np.int64)
         else:
             nleft = sort_partition_batch(
-                self.rows, begins, cnts, feats, tbins, dls, nanbs
+                self.rows, begins, cnts, feats, tbins, dls, nanbs, iscats, tables
             ).cpu().numpy().astype(np.int64)
         windows = _smaller_windows(begins, cnts, nleft)
         return nleft, seg_hist_batch(self.rows, windows, self.B, self.qs)
@@ -248,12 +262,13 @@ class _OrderedStore:
         """All rows, no index (:1335-1345)."""
         return self._hist(None, [(0, self.rows.n)])[0]
 
-    def _partition(self, start, cnt, feat, tbin, dl, nanb) -> torch.Tensor:
+    def _partition(self, start, cnt, feat, tbin, dl, nanb, table) -> torch.Tensor:
         """Stable partition of order[start : start + cnt] (_make_part_branch,
-        :1240-1272): left rows to [0, nleft), right rows to [nleft, cnt),
-        each in their old order.  Returns nleft, a 0-d i32 tensor."""
+        :1240-1272, its goes-left table :1251): left rows to [0, nleft),
+        right rows to [nleft, cnt), each in their old order.  Returns nleft,
+        a 0-d i32 tensor."""
         win = self.order[start : start + cnt]
-        gl = go_left(self.cols[feat][win.long()], tbin, dl, nanb)
+        gl = go_left(self.cols[feat][win.long()], tbin, dl, nanb, table)
         pos_l = torch.cumsum(gl, 0, dtype=torch.int32)
         nleft = pos_l[-1]
         pos_r = nleft + torch.cumsum(~gl, 0, dtype=torch.int32)
@@ -263,13 +278,14 @@ class _OrderedStore:
         self.order[start : start + cnt] = out
         return nleft
 
-    def split(self, begins, cnts, feats, tbins, dls, nanbs):
+    def split(self, begins, cnts, feats, tbins, dls, nanbs, tables):
         """K partitions, then the K smaller children's histograms in one
         launch (:2437-2500; serial :1698-1747 is K = 1)."""
         zero = torch.zeros((), dtype=torch.int32, device=self.device)
-        nls = [self._partition(int(s0), int(c), int(ft), int(tb), bool(dl), int(nb))
+        nls = [self._partition(int(s0), int(c), int(ft), int(tb), bool(dl), int(nb), tab)
                if c > 0 else zero
-               for s0, c, ft, tb, dl, nb in zip(begins, cnts, feats, tbins, dls, nanbs)]
+               for s0, c, ft, tb, dl, nb, tab in zip(begins, cnts, feats, tbins, dls, nanbs,
+                                                     tables)]
         nleft = torch.stack(nls).cpu().numpy().astype(np.int64)
         return nleft, self._hist(self.order, _smaller_windows(begins, cnts, nleft))
 
@@ -288,6 +304,7 @@ def grow_tree(
     params: GrowerParams,
     quant_scales: Optional[torch.Tensor] = None,  # [2] f32: int8 grid
     bins_nf: Optional[torch.Tensor] = None,  # [N, stride] u8 row-major (ordered)
+    bundle_end: Optional[torch.Tensor] = None,  # [F, B] i32: EFB sub-range ends
 ) -> Tuple[TreeArrays, torch.Tensor]:
     """Grow one tree.  Returns (TreeArrays, leaf_id [N] i32 on the input
     device).  ``params.hist_mode`` picks the row store: 'seg', where
@@ -295,7 +312,10 @@ def grow_tree(
     accumulation with the near-tie f32 refine, or 'ordered' (``bins_nf``
     needed), where ``quant_scales`` (``quantize.quantize_gradients``) put
     every histogram on the exact int8 grid.  ``params.leaf_batch`` > 1 runs
-    the frontier-batched loop."""
+    the frontier-batched loop.  ``bundle_end``
+    (``BundleLayout.bundle_end_array``) makes the columns EFB planes: every
+    leaf is decided by ``best_split``, and bundle-plane splits partition
+    by their goes-left tables."""
     p = params
     L, B = p.num_leaves, p.max_bin
     K = max(1, min(p.leaf_batch, L - 1))
@@ -323,9 +343,15 @@ def grow_tree(
     # the scan's per-feature inputs as its kernel reads them, once a tree
     scan_in = scan_inputs(num_bins, nan_bins, feature_mask, dev)
 
+    bs_kw = {k: v for k, v in kw.items() if k != "case_major"}
+
     def scan(hists, stats, with_margin=False):
         """Candidates of the leaves with histograms ``hists`` (a list of
-        [F, B, 3]): one launch and one transfer for all of them."""
+        [F, B, 3]): one launch and one transfer for all of them; with
+        ``bundle_end``, ``best_split`` of each, in one batched call."""
+        if bundle_end is not None:
+            return best_split_batch(torch.stack(hists), stats, num_bins, nan_bins, feature_mask,
+                                    bundle_end=bundle_end, with_margin=with_margin, **bs_kw)
         return fused_best_split_batch(hists, stats, *scan_in, with_margin=with_margin, **kw)
 
     def decide(hists, stats, windows, live=None):
@@ -381,6 +407,7 @@ def grow_tree(
     internal_value = np.zeros(nn, _F32)
     internal_weight = np.zeros(nn, _F32)
     internal_count = np.zeros(nn, _F32)
+    split_table: List[Optional[np.ndarray]] = [None] * nn
 
     def record(t, l, new, begin, nleft, nright, cand_l, cand_r):
         """Split leaf l by its cached candidate into node t, leaves l (left)
@@ -399,6 +426,7 @@ def grow_tree(
         split_bin[t] = c.bin
         split_gain[t] = _F32(c.gain) + _F32(p.min_gain_to_split)
         default_left[t] = c.default_left
+        split_table[t] = c.table
         internal_value[t] = _leaf_output(leaf_g[l], leaf_h[l], p)
         internal_weight[t] = leaf_h[l]
         internal_count[t] = leaf_cnt[l]
@@ -424,7 +452,7 @@ def grow_tree(
             new = t + 1
             begin, cnt = int(leaf_begin[l]), int(leaf_nrows[l])
             nl_a, sm = store.split([begin], [cnt], [c.feature], [c.bin], [int(c.default_left)],
-                                   [int(nan_host[c.feature])])
+                                   [int(nan_host[c.feature])], [c.table])
             nleft = int(nl_a[0])
             sm = sm[0]
             nright = cnt - nleft
@@ -463,7 +491,7 @@ def grow_tree(
             cnts = np.where(active, leaf_nrows[l_k], 0)
             feats = [c.feature for c in cs]
             split = (begins, cnts, feats, [c.bin for c in cs],
-                     [int(c.default_left) for c in cs], nan_host[feats])
+                     [int(c.default_left) for c in cs], nan_host[feats], [c.table for c in cs])
             nleft, sm = store.split(*split)
             nright = cnts - nleft
             ls4 = torch.as_tensor(nleft <= nright, device=dev)[:, None, None, None]
@@ -515,6 +543,7 @@ def grow_tree(
         num_leaves=nl_,
         refine_count=refines,
         grow_steps=steps,
+        split_table=split_table[: nl_ - 1] if bundle_end is not None else None,
     )
     return tree, store.leaf_id(leaf_begin[:nl_], leaf_nrows[:nl_])
 

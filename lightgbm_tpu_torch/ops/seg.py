@@ -84,13 +84,60 @@ def pack_rows(
     )
 
 
-def go_left(col: torch.Tensor, tbin: int, dl: bool, nanb: int) -> torch.Tensor:
-    """Numeric split predicate in bin space (ops/segpart.py:52): bin <= the
-    threshold bin, or the NaN bin when missing values go left."""
+def go_left(col: torch.Tensor, tbin: int, dl: bool, nanb: int, table=None) -> torch.Tensor:
+    """Split predicate in bin space (ops/segpart.py:52): bin <= the
+    threshold bin, or the NaN bin when missing values go left; or, given a
+    goes-left ``table`` ([B] bool: an EFB bundle-plane split, the branch of
+    lightgbm_tpu/ops/pallas/partition.py:271-285), the table's entry of the
+    bin (a bin past its end goes right, as there and in ops/segpart.py:57)."""
+    if table is not None:
+        t = torch.as_tensor(np.asarray(table, bool), device=col.device)
+        c = col.long()
+        return t[torch.clamp(c, max=len(t) - 1)] & (c < len(t))
     gl = col <= tbin
     if dl and nanb >= 0:
         gl = gl | (col == nanb)
     return gl
+
+
+# a member row of the partition kernels (csrc/partition.cu kMemberCols):
+# start, cnt, feat, tbin, dl, nanb, iscat, then the goes-left table as
+# TABLE_WORDS u32 words (bit v & 31 of word v >> 5 for bin v)
+TABLE_BINS = 256
+TABLE_WORDS = TABLE_BINS // 32
+MEMBER_COLS = 7 + TABLE_WORDS
+
+
+def table_words(table) -> np.ndarray:
+    """[TABLE_WORDS] i64 words of a goes-left table ([B] bool, B <= 256;
+    bins past its end go right, as ``go_left`` reads them)."""
+    t = np.asarray(table, bool)
+    if not 1 <= len(t) <= TABLE_BINS:
+        raise ValueError(f"a goes-left table holds 1 to {TABLE_BINS} bins, got {len(t)}")
+    full = np.concatenate([t, np.zeros(TABLE_BINS - len(t), bool)])
+    bits = full.reshape(TABLE_WORDS, 32).astype(np.int64)
+    return (bits << np.arange(32, dtype=np.int64)).sum(axis=1)
+
+
+def member_table(row) -> Optional[np.ndarray]:
+    """The [256] bool goes-left table of a member row, None for a threshold
+    member."""
+    if not int(row[6]):
+        return None
+    words = np.asarray(row[7:MEMBER_COLS], np.int64)
+    return ((words[:, None] >> np.arange(32)) & 1).astype(bool).reshape(-1)
+
+
+def member_args(mem: np.ndarray):
+    """The public wrappers' arguments of member rows: ((starts, cnts,
+    feats, tbins, dls, nanbs), iscats, tables)."""
+    return (tuple(mem[:, i] for i in range(6)), mem[:, 6],
+            [member_table(r) for r in mem])
+
+
+def member_go_left(col: torch.Tensor, row) -> torch.Tensor:
+    """``go_left`` of bins ``col`` by a member row's rule."""
+    return go_left(col, int(row[3]), bool(row[4]), int(row[5]), member_table(row))
 
 
 # ---------------------------------------------------------------------------
@@ -283,15 +330,16 @@ def _device_scales(scales, dev) -> torch.Tensor:
 
 def sort_partition_plain(
     rows: SegRows, start: int, cnt: int, feat: int, tbin: int, dl: bool,
-    nanb: int,
+    nanb: int, table=None,
 ) -> torch.Tensor:
-    """Stable in-place partition of [start, start+cnt) by the split; returns
-    nl as a 0-d i32 tensor (the order of ops/segpart.py sort_partition_xla:
-    left rows in order, then right rows in order)."""
+    """Stable in-place partition of [start, start+cnt) by the split (its
+    threshold, or its goes-left ``table``); returns nl as a 0-d i32 tensor
+    (the order of ops/segpart.py sort_partition_xla: left rows in order,
+    then right rows in order)."""
     if cnt <= 0:
         return torch.zeros((), dtype=torch.int32, device=rows.device)
     win = slice(start, start + cnt)
-    gl = go_left(rows.bins[feat, win], tbin, dl, nanb)
+    gl = go_left(rows.bins[feat, win], tbin, dl, nanb, table)
     perm = torch.cat([torch.nonzero(gl)[:, 0], torch.nonzero(~gl)[:, 0]])
     rows.bins[:, win] = rows.bins[:, win][:, perm]
     for col in (rows.g, rows.h, rows.m, rows.ridx):
@@ -299,16 +347,29 @@ def sort_partition_plain(
     return gl.sum().to(torch.int32)
 
 
-def split_members(sbegins, cnts, feats, tbins, dls, nanbs) -> np.ndarray:
-    """[K, 6] i64 host rows (start, cnt, feat, tbin, dl, nanb) of K splits
-    over disjoint windows; a negative cnt counts as 0 (a no-op member).
-    Raises when two non-empty windows overlap."""
+def split_members(sbegins, cnts, feats, tbins, dls, nanbs, iscats=None,
+                  tables=None) -> np.ndarray:
+    """[K, MEMBER_COLS] i64 host rows (start, cnt, feat, tbin, dl, nanb,
+    iscat, the goes-left table's words) of K splits over disjoint windows;
+    a negative cnt counts as 0 (a no-op member).  ``iscats`` [K] marks the
+    members that partition by their entry of ``tables`` ([K] of [B] bool
+    or None).  Raises when two non-empty windows overlap, or a table
+    member has no table."""
     cols = [np.asarray(a, dtype=np.int64).reshape(-1)
             for a in (sbegins, cnts, feats, tbins, dls, nanbs)]
     k = len(cols[0])
+    cols.append(np.zeros(k, np.int64) if iscats is None
+                else (np.asarray(iscats).reshape(-1) != 0).astype(np.int64))
     if any(len(c) != k for c in cols):
         raise ValueError("split members: arrays differ in length")
-    mem = np.stack(cols, axis=1) if k else np.zeros((0, 6), np.int64)
+    mem = np.zeros((k, MEMBER_COLS), np.int64)
+    if k:
+        mem[:, :7] = np.stack(cols, axis=1)
+    for i in np.flatnonzero(mem[:, 6]):
+        if tables is None or tables[i] is None:
+            raise ValueError("split members: a categorical (table) member needs its "
+                             "goes-left table")
+        mem[i, 7:] = table_words(tables[i])
     mem[:, 1] = np.maximum(mem[:, 1], 0)
     live = mem[mem[:, 1] > 0]
     live = live[np.argsort(live[:, 0], kind="stable")]
@@ -321,22 +382,22 @@ def sort_partition_batch_plain(rows: SegRows, mem: np.ndarray) -> torch.Tensor:
     """K sequential stable partitions (the oracle of ops/segpart.py:228):
     the windows are disjoint, so the order of the calls does not matter and
     the result is that of K serial calls.  Returns nl [K] i32."""
-    nl = [sort_partition_plain(rows, int(s), int(c), int(ft), int(tb), bool(dl), int(nb))
-          for s, c, ft, tb, dl, nb in mem]
+    nl = [sort_partition_plain(rows, *(int(v) for v in r[:6]), member_table(r)) for r in mem]
     if not nl:
         return torch.zeros(0, dtype=torch.int32, device=rows.device)
     return torch.stack(nl)
 
 
 def sort_partition_batch(
-    rows: SegRows, sbegins, cnts, feats, tbins, dls, nanbs
+    rows: SegRows, sbegins, cnts, feats, tbins, dls, nanbs, iscats=None, tables=None
 ) -> torch.Tensor:
     """K stable in-place partitions over K disjoint windows (``[K]`` host
     sequences as ``split_members`` takes them; cnt = 0 is a no-op member).
     Returns nl [K] i32 on the rows' device.  Plain version on the CPU, ONE
     call of the ``csrc/partition.cu`` kernels (two launches) on a CUDA
-    device (counted as ``partition_batch``)."""
-    mem = split_members(sbegins, cnts, feats, tbins, dls, nanbs)
+    device (counted as ``partition_batch``, and as ``partition_batch_table``
+    when a live member partitions by its table)."""
+    mem = split_members(sbegins, cnts, feats, tbins, dls, nanbs, iscats, tables)
     if rows.device.type == "cpu":
         return sort_partition_batch_plain(rows, mem)
     return _partition_launch(rows, mem, "partition_batch")
@@ -432,8 +493,8 @@ def partition_scratch(rows: SegRows) -> PartitionScratch:
 
 def _partition_launch(rows: SegRows, mem: np.ndarray, counted_as: str, fn=None) -> torch.Tensor:
     """One call of the ``csrc/partition.cu`` entry (``fn``: another build
-    of it) on K members ([K, 6] i64, C-contiguous); nl [K] i32 on the
-    card."""
+    of it) on K members ([K, MEMBER_COLS] i64, C-contiguous); nl [K] i32 on
+    the card."""
     k = mem.shape[0]
     if not 1 <= k <= MAX_WINDOWS:
         raise ValueError(f"the partition kernel takes 1 to {MAX_WINDOWS} windows, got {k}")
@@ -450,19 +511,28 @@ def _partition_launch(rows: SegRows, mem: np.ndarray, counted_as: str, fn=None) 
     )
     _build.check(rc, "partition kernel")
     _build.LAUNCHES[counted_as] += 1
+    if table_mode(mem):
+        _build.LAUNCHES[counted_as + "_table"] += 1
     return nl
+
+
+def table_mode(mem: np.ndarray) -> bool:
+    """Whether a live member of a call partitions by its goes-left table."""
+    return bool(np.any((mem[:, 6] != 0) & (mem[:, 1] > 0)))
 
 
 def sort_partition(
     rows: SegRows, start: int, cnt: int, feat: int, tbin: int, dl: bool,
-    nanb: int,
+    nanb: int, table=None,
 ) -> torch.Tensor:
-    """Stable in-place partition of one window; returns nl (0-d i32 tensor
-    on the rows' device).  Plain version on the CPU, the
-    ``csrc/partition.cu`` kernels on a CUDA device."""
+    """Stable in-place partition of one window by its threshold or its
+    goes-left ``table``; returns nl (0-d i32 tensor on the rows' device).
+    Plain version on the CPU, the ``csrc/partition.cu`` kernels on a CUDA
+    device."""
     if rows.device.type == "cpu":
-        return sort_partition_plain(rows, start, cnt, feat, tbin, dl, nanb)
-    mem = np.array([[start, max(cnt, 0), feat, tbin, int(bool(dl)), nanb]], dtype=np.int64)
+        return sort_partition_plain(rows, start, cnt, feat, tbin, dl, nanb, table)
+    mem = split_members([start], [cnt], [feat], [tbin], [int(bool(dl))], [nanb],
+                        [table is not None], [table])
     return _partition_launch(rows, mem, "partition")[0]
 
 

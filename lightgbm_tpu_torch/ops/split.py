@@ -2,21 +2,28 @@
 
 Counterpart of ``lightgbm_tpu/ops/split.py``: ``threshold_l1``,
 ``leaf_gain``, ``leaf_output``, ``SplitCandidate`` and ``best_split`` (:108)
-without the categorical, monotone, CEGB, path-smoothing and extra-trees
-options.  Gains for every (missing direction, feature, bin) candidate are
-evaluated at once and the first maximum wins, in the JAX package's order
-(missing-right candidates of every feature first).
+with its EFB operand ``bundle_end`` (:154-162, :190-206, :456-470) and the
+near-tie margin (``with_margin``), without the categorical, monotone, CEGB,
+path-smoothing and extra-trees options.  Gains for every (missing
+direction, feature, bin) candidate are evaluated at once and the first
+maximum wins, in the JAX package's order (missing-right candidates of every
+feature first).
 
 ``best_split`` is the plain version of the split-scan kernel
 (``ops/split_scan.py``): both compute the same candidate from the same
-histogram, and the grower reaches the kernel through ``fused_best_split``.
+histogram.  The grower reaches the kernel through ``fused_best_split``,
+and ``best_split`` itself on bundled data, where the JAX package never
+takes its scan kernel (ops/grower.py:460-477): a bundle-plane winner
+carries its goes-left table, the plane bins outside its member's
+sub-range ``[t, end]``.
 """
 
 from __future__ import annotations
 
 import math
-from typing import NamedTuple
+from typing import NamedTuple, Optional
 
+import numpy as np
 import torch
 
 _EPS = 1e-15
@@ -24,6 +31,8 @@ PREFIX_BLOCK = 16
 
 
 def threshold_l1(g, l1: float):
+    if l1 == 0.0:  # sign(g) * max(|g| - 0, 0) is g, bit for bit
+        return g
     return torch.sign(g) * torch.clamp(torch.abs(g) - l1, min=0.0)
 
 
@@ -52,6 +61,9 @@ class SplitCandidate(NamedTuple):
     right_g: float
     right_h: float
     right_cnt: float
+    # [B] bool goes-left table of a bundle-plane winner (left: every plane
+    # bin outside the member's [bin, end]); None for a threshold split
+    table: Optional[np.ndarray] = None
 
 
 def prefix_sum_bins(x: torch.Tensor) -> torch.Tensor:
@@ -61,53 +73,65 @@ def prefix_sum_bins(x: torch.Tensor) -> torch.Tensor:
     package's best_split runs (bins <= 256), and the order of the split-scan
     kernel, so all three give the same f32 sums."""
     f, b = x.shape[0], x.shape[1]
-    out = torch.empty_like(x)
-    carry = torch.zeros_like(x[:, 0])
-    for b0 in range(0, b, PREFIX_BLOCK):
-        s = torch.zeros_like(x[:, 0])
-        for i in range(b0, min(b0 + PREFIX_BLOCK, b)):
-            s = s + x[:, i]
-            out[:, i] = s
-        out[:, b0 : b0 + PREFIX_BLOCK] = out[:, b0 : b0 + PREFIX_BLOCK] + carry[:, None]
-        carry = out[:, min(b0 + PREFIX_BLOCK, b) - 1]
-    return out
+    nblk = -(-b // PREFIX_BLOCK)
+    pad = nblk * PREFIX_BLOCK - b
+    xb = torch.cat([x, x.new_zeros((f, pad) + x.shape[2:])], 1) if pad else x
+    xb = xb.reshape((f, nblk, PREFIX_BLOCK) + x.shape[2:])
+    # every block's running sums at once, one bin position a step; then the
+    # block totals carried in order, in place
+    sums = []
+    s = torch.zeros_like(xb[:, :, 0])
+    for i in range(PREFIX_BLOCK):
+        s = s + xb[:, :, i]
+        sums.append(s)
+    out = torch.stack(sums, 2)
+    for k in range(1, nblk):
+        out[:, k].add_(out[:, k - 1, PREFIX_BLOCK - 1 : PREFIX_BLOCK])
+    return out.reshape((f, nblk * PREFIX_BLOCK) + x.shape[2:])[:, :b]
 
 
 def _ordered_cum(hist: torch.Tensor, nan_bins: torch.Tensor):
     """Shared front of best_split and the plain split scan: NaN-bin stats
-    [F, 3] and the ordered prefix sums [F, B, 3] with the NaN bin out."""
-    f, b, _ = hist.shape
+    [..., F, 3] and the ordered prefix sums [..., F, B, 3] with the NaN bin
+    out, of histograms [..., F, B, 3]."""
+    f, b = hist.shape[-3], hist.shape[-2]
     has_nan = nan_bins >= 0
     nan_idx = torch.where(has_nan, nan_bins, torch.zeros_like(nan_bins)).long()
-    nan_stats = hist[torch.arange(f, device=hist.device), nan_idx] * has_nan[:, None]
+    nan_stats = hist[..., torch.arange(f, device=hist.device), nan_idx, :] * has_nan[:, None]
     bin_ids = torch.arange(b, device=hist.device)[None, :]
     is_nan_bin = has_nan[:, None] & (bin_ids == nan_bins[:, None])
     hist_o = torch.where(is_nan_bin[:, :, None], torch.zeros_like(hist), hist)
-    return has_nan, nan_stats, prefix_sum_bins(hist_o)
+    cum = prefix_sum_bins(hist_o.reshape(-1, b, 3)).reshape(hist.shape)
+    return has_nan, nan_stats, cum
 
 
 def split_gains(
     cum, nan_stats, has_nan, parent, num_bins, feature_mask, *,
     lambda_l1: float, lambda_l2: float, min_data_in_leaf: float,
-    min_sum_hessian_in_leaf: float,
+    min_sum_hessian_in_leaf: float, valid=None,
 ):
-    """[2, F, B] gains: case 0 missing -> right, case 1 missing -> left
-    (-inf where invalid), as best_split's eval_case (ops/split.py:215)."""
-    f, b, _ = cum.shape
-    bin_ids = torch.arange(b, device=cum.device)[None, :]
-    num_ordered = num_bins - has_nan.to(num_bins.dtype)
-    valid = (bin_ids < (num_ordered[:, None] - 1)) & feature_mask[:, None]
+    """[..., 2, F, B] gains of prefix sums [..., F, B, 3] and parents [...,
+    3]: case 0 missing -> right, case 1 missing -> left (-inf where
+    invalid), as best_split's eval_case (ops/split.py:215).  ``valid`` [F,
+    B]: the candidate bins, by default every ordered bin but the last."""
+    b = cum.shape[-2]
+    if valid is None:
+        bin_ids = torch.arange(b, device=cum.device)[None, :]
+        num_ordered = num_bins - has_nan.to(num_bins.dtype)
+        valid = bin_ids < (num_ordered[:, None] - 1)
+    valid = valid & feature_mask[:, None]
     ninf = torch.tensor(float("-inf"), dtype=torch.float32, device=cum.device)
+    pr = parent[..., None, None, :]
 
     def eval_case(left, ok):
+        right = pr - left
         lg, lh, lc = left[..., 0], left[..., 1], left[..., 2]
-        rg, rh, rc = parent[0] - lg, parent[1] - lh, parent[2] - lc
+        rg, rh = right[..., 0], right[..., 1]
+        # both children's counts and hessians at their floors
         ok = (
             ok
-            & (lc >= min_data_in_leaf)
-            & (rc >= min_data_in_leaf)
-            & (lh >= min_sum_hessian_in_leaf)
-            & (rh >= min_sum_hessian_in_leaf)
+            & (torch.minimum(lc, right[..., 2]) >= min_data_in_leaf)
+            & (torch.minimum(lh, rh) >= min_sum_hessian_in_leaf)
         )
         gain = leaf_gain(lg, lh, lambda_l1, lambda_l2) + leaf_gain(
             rg, rh, lambda_l1, lambda_l2
@@ -115,8 +139,16 @@ def split_gains(
         return torch.where(ok, gain, ninf)
 
     gain_right = eval_case(cum, valid)
-    gain_left = eval_case(cum + nan_stats[:, None, :], valid & has_nan[:, None])
-    return torch.stack([gain_right, gain_left])
+    gain_left = eval_case(cum + nan_stats[..., None, :], valid & has_nan[:, None])
+    return torch.stack([gain_right, gain_left], dim=-3)
+
+
+def bundle_table(tbin: int, end: int, b: int) -> np.ndarray:
+    """[B] bool goes-left table of a bundle-plane split at plane bin
+    ``tbin`` whose member's sub-range ends at ``end``: every bin outside
+    ``[tbin, end]`` goes left (lightgbm_tpu/ops/split.py:456-470)."""
+    bids = np.arange(b)
+    return ~((bids >= tbin) & (bids <= end))
 
 
 def best_split(
@@ -133,30 +165,100 @@ def best_split(
     min_data_in_leaf: int,
     min_sum_hessian_in_leaf: float,
     min_gain_to_split: float,
-) -> SplitCandidate:
+    bundle_end: Optional[torch.Tensor] = None,  # [F, B] i32: EFB sub-range ends
+    with_margin: bool = False,
+):
     """Best numeric split of one leaf, both missing directions
-    (FindBestThresholdSequentially, feature_histogram.hpp:832)."""
-    f, b, _ = hist.shape
-    parent = torch.tensor(
-        [parent_g, parent_h, parent_cnt], dtype=torch.float32, device=hist.device
-    )
+    (FindBestThresholdSequentially, feature_histogram.hpp:832):
+    ``best_split_batch`` of one leaf."""
+    return best_split_batch(
+        hist[None], [(parent_g, parent_h, parent_cnt)], num_bins, nan_bins, feature_mask,
+        lambda_l1=lambda_l1, lambda_l2=lambda_l2, min_data_in_leaf=min_data_in_leaf,
+        min_sum_hessian_in_leaf=min_sum_hessian_in_leaf, min_gain_to_split=min_gain_to_split,
+        bundle_end=bundle_end, with_margin=with_margin,
+    )[0]
+
+
+def best_split_batch(
+    hist: torch.Tensor,  # [M, F, B, 3] (sum_grad, sum_hess, count) of M leaves
+    parents,  # M (g, h, count) host triples, exact f32 values
+    num_bins: torch.Tensor,  # [F] i32 total bins (NaN bin included)
+    nan_bins: torch.Tensor,  # [F] i32 NaN-bin index, -1 if none
+    feature_mask: torch.Tensor,  # [F] bool
+    *,
+    lambda_l1: float,
+    lambda_l2: float,
+    min_data_in_leaf: int,
+    min_sum_hessian_in_leaf: float,
+    min_gain_to_split: float,
+    bundle_end: Optional[torch.Tensor] = None,  # [F, B] i32: EFB sub-range ends
+    with_margin: bool = False,
+):
+    """``best_split`` of M leaves at once (the ``jax.vmap`` of the JAX
+    package's batched children, ops/grower.py:2670-2712): the same f32
+    operations on each, so each member is bit-equal to a call on it alone,
+    and one read of the M results to the host.  Returns M candidates, or
+    M (candidate, margin) pairs with ``with_margin``.
+
+    ``bundle_end`` (``BundleLayout.bundle_end_array``): on a bundle plane
+    the candidate at bin t is "the member's local bin <= t - start goes
+    left", so left = parent - (cum[end] - cum[t - 1]) and every sub-range
+    bin is a candidate (t = start: the default alone goes left); the
+    winner carries its goes-left table.  ``with_margin``: the near-tie
+    margin, the relative gap between the best candidate and the best other
+    one over every (case, feature, bin), +inf when either is not finite."""
+    m, f, b, _ = hist.shape
+    dev = hist.device
+    parent = torch.tensor(parents, dtype=torch.float32, device=dev).reshape(m, 3)
     has_nan, nan_stats, cum = _ordered_cum(hist, nan_bins)
+    valid = None
+    if bundle_end is not None:
+        bundled_bin = bundle_end >= 0
+        idx = bundle_end.clamp(0, b - 1).long()[None, :, :, None].expand(m, f, b, 3)
+        cum_end = torch.gather(cum, 2, idx)
+        # a bundle plane has no NaN bin: hist is its hist_o
+        cum = torch.where(bundled_bin[:, :, None],
+                          parent[:, None, None, :] - cum_end + cum - hist, cum)
+        bin_ids = torch.arange(b, device=dev)[None, :]
+        num_ordered = num_bins - has_nan.to(num_bins.dtype)
+        valid = torch.where(bundled_bin.any(1)[:, None], bundled_bin,
+                            bin_ids < (num_ordered[:, None] - 1))
     gains = split_gains(
         cum, nan_stats, has_nan, parent, num_bins, feature_mask.bool(),
         lambda_l1=lambda_l1, lambda_l2=lambda_l2,
         min_data_in_leaf=float(min_data_in_leaf),
-        min_sum_hessian_in_leaf=min_sum_hessian_in_leaf,
+        min_sum_hessian_in_leaf=min_sum_hessian_in_leaf, valid=valid,
     )
-    flat = int(torch.argmax(gains.reshape(-1)))  # first maximum
-    case, rem = divmod(flat, f * b)
-    feat, tbin = divmod(rem, b)
-    left = cum[feat, tbin] + (nan_stats[feat] if case == 1 else 0.0)
-    parent_gain = leaf_gain(parent[0], parent[1], lambda_l1, lambda_l2)
-    best = gains[case, feat, tbin]
+    g = gains.reshape(m, -1)
+    rows = torch.arange(m, device=dev)
+    flat = torch.argmax(g, dim=1)  # first maximum of each leaf
+    rem = flat % (f * b)
+    left = cum.reshape(m, f * b, 3)[rows, rem] + torch.where(
+        (flat >= f * b)[:, None], nan_stats[rows, rem // b], 0.0)
+    parent_gain = leaf_gain(parent[:, 0], parent[:, 1], lambda_l1, lambda_l2)
+    best = g[rows, flat]
     improvement = best - parent_gain - min_gain_to_split
-    vals = torch.stack([improvement, *left, *(parent - left), best]).tolist()
-    gain = vals[0] if math.isfinite(vals[7]) else float("-inf")
-    return SplitCandidate(
-        gain, feat, tbin, case == 1, vals[1], vals[2], vals[3], vals[4],
-        vals[5], vals[6],
-    )
+    cols = [improvement[:, None], left, parent - left, best[:, None],
+            flat.to(torch.float32)[:, None]]
+    if bundle_end is not None:
+        cols.append(bundle_end.reshape(-1)[rem].to(torch.float32)[:, None])
+    if with_margin:
+        sec = torch.where(torch.arange(g.shape[1], device=dev)[None, :] == flat[:, None],
+                          float("-inf"), g).max(dim=1).values
+        margin = torch.where(
+            torch.isfinite(best) & torch.isfinite(sec),
+            (best - sec) / torch.clamp(torch.abs(best), min=_EPS),
+            float("inf"),
+        )
+        cols.append(margin[:, None])
+    out = []
+    for vals in torch.cat(cols, dim=1).tolist():
+        gain = vals[0] if math.isfinite(vals[7]) else float("-inf")
+        case, r = divmod(int(vals[8]), f * b)
+        feat, tbin = divmod(r, b)
+        table = None
+        if bundle_end is not None and vals[9] >= 0:
+            table = bundle_table(tbin, int(vals[9]), b)
+        cand = SplitCandidate(gain, feat, tbin, case == 1, *vals[1:7], table)
+        out.append((cand, vals[-1]) if with_margin else cand)
+    return out

@@ -6,7 +6,10 @@ per-tree records into ``[T, M]`` arrays and ``predict_bins_leaves`` /
 (``_walk``, predict.py:180-238).  This walker is the plain version the
 forest-walk kernel (``ops/forest_walk.py``) is held against, and the
 booster's walker for a model the kernel rejects (``walk_reject_reason``),
-on the booster's device: the JAX package's XLA fallback.
+on the booster's device: the JAX package's XLA fallback, and the walker of
+every EFB model (a bundle-plane node goes left by its [B] goes-left table,
+``cat_mask``, as predict.py:63, :199-226 walk it; the JAX package declines
+its walk kernel for such models, boosting/gbdt.py:2872-2875).
 
 ``stack_real_trees`` / ``predict_real_leaves`` / ``predict_real_raw`` are
 the real-space walker of a model read from text, which has no bin mappers
@@ -35,11 +38,14 @@ class BinTreeBatch(NamedTuple):
     left_child: torch.Tensor  # [T, M] i64 (neg = ~leaf)
     right_child: torch.Tensor  # [T, M] i64
     leaf_value: torch.Tensor  # [T, Lm] f32
+    split_is_cat: torch.Tensor  # [T, M] bool: the node goes left by its table
+    cat_mask: torch.Tensor  # [T, M, Bm] bool goes-left tables (Bm = 1: none)
 
 
 def stack_bin_trees(records: Sequence[dict], nan_bins: np.ndarray, device) -> BinTreeBatch:
     """Pad bin-space records to [T, M]; a single-leaf tree routes every row
-    to leaf 0 from node 0."""
+    to leaf 0 from node 0.  Records with ``split_is_cat`` / ``cat_mask``
+    (EFB) give the tables, as wide as the widest."""
     t = len(records)
     m = max([len(r["split_feature"]) for r in records] + [1])
     lm = max(len(r["leaf_value"]) for r in records)
@@ -55,6 +61,15 @@ def stack_bin_trees(records: Sequence[dict], nan_bins: np.ndarray, device) -> Bi
         arr["lc"][i, :nn] = r["left_child"]
         arr["rc"][i, :nn] = r["right_child"]
         leaf[i, : len(r["leaf_value"])] = r["leaf_value"]
+    bm = max([np.asarray(r["cat_mask"]).shape[1] for r in records
+              if r.get("cat_mask") is not None and np.size(r["cat_mask"])] + [1])
+    is_cat = np.zeros((t, m), bool)
+    cmask = np.zeros((t, m, bm), bool)
+    for i, r in enumerate(records):
+        if r.get("cat_mask") is not None and np.size(r["cat_mask"]):
+            cm = np.asarray(r["cat_mask"], bool)
+            is_cat[i, : len(r["split_is_cat"])] = r["split_is_cat"]
+            cmask[i, : cm.shape[0], : cm.shape[1]] = cm
     nan_bins = np.asarray(nan_bins, np.int64)
     as_t = lambda a: torch.as_tensor(a, device=device)
     return BinTreeBatch(
@@ -65,11 +80,15 @@ def stack_bin_trees(records: Sequence[dict], nan_bins: np.ndarray, device) -> Bi
         left_child=as_t(arr["lc"]),
         right_child=as_t(arr["rc"]),
         leaf_value=as_t(leaf),
+        split_is_cat=as_t(is_cat),
+        cat_mask=as_t(cmask),
     )
 
 
 def predict_bins_leaves(batch: BinTreeBatch, bins: torch.Tensor) -> torch.Tensor:
-    """Leaf index [N, T] of every row in every tree; bins [N, F]."""
+    """Leaf index [N, T] of every row in every tree; bins [N, F].  A table
+    node sends a row left by its table's entry of the row's bin (a bin past
+    the table goes right)."""
     n = bins.shape[0]
     t = batch.split_feature.shape[0]
     trees = torch.arange(t, device=bins.device)[None, :]
@@ -82,6 +101,10 @@ def predict_bins_leaves(batch: BinTreeBatch, bins: torch.Tensor) -> torch.Tensor
         gl = (fval <= batch.split_bin[trees, cur]) | (
             batch.default_left[trees, cur] & (nb >= 0) & (fval == nb)
         )
+        bm = batch.cat_mask.shape[-1]
+        if bm > 1:
+            gl_cat = batch.cat_mask[trees, cur, torch.clamp(fval, max=bm - 1)] & (fval < bm)
+            gl = torch.where(batch.split_is_cat[trees, cur], gl_cat, gl)
         nxt = torch.where(gl, batch.left_child[trees, cur], batch.right_child[trees, cur])
         nodes = torch.where(nodes >= 0, nxt, nodes)
     return ~nodes

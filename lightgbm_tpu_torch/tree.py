@@ -2,7 +2,9 @@
 real-valued split a reader of the model sees, and its model text.
 
 Counterpart of ``lightgbm_tpu/tree.py`` for numeric splits:
-``Tree.from_device_arrays`` (:100), ``apply_shrinkage`` (:236),
+``Tree.from_device_arrays`` (:100, with its EFB decode :105-150: a
+bundle-plane split becomes a threshold on the member feature),
+``apply_shrinkage`` (:236),
 ``add_bias`` (:259), the ``decision_type`` bit field (:35-47) with the
 three missing types (None, Zero, NaN), ``to_string`` (:391) and
 ``from_string`` (:435) in LightGBM's text format; and of the bin-space
@@ -80,8 +82,12 @@ class Tree:
     internal_weight: np.ndarray  # [n-1] f64
     internal_count: np.ndarray  # [n-1] i64
     shrinkage: float = 1.0
-    split_feature: Optional[np.ndarray] = None  # [n-1] i32 used-feature index
+    split_feature: Optional[np.ndarray] = None  # [n-1] i32 column of the bins
     split_bin: Optional[np.ndarray] = None  # [n-1] i32
+    # EFB: [n-1] bool nodes that go left by their table, [n-1, B] bool the
+    # tables (the bin-space form of a bundle-plane split); None without EFB
+    split_is_cat: Optional[np.ndarray] = None
+    cat_mask: Optional[np.ndarray] = None
 
     @property
     def default_left(self) -> np.ndarray:
@@ -91,26 +97,45 @@ class Tree:
     # ------------------------------------------------------------------ build
     @classmethod
     def from_tree_arrays(
-        cls, ta, bin_mappers: Sequence[BinMapper], used_features: Sequence[int]
+        cls, ta, bin_mappers: Sequence[BinMapper], used_features: Sequence[int],
+        bundle_layout=None, num_bins: int = 0,
     ) -> "Tree":
         """Bin-space grower output -> Tree, thresholds from the bin upper
         bounds of the training Dataset's mappers, the node and leaf
-        statistics of the grower."""
+        statistics of the grower.  With ``bundle_layout`` the columns are
+        EFB planes: a bundle-plane split at plane bin t decodes to the
+        member owning t and the threshold of its local bin t - start (the
+        shared default bin always goes left; members have no missing
+        values, so no default-left bit), and its goes-left table, [B =
+        ``num_bins``] bool, is kept for the bin-space walk."""
         n = int(ta.num_leaves)
         nn = max(n - 1, 0)
         sf = np.asarray(ta.split_feature, np.int32)[:nn]
         sb = np.asarray(ta.split_bin, np.int32)[:nn]
-        real = np.array([used_features[j] for j in sf], np.int32)
-        thr = np.array(
-            [bin_mappers[r].bin_to_threshold(int(b)) for r, b in zip(real, sb)],
-            np.float64,
-        )
+        dl = np.asarray(ta.default_left, bool)[:nn].copy()
+        real = np.zeros(nn, np.int32)
+        thr = np.zeros(nn, np.float64)
+        is_cat = np.zeros(nn, bool)
+        for t in range(nn):
+            if bundle_layout is None:
+                real[t], local = used_features[sf[t]], sb[t]
+            elif bundle_layout.is_bundle(sf[t]):
+                real[t], local = bundle_layout.decode(int(sf[t]), int(sb[t]))
+                is_cat[t], dl[t] = True, False
+            else:
+                real[t], local = bundle_layout.planes[sf[t]][0], sb[t]
+            thr[t] = bin_mappers[real[t]].bin_to_threshold(int(local))
         mt = [bin_mappers[r].missing_type for r in real]
+        cat_mask = None
+        if bundle_layout is not None:
+            cat_mask = np.zeros((nn, num_bins), bool)
+            for t in np.flatnonzero(is_cat):
+                cat_mask[t] = ta.split_table[t]
         return cls(
             num_leaves=n,
             split_feature_real=real,
             threshold=thr,
-            decision_type=make_decision_type(np.asarray(ta.default_left, bool)[:nn], mt),
+            decision_type=make_decision_type(dl, mt),
             left_child=np.asarray(ta.left_child, np.int32)[:nn],
             right_child=np.asarray(ta.right_child, np.int32)[:nn],
             leaf_value=np.asarray(ta.leaf_value, np.float64)[:n],
@@ -122,12 +147,15 @@ class Tree:
             internal_count=np.asarray(ta.internal_count, np.int64)[:nn],
             split_feature=sf,
             split_bin=sb,
+            split_is_cat=None if bundle_layout is None else is_cat,
+            cat_mask=cat_mask,
         )
 
     @classmethod
     def from_record(cls, rec: Dict[str, np.ndarray]) -> "Tree":
         """A tree from an exported bin-space record (no real thresholds,
-        no statistics)."""
+        no statistics; ``split_is_cat`` / ``cat_mask`` kept where it has
+        them)."""
         sf = np.asarray(rec["split_feature"], np.int32)
         nn = len(sf)
         return cls(
@@ -146,6 +174,9 @@ class Tree:
             internal_count=np.zeros(nn, np.int64),
             split_feature=sf,
             split_bin=np.asarray(rec["split_bin"], np.int32),
+            split_is_cat=(None if rec.get("split_is_cat") is None
+                          else np.asarray(rec["split_is_cat"], bool)),
+            cat_mask=None if rec.get("cat_mask") is None else np.asarray(rec["cat_mask"], bool),
         )
 
     @classmethod
@@ -181,7 +212,7 @@ class Tree:
         """The bin-space record the forest walk stacks (leaf values f32)."""
         if self.split_feature is None:
             raise ValueError("a tree read from model text has no bin-space form")
-        return {
+        rec = {
             "split_feature": self.split_feature,
             "split_bin": self.split_bin,
             "default_left": self.default_left,
@@ -189,6 +220,10 @@ class Tree:
             "right_child": self.right_child,
             "leaf_value": self.leaf_value.astype(np.float32),
         }
+        if self.cat_mask is not None:
+            rec["split_is_cat"] = self.split_is_cat
+            rec["cat_mask"] = self.cat_mask
+        return rec
 
     # ---------------------------------------------------------- model text
     def to_string(self, tree_index: int) -> str:

@@ -111,8 +111,8 @@ def test_config_raises_on_what_is_not_ported(params, word):
 
 def _one_hot_data(n=3000, seed=0):
     """Four 12-level one-hot blocks and 3 normal columns (ROADMAP.md Queue
-    3, F3): the JAX package bundles each block's columns into shared
-    planes."""
+    3, F3): both packages bundle each block's columns into a shared
+    plane."""
     rng = np.random.default_rng(seed)
     levels = rng.integers(0, 12, size=(n, 4))
     blocks = [np.eye(12)[levels[:, k]] for k in range(4)]
@@ -126,25 +126,36 @@ BUNDLE_PARAMS = {"objective": "binary", "num_leaves": 15, "max_bin": 63}
 
 @pytest.mark.parametrize("params", [{}, {"enable_bundle": True}, {"bundle": "true"},
                                     {"is_enable_bundle": 1, "max_conflict_rate": 0.1}])
-def test_bundleable_columns_raise_unless_bundling_is_off(params):
+def test_bundle_layout_and_planes_equal_jax(params):
+    """With bundling on (by default or by an alias), the port's Dataset
+    bundles as the JAX package's: the same layout, the same packed planes
+    and per-plane bin counts."""
     x, y = _one_hot_data()
     jp = {**BUNDLE_PARAMS, **params, "verbosity": -1}
-    layout = lgb.Dataset(x, y, params=jp).construct().bundle_layout
-    assert layout is not None and any(len(p) > 1 for p in layout.planes)
-    with pytest.raises(NotImplementedError, match="enable_bundle=False"):
-        lt.Dataset(x, y, params={**BUNDLE_PARAMS, **params}).construct()
+    jd = lgb.Dataset(x, y, params=jp).construct()
+    td = lt.Dataset(x, y, params={**BUNDLE_PARAMS, **params}).construct()
+    jl, tl = jd.bundle_layout, td.bundle_layout
+    assert jl is not None and jl.has_bundles and tl is not None
+    assert (tl.planes, tl.starts, tl.widths, tl.plane_bins) == (
+        jl.planes, jl.starts, jl.widths, jl.plane_bins)
+    np.testing.assert_array_equal(td.bins, jd.bins)
+    assert td.bins.dtype == np.uint8 and td.num_planes == jd.num_planes
+    np.testing.assert_array_equal(td.num_bins(), jd.plane_num_bins())
+    np.testing.assert_array_equal(td.nan_bins(), jd.plane_nan_bins())
 
 
 def test_bundle_search_finds_the_jax_bundles():
-    from lightgbm_tpu_torch.bundling import find_bundles
+    from lightgbm_tpu_torch.bundling import build_layout
 
     x, y = _one_hot_data()
     jd = lgb.Dataset(x, y, params={**BUNDLE_PARAMS, "verbosity": -1}).construct()
     td = lt.Dataset(x, y, params={**BUNDLE_PARAMS, "enable_bundle": False}).construct()
-    assert td.bundle_check_s == 0.0
-    got = find_bundles(td.used_features, td.bin_mappers,
+    assert td.bundle_check_s == 0.0 and td.bundle_layout is None
+    got = build_layout(td.used_features, td.bin_mappers,
                        lambda j: np.flatnonzero(x[:, j]), x.shape[0])
-    assert got == [p for p in jd.bundle_layout.planes if len(p) > 1]
+    assert got.planes == jd.bundle_layout.planes
+    assert [p for p in got.planes if len(p) > 1] == [list(range(12 * k, 12 * k + 12))
+                                                      for k in range(4)]
 
 
 def test_enable_bundle_false_trains_like_jax_unbundled():
@@ -166,5 +177,5 @@ def test_enable_bundle_false_trains_like_jax_unbundled():
 def test_dense_columns_pass_the_bundle_check():
     x, y = _data()
     td = lt.Dataset(x, y, params={"max_bin": 63}).construct()
-    assert td.bundle_check_s > 0.0
+    assert td.bundle_check_s > 0.0 and td.bundle_layout is None
     assert Config.from_params({"is_enable_bundle": False}).enable_bundle is False

@@ -80,28 +80,26 @@ def model_partition(rows, mem, tile, rng):
     the window's part of the scratch, scratch parts disjoint and clear of
     the scratch's ends."""
     tile0, s0 = _offsets(mem, tile)
-    plan = np.concatenate([mem, tile0[:, None], s0[:, None]], axis=1)
-    k, f, n = plan.shape[0], rows.f, rows.n
+    k, f, n = mem.shape[0], rows.f, rows.n
     stride = seg.partition_scratch_rows(n)
     s_bins = torch.zeros((f, stride), dtype=torch.uint8)
     s_cols = {c: torch.zeros(stride, dtype=getattr(rows, c).dtype) for c in COLS}
-    tiles = [(w, t) for w in range(k) for t in range(-(-int(plan[w, 1]) // tile))]
-    assert [plan[w, 6] for w in range(k)] == [
+    tiles = [(w, t) for w in range(k) for t in range(-(-int(mem[w, 1]) // tile))]
+    assert [tile0[w] for w in range(k)] == [
         sum(1 for v, _ in tiles if v < w) for w in range(k)]
-    parts = sorted((int(plan[w, 7]), int(plan[w, 7] + plan[w, 1])) for w in range(k))
+    parts = sorted((int(s0[w]), int(s0[w] + mem[w, 1])) for w in range(k))
     assert parts[0][0] >= 16 and parts[-1][1] + 16 <= stride
     assert all(a[1] <= b[0] and b[0] % 16 == 0 for a, b in zip(parts, parts[1:]))
 
     counted, staged, done, nl = {}, {}, set(), np.zeros(k, np.int64)
 
     def bounds(w, t):
-        start, cnt = int(plan[w, 0]), int(plan[w, 1])
+        start, cnt = int(mem[w, 0]), int(mem[w, 1])
         return start + t * tile, min(start + cnt, start + (t + 1) * tile)
 
-    def count(w, t):  # the split feature's bytes, read directly
-        lo, hi = bounds(w, t)
-        feat, tbin, dl, nanb = (int(v) for v in plan[w, 2:6])
-        gl = seg.go_left(rows.bins[feat, lo:hi].clone(), tbin, bool(dl), nanb)
+    def count(w, t):  # the split feature's bytes, read directly, by the rule
+        lo, hi = bounds(w, t)  # of the window (its threshold or its table)
+        gl = seg.member_go_left(rows.bins[int(mem[w, 2]), lo:hi].clone(), mem[w])
         counted[(w, t)] = (gl, torch.cat([torch.nonzero(gl)[:, 0], torch.nonzero(~gl)[:, 0]]))
 
     def stage(w, t):  # every byte the tile moves
@@ -118,21 +116,20 @@ def model_partition(rows, mem, tile, rng):
         return all((w, u) in staged for u in range(l0_of(w, t) // tile, t))
 
     def write(w, t):
-        start, cnt = int(plan[w, 0]), int(plan[w, 1])
+        start, cnt = int(mem[w, 0]), int(mem[w, 1])
         gl, src_of = counted[(w, t)]
         snap = staged[(w, t)]
-        feat = int(plan[w, 2])
+        feat = int(mem[w, 2])
         # the bytes ranked and the bytes staged are the same bytes
-        assert torch.equal(gl, seg.go_left(snap["bins"][feat], int(plan[w, 3]),
-                                           bool(plan[w, 4]), int(plan[w, 5])))
+        assert torch.equal(gl, seg.member_go_left(snap["bins"][feat], mem[w]))
         tl, tt = int(gl.sum()), len(gl)
         l0 = l0_of(w, t)
         r0 = t * tile - l0
         lsrc, rsrc = src_of[:tl], src_of[tl:]
         assert start + l0 + tl <= start + t * tile + tt  # in place: own or earlier rows
         ldst = slice(start + l0, start + l0 + tl)
-        rdst = slice(int(plan[w, 7]) + r0, int(plan[w, 7]) + r0 + tt - tl)
-        assert rdst.stop <= plan[w, 7] + cnt
+        rdst = slice(int(s0[w]) + r0, int(s0[w]) + r0 + tt - tl)
+        assert rdst.stop <= s0[w] + cnt
         rows.bins[:, ldst] = snap["bins"][:, lsrc]
         s_bins[:, rdst] = snap["bins"][:, rsrc]
         for c in COLS:
@@ -150,12 +147,12 @@ def model_partition(rows, mem, tile, rng):
         fn(*wt)
 
     for w in range(k):  # the copy pass
-        start, cnt, s0 = int(plan[w, 0]), int(plan[w, 1]), int(plan[w, 7])
+        start, cnt, sw = int(mem[w, 0]), int(mem[w, 1]), int(s0[w])
         r = cnt - int(nl[w])
         dst = slice(start + int(nl[w]), start + cnt)
-        rows.bins[:, dst] = s_bins[:, s0:s0 + r]
+        rows.bins[:, dst] = s_bins[:, sw:sw + r]
         for c in COLS:
-            getattr(rows, c)[dst] = s_cols[c][s0:s0 + r]
+            getattr(rows, c)[dst] = s_cols[c][sw:sw + r]
     return torch.as_tensor(nl, dtype=torch.int32)
 
 
@@ -301,7 +298,12 @@ def test_kernel_source_agrees_with_the_host_side():
         src = fh.read()
     assert int(re.search(r"kMaxWindows = (\d+)", src).group(1)) == seg.MAX_WINDOWS
     assert int(re.search(r"kCopyRows = (\d+)", src).group(1)) == seg.PART_COPY_ROWS
-    assert int(re.search(r"kMemberCols = (\d+)", src).group(1)) == 6
+    assert int(re.search(r"kTableWords = (\d+)", src).group(1)) == seg.TABLE_WORDS
+    assert re.search(r"kMemberCols = 7 \+ kTableWords;", src) and seg.MEMBER_COLS == 7 + 8
+    # the member row's table columns and the rule the tiles rank by
+    assert "P.iscat[i] = r[6] != 0;" in src
+    assert "for (int j = 0; j < kTableWords; ++j) P.table[i][j] = (unsigned)r[7 + j];" in src
+    assert "by_table ? (int)((s_table[v >> 5] >> (v & 31)) & 1u) : go_left(v, tbin, dl, nanb)" in src
     # the offsets of _offsets above
     assert "P.tile0[i + 1] = P.tile0[i] + (P.cnt[i] + tile - 1) / tile;" in src
     assert "long long most = 0, s0 = 16;" in src and "s0 += (P.cnt[i] + 15) / 16 * 16;" in src
