@@ -33,7 +33,17 @@ Phases (any failed check raises, and the script exits non-zero):
            partition (its library yardstick: a stable sort of the go-left
            keys, the gathers of every column and the copies back, the sort
            alone beside it) also on the cases and edge cases of
-           lightgbm_tpu_torch/bench_partition.py, through the wrappers
+           lightgbm_tpu_torch/bench_partition.py, through the wrappers;
+           the u16 modes (bins past a byte, two byte planes a feature, a
+           padded width of 1,024: the run_u16 cases of bench_seg_hist,
+           bench_partition and bench_grow_step on synthetic rows, each
+           timed beside the u8 mode on the same windows, the index_add_ /
+           composite yardsticks and the bound; the segment histogram also
+           at F = 121 (242 byte planes) and at 8,192 bins; the edge cases:
+           thresholds at bins 255 and 256, a NaN bin past 255 sent left, an
+           empty window among K, windows under 32 rows, table members on a
+           u16 layout, rows of at most 700 bins at 1,024; order and nl
+           bit-equal, int8 exact, f32 the same bits on two calls)
   main     train() of the Higgs-shaped binary model (1,048,576 x 28,
            255 leaves, max_bin 255, learning rate 0.1) with the default
            path parameters (fused grow step, int8 accumulation with the
@@ -115,6 +125,21 @@ Phases (any failed check raises, and the script exits non-zero):
            partition in table mode); card vs CPU at 65,536 rows, int8 on
            both; the same rows with enable_bundle=False (the ordered layout;
            cut to 262,144 rows if the phase has passed 240 s) for its rate
+  widebin  the Higgs shape at max_bin 1023 (padded 1,024: the u16 modes;
+           rows cut from 11,000,000 to 1,048,576, rounds to 10): 10 rounds
+           with no path parameters (iterations/s, log-loss falling, the
+           u16 fused step, int8 root and f32 refine histograms launched,
+           no split-scan kernel: best_split decides every leaf), one
+           iteration under the profiler (CUDA launches a split, best_split
+           calls a tree, beside the main phase's), predict through the plain
+           walker against the training score (1e-5 relative), the model
+           text read back (its real-space predict within rtol 1e-6);
+           widebin-batch: bench.py's _PARAMS at max_bin 1023 for 5 rounds;
+           widebin-off: the two-launch path (grow_fused='off',
+           hist_acc='bf16') 2 rounds each at K=1 and K=4 (the u16
+           partition, batched partition and f32 histogram launched);
+           widebin-parity: 65,536 rows, 3 rounds, card vs CPU (int8 on
+           both): >= 0.95 of splits identical, log-loss within 1e-4
   wide data  an Expo-shaped table (binary, 1,048,576 x 700 numeric
            features, 2% NaN, values on a grid of 1/32), binned (and the
            seconds of the bundle search); the ordered histograms (f32 and
@@ -136,12 +161,13 @@ Phases (any failed check raises, and the script exits non-zero):
   wide-quant  quantized training on the int8 kernel (use_quantized_grad,
            stochastic_rounding=False, hist_method='pallas_int8') for 3
            rounds: ordered_hist_int8 only
-  wide-parity  65,536 of the wide rows for 3 rounds, card vs CPU, f32 and
+  wide-parity  32,768 of the wide rows for 3 rounds, card vs CPU, f32 and
            quantized: share of identical splits, log-loss
 The last lines: the kernels JSON (launches summed over the main, batch,
 off, batch-off, io, efb, efb-batch, efb-off, efb-batch-off, efb-flat,
-wide, wide-batch and wide-quant runs; the table modes of the partition
-and the fused step are entries of their own), the card, and
+widebin, widebin-batch, widebin-off, widebin-batch-off, wide, wide-batch
+and wide-quant runs; the table and u16 modes of the partition, the fused
+step and the segment histogram are entries of their own), the card, and
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 """
 
@@ -184,6 +210,10 @@ WIDE_FEATURES = 700
 WIDE_ROUNDS = 5
 WIDE_BATCH_ROUNDS = 3
 WIDE_QUANT_ROUNDS = 3
+# card vs CPU on the first rows of the wide table: its CPU side (f32 and
+# quantized, 700 features) takes ~1.6 s a thousand rows, so it is cut to
+# these rows for the time limit
+WIDE_PARITY_ROWS = 1 << 15
 QUANT_PARAMS = {**PARAMS, "use_quantized_grad": True, "stochastic_rounding": False,
                 "num_grad_quant_bins": 4, "hist_method": "pallas_int8"}
 # the efb phase: the Expo / Flight Delay shape of the reference's experiment
@@ -200,6 +230,15 @@ EFB_FLAT_ROUNDS = 3
 # the unbundled run's rows when the phase has taken more than its budget
 EFB_FLAT_CUT_ROWS = 1 << 18
 EFB_BUDGET_S = 240.0
+# the widebin phase: the Higgs shape at max_bin 1023 (LightGBM's tuning
+# guide, docs/Parameters-Tuning.rst, "For Better Accuracy": "use large
+# max_bin"), padded to 1,024 bins: the u16 modes of rows 1, 2, 5, 6; rows cut
+# from 11,000,000 and rounds for the time limit, widths not
+WIDEBIN_PARAMS = {**PARAMS, "max_bin": 1023}
+WIDEBIN_BINS = 1024
+WIDEBIN_ROUNDS = 10
+WIDEBIN_BATCH_ROUNDS = 5
+WIDEBIN_OFF_ROUNDS = 2
 
 # H100 SXM published peaks: HBM bytes/s and
 # f32 operations/s outside the tensor cores
@@ -231,6 +270,16 @@ SOURCES = {
                               "lightgbm_tpu/ops/pallas/partition.py:525"),
     "fused_grow_step_table": ("lightgbm_tpu_torch/csrc/grow_step.cu",
                               "lightgbm_tpu/ops/pallas/grow_step.py:260"),
+    # the u16 mode (wide, max_bin > 256) of rows 1, 2, 5 and 6
+    "seg_hist_u16": ("lightgbm_tpu_torch/csrc/seg_hist.cu", "lightgbm_tpu/ops/pallas/seg.py:587"),
+    "seg_hist_int8_u16": ("lightgbm_tpu_torch/csrc/seg_hist.cu",
+                          "lightgbm_tpu/ops/pallas/seg.py:587"),
+    "partition_u16": ("lightgbm_tpu_torch/csrc/partition.cu",
+                      "lightgbm_tpu/ops/pallas/partition.py:446"),
+    "partition_batch_u16": ("lightgbm_tpu_torch/csrc/partition.cu",
+                            "lightgbm_tpu/ops/pallas/partition.py:525"),
+    "fused_grow_step_u16": ("lightgbm_tpu_torch/csrc/grow_step.cu",
+                            "lightgbm_tpu/ops/pallas/grow_step.py:260"),
 }
 # CUDA launches per split of the profiled iterations with the rows-only scan
 # and its candidates in PyTorch operators on the host side (PERF.md section 5)
@@ -239,6 +288,8 @@ EARLIER_LAUNCHES_PER_SPLIT = {"profile": 100.6, "batch profile": 20.7, "off prof
 # kernels that only the seg layout launches
 SEG_KERNELS = ("seg_hist", "seg_hist_int8", "fused_grow_step", "partition", "partition_batch")
 TABLE_KERNELS = ("fused_grow_step_table", "partition_table", "partition_batch_table")
+U16_KERNELS = ("seg_hist_u16", "seg_hist_int8_u16", "partition_u16", "partition_batch_u16",
+               "fused_grow_step_u16")
 
 
 def make_data(n_rows: int, n_features: int, seed: int = 42):
@@ -1000,11 +1051,12 @@ def predict_phases(booster, x) -> dict:
             "walk_ops": walk_ops, **ms}
 
 
-def profile_iteration(booster, label: str = "profile") -> None:
+def profile_iteration(booster, label: str = "profile") -> dict:
     """Where one training iteration's time goes: torch.profiler over one
     update(), device time by kernel against the host's wall time, and the
     host's own time by operator (self time: the rest of the wall is Python
-    outside PyTorch's operators, and the profiler's overhead)."""
+    outside PyTorch's operators, and the profiler's overhead).  Returns
+    {"launches a split", "best_split calls"} of the iteration."""
     from torch.profiler import ProfilerActivity, profile
 
     from lightgbm_tpu_torch import _build
@@ -1098,7 +1150,7 @@ def profile_iteration(booster, label: str = "profile") -> None:
     user = "step"
     for e in sorted((e for e in prof.events() if e.device_type == DeviceType.CUDA
                      and "lane_hist_" in e.name), key=lambda e: e.time_range.start):
-        acc = re.search(r"lane_hist_accumulate<(\w+), (\w+)>", e.name)
+        acc = re.search(r"lane_hist_accumulate<(\w+), (\w+)(?:, \w+)?>", e.name)
         if acc:
             user = "step" if acc.group(2) == "false" else (
                 "seg int8" if acc.group(1) == "true" else "seg f32")
@@ -1106,12 +1158,17 @@ def profile_iteration(booster, label: str = "profile") -> None:
     busy_ms = sum(us for us, _ in dev_us.values()) / 1e3
     print(f"{label}: one iteration (tree {len(booster.trees)}) {wall_ms:.1f} ms wall under the "
           f"profiler, device busy {busy_ms:.1f} ms ({busy_ms / wall_ms:.3f} of wall)")
+    # bytes a row of the bins (planes: two a feature in the u16 mode) and
+    # the histograms' features
+    b = booster._grower_params.max_bin
+    planes = int(booster._bins_fn.shape[0])
+    feats = planes // 2 if b > 256 and booster.hist_mode == "seg" else planes
     for key, (us, cnt) in sorted(dev_us.items(), key=lambda kv: -kv[1][0])[:10]:
         print(f"{label}:   {us / 1e3:8.2f} ms  {cnt:6d} calls  {key[:90]}")
     if ordered:
         # the tree's ordered histograms against their bound: each launch
         # reads rows * (F + 16) bytes and writes K * F * B * 12
-        f, b = int(booster._bins_fn.shape[0]), booster._grower_params.max_bin
+        f = planes
         nbytes = sum(r * (f + 16) + k * f * b * 12 for r, k in ordered)
         hist_us = sum(us for key, (us, _) in dev_us.items() if "ordered_hist_" in key)
         rows = sorted(r for r, _ in ordered)
@@ -1125,20 +1182,19 @@ def profile_iteration(booster, label: str = "profile") -> None:
         # read and written once, F + 16 bytes a row
         part_us = sum(us for key, (us, _) in dev_us.items() if "partition_" in key)
         wins = sorted(parts)
-        pbound = 2 * sum(wins) * (int(booster._bins_fn.shape[0]) + 16) / HBM_BYTES_PER_S * 1e3
+        pbound = 2 * sum(wins) * (planes + 16) / HBM_BYTES_PER_S * 1e3
         print(f"{label}: partition {part_us / 1e3:.3f} ms over {len(wins)} windows against a bound "
               f"of {pbound:.3f} ms; rows a window median {wins[len(wins) // 2]}, mean "
               f"{sum(wins) / len(wins):.0f}, largest {wins[-1]}")
     if steps:
         # the tree's fused grow steps against their bound: each window's
-        # rows read and written once, F + 16 bytes a row, and each call's
-        # K * F * B * 12 output bytes
-        f, b = int(booster._bins_fn.shape[0]), booster._grower_params.max_bin
+        # rows read and written once, planes + 16 bytes a row, and each
+        # call's K * F * B * 12 output bytes
         step_us = lane_us["step"] + sum(us for key, (us, _) in dev_us.items()
                                         if "partition_" in key)
         wins = sorted(c for call in steps for c in call)
-        sbound = (2 * sum(wins) * (f + 16) + sum(len(call) for call in steps) * f * b * 12
-                  ) / HBM_BYTES_PER_S * 1e3
+        sbound = (2 * sum(wins) * (planes + 16) + sum(len(call) for call in steps) * feats * b
+                  * 12) / HBM_BYTES_PER_S * 1e3
         print(f"{label}: fused_grow_step {step_us / 1e3:.3f} ms over {len(steps)} calls "
               f"({len(wins)} windows) against a bound of {sbound:.3f} ms "
               f"({step_us / 1e3 / sbound:.1f}x); rows a window median {wins[len(wins) // 2]}, "
@@ -1147,12 +1203,12 @@ def profile_iteration(booster, label: str = "profile") -> None:
         if not calls:
             continue
         # the tree's segment histograms against their bound: each window's
-        # rows read once, F + 12 bytes a row, and each call's K * F * B * 12
-        # output bytes (f32: the near-tie refine on the fused path)
-        f, b = int(booster._bins_fn.shape[0]), booster._grower_params.max_bin
+        # rows read once, planes + 12 bytes a row, and each call's
+        # K * F * B * 12 output bytes (f32: the near-tie refine on the fused
+        # path)
         wins = sorted(c for call in calls for c in call)
         live = [c for c in wins if c > 0]
-        hbound = (sum(wins) * (f + 12) + len(wins) * f * b * 12) / HBM_BYTES_PER_S * 1e3
+        hbound = (sum(wins) * (planes + 12) + len(wins) * feats * b * 12) / HBM_BYTES_PER_S * 1e3
         hms = lane_us["seg " + mode] / 1e3
         print(f"{label}: seg_hist {mode} {hms:.3f} ms over {len(calls)} calls ({len(wins)} "
               f"windows, {len(wins) - len(live)} of them empty) against a bound of {hbound:.3f} "
@@ -1174,13 +1230,14 @@ def profile_iteration(booster, label: str = "profile") -> None:
           f"profiler, {scan_ms / max(1, len(scans)):.4f} ms a call; device {scan_us / 1e3:.3f} ms")
     if best:
         ms = sum(t for _, t in best)
-        print(f"{label}: best_split (every leaf of an EFB tree, plain PyTorch on the card) "
+        print(f"{label}: best_split (every leaf of an EFB or u16 tree, plain PyTorch on the card) "
               f"{len(best)} calls ({sum(k for k, _ in best)} leaves, {len(best) / splits:.2f} a "
               f"split), {ms:.2f} ms in all under the profiler, {ms / len(best):.4f} ms a call")
     print(f"{label}: host operators {host_ms:.1f} ms self time ({host_ms / wall_ms:.3f} of wall), "
           f"{sum(e.count for e in host)} calls; top by self time:")
     for e in sorted(host, key=lambda e: -e.self_cpu_time_total)[:10]:
         print(f"{label}:   host {e.self_cpu_time_total / 1e3:8.2f} ms  {e.count:6d} calls  {e.key[:60]}")
+    return {"launches a split": cuda_launches / splits, "best_split calls": len(best)}
 
 
 def _leaf_depths(tree, width: int) -> np.ndarray:
@@ -1726,6 +1783,166 @@ def falls(losses, rounds) -> bool:
     return len(losses) == rounds and all(b < a for a, b in zip(losses, losses[1:]))
 
 
+def check_u16_kernels(dev):
+    """The u16 modes of rows 1, 2, 5 and 6 on synthetic rows made on the
+    card (1,048,576 x 28 at a padded width of 1,024): the run_u16 cases and
+    edge cases of the three benches through the public wrappers, each
+    case's times beside the u8 mode on the same windows; the kernel entries
+    of the root (K=4 for the batched partition).  Raises on a difference."""
+    from lightgbm_tpu_torch import bench_grow_step as bg
+    from lightgbm_tpu_torch import bench_partition as bp
+    from lightgbm_tpu_torch import bench_seg_hist as bs
+    from lightgbm_tpu_torch.ops import seg
+
+    t0 = time.perf_counter()
+    hist = bs.run_u16({"this": bs.this_launcher()}, ROWS, 20, dev, kernels=False, plain_reps=3)
+    part = bp.run_u16({"this": bp.this_launcher()}, ROWS, 20, dev, kernels=False, plain_reps=3)
+    step = bg.run_u16({"this": bg.this_launcher()}, ROWS, 20, dev, kernels=False, plain_reps=3)
+    # the f32 histogram's largest |error| against the plain version at the root
+    rows, _ = bp.synthetic_rows_u16(ROWS, FEATURES, dev)
+    err = float((seg.seg_hist(rows, 0, ROWS, WIDEBIN_BINS)
+                 - seg.seg_hist_plain(rows, 0, ROWS, WIDEBIN_BINS)).abs().max())
+    del rows
+    torch.cuda.empty_cache()
+    kernels = {}
+    for name, res, err_k, lib in (
+            ("seg_hist_u16", hist["u16 root f32"], err, "library"),
+            ("seg_hist_int8_u16", hist["u16 root int8"], 0.0, "library"),
+            ("partition_u16", part["u16 root"], 0.0, "composite"),
+            ("partition_batch_u16", part["u16 K=4"], 0.0, "composite"),
+            ("fused_grow_step_u16", step["u16 root int8"], 0.0, "composite")):
+        entry = kernel_entry(name, err_k, res["this"], res["plain"], (res["bound"], "bytes"),
+                             res[lib])
+        entry.update({"device_ms": res["this device"], "launches_per_call": res["this ops"],
+                      "u8_ms": res["u8"], "u8_device_ms": res["u8 device"],
+                      "shape": f"{ROWS} x {FEATURES} at {WIDEBIN_BINS} bins (u16)"})
+        kernels[name] = entry
+        print(f"kernel {name}: root{' K=4' if 'batch' in name else ''} {res['this']:.4f} ms "
+              f"[device {res['this device']:.4f}] against the u8 mode's {res['u8']:.4f} "
+              f"[{res['u8 device']:.4f}] on the same windows, bound {res['bound']:.5f} ms, plain "
+              f"{res['plain']:.4f} ms, {lib} {res[lib]:.4f} ms, max |err| {err_k:.3g}")
+    print(f"kernels u16: checked and timed in {time.perf_counter() - t0:.1f} s")
+    return kernels
+
+
+def widebin_phase(lt, _build, main_profile):
+    """The Higgs shape at max_bin 1023 on the card (the u16 modes on the main
+    path).  Returns {phase: kernel launches}."""
+    from lightgbm_tpu_torch.ops import grower
+
+    t_phase = time.perf_counter()
+    x, y = make_data(ROWS, FEATURES)
+    t0 = time.perf_counter()
+    ds = lt.Dataset(x, y, params=WIDEBIN_PARAMS).construct()
+    nb = ds.num_bins()
+    print(f"widebin data: {ROWS} x {FEATURES} (Higgs shape, rows cut from 11,000,000, 10 rounds) "
+          f"binned at max_bin 1023 in {time.perf_counter() - t0:.1f} s: {ds.bins.dtype} bins, "
+          f"{int(nb.min())}-{int(nb.max())} bins a feature, {ds.max_bin_padded} histogram bins")
+    if ds.max_bin_padded != WIDEBIN_BINS or ds.bins.dtype != np.uint16:
+        raise AssertionError("widebin: the bins are not the u16 mode's")
+    phases = {}
+
+    # -- no path parameters, K = 1
+    _build.LAUNCHES.clear()
+    booster, losses, train_s, setup_s = train_rounds(lt, WIDEBIN_PARAMS, ds, WIDEBIN_ROUNDS)
+    phases["widebin"] = launches = dict(_build.LAUNCHES)
+    rate = len(losses) / train_s
+    print(f"widebin: hist_mode {booster.hist_mode!r}, {len(booster.trees)} trees of "
+          f"{[t.num_leaves for t in booster.trees]} leaves, {rate:.3f} iterations/s (set-up "
+          f"{setup_s:.1f} s)")
+    print("widebin: training log-loss per round " + " ".join(f"{v:.6f}" for v in losses))
+    print(f"widebin: near-tie f32 refines per tree {booster.refine_counts}")
+    print(f"widebin: kernel launches {json.dumps(launches)}")
+    if booster.hist_mode != "seg" or not falls(losses, WIDEBIN_ROUNDS):
+        raise AssertionError(f"widebin: layout {booster.hist_mode!r}, or the log-loss did not "
+                             "fall every round")
+    require_launches(launches, ("fused_grow_step_u16", "seg_hist_int8_u16", "seg_hist_u16"),
+                     "widebin path")
+    if launches.get("split_scan", 0) or launches.get("split_scan_batch", 0):
+        raise AssertionError("widebin: the split-scan kernel decided a leaf past 256 bins")
+    t0 = time.perf_counter()
+    raw = booster.predict(x, raw_score=True)
+    torch.cuda.synchronize()
+    pred_s = time.perf_counter() - t0
+    score = booster.score.double().cpu().numpy()
+    err = float(np.max(np.abs(raw - score) / np.maximum(np.abs(score), 1.0)))
+    print(f"widebin: predict {ROWS / pred_s:.0f} rows/s through the plain walker; raw scores vs "
+          f"the training score max relative |diff| {err:.3g}")
+    if err > 1e-5:
+        raise AssertionError("widebin: predict disagrees with the training score")
+    t0 = time.perf_counter()
+    text = booster.model_to_string()
+    loaded = lt.Booster(model_str=text, device="cuda")
+    real = loaded.predict(x, raw_score=True)
+    diff = float(np.max(np.abs(real - raw) / np.maximum(np.abs(raw), 1e-6)))
+    print(f"widebin: the model text ({len(text)} bytes) read back and predicted in real space in "
+          f"{time.perf_counter() - t0:.1f} s: max relative |diff| {diff:.3g} from the booster's")
+    if not np.allclose(real, raw, rtol=1e-6, atol=1e-6):
+        raise AssertionError("widebin: the model read back predicts otherwise")
+    del loaded, real, raw, score
+    prof = profile_iteration(booster, "widebin profile")
+    print(f"widebin: {prof['launches a split']:.1f} CUDA launches a split and "
+          f"{prof['best_split calls']} best_split calls a tree against the main phase's "
+          f"{main_profile['launches a split']:.1f} and {main_profile['best_split calls']} at "
+          "max_bin 255")
+    del booster
+
+    # -- bench.py's _PARAMS at max_bin 1023 (K = 4)
+    _build.LAUNCHES.clear()
+    params = {**BATCH_PARAMS, "max_bin": 1023}
+    bb, losses, train_s, _ = train_rounds(lt, params, ds, WIDEBIN_BATCH_ROUNDS)
+    phases["widebin-batch"] = launches = dict(_build.LAUNCHES)
+    print(f"widebin-batch: leaf_batch 4, min_data_in_leaf 100: {len(losses) / train_s:.3f} "
+          f"iterations/s, log-loss per round " + " ".join(f"{v:.6f}" for v in losses)
+          + f"; grow steps per tree {bb.grow_steps}, effective K {bb.leaf_batch_effective}")
+    print(f"widebin-batch: kernel launches {json.dumps(launches)}")
+    if not falls(losses, WIDEBIN_BATCH_ROUNDS):
+        raise AssertionError("widebin-batch: log-loss did not fall every round")
+    require_launches(launches, ("fused_grow_step_u16", "seg_hist_int8_u16"), "widebin batched path")
+    del bb
+
+    # -- the two-launch path at K = 1 and K = 4
+    for name, base, want in (("widebin-off", OFF_PARAMS, "partition_u16"),
+                             ("widebin-batch-off", BATCH_OFF_PARAMS, "partition_batch_u16")):
+        _build.LAUNCHES.clear()
+        ob, losses, train_s, _ = train_rounds(lt, {**base, "max_bin": 1023}, ds,
+                                              WIDEBIN_OFF_ROUNDS)
+        phases[name] = launches = dict(_build.LAUNCHES)
+        print(f"{name}: {len(losses) / train_s:.3f} iterations/s, log-loss per round "
+              + " ".join(f"{v:.6f}" for v in losses) + f"; kernel launches {json.dumps(launches)}")
+        require_launches(launches, (want, "seg_hist_u16"), f"{name} path")
+        if not falls(losses, WIDEBIN_OFF_ROUNDS):
+            raise AssertionError(f"{name}: log-loss did not fall every round")
+        if launches.get("fused_grow_step", 0) or launches.get("seg_hist_int8", 0):
+            raise AssertionError(f"{name}: the two-launch path went through the fused step or int8")
+        del ob
+    del ds, x, y
+
+    # -- card vs CPU on 65,536 rows, int8 accumulation on both
+    xs, ys = make_data(PARITY_ROWS, FEATURES, seed=7)
+    pr = {}
+    grower.INT8_ON_CPU = True
+    try:
+        for d in ("cuda", "cpu"):
+            t0 = time.perf_counter()
+            pr[d] = lt.train(WIDEBIN_PARAMS, lt.Dataset(xs, ys, params=WIDEBIN_PARAMS),
+                             PARITY_ROUNDS, device=d)
+            print(f"widebin-parity: {d} trained {PARITY_ROUNDS} rounds in "
+                  f"{time.perf_counter() - t0:.1f} s ({pr[d].hist_mode}, {pr[d]._max_bin} bins), "
+                  f"refines per tree {pr[d].refine_counts}")
+    finally:
+        grower.INT8_ON_CPU = False
+    share = split_share(pr["cuda"], pr["cpu"])
+    lc, lp = pr["cuda"].train_loss(), pr["cpu"].train_loss()
+    print(f"widebin-parity: {share:.4f} of splits identical, log-loss cuda {lc:.7f} cpu {lp:.7f}")
+    if share < 0.95 or abs(lc - lp) > 1e-4 * abs(lp):
+        raise AssertionError("widebin-parity: card and CPU training disagree")
+    del pr
+    torch.cuda.empty_cache()
+    print(f"widebin: phase {time.perf_counter() - t_phase:.1f} s")
+    return phases
+
+
 def wide_data(lt):
     """(x, y, the binned Dataset) of the Expo-shaped table."""
     t0 = time.perf_counter()
@@ -1823,7 +2040,7 @@ def wide_phases(lt, _build, dev):
     del qb, ds
 
     # -- card vs CPU on the first rows, f32 and quantized
-    xs, ys = x[:PARITY_ROWS].copy(), y[:PARITY_ROWS].copy()
+    xs, ys = x[:WIDE_PARITY_ROWS].copy(), y[:WIDE_PARITY_ROWS].copy()
     del x
     for name, params in (("f32", PARAMS), ("quantized", QUANT_PARAMS)):
         runs = {}
@@ -1866,6 +2083,7 @@ def main() -> int:
           f"{ds.max_bin_padded} histogram bins")
 
     kernels = {k["name"]: k for k in check_seg_kernels(ds, dev)}
+    kernels.update(check_u16_kernels(dev))
     if "--kernels" in sys.argv[1:]:
         del ds, x, y
         # synthetic Expo-shaped bins made on the card (the binned table takes
@@ -1906,7 +2124,7 @@ def main() -> int:
 
     predict_phases(booster, x)
     kernels["forest_walk"] = check_forest_walk(booster, x, dev)
-    profile_iteration(booster)
+    main_profile = profile_iteration(booster)
     del booster
 
     batch_launches = batch_phase(lt, _build, ds)
@@ -1977,6 +2195,8 @@ def main() -> int:
     efb_kernels, efb_launches = efb_phase(lt, _build, dev)
     kernels.update(efb_kernels)
     phases.update(efb_launches)
+
+    phases.update(widebin_phase(lt, _build, main_profile))
 
     wide_kernels, wide_launches = wide_phases(lt, _build, dev)
     kernels.update({k["name"]: k for k in wide_kernels})

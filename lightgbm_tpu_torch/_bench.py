@@ -106,7 +106,8 @@ def f32_tol(rows, windows, b: int, counts: torch.Tensor) -> torch.Tensor:
     orders; ``counts`` [K, F, B, 1] the bins' counts."""
     from .ops import seg
 
-    absr = seg.SegRows(rows.bins, rows.g.abs(), rows.h.abs(), rows.m, rows.ridx)
+    absr = seg.SegRows(rows.bins, rows.g.abs(), rows.h.abs(), rows.m, rows.ridx,
+                       wide=rows.wide, used_bins=rows.used_bins)
     scale = seg.seg_hist_batch_plain(absr, windows, b)[..., :2]
     return 2.0 * counts * 2.0**-24 * scale + 1e-6
 

@@ -43,11 +43,11 @@ _I64 = ctypes.c_longlong
 _I32 = ctypes.c_int
 _F32 = ctypes.c_float
 SIGNATURES: Dict[str, Sequence] = {
-    "seg_hist": (_VP,) * 4 + (_I64, _VP) + (_I32,) * 3 + (_VP, _VP, _I64, _VP, _VP),
+    "seg_hist": (_VP,) * 4 + (_I64, _VP) + (_I32,) * 4 + (_VP, _VP, _I64, _VP, _VP),
     "grow_step": (_VP,) * 5 + (_I64, _I32, _VP, _I32, _I32, _VP, _VP, _I64, _VP, _VP, _VP,
-                                ctypes.c_uint, _I32, _VP, _VP, _I64, _VP, _VP, _VP),
-    "partition": (_VP,) * 5 + (_I64, _I32, _VP, _I32, _I32, _VP, _VP, _I64, _VP, _VP, _VP,
-                                ctypes.c_uint, _VP, _VP),
+                                ctypes.c_uint, _I32, _I32, _VP, _VP, _I64, _VP, _VP, _VP),
+    "partition": (_VP,) * 5 + (_I64, _I32, _I32, _VP, _I32, _I32, _VP, _VP, _I64, _VP, _VP,
+                                _VP, ctypes.c_uint, _VP, _VP),
     "split_scan": (_VP,) * 5 + (_I32,) * 4 + (_F32,) * 4 + (_VP, _F32, _I32) + (_VP,) * 4,
     "forest_walk": (_VP,) * 3 + (_I64,) + (_I32,) * 9 + (_VP,) * 2,
     "ordered_hist": (_VP, _I64) + (_VP,) * 5 + (_I32,) * 3 + (_VP, _VP, _I64, _VP, _VP),
@@ -66,7 +66,10 @@ _LOCK = threading.Lock()
 # are the int8 modes of seg_hist.cu and ordered_hist.cu, "partition_batch"
 # and "split_scan_batch" the K-window and M-leaf calls of partition.cu and
 # split_scan.cu, "split_candidates" the split_scan.cu launches, of one leaf
-# or of M, that also reduce each leaf to its candidate); a wrapper adds one
+# or of M, that also reduce each leaf to its candidate; "<name>_table" and
+# "<name>_u16" count the calls of the partition, fused step and segment
+# histogram in their goes-left-table and u16 modes beside their plain
+# names); a wrapper adds one
 # where it launches its kernel, nowhere else, so a run shows which kernels
 # it went through
 LAUNCHES: Counter = Counter()

@@ -28,7 +28,11 @@ whose two children are equal in size; ``few_bins``: the root of a table of
 64 bins) are checked, not timed.  The table mode (a window going left by
 the goes-left table of an EFB bundle-plane split): ``bench_partition``'s
 ``table_cases`` timed and ``table_edge_cases`` checked, in both modes, on
-this interface's builds.
+this interface's builds.  The u16 mode (bins past a byte, two byte planes a
+feature at a padded width of 1,024: ``bench_partition.synthetic_rows_u16``):
+``bench_partition``'s ``u16_cases`` timed in both modes, each beside this
+build on the u8 rows' same windows (``u8``), and its ``u16_edge_cases``
+checked (``run_u16``).
 
 Times: the builds in turns (baseline, this source, variants, then the
 reverse order) by CUDA events through the wrapper, one call at a time with
@@ -83,7 +87,8 @@ from .bench_partition import (ROOT_FEATURES, WIDE_FEATURES, _clone_rows, _copy_r
                               kernel_name, same_rows, sort_keys, synthetic_rows, window_rows)
 from .bench_partition import cases as partition_cases
 from .bench_partition import edge_cases as partition_edge_cases
-from .bench_partition import table_cases, table_edge_cases
+from .bench_partition import (U16_CASES, synthetic_rows_u16, table_cases, table_edge_cases,
+                              u16_cases, u16_edge_cases)
 from .ops import grow_step, seg
 from .quantize import hist_acc_scales
 
@@ -137,10 +142,12 @@ def few_bins(rows: seg.SegRows, b: int = 64):
     return small, seg.split_members([0], [rows.n], [3], [b // 2], [0], [-1])
 
 
-def bound_ms(f: int, b: int, mem: np.ndarray) -> float:
-    """The windows' rows read once and written once (F bin bytes and four
-    4-byte columns a row), plus the [K, F, B, 3] f32 output."""
-    nbytes = 2 * int(mem[:, 1].sum()) * (f + 16) + len(mem) * f * b * 12
+def bound_ms(f: int, b: int, mem: np.ndarray, planes: Optional[int] = None) -> float:
+    """The windows' rows read once and written once (F bin bytes, or
+    ``planes`` byte planes, two a feature in the u16 mode, and four 4-byte
+    columns a row), plus the [K, F, B, 3] f32 output."""
+    planes = f if planes is None else planes
+    nbytes = 2 * int(mem[:, 1].sum()) * (planes + 16) + len(mem) * f * b * 12
     return nbytes / HBM_BYTES_PER_S * 1e3
 
 
@@ -249,7 +256,7 @@ def composite(rows: seg.SegRows, mem: np.ndarray, b: int, qs, keys: torch.Tensor
     pick = rows_of < cc[win_of]
     r = cs[win_of][pick] + rows_of[pick]
     w = win_of[pick]
-    ids = (rows.bins[:, r].long() + (w[None, :] * f + torch.arange(f, device=dev)[:, None]) * b)
+    ids = (seg.feature_bins(rows, r) + (w[None, :] * f + torch.arange(f, device=dev)[:, None]) * b)
     m = rows.m[r]
     if qs is None:
         stats = torch.stack([rows.g[r] * m, rows.h[r] * m, m], 1)
@@ -324,7 +331,7 @@ def run_case(name: str, rows: seg.SegRows, mem: np.ndarray, b: int, qs,
                 for kname, ms in device_by_name(lambda: launch(rows, mem, b, qs),
                                                 setup=restore).items():
                     res[f"{bname} [{kernel_name(kname)}]"] = ms
-        res["bound"] = bound_ms(rows.f, b, mem)
+        res["bound"] = bound_ms(rows.f, b, mem, rows.planes)
         restore()
         check(f"grow step {name} (pair)", rows, want, pair(rows, mem, b, qs), dec_p, hist_p, tol)
         res["pair"] = time_ms(lambda: pair(rows, mem, b, qs), reps=reps, setup=restore)
@@ -382,7 +389,7 @@ def trace_phases(rows: seg.SegRows, mem: np.ndarray, b: int, qs, launch: Callabl
     _build.check(lib.lgbt_grow_step_trace(ctypes.c_void_p(hist.ctypes.data)), "histogram trace")
     hist = hist[hist[:, 0] != 0]  # the blocks that ran
     _copy_rows(rows, pristine)
-    tile = seg.partition_tile_rows(rows.f, int(mem[:, 1].sum()))
+    tile = seg.partition_tile_rows(rows.planes, int(mem[:, 1].sum()))
     tiles = min(4096, int(sum(-(-int(c) // tile) for c in mem[:, 1])))
     return (f"{tiles} partition tiles, median/largest us: {_phase_line(part[:tiles], PART_PHASES)}"
             f" | {len(hist)} histogram blocks: {_phase_line(hist, HIST_PHASES)}")
@@ -479,8 +486,49 @@ def main(argv: Optional[List[str]] = None) -> int:
                       "plain version in both modes")
         del rows
         torch.cuda.empty_cache()
+    results.update(run_u16(builds, args.rows, args.reps, dev))
     print(json.dumps({"card": card, "cases": results}))
     return 0
+
+
+def run_u16(builds: Dict[str, Callable], n: int, reps: int, dev, verbose: bool = True,
+            kernels: bool = True, plain_reps: int = 0) -> Dict[str, Dict[str, float]]:
+    """The u16 mode's cases in both modes on builds of this interface
+    (timed, each beside this build's time on the u8 rows' same windows,
+    ``u8`` and ``u8 device``; with ``plain_reps``, the plain version's time)
+    and edge cases (checked); {case: results}."""
+    builds = {k: v for k, v in builds.items() if k != "baseline"}
+    rows8, nb8 = synthetic_rows(n, ROOT_FEATURES, dev, seed=1)
+    u8 = {name: mem for name, mem in cases(n, nb8).items() if name in U16_CASES}
+    rows, nb = synthetic_rows_u16(n, ROOT_FEATURES, dev)
+    scales, scales8 = int8_scales(rows), int8_scales(rows8)
+    results: Dict[str, Dict[str, float]] = {}
+    for cname, mem in u16_cases(n, nb).items():
+        for mode in MODES:
+            qs, qs8 = (scales, scales8) if mode == "int8" else (None, None)
+            key = f"u16 {cname} {mode}"
+            res = run_case(key, rows, mem, 1024, qs, builds, reps, kernels=kernels,
+                           plain_reps=plain_reps)
+            r8 = run_case(f"{cname} {mode}", rows8, u8[cname], 256, qs8,
+                          {"this": builds["this"]}, reps)
+            res["u8"], res["u8 device"] = r8["this"], r8["this device"]
+            results[key] = res
+            if verbose:
+                print(f"case {key}: {len(mem)} window(s), {int(mem[:, 1].sum())} rows x "
+                      f"{rows.f} features (u16); " + ", ".join(
+                          f"{k} {v:.4f}" + ("" if k.endswith("ops") else " ms")
+                          for k, v in res.items()))
+    del rows8
+    for cname, mem in u16_edge_cases(n, nb).items():
+        for mode in MODES:
+            run_case(f"u16 {cname}", rows, mem, 1024, scales if mode == "int8" else None,
+                     builds, reps, timed=False)
+        if verbose:
+            print(f"edge case u16 {cname}: windows {mem[:, :2].tolist()}: every build equals "
+                  "the plain version in both modes")
+    del rows
+    torch.cuda.empty_cache()
+    return results
 
 
 if __name__ == "__main__":

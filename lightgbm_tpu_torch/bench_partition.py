@@ -40,7 +40,14 @@ window's rows go left by its goes-left table, every bin outside [t, end]):
 ``table_edge_cases`` (table and threshold windows in one call, t at the
 first bin, a range ending at bin 255, an empty window among K, windows
 under 32 rows), checked and timed as the others; chip_smoke.py checks them
-at the efb phase's planes.
+at the efb phase's planes.  The u16 mode (bins past a byte, two byte planes
+a feature: ``synthetic_rows_u16``, 300-1,024 bins a feature, the NaN bin
+past 255): ``u16_cases`` (the root, the K=4 layout, 16,384 rows and 4,096
+rows), each timed beside this build on the u8 rows' same windows (``u8``),
+and ``u16_edge_cases`` (thresholds at bins 255 and 256, a NaN bin past 255
+sent left, an empty window among K, windows under 32 rows, table members
+on the u16 layout), checked; chip_smoke.py checks them in its widebin
+phase.
 
 ``--baseline`` builds another version of the source with the C interface
 of the earlier design (four launches over wrapper-allocated scratch, as
@@ -71,7 +78,9 @@ from .ops.split import bundle_table
 
 ROOT_FEATURES = 28
 WIDE_FEATURES = 242  # the seg layout's widest table (boosting/gbdt.py)
+WIDE_BIN_FEATURES = 121  # its widest past 256 bins: 242 byte planes
 NAN_SHARE = 0.02
+U16_BINS = (300, 1024)  # bins a feature of the u16 rows: at most max_bin 1023's 1,024
 
 
 def synthetic_rows(n: int, f: int, dev, seed: int = 0):
@@ -94,6 +103,31 @@ def synthetic_rows(n: int, f: int, dev, seed: int = 0):
     h = torch.rand(n, generator=gen, device=dev) + 0.01
     m = (torch.rand(n, generator=gen, device=dev) < 0.9).to(torch.float32)
     rows = seg.SegRows(bins, g, h, m, torch.arange(n, dtype=torch.int32, device=dev))
+    return rows, nb[:, 0].cpu().numpy()
+
+
+def synthetic_rows_u16(n: int, f: int, dev, seed: int = 0, bins=U16_BINS):
+    """(u16 seg rows, [F] bins a feature) as ``synthetic_rows`` makes them
+    but for feature j's ``bins[0]`` to ``bins[1]`` bins (feature 0 has
+    ``bins[1]``, so the rows' ``used_bins`` is ``bins[1]``), its NaN bin past
+    255, the bins held as the u16 mode's two byte planes a feature."""
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed)
+    nb = torch.randint(bins[0], bins[1] + 1, (f, 1), generator=gen, device=dev)
+    nb[0] = bins[1]
+    planes = torch.empty((2 * f, n), dtype=torch.uint8, device=dev)
+    step = max(1, (1 << 26) // max(f, 1))
+    for lo in range(0, n, step):
+        hi = min(n, lo + step)
+        u = torch.rand((f, hi - lo), generator=gen, device=dev)
+        v = 1 + (u * (nb - 2).to(torch.float32)).to(torch.int64)
+        nan = torch.rand((f, hi - lo), generator=gen, device=dev) < NAN_SHARE
+        planes[:, lo:hi] = seg.byte_planes(torch.where(nan, nb - 1, v))
+    g = torch.randn(n, generator=gen, device=dev)
+    h = torch.rand(n, generator=gen, device=dev) + 0.01
+    m = (torch.rand(n, generator=gen, device=dev) < 0.9).to(torch.float32)
+    rows = seg.SegRows(planes, g, h, m, torch.arange(n, dtype=torch.int32, device=dev),
+                       wide=True, used_bins=int(bins[1]))
     return rows, nb[:, 0].cpu().numpy()
 
 
@@ -175,9 +209,40 @@ def edge_cases(n: int, nb) -> Dict[str, np.ndarray]:
     }
 
 
+U16_CASES = ("root", "K=4", "16384 rows", "4096 rows")
+
+
+def u16_cases(n: int, nb) -> Dict[str, np.ndarray]:
+    """{name: members} of the u16 mode's timed cases: ``cases``' windows
+    (so that the u8 rows' cases of the same names take the same rows), split
+    at the median bin of a feature of 300-1,024 bins."""
+    all_cases = cases(n, nb)
+    return {name: all_cases[name] for name in U16_CASES}
+
+
+def u16_edge_cases(n: int, nb) -> Dict[str, np.ndarray]:
+    """{name: members} of the u16 mode, checked but not timed: thresholds
+    on either side of the byte, a NaN bin past 255 sent left, an empty
+    window and windows under 32 rows among K, and table members (a bundle
+    plane's table on the u16 layout: a bin past 255 goes right)."""
+    w = max(64, n // 16)
+    return {
+        "tbin 255": _members(nb, [101], [w], [2], [0], tbins=[255]),
+        "tbin 256": _members(nb, [203], [w], [3], [1], tbins=[256]),
+        "NaN bin past 255 left": _members(nb, [55], [w], [9], [1]),
+        "all left": _members(nb, [77], [w], [0], [1], tbins=[int(nb[0]) - 1]),
+        "cnt 0 among K": _members(nb, [5, 9_000, 9_000, 20_000], [5_000, 0, 3_000, 17],
+                                  [1, 2, 2, 3], [0, 1, 0, 1]),
+        "cnt < 32": _members(nb, [3, 1_000, 2_000], [17, 31, 1], [4, 5, 6], [0, 0, 1]),
+        "table members": _table_members(
+            nb, [5, n // 8 + 3, n // 2 + 7], [n // 8 - 20, n // 8, n // 4], [1, 2, 3],
+            [(40, 90), None, (1, 255)]),
+    }
+
+
 def bound_ms(f: int, mem: np.ndarray) -> float:
-    """The windows' rows read once and written once: F bin bytes and four
-    4-byte columns a row."""
+    """The windows' rows read once and written once: F bin bytes (planes:
+    two a feature in the u16 mode) and four 4-byte columns a row."""
     return 2 * int(mem[:, 1].sum()) * (f + 16) / HBM_BYTES_PER_S * 1e3
 
 
@@ -190,9 +255,9 @@ def window_rows(mem: np.ndarray, dev) -> torch.Tensor:
 def sort_keys(rows: seg.SegRows, mem: np.ndarray) -> torch.Tensor:
     """One stable-sort key a window row: goes right (u8) for one window,
     2 * window + goes right (i32) for K."""
-    keys = [(~seg.member_go_left(rows.bins[int(r[2]), int(r[0]):int(r[0]) + int(r[1])],
-                                 r)).to(torch.int32) + 2 * i
-            for i, r in enumerate(mem)]
+    keys = [(~seg.member_go_left(
+        seg.feature_bins(rows, slice(int(r[0]), int(r[0]) + int(r[1])), int(r[2])),
+        r)).to(torch.int32) + 2 * i for i, r in enumerate(mem)]
     out = torch.cat(keys)
     return out.to(torch.uint8) if len(mem) == 1 else out
 
@@ -221,7 +286,7 @@ def _copy_rows(dst: seg.SegRows, src: seg.SegRows) -> None:
 
 def _clone_rows(rows: seg.SegRows) -> seg.SegRows:
     return seg.SegRows(rows.bins.clone(), rows.g.clone(), rows.h.clone(), rows.m.clone(),
-                       rows.ridx.clone())
+                       rows.ridx.clone(), wide=rows.wide, used_bins=rows.used_bins)
 
 
 def same_rows(a: seg.SegRows, b: seg.SegRows) -> bool:
@@ -337,7 +402,7 @@ def run_case(name: str, rows: seg.SegRows, mem: np.ndarray, builds: Dict[str, Ca
                     res[f"{bname} [{kernel_name(kname)}]"] = ms
         keys = sort_keys(pristine, mem)
         idx = window_rows(mem, rows.device)
-        res["bound"] = bound_ms(rows.f, mem)
+        res["bound"] = bound_ms(rows.planes, mem)
         res["sort"] = time_ms(lambda: torch.sort(keys, stable=True), reps=reps)
         res["composite"] = time_ms(lambda: composite(rows, mem, keys, idx), reps=reps,
                                    setup=restore)
@@ -372,7 +437,7 @@ def trace_phases(rows: seg.SegRows, mem: np.ndarray, launch: Callable, read) -> 
     marks = np.zeros((4096, len(TRACE_PHASES) + 3), dtype=np.uint64)
     _build.check(read(marks.ctypes.data), "partition trace")
     _copy_rows(rows, pristine)
-    tile = seg.partition_tile_rows(rows.f, int(mem[:, 1].sum()))
+    tile = seg.partition_tile_rows(rows.planes, int(mem[:, 1].sum()))
     tiles = min(4096, int(sum(-(-int(c) // tile) for c in mem[:, 1])))
     m = marks[:tiles, :-2].astype(np.float64) / 1e3
     clocks = marks[:tiles, -2:].astype(np.float64)
@@ -460,8 +525,41 @@ def main(argv: Optional[List[str]] = None) -> int:
                       "the plain version")
         del rows
         torch.cuda.empty_cache()
+    results.update(run_u16(builds, args.rows, args.reps, dev))
     print(json.dumps({"card": card, "cases": results}))
     return 0
+
+
+def run_u16(builds: Dict[str, Callable], n: int, reps: int, dev, verbose: bool = True,
+            kernels: bool = True, plain_reps: int = 0) -> Dict[str, Dict[str, float]]:
+    """The u16 mode's cases (checked and timed, each beside this build's
+    time on the u8 rows' same windows, ``u8`` and ``u8 device``; with
+    ``plain_reps``, the plain version's time) and edge cases
+    (checked), on builds of this interface; {case: results}."""
+    builds = {k: v for k, v in builds.items() if k != "baseline"}
+    rows8, nb8 = synthetic_rows(n, ROOT_FEATURES, dev, seed=1)
+    u8 = {name: mem for name, mem in cases(n, nb8).items() if name in U16_CASES}
+    rows, nb = synthetic_rows_u16(n, ROOT_FEATURES, dev)
+    results = {}
+    for cname, mem in u16_cases(n, nb).items():
+        res = run_case(f"u16 {cname}", rows, mem, builds, reps, kernels=kernels,
+                       plain_reps=plain_reps)
+        r8 = run_case(cname, rows8, u8[cname], {"this": builds["this"]}, reps)
+        res["u8"], res["u8 device"] = r8["this"], r8["this device"]
+        results[f"u16 {cname}"] = res
+        if verbose:
+            print(f"case u16 {cname}: {len(mem)} window(s), {int(mem[:, 1].sum())} rows x "
+                  f"{rows.f} features (u16); " + ", ".join(
+                      f"{k} {v:.4f}" + ("" if k.endswith("ops") else " ms")
+                      for k, v in res.items()))
+    for cname, mem in u16_edge_cases(n, nb).items():
+        run_case(f"u16 {cname}", rows, mem, builds, reps, timed=False)
+        if verbose:
+            print(f"edge case u16 {cname}: windows {mem[:, :2].tolist()}: every build equals "
+                  "the plain version")
+    del rows, rows8
+    torch.cuda.empty_cache()
+    return results
 
 
 if __name__ == "__main__":

@@ -22,6 +22,14 @@ The edge cases (``edge_cases``: every window empty but one, windows under
 32 rows, a window ending at row n; ``few_bins``: the root of a 64-bin
 table; ``largest_int8``: one int8 window of ``seg.MAX_INT8_ROWS`` rows,
 every row in one bin at the grid's largest digit) are checked, not timed.
+The u16 mode (bins past a byte, two byte planes a feature,
+``bench_partition.synthetic_rows_u16``: 300-1,024 bins a feature at a
+padded width of 1,024, four bin ranges): ``u16_cases`` (the root, K=2, K=4,
+16,384 rows, 4,096 rows), each timed beside this build on the u8 rows'
+same windows (``u8``); the root at F = 121 (242 byte planes) and at a
+padded width of 8,192 (5,000-8,192 bins a feature, 32 ranges), timed; the
+edge cases in the u16 mode and the root of rows of at most 700 bins at
+1,024 (three ranges, the fourth written 0), checked.
 
 Times: the builds in turns (baseline, this source, variants, then the
 reverse order) by CUDA events through the wrapper, one call at a time;
@@ -63,7 +71,8 @@ import torch
 from . import _build
 from ._bench import (HBM_BYTES_PER_S, build_library, card_line, device_by_name, device_profile,
                      f32_tol, time_ms)
-from .bench_partition import ROOT_FEATURES, WIDE_FEATURES, kernel_name, synthetic_rows
+from .bench_partition import (ROOT_FEATURES, WIDE_BIN_FEATURES, WIDE_FEATURES, kernel_name,
+                              synthetic_rows, synthetic_rows_u16)
 from .ops import seg
 from .quantize import hist_acc_scales
 
@@ -131,10 +140,23 @@ def largest_int8(dev, f: int = 4) -> Tuple[seg.SegRows, Windows]:
     return rows, [(5, seg.MAX_INT8_ROWS)]
 
 
-def bound_ms(f: int, b: int, wins: Windows) -> float:
-    """The windows' rows read once (F bin bytes and three f32 columns a
-    row) and the [K, F, B, 3] f32 output written once."""
-    nbytes = sum(c for _, c in wins) * (f + 12) + len(wins) * f * b * 12
+def u16_cases(n: int) -> Dict[str, Windows]:
+    """{name: windows} of the u16 mode's timed cases: ``cases``' root, K=2,
+    16,384 rows and 4,096 rows, and K=4 windows laid out as the partition
+    bench's (one empty)."""
+    c = cases(n)
+    k4 = [(37, n // 4 - 100), (n // 4 + 5, 0), (n // 4 + 5, n // 4 - 900),
+          (n // 2 + 1001, n // 2 - 2000)]
+    return {"root": c["root"], "K=2": c["K=2"], "K=4": k4, "16,384 rows": c["16,384 rows"],
+            "4,096 rows": c["4,096 rows"]}
+
+
+def bound_ms(f: int, b: int, wins: Windows, planes: Optional[int] = None) -> float:
+    """The windows' rows read once (F bin bytes, or ``planes`` byte planes,
+    two a feature in the u16 mode, and three f32 columns a row) and the
+    [K, F, B, 3] f32 output written once."""
+    planes = f if planes is None else planes
+    nbytes = sum(c for _, c in wins) * (planes + 12) + len(wins) * f * b * 12
     return nbytes / HBM_BYTES_PER_S * 1e3
 
 
@@ -148,7 +170,7 @@ def library_call(rows: seg.SegRows, wins: Windows, b: int, qs) -> Callable:
     values are made here, once."""
     f, dev = rows.f, rows.device
     live = [(k, s, c) for k, (s, c) in enumerate(wins) if c > 0]
-    ids = torch.cat([rows.bins[:, s:s + c].long()
+    ids = torch.cat([seg.feature_bins(rows, slice(s, s + c))
                      + (k * f + torch.arange(f, device=dev)[:, None]) * b
                      for k, s, c in live], dim=1).reshape(-1)
     r = torch.cat([torch.arange(s, s + c, device=dev) for _, s, c in live])
@@ -268,7 +290,7 @@ def run_case(name: str, rows: seg.SegRows, wins: Windows, b: int, qs,
             if kernels:
                 for kname, ms in device_by_name(lambda: launch(rows, wins, b, qs)).items():
                     res[f"{bname} [{kernel_name(kname)}]"] = ms
-        res["bound"] = bound_ms(rows.f, b, wins)
+        res["bound"] = bound_ms(rows.f, b, wins, rows.planes)
         lib = library_call(rows, wins, b, qs)
         res["library"] = time_ms(lib, reps=reps)
         res["library device"], _ = device_profile(lib)
@@ -394,8 +416,69 @@ def main(argv: Optional[List[str]] = None) -> int:
     wins = check_largest_int8(builds, dev)
     print(f"edge case largest int8 window: windows {wins}, every row in one bin at digit 127: "
           "every build bit-equal to the plain version")
+    results.update(run_u16(builds, args.rows, args.reps, dev))
     print(json.dumps({"card": card, "cases": results}))
     return 0
+
+
+def run_u16(builds: Dict[str, Callable], n: int, reps: int, dev, verbose: bool = True,
+            kernels: bool = True, plain_reps: int = 0) -> Dict[str, Dict[str, float]]:
+    """The u16 mode's cases in both modes on builds of this interface:
+    ``u16_cases`` at 1,024 bins, each beside this build on the u8 rows'
+    same windows (``u8``, ``u8 device``), the root at F = 121 and at 8,192
+    bins, timed (with ``plain_reps``, the plain version's time at the
+    1,024-bin cases); the edge cases and the root of rows of at most 700 bins,
+    checked.  {case: results}."""
+    builds = {k: v for k, v in builds.items() if k != "baseline"}
+    results: Dict[str, Dict[str, float]] = {}
+
+    def report(key, rows, wins, res):
+        results[key] = res
+        if verbose:
+            print(f"case {key}: {len(wins)} window(s), {sum(c for _, c in wins)} rows x "
+                  f"{rows.f} features (u16, {rows.planes} planes); {_line(res)}")
+
+    rows8, _ = synthetic_rows(n, ROOT_FEATURES, dev, seed=1)
+    rows, _ = synthetic_rows_u16(n, ROOT_FEATURES, dev)
+    scales, scales8 = int8_scales(rows), int8_scales(rows8)
+    for cname, wins in u16_cases(n).items():
+        for mode in MODES:
+            qs, qs8 = (scales, scales8) if mode == "int8" else (None, None)
+            res = run_case(f"u16 {cname} {mode}", rows, wins, 1024, qs, builds, reps,
+                           kernels=kernels, plain_reps=plain_reps)
+            r8 = run_case(f"{cname} {mode}", rows8, wins, 256, qs8, {"this": builds["this"]},
+                          reps)
+            res["u8"], res["u8 device"] = r8["this"], r8["this device"]
+            report(f"u16 {cname} {mode}", rows, wins, res)
+    del rows8
+    for cname, wins in edge_cases(n).items():
+        for mode in MODES:
+            run_case(f"u16 {cname}", rows, wins, 1024, scales if mode == "int8" else None,
+                     builds, reps, timed=False)
+        if verbose:
+            print(f"edge case u16 {cname}: windows {wins}: every build equals the plain "
+                  "version in both modes")
+    del rows
+    torch.cuda.empty_cache()
+    narrow, _ = synthetic_rows_u16(n, ROOT_FEATURES, dev, seed=2, bins=(300, 700))
+    for mode in MODES:
+        run_case("u16 root, 700 bins of 1,024", narrow, [(0, n)], 1024,
+                 int8_scales(narrow) if mode == "int8" else None, builds, reps, timed=False)
+    if verbose:
+        print("edge case u16 root, 700 bins of 1,024 (three ranges, the fourth 0): every build "
+              "equals the plain version in both modes")
+    del narrow
+    torch.cuda.empty_cache()
+    for f, span, b in ((WIDE_BIN_FEATURES, (300, 1024), 1024), (ROOT_FEATURES, (5000, 8192), 8192)):
+        rows, _ = synthetic_rows_u16(n, f, dev, seed=3, bins=span)
+        for mode in MODES:
+            key = f"u16 root F={f} B={b} {mode}"
+            report(key, rows, [(0, n)], run_case(key, rows, [(0, n)], b,
+                                                 int8_scales(rows) if mode == "int8" else None,
+                                                 builds, reps, kernels=kernels))
+        del rows
+        torch.cuda.empty_cache()
+    return results
 
 
 if __name__ == "__main__":

@@ -62,6 +62,7 @@ from ..ops.forest_walk import (
 )
 from ..ops.grower import GrowerParams, grow_tree, int8_acc_eligible
 from ..ops.histogram import row_major_bins
+from ..ops.seg import byte_planes
 from ..predict import predict_bins_raw, predict_real_raw, stack_bin_trees, stack_real_trees
 from ..quantize import hist_acc_scales, quantize_gradients
 from ..tree import Tree
@@ -70,23 +71,39 @@ _EPS = 1e-15
 _MODEL_VERSION = "v4"
 PREDICT_CHUNK = 1 << 20  # rows binned and walked per launch
 REAL_WALK_CELLS = 1 << 24  # rows x trees of one real-space walk
-# the seg layout's feature budget at max_bin <= 256 (boosting/gbdt.py:1318)
+# the seg layout's feature budget (boosting/gbdt.py:1317): two byte bins a
+# TPU i16 plane up to 256 padded bins, one u16 plane a feature past them
 SEG_MAX_FEATURES = 242
+SEG_MAX_FEATURES_WIDE = 121
+# the widest padded bin axis seg_vmem_ok admits (lightgbm_tpu/ops/pallas/
+# seg.py:139; its histogram scratch does not depend on F), and the most any
+# layout takes (boosting/gbdt.py:1322)
+SEG_MAX_BIN_PADDED = 8192
+MAX_BIN_PADDED = 65536
 
 
 def resolve_hist_mode(n_used: int, max_bin_padded: int) -> str:
-    """The JAX package's layout rule (boosting/gbdt.py:1313-1369): 'seg'
-    when the bins fit a byte and 0 < used features <= 242, else 'ordered',
-    with the JAX package's warning.  (At max_bin <= 256 the seg kernels'
-    scratch does not depend on F, so the cap is the whole rule.)"""
-    if max_bin_padded <= 256 and 0 < n_used <= SEG_MAX_FEATURES:
+    """The JAX package's layout rule (boosting/gbdt.py:1309-1369): 'seg'
+    at 0 < used columns <= 242 when the bins fit a byte, <= 121 at a padded
+    width of 512 to 8192, else 'ordered', with the JAX package's warning
+    for each reason."""
+    fcap = SEG_MAX_FEATURES if max_bin_padded <= 256 else SEG_MAX_FEATURES_WIDE
+    fits = max_bin_padded <= SEG_MAX_BIN_PADDED
+    if max_bin_padded <= MAX_BIN_PADDED and fits and 0 < n_used <= fcap:
         return "seg"
     if n_used > 0:
+        if max_bin_padded > MAX_BIN_PADDED:
+            why = f"max_bin padded to {max_bin_padded} > {MAX_BIN_PADDED}"
+        elif not fits:
+            why = (f"histogram VMEM scratch at {n_used} features x max_bin "
+                   f"{max_bin_padded} exceeds the budget")
+        else:
+            why = f"{n_used} used features > {fcap} (packed row exceeds 128 i16 lanes)"
         warnings.warn(
-            "segment-resident training is unavailable: "
-            f"{n_used} used features > {SEG_MAX_FEATURES} (packed row exceeds 128 "
-            "i16 lanes); falling back to hist_mode='ordered' (1.4-10x slower "
-            "at scale). Consider feature selection.",
+            "segment-resident training is unavailable: " + why + "; falling back to "
+            "hist_mode='ordered' (1.4-10x slower at scale). Consider feature selection"
+            + (" or a smaller max_bin" if fcap == SEG_MAX_FEATURES_WIDE or not fits else "")
+            + ".",
             stacklevel=3,
         )
     return "ordered"
@@ -100,7 +117,7 @@ class _EvalEntry:
         self.name = name
         self.dataset = dataset
         self.metrics = metrics
-        self.bins = bins  # [N, P] u8
+        self.bins = bins  # [N, P] u8 (i32 past 256 bins)
         self.score = score  # [N] f32
 
 
@@ -192,7 +209,18 @@ class Booster:
         # the budget counts bin columns: EFB planes (boosting/gbdt.py:1295-1297)
         self.hist_mode = cfg.hist_mode or resolve_hist_mode(ds.num_planes, ds.max_bin_padded)
         cfg.check_layout(self.hist_mode)
-        self._bins_fn = torch.as_tensor(np.ascontiguousarray(ds.bins.T), device=dev)
+        if self.hist_mode == "ordered" and ds.max_bin_padded > 256:
+            raise NotImplementedError(
+                f"hist_mode='ordered' at max_bin padded to {ds.max_bin_padded} not yet "
+                "ported to lightgbm_tpu_torch (ROADMAP Queue 1, item 4: the ordered "
+                "histogram's u16 mode, kernel rows 7-8); the seg layout takes such "
+                f"bins at up to {SEG_MAX_FEATURES_WIDE} columns and a padded width of "
+                f"{SEG_MAX_BIN_PADDED}")
+        # feature-major bins; past 256 bins each column as two byte planes
+        # (lo, hi: the seg rows' u16 mode, ops/seg.py)
+        bins_fn = np.ascontiguousarray(ds.bins.T)
+        self._bins_fn = (torch.as_tensor(bins_fn, device=dev) if bins_fn.dtype == np.uint8
+                         else byte_planes(torch.as_tensor(bins_fn.astype(np.int32))).to(dev))
         # the ordered layout reads whole rows: a row-major copy beside the
         # feature-major one that its partition reads a column of
         self._bins_nf = (
@@ -418,11 +446,21 @@ class Booster:
         cols = [self.bin_mappers[j].values_to_bins(x[:, j]) for j in self.used_features]
         return np.stack(cols, axis=1) if cols else np.zeros((len(x), 0), np.int32)
 
+    def _bin_type(self, bins):
+        """Rows' bins [N, P] (an array or a tensor) as the walkers take them
+        on the booster's device: u8, or i32 past 256 bins (the plain walker
+        then walks them, ``walk_reject_reason``)."""
+        dt = torch.uint8 if self._max_bin <= 256 else torch.int32
+        if isinstance(bins, np.ndarray):
+            bins = torch.as_tensor(bins.astype(np.int32) if bins.dtype == np.uint16 else bins)
+        return bins.to(device=self.device, dtype=dt)
+
     def predict_raw_bins(self, bins: torch.Tensor, t0: int = 0,
                          t1: Optional[int] = None) -> torch.Tensor:
-        """Raw scores [N] of already-binned rows [N, P] u8 (the training
-        Dataset's columns: EFB planes, or used features) on the booster's
-        device, through trees [t0, t1) (all by default)."""
+        """Raw scores [N] of already-binned rows [N, P] (u8, or i32 past
+        256 bins; the training Dataset's columns: EFB planes, or used
+        features) on the booster's device, through trees [t0, t1) (all by
+        default)."""
         tables = self._walk_tables(t0, t1)
         if isinstance(tables, ForestTables):
             raw = forest_walk(bins, tables, self.num_class)[:, 0]
@@ -471,7 +509,7 @@ class Booster:
                 )
             if self.bundle_layout is not None:
                 bins = self.bundle_layout.pack_tensor(bins, self.used_features)
-            parts.append(self.predict_raw_bins(bins.to(torch.uint8), t0, t1))
+            parts.append(self.predict_raw_bins(self._bin_type(bins), t0, t1))
         raw = torch.cat(parts) if parts else torch.zeros(0, device=self.device)
         return self._finish_predict(raw, raw_score)
 
@@ -527,7 +565,7 @@ class Booster:
                 "a validation set must be binned like the training set: make it "
                 "with Dataset(..., reference=train_set)")
         metrics = create_metrics(self.config, data.label, data.weight, self.device)
-        bins = torch.as_tensor(data.bins, device=self.device)
+        bins = self._bin_type(data.bins)
         score = self._start_score(data)
         for tree in self.trees:
             if tree.num_leaves <= 1:

@@ -28,8 +28,10 @@ import torch
 
 from .binning import MissingType
 
-# plane bin budget (bins stay byte-sized)
+# a bundle plane's bin budget (lightgbm_tpu/bundling.py:38): bundle planes
+# stay byte-sized whatever max_bin, beside singleton planes of up to 2^16 bins
 MAX_PLANE_BINS = 256
+RANK_STRIDE = 1 << 16  # pack_tensor's key: a member's rank above its bin
 # bundles past this count stop being probed; later features stay singletons
 MAX_SEARCH_GROUPS = 512
 # columns denser than this cannot usefully be exclusive with anything
@@ -132,14 +134,15 @@ class BundleLayout:
             base[ci] = self.starts[p][k] - 1 if self.is_bundle(p) else 0
         loc = local.to(torch.int32)
         packed = loc + torch.as_tensor(base, dtype=torch.int32, device=dev)
-        # (rank + 1) * 256 + bin where the member is nonzero: the amax over a
+        # (rank + 1) * 2^16 + bin where the member is nonzero (a bin is
+        # below 2^16, a singleton plane's past 256 too): the amax over a
         # plane's members is its highest nonzero member's bin
-        key = torch.where(loc > 0, packed + 256 * (torch.as_tensor(rank, dtype=torch.int32,
-                                                                   device=dev) + 1), 0)
+        key = torch.where(loc > 0, packed + RANK_STRIDE * (
+            torch.as_tensor(rank, dtype=torch.int32, device=dev) + 1), 0)
         out = torch.zeros((n, self.num_planes), dtype=torch.int32, device=dev)
         idx = torch.as_tensor(plane, device=dev).expand(n, -1)
         out.scatter_reduce_(1, idx, key, "amax")
-        return out % 256
+        return out % RANK_STRIDE
 
 
 def _eligible(mapper, budget: int) -> bool:

@@ -278,10 +278,14 @@ class Config:
             raise ValueError("num_leaves must be >= 2")
         if not 0.0 <= cfg.max_conflict_rate < 1.0:
             raise ValueError("max_conflict_rate must be in [0, 1)")
-        if not 2 <= cfg.max_bin <= 255:
+        if cfg.max_bin < 2:
+            raise ValueError("max_bin must be >= 2")
+        if cfg.max_bin > 255 and cfg.hist_mode == "ordered":
             raise ValueError(
-                "max_bin must be in [2, 255]: the port stores bins, NaN bin "
-                "included, as bytes"
+                "max_bin > 255 on hist_mode='ordered' not yet ported to "
+                "lightgbm_tpu_torch (the ordered histogram's u16 mode, kernel "
+                "rows 7-8): leave hist_mode to the layout rule, which trains "
+                "such data on 'seg' at up to 121 features"
             )
         return cfg
 

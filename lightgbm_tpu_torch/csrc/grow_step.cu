@@ -38,6 +38,12 @@
 // What bounds it on an H100: memory.  The least traffic is reading each
 // window's rows once and writing them once, 2 * cnt * (F + 16) bytes, plus
 // the K * F * B * 12 output bytes.
+//
+// Past 256 bins (nbins > 256: the TPU kernel's u16 mode, one u16 plane a
+// feature, grow_step.py:231, :247, :260) the rows hold each feature as two
+// byte planes (lo, hi), f = 2 x features: the partition's u16 mode decides
+// by lo | hi << 8 and moves the planes as bytes, and the histogram runs
+// `ranges` bin ranges of 256 (lane_hist.cuh).
 
 #include "partition.cu"
 #include "lane_hist.cuh"
@@ -48,14 +54,16 @@
 // mode's accumulate (lhist::Acc<int8, false>) plans.  Negative: minus a CUDA
 // error.
 extern "C" long long lgbt_grow_step_scratch(int f, int nbins, int int8) {
-  if (f <= 0 || nbins <= 0 || nbins > 256) return -(long long)cudaErrorInvalidValue;
+  if (f <= 0 || nbins <= 0 || nbins > 65536) return -(long long)cudaErrorInvalidValue;
   return int8 ? lhist::scratch_bytes<true>(f, nbins) : lhist::scratch_bytes<false>(f, nbins);
 }
 
 // One fused grow step over k disjoint windows.  The arguments up to epoch are
-// lgbt_partition's (members: host i64 [k, kMemberCols] rows (start, cnt, feat,
-// tbin, dl, nanb, iscat, the table's words); the partition's scratch, status
-// and staged words, counter, epoch).
+// lgbt_partition's but its wide, which nbins > 256 implies (f: the planes;
+// members: host i64 [k, kMemberCols] rows (start, cnt, feat, tbin, dl, nanb,
+// iscat, the table's words); the partition's scratch, status and staged
+// words, counter, epoch).  ranges: the histogram's bin ranges of 256 (1 at
+// nbins <= 256).
 // scales: device [2] f32 for the int8 mode, null for f32; hscratch: device,
 // 16-byte aligned, of lgbt_grow_step_scratch bytes (hscratch_bytes); dec: i32
 // [k, 4] receives (nl, nr, child_start, child_cnt); out: f32 [k, f, nbins, 3],
@@ -63,19 +71,22 @@ extern "C" long long lgbt_grow_step_scratch(int f, int nbins, int int8) {
 extern "C" int lgbt_grow_step(void* bins, void* g, void* h, void* m, void* ridx, long long n,
                               int f, const long long* members, int k, int tile, void* s_planes,
                               void* s_cols, long long s_stride, void* status, void* staged,
-                              void* counter, unsigned epoch, int nbins, const void* scales,
-                              void* hscratch, long long hscratch_bytes, void* dec, void* out,
-                              void* stream) {
-  if (k < 1 || k > lhist::kMaxWindows || nbins <= 0 || nbins > 256 ||
+                              void* counter, unsigned epoch, int nbins, int ranges,
+                              const void* scales, void* hscratch, long long hscratch_bytes,
+                              void* dec, void* out, void* stream) {
+  if (k < 1 || k > lhist::kMaxWindows || nbins <= 0 || nbins > 65536 ||
       hscratch_bytes < lhist::kNlBytes) {
     return (int)cudaErrorInvalidValue;
   }
+  const int wide = nbins > lhist::kRangeBins;
   int* nl = (int*)hscratch;
-  const int rc = lgbt_partition(bins, g, h, m, ridx, n, f, members, k, tile, s_planes, s_cols,
-                                s_stride, status, staged, counter, epoch, nl, stream);
+  const int rc = lgbt_partition(bins, g, h, m, ridx, n, f, wide, members, k, tile, s_planes,
+                                s_cols, s_stride, status, staged, counter, epoch, nl, stream);
   if (rc != 0) return rc;
+  if (wide) f /= 2;  // the histogram's features
   lhist::Windows win;
   win.k = k;
+  win.ranges = ranges;
   for (int i = 0; i < k; ++i) {
     win.start[i] = members[kMemberCols * i];
     win.cnt[i] = members[kMemberCols * i + 1] > 0 ? members[kMemberCols * i + 1] : 0;

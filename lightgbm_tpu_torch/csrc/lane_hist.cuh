@@ -8,16 +8,22 @@
 // partition and its histogram.
 //
 // Layout (the port's seg rows): bins u8 feature-major [f, n]; g, h, m f32
-// [n].  Pass 1 (lane_hist_accumulate): a grid of (row chunk, 32-feature
-// group) blocks, the chunks of every window in one run (each window takes
-// chunks in proportion to its rows, as many as fill the card once, so that
-// a large window does not wait on a small one's share).  Lane j of every
+// [n].  Past 256 bins (nbins > kRangeBins, the u16 mode) a feature's bin is
+// two byte planes, lo at plane 2j and hi at 2j + 1, bin = lo | hi << 8.
+// Pass 1 (lane_hist_accumulate): a grid of (row chunk, 32-feature group,
+// bin range) blocks, the chunks of every window in one run (each window
+// takes chunks in proportion to its rows, as many as fill the card once,
+// so that a large window does not wait on a small one's share).  A bin
+// range is kRangeBins bins: a block adds the rows whose bin lies in its
+// range [256 r, 256 r + 256) and sends every other row to the trash bin,
+// so its table is the u8 mode's; the u8 mode is one range.  Lane j of every
 // warp owns feature f0 + j.  A warp takes 32 rows at a time: lane u loads
 // row u's g, h, m (consecutive lanes, consecutive rows) and turns them into
 // what the row adds (hist_block.cuh row_stat: g*m, h*m, m != 0, or the int8
 // digits), while lane j loads the 32 bytes of those rows in its own
 // feature's plane as nine aligned 4-byte words and shifts them into place
-// (any alignment of the window); then for each of the 32 rows the warp
+// (any alignment of the window; in the u16 mode its hi plane likewise);
+// then for each of the 32 rows the warp
 // takes the row's values by shuffles and lane j adds them to its feature's
 // cell of the row's bin.  The block's histogram is [plane][bin][32] words
 // in shared memory (f32: 96 KB, int8: 160 KB at B = 256), so lane j's
@@ -45,7 +51,8 @@
 //     fused step this took 5% longer than sixteen atomic warps on the root's
 //     children, 2% at K=4, 10% at F = 242, and 0-4% less on small windows.
 // The block then copies its whole histogram to its slot of a scratch.
-// Pass 2 (lane_hist_reduce) sums each cell over the window's chunks in a
+// Pass 2 (lane_hist_reduce) sums each cell over the window's chunks (of
+// the cell's range; a bin past the launch's ranges is written 0) in a
 // fixed order (kSlices threads a cell, each over every kSlices-th chunk in
 // order, then the slices in order), recombines the int8 digit sums as
 // combine_int8 does ((f32(S_hi) * 128 + f32(S_lo)) * scale, bit-equal under
@@ -57,7 +64,9 @@
 // plus the output; in practice the shared memory pipe: in int8 mode five
 // atomics a row and feature, as for the ordered histogram (ordered_hist.cu);
 // in-order f32 likewise, at five shared-memory operations a row and
-// feature, and one warp's issue, two warps a multiprocessor.
+// feature, and one warp's issue, two warps a multiprocessor.  The u16 mode
+// reads every row once a range: about the u8 time times the ranges, which
+// the host sizes by the widest feature's bins (1,024 bins: 4 ranges).
 //
 // Used by csrc/seg_hist.cu (host windows: no left counts, no dec) and
 // csrc/grow_step.cu (the elected children).
@@ -84,6 +93,7 @@ constexpr int kReduceThreads = 1024;
 constexpr int kReduceCells = 128;  // cells of one reduce block: 4 bins of 32 lanes
 constexpr int kSlices = kReduceThreads / kReduceCells;  // threads a cell
 constexpr int kNlBytes = 64;  // the scratch's head: the partition's left counts
+constexpr int kRangeBins = 256;  // bins of a block's table; past them, the u16 mode
 
 // How an accumulate block adds (see the top), in the segment histogram
 // (kSeg) or the fused grow step: int8 with shared atomics, 32 or 16 warps;
@@ -118,9 +128,11 @@ struct Table {
 };
 
 // k windows and their chunks: window i takes chunks [chunk0[i],
-// chunk0[i + 1]) of the launch (plan_chunks)
+// chunk0[i + 1]) of the launch (plan_chunks), in each of the launch's
+// `ranges` bin ranges (1 in the u8 mode)
 struct Windows {
   int k;
+  int ranges;
   long long start[kMaxWindows];
   long long cnt[kMaxWindows];
   long long chunk0[kMaxWindows + 1];
@@ -152,6 +164,7 @@ __device__ __host__ __forceinline__ long long window_chunks(long long c, long lo
 // The chunks each window may take: as many as its rows need (a smaller
 // child, `children`, holds at most half its window), at most its share, by
 // rows, of the `fill` blocks that fill the card once, and at least one.
+// `groups`: the blocks a chunk takes (feature groups times bin ranges).
 inline void plan_chunks(Windows& w, bool children, int groups, long long fill) {
   long long total = 0;
   for (int i = 0; i < w.k; ++i) total += w.cnt[i];
@@ -218,15 +231,31 @@ __device__ __forceinline__ void load_run32(const uint8_t* p, int nv, uint32_t (&
 // nine aligned words of the lane's plane that cover the batch, kept as
 // loaded (nothing reads them until the batch is added, so the loads of
 // later batches stay in flight meanwhile).
+// kWide: also the nine words of the hi plane (hw, at its own alignment ah).
+template <bool kWide>
 struct Raw {
   float g, h, m;
   uint32_t aw[9];
-  int nv, a;  // rows of the batch (0: none), alignment of its first byte
+  uint32_t hw[kWide ? 9 : 1];
+  int nv, a, ah;  // rows of the batch (0: none), alignment of its first byte
 };
 
-__device__ __forceinline__ void load_raw(Raw& r, const uint8_t* plane, bool has,
-                                         const float* g, const float* h, const float* m,
-                                         long long s, long long base, long long i1, int lane) {
+// The nine aligned words that cover the batch's nv bytes from p (none when
+// !load), and the alignment of p.
+__device__ __forceinline__ int load_words(uint32_t (&w)[9], const uint8_t* p, bool load, int nv) {
+  const int a = (int)((uintptr_t)p & 3);
+  const uint32_t* src = reinterpret_cast<const uint32_t*>(p - a);
+  const int nw = load && nv > 0 ? (a + nv + 3) >> 2 : 0;
+#pragma unroll
+  for (int i = 0; i < 9; ++i) w[i] = i < nw ? __ldg(src + i) : 0u;
+  return a;
+}
+
+template <bool kWide>
+__device__ __forceinline__ void load_raw(Raw<kWide>& r, const uint8_t* plane, long long n,
+                                         bool has, const float* g, const float* h,
+                                         const float* m, long long s, long long base,
+                                         long long i1, int lane) {
   r.nv = base < i1 ? (int)min(32LL, i1 - base) : 0;
   r.g = r.h = r.m = 0.0f;
   if (lane < r.nv) {
@@ -234,12 +263,18 @@ __device__ __forceinline__ void load_raw(Raw& r, const uint8_t* plane, bool has,
     r.h = h[s + base + lane];
     r.m = m[s + base + lane];
   }
-  const uint8_t* p = plane + base;
-  r.a = (int)((uintptr_t)p & 3);
-  const uint32_t* src = reinterpret_cast<const uint32_t*>(p - r.a);
-  const int nw = has && r.nv > 0 ? (r.a + r.nv + 3) >> 2 : 0;
+  r.a = load_words(r.aw, plane + base, has, r.nv);
+  if constexpr (kWide) r.ah = load_words(r.hw, plane + n + base, has, r.nv);
+}
+
+// The batch's 32 bytes of a plane (its nine words shifted into place).
+__device__ __forceinline__ void place_words(const uint32_t (&aw)[9], int a, uint32_t (&w)[8]) {
 #pragma unroll
-  for (int i = 0; i < 9; ++i) r.aw[i] = i < nw ? __ldg(src + i) : 0u;
+  for (int i = 0; i < 8; ++i) w[i] = __funnelshift_r(aw[i], aw[i + 1], 8 * a);
+}
+
+__device__ __forceinline__ int byte_of(const uint32_t (&w)[8], int q) {
+  return (int)((w[q >> 2] >> (8 * (q & 3))) & 0xffu);
 }
 
 // Rows the in-order warp adds at a time (see add_in_order).
@@ -248,24 +283,28 @@ constexpr int kGroup = 4;
 // One batch added in row order by the block's only warp (Acc<false, *>)
 // to the in-order table, lane j to its feature's cells, which no other
 // thread touches (gh, cnt: the lane's columns of the (g, h) pairs and the
-// counts).  The batch's (g*m, h*m) pairs go to the stage, whence each row's
-// pair reaches every lane as one broadcast load; its counts come from a
+// counts); a row whose bin lies outside [base, base + rbins) goes to the
+// trash bin (kWide: the bin is lo | hi << 8, base the block's range).
+// The batch's (g*m, h*m) pairs go to the stage, whence each row's pair
+// reaches every lane as one broadcast load; its counts come from a
 // ballot.  kGroup rows at a time: their cells read (a pair and a count a
 // row), then each row's sums taken from the latest earlier row of the group
 // with the same cell, or else from the cell, then written back in row
 // order, so that the last write of a cell holds all its rows: the sums of
 // one add after another.  Rows past the batch add zeros (and +0.0 leaves an
 // f32 sum as it is: a sum that starts at +0.0 never becomes -0.0).
-__device__ __forceinline__ void add_in_order(float2* gh, int* cnt, float2* stage, const Raw& raw,
-                                             int nbins, int lane) {
+template <bool kWide>
+__device__ __forceinline__ void add_in_order(float2* gh, int* cnt, float2* stage,
+                                             const Raw<kWide>& raw, int base, int rbins,
+                                             int lane) {
   const Vals v = row_vals<false>(raw.g, raw.h, raw.m, 1.0f, 1.0f);  // 0s past the batch
   const uint32_t live = __ballot_sync(0xffffffffu, v.c != 0);
   __syncwarp();  // every lane has read the stage's last batch
   stage[lane] = make_float2(__uint_as_float(v.a), __uint_as_float(v.b));
   __syncwarp();
-  uint32_t w[8];
-#pragma unroll
-  for (int i = 0; i < 8; ++i) w[i] = __funnelshift_r(raw.aw[i], raw.aw[i + 1], 8 * raw.a);
+  uint32_t w[8], wh[8];
+  place_words(raw.aw, raw.a, w);
+  if constexpr (kWide) place_words(raw.hw, raw.ah, wh);
 #pragma unroll
   for (int q0 = 0; q0 < 32; q0 += kGroup) {
     if (q0 >= raw.nv) break;  // nv is the same on every lane
@@ -274,8 +313,9 @@ __device__ __forceinline__ void add_in_order(float2* gh, int* cnt, float2* stage
 #pragma unroll
     for (int k = 0; k < kGroup; ++k) {
       const int q = q0 + k;
-      const int b = (int)((w[q >> 2] >> (8 * (q & 3))) & 0xffu);
-      cell[k] = (b < nbins ? b : kOrderBins - 1) * kLanes;
+      int b = byte_of(w, q);
+      if constexpr (kWide) b = (b | byte_of(wh, q) << 8) - base;
+      cell[k] = ((unsigned)b < (unsigned)rbins ? b : kOrderBins - 1) * kLanes;
       x[k] = stage[q];
     }
 #pragma unroll
@@ -325,15 +365,16 @@ __device__ __forceinline__ void hist_mark(long long blk, int k) {
 #define HIST_MARK(b, k)
 #endif
 
-// Pass 1: the (row chunk, feature group) block's histogram in shared
-// memory, copied out whole into its slot of the scratch (slot: group *
-// chunks of the launch + chunk).
-template <bool kInt8, bool kSeg>
+// Pass 1: the (row chunk, feature group, bin range) block's histogram of
+// its range's rbins bins in shared memory, copied out whole into its slot
+// of the scratch (slot: (range * groups + group) * chunks of the launch +
+// chunk).  kWide: the u16 mode (two byte planes a feature).
+template <bool kInt8, bool kSeg, bool kWide>
 __global__ void __launch_bounds__((Acc<kInt8, kSeg>::kThreads))
     lane_hist_accumulate(const uint8_t* __restrict__ bins, long long n,
                          const float* __restrict__ g, const float* __restrict__ h,
                          const float* __restrict__ m, Windows win, const int* __restrict__ nl,
-                         int f, int nbins, const float* __restrict__ scales,
+                         int f, int rbins, const float* __restrict__ scales,
                          int* __restrict__ scratch) {
   constexpr int kThreads = Acc<kInt8, kSeg>::kThreads;
   constexpr int kWarps = Acc<kInt8, kSeg>::kWarps;
@@ -346,11 +387,12 @@ __global__ void __launch_bounds__((Acc<kInt8, kSeg>::kThreads))
   const long long chunks = window_chunks(c, win.chunk0[k + 1] - win.chunk0[k]);
   const long long xi = x - win.chunk0[k];
   if (xi >= chunks) return;  // whole block: no barrier yet
-  const long long slot = (long long)blockIdx.y * gridDim.x + x;
+  const long long slot = ((long long)blockIdx.z * gridDim.y + blockIdx.y) * gridDim.x + x;
   HIST_MARK(slot, 0);
 
   const int lane = threadIdx.x & 31;
-  const int pw = nbins * kLanes;  // words of a plane of the image
+  const int base = (int)blockIdx.z * kRangeBins;  // the range's first bin
+  const int pw = rbins * kLanes;  // words of a plane of the image
   const int words = Table<kInt8>::kWords * pw;  // of the image
   constexpr bool kInOrder = Acc<kInt8, kSeg>::kInOrder;
   const int table = kInOrder ? 3 * kOrderPlane : words;
@@ -366,33 +408,36 @@ __global__ void __launch_bounds__((Acc<kInt8, kSeg>::kThreads))
   const long long per = (c + chunks - 1) / chunks;
   const long long i0 = xi * per;
   const long long i1 = min(i0 + per, c);
-  const uint8_t* plane = bins + (long long)(has ? feat : 0) * n + s;
+  // the feature's plane (kWide: its lo plane, the hi plane n bytes on)
+  const uint8_t* plane = bins + (long long)(has ? feat : 0) * (kWide ? 2 : 1) * n + s;
 
   if constexpr (kInOrder) {  // the block's only warp, in row order
     float2* gh = reinterpret_cast<float2*>(lh_smem) + lane;
     int* cnt = lh_smem + 2 * kOrderPlane + lane;
     float2* stage = reinterpret_cast<float2*>(lh_smem + 3 * kOrderPlane);
-    Raw r0, r1, r2;
-    load_raw(r0, plane, has, g, h, m, s, i0, i1, lane);
-    load_raw(r1, plane, has, g, h, m, s, i0 + 32, i1, lane);
-    load_raw(r2, plane, has, g, h, m, s, i0 + 64, i1, lane);
-    for (long long base = i0; base < i1; base += 32) {
-      Raw r3;
-      load_raw(r3, plane, has, g, h, m, s, base + 96, i1, lane);
-      add_in_order(gh, cnt, stage, r0, nbins, lane);
+    Raw<kWide> r0, r1, r2;
+    load_raw(r0, plane, n, has, g, h, m, s, i0, i1, lane);
+    load_raw(r1, plane, n, has, g, h, m, s, i0 + 32, i1, lane);
+    load_raw(r2, plane, n, has, g, h, m, s, i0 + 64, i1, lane);
+    for (long long row = i0; row < i1; row += 32) {
+      Raw<kWide> r3;
+      load_raw(r3, plane, n, has, g, h, m, s, row + 96, i1, lane);
+      add_in_order(gh, cnt, stage, r0, base, rbins, lane);
       r0 = r1;
       r1 = r2;
       r2 = r3;
     }
   } else {  // int8: interleaved rows, shared integer atomics
     const int warp = threadIdx.x >> 5;
-    for (long long base = i0 + (long long)warp * 32; base < i1; base += (long long)kWarps * 32) {
-      const int nv = (int)min(32LL, i1 - base);
+    for (long long row = i0 + (long long)warp * 32; row < i1; row += (long long)kWarps * 32) {
+      const int nv = (int)min(32LL, i1 - row);
       Vals v{0u, 0u, 0};
-      if (lane < nv) v = row_vals<kInt8>(g[s + base + lane], h[s + base + lane],
-                                         m[s + base + lane], inv_g, inv_h);
+      if (lane < nv) v = row_vals<kInt8>(g[s + row + lane], h[s + row + lane],
+                                         m[s + row + lane], inv_g, inv_h);
       uint32_t w[8] = {0u, 0u, 0u, 0u, 0u, 0u, 0u, 0u};
-      if (has) load_run32(plane + base, nv, w);
+      uint32_t wh[8] = {0u, 0u, 0u, 0u, 0u, 0u, 0u, 0u};
+      if (has) load_run32(plane + row, nv, w);
+      if (kWide && has) load_run32(plane + n + row, nv, wh);
 #pragma unroll
       for (int q = 0; q < 32; ++q) {
         if (q >= nv) break;  // nv is the same on every lane
@@ -400,8 +445,9 @@ __global__ void __launch_bounds__((Acc<kInt8, kSeg>::kThreads))
         r.a = __shfl_sync(0xffffffffu, v.a, q);
         r.b = 0u;
         r.c = __shfl_sync(0xffffffffu, v.c, q);
-        const int b = (int)((w[q >> 2] >> (8 * (q & 3))) & 0xffu);
-        if (has && b < nbins) add_digits(lh_smem, b * kLanes + lane, pw, r);
+        int b = byte_of(w, q);
+        if constexpr (kWide) b = (b | byte_of(wh, q) << 8) - base;
+        if (has && (unsigned)b < (unsigned)rbins) add_digits(lh_smem, b * kLanes + lane, pw, r);
       }
     }
   }
@@ -429,8 +475,9 @@ __global__ void __launch_bounds__((Acc<kInt8, kSeg>::kThreads))
 }
 
 // Pass 2: each (kReduceCells cells, feature group, window) tile of the
-// output summed over the window's chunks in a fixed order (thread slice t
-// over chunks t, t + kSlices, ... in order, then the slices in order),
+// output summed over the window's chunks of the tile's bin range in a
+// fixed order (thread slice t over chunks t, t + kSlices, ... in order,
+// then the slices in order; a bin past the launch's ranges sums nothing),
 // recombined (int8), and written out through a transpose; with nl and dec,
 // block (0, 0, k) also writes dec[k] = (nl, nr, child start, child cnt).
 template <bool kInt8>
@@ -453,19 +500,21 @@ __global__ void __launch_bounds__(kReduceThreads)
     dec[4 * k + 2] = (int)s;
     dec[4 * k + 3] = (int)c;
   }
-  const int pw = nbins * kLanes;
+  const int pw = (nbins < kRangeBins ? nbins : kRangeBins) * kLanes;  // of an image's plane
   const long long words = (long long)P * pw;
   const long long chunks = window_chunks(c, win.chunk0[k + 1] - win.chunk0[k]);
-  const int* part = scratch + ((long long)blockIdx.y * win.chunk0[win.k] + win.chunk0[k]) * words;
   const int e = threadIdx.x % kReduceCells;
   const int slice = threadIdx.x / kReduceCells;
-  const int cell = blockIdx.x * kReduceCells + e;
+  const int r = (int)(((long long)blockIdx.x * kReduceCells) / pw);  // the tile's range
+  const int cell = blockIdx.x * kReduceCells + e - r * pw;  // its cell in the range's images
+  const int* part =
+      scratch + (((long long)r * gridDim.y + blockIdx.y) * win.chunk0[win.k] + win.chunk0[k]) * words;
 
   int acc[P];
   float fa = 0.0f, fb = 0.0f;
 #pragma unroll
   for (int p = 0; p < P; ++p) acc[p] = 0;
-  if (cell < pw) {
+  if (r < win.ranges && cell < pw) {
     for (long long q = slice; q < chunks; q += kSlices) {
       const int* im = part + q * words + cell;
       if constexpr (kInt8) {
@@ -537,19 +586,23 @@ inline int sm_count() {
   return sms;
 }
 
-// accumulate blocks the card holds at once at 256 bins, found once (0 on
-// error, with the error in *err)
+// accumulate blocks the card holds at once at 256 bins (of the u8 mode's
+// build), found once (0 on error, with the error in *err); both modes' builds
+// may take that much shared memory from then on
 template <bool kInt8, bool kSeg>
 long long fill_blocks(cudaError_t* err) {
   static long long fill = 0;
   if (fill == 0) {
-    const int bytes = (int)Table<kInt8>::smem_bytes(256);
-    *err = cudaFuncSetAttribute(lane_hist_accumulate<kInt8, kSeg>,
+    const int bytes = (int)Table<kInt8>::smem_bytes(kRangeBins);
+    *err = cudaFuncSetAttribute(lane_hist_accumulate<kInt8, kSeg, false>,
+                                cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+    if (*err != cudaSuccess) return 0;
+    *err = cudaFuncSetAttribute(lane_hist_accumulate<kInt8, kSeg, true>,
                                 cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
     if (*err != cudaSuccess) return 0;
     int r = 0;
     *err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-        &r, lane_hist_accumulate<kInt8, kSeg>, Acc<kInt8, kSeg>::kThreads, bytes);
+        &r, lane_hist_accumulate<kInt8, kSeg, false>, Acc<kInt8, kSeg>::kThreads, bytes);
     if (*err != cudaSuccess) return 0;
     if (r < 1) {
       *err = cudaErrorInvalidConfiguration;
@@ -560,39 +613,61 @@ long long fill_blocks(cudaError_t* err) {
   return fill;
 }
 
-// Bytes of scratch a launch over any k <= kMaxWindows windows may need: the
-// head for the left counts, then one image a block (plan_chunks gives a
-// group at most fill / groups chunks plus one a window); negative: minus a
-// CUDA error.  kSeg: the segment histogram's blocks (Acc).
+// bin ranges a launch at nbins may take: 1 in the u8 mode, else up to
+// nbins / kRangeBins (the host passes the widest feature's)
+inline int max_ranges(int nbins) {
+  return nbins > kRangeBins ? (nbins + kRangeBins - 1) / kRangeBins : 1;
+}
+
+// Bytes of scratch a launch over any k <= kMaxWindows windows and any bin
+// ranges may need: the head for the left counts, then one image a block
+// (plan_chunks gives each of the groups x ranges at most fill / (groups x
+// ranges) chunks plus one a window: at most fill + one a window each);
+// negative: minus a CUDA error.  kSeg: the segment histogram's blocks (Acc).
 template <bool kInt8, bool kSeg = false>
 long long scratch_bytes(int f, int nbins) {
   cudaError_t e = cudaSuccess;
   const long long fill = fill_blocks<kInt8, kSeg>(&e);
   if (e != cudaSuccess) return -(long long)e;
-  const long long groups = (f + kLanes - 1) / kLanes;
-  const long long blocks = groups * (fill / groups + kMaxWindows);
-  return kNlBytes + blocks * (long long)Table<kInt8>::bytes(nbins);
+  const long long groups = (long long)((f + kLanes - 1) / kLanes) * max_ranges(nbins);
+  const long long blocks = fill + groups * kMaxWindows;
+  const int rbins = nbins < kRangeBins ? nbins : kRangeBins;
+  return kNlBytes + blocks * (long long)Table<kInt8>::bytes(rbins);
 }
 
-// The two launches over the windows of `win` (its chunks planned here);
-// with nl (device), each window's smaller child, and dec (device) written.
-// scratch: the images, of scratch_bytes<kInt8, kSeg> less the head.
+// The two launches over the windows of `win` (its chunks planned here, in
+// win.ranges bin ranges: 1 when nbins <= kRangeBins, the u8 mode, else the
+// u16 mode's, 1 to max_ranges(nbins)); with nl (device), each window's
+// smaller child, and dec (device) written.  f: features (the u16 mode
+// reads 2 f planes).  scratch: the images, of scratch_bytes<kInt8, kSeg>
+// less the head.
 template <bool kInt8, bool kSeg = false>
 int launch(const uint8_t* bins, long long n, const float* g, const float* h, const float* m,
            Windows win, const int* nl, int f, int nbins, const float* scales, int* scratch,
            long long scratch_size, int* dec, float* out, cudaStream_t st) {
+  const bool wide = nbins > kRangeBins;
+  if (win.ranges < 1 || win.ranges > max_ranges(nbins)) return (int)cudaErrorInvalidValue;
   cudaError_t e = cudaSuccess;
   const long long fill = fill_blocks<kInt8, kSeg>(&e);
   if (e != cudaSuccess) return (int)e;
   const int groups = (f + kLanes - 1) / kLanes;
-  plan_chunks(win, nl != nullptr, groups, fill);
+  plan_chunks(win, nl != nullptr, groups * win.ranges, fill);
   const long long chunks = win.chunk0[win.k];
-  const long long words = (long long)Table<kInt8>::kWords * nbins * kLanes;
-  if (scratch_size < groups * chunks * words * 4) return (int)cudaErrorInvalidValue;
-  lane_hist_accumulate<kInt8, kSeg>
-      <<<dim3((unsigned)chunks, (unsigned)groups), Acc<kInt8, kSeg>::kThreads,
-         Table<kInt8>::smem_bytes(nbins), st>>>(bins, n, g, h, m, win, nl, f, nbins,
-                                                      scales, scratch);
+  const int rbins = wide ? kRangeBins : nbins;
+  const long long words = (long long)Table<kInt8>::kWords * rbins * kLanes;
+  if (scratch_size < (long long)win.ranges * groups * chunks * words * 4) {
+    return (int)cudaErrorInvalidValue;
+  }
+  const dim3 grid((unsigned)chunks, (unsigned)groups, (unsigned)win.ranges);
+  const size_t smem = Table<kInt8>::smem_bytes(rbins);
+  constexpr int kThreads = Acc<kInt8, kSeg>::kThreads;
+  if (wide) {
+    lane_hist_accumulate<kInt8, kSeg, true><<<grid, kThreads, smem, st>>>(
+        bins, n, g, h, m, win, nl, f, rbins, scales, scratch);
+  } else {
+    lane_hist_accumulate<kInt8, kSeg, false><<<grid, kThreads, smem, st>>>(
+        bins, n, g, h, m, win, nl, f, rbins, scales, scratch);
+  }
   e = cudaGetLastError();
   if (e != cudaSuccess) return (int)e;
   const int bins_a_block = kReduceCells / kLanes;

@@ -23,6 +23,12 @@
 //
 // Layout (the port's, not the TPU's i16 planes): bins u8 feature-major
 // [f, n]; g, h, m f32 and ridx i32 columns [n], moved as 32-bit words.
+// The u16 mode (wide; the TPU kernel's one u16 plane a feature past 256
+// bins, partition.py:244-262): a feature's bin is two byte planes, lo at
+// plane 2 feat and hi at 2 feat + 1, so the moves stay the u8 mode's (every
+// plane a run of bytes) and only the decision reads lo | hi << 8, against
+// a 16-bit tbin and nanb; a table member goes left by its table's bit of
+// the bin, and a bin past the table's 256 goes right.
 //
 // What bounds it on an H100: memory.  The least traffic is reading the
 // windows' rows once and writing them once, 2 * rows * (f + 16) bytes.
@@ -122,7 +128,8 @@ struct Args {
   uint8_t* bins;
   Cols cols;
   long long n;
-  int f;
+  int f;     // planes
+  int wide;  // the u16 mode: feature j's bins are planes 2j (lo) and 2j + 1 (hi)
   uint8_t* s_planes;  // [f, s_stride]
   uint32_t* s_cols;   // [4, s_stride]
   long long s_stride;
@@ -189,7 +196,8 @@ __global__ void __launch_bounds__(kThreads) partition_tile_kernel(Args a, Plan P
   // 1. read the split feature's bytes of the tile's rows, then start
   // staging every plane and column of them
   int key[Chunks<T>::kPerWarp];
-  load_keys<T>(tt, a.bins + (long long)P.feat[w] * n + row0, key);
+  const uint8_t* col = a.bins + (long long)P.feat[w] * (a.wide ? 2 : 1) * n + row0;
+  load_keys<T>(tt, col, a.wide ? col + n : nullptr, key);
   for (int j = threadIdx.x; j < f; j += kThreads) {
     soff[j] = (uint8_t)align16_offset(a.bins + (long long)j * n + row0);
   }
@@ -214,7 +222,8 @@ __global__ void __launch_bounds__(kThreads) partition_tile_kernel(Args a, Plan P
   const int tl = rank_tile<T>(
       tt, key,
       [&](int v) {
-        return by_table ? (int)((s_table[v >> 5] >> (v & 31)) & 1u) : go_left(v, tbin, dl, nanb);
+        return by_table ? (v < 32 * kTableWords && ((s_table[v >> 5] >> (v & 31)) & 1u))
+                        : go_left(v, tbin, dl, nanb);
       },
       src_of, mask, pre, &s_left);
   publish_count(a.status, t, P.tile0[w], (unsigned)tl, a.epoch);
@@ -298,6 +307,8 @@ int launch_tiles(long long tiles, const Args& a, const Plan& P, cudaStream_t st)
 }  // namespace
 
 // K stable partitions of disjoint windows in one call (K = 1: one window).
+// f: the planes; wide != 0: the u16 mode, f = 2 x features (feat is a
+// feature, its bins planes 2 feat and 2 feat + 1).
 // members: host i64 [k, kMemberCols] rows (start, cnt, feat, tbin, dl, nanb,
 // iscat, then the goes-left table's 8 words, bit v & 31 of word v >> 5 for
 // bin v, read when iscat != 0); the
@@ -312,13 +323,15 @@ int launch_tiles(long long tiles, const Args& a, const Plan& P, cudaStream_t st)
 // receives the left counts.  Every pointer 16-byte aligned.  Returns
 // cudaGetLastError() after the launches (0 on success).
 extern "C" int lgbt_partition(void* bins, void* g, void* h, void* m, void* ridx, long long n,
-                              int f, const long long* members, int k, int tile, void* s_planes,
-                              void* s_cols, long long s_stride, void* status, void* staged,
-                              void* counter, unsigned epoch, void* nl_out, void* stream) {
+                              int f, int wide, const long long* members, int k, int tile,
+                              void* s_planes, void* s_cols, long long s_stride, void* status,
+                              void* staged, void* counter, unsigned epoch, void* nl_out,
+                              void* stream) {
   if (k < 1 || k > kMaxWindows || f <= 0 || f > kMaxPlanes || tile <= 0 || epoch == 0 ||
-      epoch >= (1u << 30)) {
+      epoch >= (1u << 30) || (wide && f % 2)) {
     return (int)cudaErrorInvalidValue;
   }
+  const int features = wide ? f / 2 : f;
   Plan P;
   P.k = k;
   P.tile0[0] = 0;
@@ -328,6 +341,7 @@ extern "C" int lgbt_partition(void* bins, void* g, void* h, void* m, void* ridx,
     P.start[i] = r[0];
     P.cnt[i] = r[1] > 0 ? r[1] : 0;
     P.feat[i] = (int)r[2];
+    if (P.cnt[i] > 0 && (r[2] < 0 || r[2] >= features)) return (int)cudaErrorInvalidValue;
     P.tbin[i] = (int)r[3];
     P.dl[i] = (int)r[4];
     P.nanb[i] = (int)r[5];
@@ -342,6 +356,7 @@ extern "C" int lgbt_partition(void* bins, void* g, void* h, void* m, void* ridx,
                Cols{{(uint32_t*)g, (uint32_t*)h, (uint32_t*)m, (uint32_t*)ridx}},
                n,
                f,
+               wide != 0,
                (uint8_t*)s_planes,
                (uint32_t*)s_cols,
                s_stride,

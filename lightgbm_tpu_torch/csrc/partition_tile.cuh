@@ -4,7 +4,8 @@
 // the tiles before it, and its two runs (left rows, right rows) written
 // out as contiguous runs by consecutive lanes.
 //
-// Layout (the port's seg rows): bins u8 feature-major [f, n]; four 4-byte
+// Layout (the port's seg rows): bins u8 feature-major [f, n] (past 256
+// bins, a feature's u16 bin as two byte planes, lo then hi); four 4-byte
 // columns (g, h, m f32 and ridx i32, moved as raw 32-bit words).  A tile
 // is T consecutive rows of one window; it stages f planes of T + 32 bytes
 // and four columns of 4T + 32 bytes, each run of global memory copied as
@@ -81,11 +82,12 @@ struct Chunks {
   static constexpr int kPerWarp = (kCount + kWarps - 1) / kWarps;
 };
 
-// The split feature's bytes of this thread's rows (-1 past the tile's
-// `tt` rows), the loads issued and not waited for: the caller can issue
-// more work before rank_tile uses them.
+// The split feature's bins of this thread's rows (-1 past the tile's
+// `tt` rows): its bytes, or with a hi plane (the u16 mode) lo | hi << 8;
+// the loads issued and not waited for: the caller can issue more work
+// before rank_tile uses them.
 template <int T>
-__device__ __forceinline__ void load_keys(int tt, const uint8_t* col,
+__device__ __forceinline__ void load_keys(int tt, const uint8_t* col, const uint8_t* hi,
                                           int (&key)[Chunks<T>::kPerWarp]) {
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
@@ -93,7 +95,7 @@ __device__ __forceinline__ void load_keys(int tt, const uint8_t* col,
   for (int i = 0; i < Chunks<T>::kPerWarp; ++i) {
     const int r = 32 * (warp + i * kWarps) + lane;
     key[i] = -1;  // a predicated load, no select waiting on it
-    if (r < tt) key[i] = col[r];
+    if (r < tt) key[i] = hi != nullptr ? (int)col[r] | (int)hi[r] << 8 : (int)col[r];
   }
 }
 

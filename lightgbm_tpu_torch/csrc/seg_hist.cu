@@ -13,7 +13,9 @@
 //
 // Layout (the port's own, not the TPU's i16 planes): bins are u8 and
 // feature-major [F, n] so one feature of consecutive rows is one contiguous
-// run; g, h and mask are separate f32 columns [n].
+// run; g, h and mask are separate f32 columns [n].  Past 256 bins (the u16
+// mode of the TPU kernel, one u16 plane a feature, seg.py:96, :405) a
+// feature is two byte planes, lo at 2j and hi at 2j + 1, [2F, n].
 //
 // What bounds it on an H100: in principle memory, one pass over
 // cnt * (F + 12) bytes (F bin bytes and three f32 stats a row) plus the
@@ -29,7 +31,9 @@
 // scratch.  The reduce sums each window's slots in a fixed order,
 // recombines the int8 digit sums (bit-equal to combine_int8 under
 // -fmad=false) and writes every output cell.  No zeroed output, no global
-// atomics, and the sums are the same on every run in both modes.
+// atomics, and the sums are the same on every run in both modes.  The u16
+// mode adds a grid dimension of bin ranges of 256 (lane_hist.cuh): each
+// block's table stays the u8 mode's, and every row is read once a range.
 
 #include "lane_hist.cuh"
 
@@ -39,27 +43,30 @@
 // image a block), so that both kernels can share one scratch.  Negative:
 // minus a CUDA error.
 extern "C" long long lgbt_seg_hist_scratch(int f, int nbins, int int8) {
-  if (f <= 0 || nbins <= 0 || nbins > 256) return -(long long)cudaErrorInvalidValue;
+  if (f <= 0 || nbins <= 0 || nbins > 65536) return -(long long)cudaErrorInvalidValue;
   return int8 ? lhist::scratch_bytes<true, true>(f, nbins)
               : lhist::scratch_bytes<false, true>(f, nbins);
 }
 
-// bins: [f, n] u8; g, h, m: [n] f32; windows: HOST [k, 2] i64 (start, cnt;
-// a negative cnt counts as 0); scales: device [2] f32 (g_scale, h_scale)
-// for the int8 mode, null for f32; scratch: device, 16-byte aligned, of
-// lgbt_seg_hist_scratch bytes (scratch_bytes); out: f32 [k, f, nbins, 3],
-// every cell written.  Returns the CUDA error of the launches (0 on
-// success).
+// bins: [f, n] u8, or [2 f, n] byte planes when nbins > 256 (the u16
+// mode); g, h, m: [n] f32; windows: HOST [k, 2] i64 (start, cnt; a negative
+// cnt counts as 0); ranges: the u16 mode's bin ranges of 256, enough for
+// every bin of the rows (1 in the u8 mode); scales: device [2] f32
+// (g_scale, h_scale) for the int8 mode, null for f32; scratch: device,
+// 16-byte aligned, of lgbt_seg_hist_scratch bytes (scratch_bytes); out: f32
+// [k, f, nbins, 3], every cell written.  Returns the CUDA error of the
+// launches (0 on success).
 extern "C" int lgbt_seg_hist(const void* bins, const void* g, const void* h, const void* m,
                              long long n, const long long* windows, int k, int f, int nbins,
-                             const void* scales, void* scratch, long long scratch_bytes,
-                             void* out, void* stream) {
-  if (k < 1 || k > lhist::kMaxWindows || f <= 0 || nbins <= 0 || nbins > 256 ||
+                             int ranges, const void* scales, void* scratch,
+                             long long scratch_bytes, void* out, void* stream) {
+  if (k < 1 || k > lhist::kMaxWindows || f <= 0 || nbins <= 0 || nbins > 65536 ||
       scratch_bytes < lhist::kNlBytes) {
     return (int)cudaErrorInvalidValue;
   }
   lhist::Windows win;
   win.k = k;
+  win.ranges = ranges;
   for (int i = 0; i < k; ++i) {
     win.start[i] = windows[2 * i];
     win.cnt[i] = windows[2 * i + 1] > 0 ? windows[2 * i + 1] : 0;

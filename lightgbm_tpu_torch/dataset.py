@@ -1,11 +1,12 @@
 """Training data: dense numpy input -> per-feature bin mappers + a u8 bin
-matrix.
+matrix (u16 once a column has more than 256 bins, as
+lightgbm_tpu/dataset.py:852 stores them).
 
 Counterpart of the dense path of ``lightgbm_tpu/dataset.py``: bin mappers are
 fit on a row sample drawn from ``np.random.default_rng(data_random_seed)``
 (the same draw as the JAX package, so both packages bin identically),
 features with a single bin are dropped from training, and the kept columns
-form the ``[N, F]`` uint8 matrix the trainer consumes.  The matrix stays on
+form the ``[N, F]`` uint8 (or uint16) matrix the trainer consumes.  The matrix stays on
 the host; the booster moves it to its device.  With ``enable_bundle`` (the
 default) mutually exclusive sparse columns share bin planes (EFB,
 ``bundling.build_layout`` over the binning sample, as
@@ -76,7 +77,7 @@ class Dataset:
         self.used_features: List[int] = []
         self.feature_names: List[str] = []
         self.num_total_features = 0
-        self.bins: Optional[np.ndarray] = None  # [N, P] uint8, row-major (P planes)
+        self.bins: Optional[np.ndarray] = None  # [N, P] u8 or u16, row-major (P planes)
         self.bundle_layout: Optional[BundleLayout] = None  # None: a plane a used feature
         self.label: Optional[np.ndarray] = None  # [N] float64
         self.weight: Optional[np.ndarray] = None  # [N] float64 or None
@@ -122,15 +123,26 @@ class Dataset:
         self.bundle_layout = ref.bundle_layout
         self.bins = self._binned(data)
 
+    def _bin_dtype(self):
+        """u8, or u16 once a column (an EFB plane, or a used feature) has
+        more than 256 bins (lightgbm_tpu/dataset.py:846-852); a validation
+        set shares its reference's mappers and layout, so its width."""
+        if self.bundle_layout is not None:
+            widest = max(self.bundle_layout.plane_bins, default=1)
+        else:
+            widest = max((self.bin_mappers[j].num_bins for j in self.used_features), default=1)
+        return np.uint8 if widest <= 256 else np.uint16
+
     def _binned(self, data: np.ndarray) -> np.ndarray:
-        """[N, P] u8 bins: each used feature's own bins, packed into the
-        layout's planes when there is one."""
-        local = local_bins(self.bin_mappers, self.used_features, data)
+        """[N, P] u8 (or u16) bins: each used feature's own bins, packed
+        into the layout's planes when there is one."""
+        dtype = self._bin_dtype()
+        local = local_bins(self.bin_mappers, self.used_features, data, dtype)
         if self.bundle_layout is None:
             return local
         pos = {j: ci for ci, j in enumerate(self.used_features)}
         return self.bundle_layout.pack_columns(
-            data.shape[0], lambda j: local[:, pos[j]], dtype=np.uint8)
+            data.shape[0], lambda j: local[:, pos[j]], dtype=dtype)
 
     def _fit_bins(self, cfg: Config, data: np.ndarray) -> None:
         n, f = data.shape
@@ -203,12 +215,12 @@ class Dataset:
         return ceil_pow2(int(nb.max()) if len(nb) else 2)
 
 
-def local_bins(mappers, used_features, data: np.ndarray) -> np.ndarray:
-    """[N, F_used] u8: each used feature's own bins, in blocks of
-    ``BIN_BLOCK_ROWS`` rows whose columns are first made contiguous (a
-    column of a wide row-major table is a strided read)."""
+def local_bins(mappers, used_features, data: np.ndarray, dtype=np.uint8) -> np.ndarray:
+    """[N, F_used] ``dtype`` (u8 or u16): each used feature's own bins, in
+    blocks of ``BIN_BLOCK_ROWS`` rows whose columns are first made
+    contiguous (a column of a wide row-major table is a strided read)."""
     n = data.shape[0]
-    out = np.zeros((n, len(used_features)), np.uint8)
+    out = np.zeros((n, len(used_features)), dtype)
     for r0 in range(0, n, BIN_BLOCK_ROWS):
         blk = np.ascontiguousarray(data[r0 : r0 + BIN_BLOCK_ROWS].T)
         for ci, j in enumerate(used_features):

@@ -11,9 +11,13 @@ partition kernels of ``csrc/partition.cu`` then the histogram of
 ``csrc/lane_hist.cuh`` on each elected child, four launches with no host
 read between them, counted once a call in
 ``_build.LAUNCHES['fused_grow_step']`` (and ``'fused_grow_step_table'`` when
-a live member partitions by its goes-left table).  A member splits by its
+a live member partitions by its goes-left table, ``'fused_grow_step_u16'``
+on u16 rows).  A member splits by its
 threshold or, as the TPU kernel's ``cat_ref`` operand (grow_step.py:95,
-:224-226), by a [B] bool goes-left table: an EFB bundle-plane split.
+:224-226), by a [B] bool goes-left table: an EFB bundle-plane split.  Past
+256 bins (the TPU kernel's ``wide`` mode, grow_step.py:231) the rows are
+the u16 mode's byte planes (``SegRows.wide``) and the histogram runs
+``seg.hist_ranges`` bin ranges.
 """
 
 from __future__ import annotations
@@ -30,6 +34,7 @@ from .seg import (
     MAX_WINDOWS,
     SegRows,
     _device_scales,
+    hist_ranges,
     partition_scratch,
     partition_tile_rows,
     seg_hist_batch_plain,
@@ -111,6 +116,7 @@ def _launch(rows: SegRows, mem: np.ndarray, num_bins: int, quant_scales, fn=None
     k, f = mem.shape[0], rows.f
     if not 1 <= k <= MAX_WINDOWS:
         raise ValueError(f"fused_grow_step takes 1 to {MAX_WINDOWS} windows, got {k}")
+    ranges = hist_ranges(rows, int(num_bins))
     ps = partition_scratch(rows)
     dev = rows.device
     need = scratch_bytes(f, int(num_bins), quant_scales is not None)
@@ -121,10 +127,11 @@ def _launch(rows: SegRows, mem: np.ndarray, num_bins: int, quant_scales, fn=None
     scales = None if quant_scales is None else _device_scales(quant_scales, dev)
     rc = (fn or _build.entry("grow_step"))(
         rows.bins.data_ptr(), rows.g.data_ptr(), rows.h.data_ptr(), rows.m.data_ptr(),
-        rows.ridx.data_ptr(), rows.n, f, mem.ctypes.data, k,
-        partition_tile_rows(f, int(mem[:, 1].sum())), ps.planes.data_ptr(), ps.cols.data_ptr(),
-        ps.stride, ps.status.data_ptr(), ps.staged.data_ptr(), ps.counter.data_ptr(),
-        ps.next_epoch(), int(num_bins), None if scales is None else scales.data_ptr(),
+        rows.ridx.data_ptr(), rows.n, rows.planes, mem.ctypes.data, k,
+        partition_tile_rows(rows.planes, int(mem[:, 1].sum())), ps.planes.data_ptr(),
+        ps.cols.data_ptr(), ps.stride, ps.status.data_ptr(), ps.staged.data_ptr(),
+        ps.counter.data_ptr(), ps.next_epoch(), int(num_bins), ranges,
+        None if scales is None else scales.data_ptr(),
         rows.step.data_ptr(), rows.step.numel(), dec.data_ptr(), out.data_ptr(),
         torch.cuda.current_stream(dev).cuda_stream,
     )
@@ -132,4 +139,6 @@ def _launch(rows: SegRows, mem: np.ndarray, num_bins: int, quant_scales, fn=None
     _build.LAUNCHES["fused_grow_step"] += 1
     if table_mode(mem):
         _build.LAUNCHES["fused_grow_step_table"] += 1
+    if rows.wide:
+        _build.LAUNCHES["fused_grow_step_u16"] += 1
     return dec, out

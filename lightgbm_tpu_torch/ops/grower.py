@@ -49,6 +49,13 @@ goes-left table, and the partition (the fused step, the partition kernel,
 or the ordered layout's PyTorch partition, :1251, :1758-1761) sends the
 rows of the plane bins outside its member's sub-range ``[t, end]`` left.
 
+Bins past a byte (``max_bin`` > 256, the JAX package's wide seg path): the
+seg rows hold each feature as two byte planes (``SegRows.wide``: the u16
+modes of the partition, the histogram and the fused step), and every leaf
+is decided by ``best_split``, near-tie refine included, as the JAX grower
+takes its scan kernel only at ``max_bin <= 256`` (``fused_ok``, :460-479);
+its ties go case-major (the booster's ``case_major_ties``).
+
 Growth stops at ``num_leaves`` or when no leaf has a positive gain.  The
 loop over splits runs on the host: each split reads back the left count
 and the two children's candidates (two host syncs per split -- the cost
@@ -80,6 +87,8 @@ import torch
 from .grow_step import fused_grow_step
 from .histogram import OrderedRows, ordered_hist, ordered_hist_int8
 from .seg import (
+    RANGE_BINS,
+    TABLE_BINS,
     go_left,
     pack_rows,
     seg_hist,
@@ -162,12 +171,18 @@ _NO_SPLIT = SplitCandidate(float("-inf"), 0, 0, False, 0.0, 0.0, 0.0, 0.0, 0.0, 
 def _sum_bins(x: np.ndarray) -> np.ndarray:
     """f32 sum over axis 0 of a [B, 3] histogram row, in the association of
     XLA's CPU reduce (sequential blocks of 32 bins, then the block sums in
-    order) that the JAX package's root totals use (ops/grower.py:1341)."""
-    total = np.zeros(x.shape[1:], _F32)
+    order, themselves summed so past 32 blocks) that the JAX package's root
+    totals use (ops/grower.py:1341)."""
+    sums = []
     for b0 in range(0, x.shape[0], 32):
         s = np.zeros(x.shape[1:], _F32)
         for row in x[b0 : b0 + 32]:
             s = s + row
+        sums.append(s)
+    if len(sums) > 32:
+        return _sum_bins(np.stack(sums))
+    total = np.zeros(x.shape[1:], _F32)
+    for s in sums:
         total = total + s
     return total
 
@@ -193,8 +208,11 @@ class _SegStore:
     """Rows kept physically in leaf order (ops/seg.py): a split is one
     fused grow step, or a partition and a histogram launch."""
 
-    def __init__(self, bins_fn, grad, hess, mask, num_bins: int, qs, fused: bool):
-        self.rows = pack_rows(bins_fn, grad, hess, mask)
+    def __init__(self, bins_fn, grad, hess, mask, num_bins: int, qs, fused: bool,
+                 used_bins: int = 0):
+        # past 256 bins, bins_fn holds each feature as two byte planes
+        self.rows = pack_rows(bins_fn, grad, hess, mask, wide=num_bins > RANGE_BINS,
+                              used_bins=used_bins)
         self.device = self.rows.device
         self.B, self.qs, self.fused = num_bins, qs, fused
 
@@ -211,6 +229,9 @@ class _SegStore:
         goes-left table where ``tables`` has one); (nleft [K] host i64, the
         smaller children's histograms [K, F, B, 3])."""
         iscats = [t is not None for t in tables]
+        # a goes-left table is a bundle plane's, whose bins stay below
+        # TABLE_BINS on a u16 layout too: the kernels take that many
+        tables = [None if t is None else t[:TABLE_BINS] for t in tables]
         if self.fused:
             nl_t, _, _, _, sm = fused_grow_step(
                 self.rows, begins, cnts, feats, tbins, dls, nanbs, self.B,
@@ -240,6 +261,10 @@ class _OrderedStore:
     feature-major ones the partition's column reads."""
 
     def __init__(self, bins_fn, bins_nf, grad, hess, mask, num_bins: int, qs):
+        if num_bins > RANGE_BINS:
+            raise NotImplementedError(
+                "hist_mode='ordered' past 256 bins not yet ported to lightgbm_tpu_torch "
+                "(the ordered histogram's u16 mode, kernel rows 7-8)")
         f, n = int(bins_fn.shape[0]), int(bins_fn.shape[1])
         if bins_nf is None or int(bins_nf.shape[0]) != n or int(bins_nf.shape[1]) < f:
             raise ValueError("the ordered layout needs the [N, >= F] row-major bins (bins_nf)")
@@ -294,7 +319,7 @@ class _OrderedStore:
 
 
 def grow_tree(
-    bins_fn: torch.Tensor,  # [F, N] u8 feature-major bins
+    bins_fn: torch.Tensor,  # [F, N] u8 feature-major bins ([2F, N] byte planes past 256 bins)
     grad: torch.Tensor,  # [N] f32
     hess: torch.Tensor,  # [N] f32
     count_mask: torch.Tensor,  # [N] f32, 1 in bag
@@ -319,14 +344,16 @@ def grow_tree(
     p = params
     L, B = p.num_leaves, p.max_bin
     K = max(1, min(p.leaf_batch, L - 1))
-    f, n = int(bins_fn.shape[0]), int(bins_fn.shape[1])
+    wide = B > RANGE_BINS
+    f, n = int(bins_fn.shape[0]) // (2 if wide else 1), int(bins_fn.shape[1])
     nan_host = nan_bins.cpu().numpy()
     qs = quant_scales
     if p.hist_mode == "ordered":
         store = _OrderedStore(bins_fn, bins_nf, grad, hess, count_mask, B, qs)
         refine = False
     elif p.hist_mode == "seg":
-        store = _SegStore(bins_fn, grad, hess, count_mask, B, qs, p.grow_fused)
+        used = int(num_bins.max()) if wide and f else 0
+        store = _SegStore(bins_fn, grad, hess, count_mask, B, qs, p.grow_fused, used)
         refine = qs is not None
     else:
         raise ValueError(f"hist_mode={p.hist_mode!r} not yet ported to lightgbm_tpu_torch")
@@ -348,8 +375,9 @@ def grow_tree(
     def scan(hists, stats, with_margin=False):
         """Candidates of the leaves with histograms ``hists`` (a list of
         [F, B, 3]): one launch and one transfer for all of them; with
-        ``bundle_end``, ``best_split`` of each, in one batched call."""
-        if bundle_end is not None:
+        ``bundle_end`` or past 256 bins, ``best_split`` of each, in one
+        batched call."""
+        if bundle_end is not None or wide:
             return best_split_batch(torch.stack(hists), stats, num_bins, nan_bins, feature_mask,
                                     bundle_end=bundle_end, with_margin=with_margin, **bs_kw)
         return fused_best_split_batch(hists, stats, *scan_in, with_margin=with_margin, **kw)

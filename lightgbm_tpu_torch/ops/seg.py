@@ -15,13 +15,23 @@ row index ``ridx`` i32 ``[n]``.  The two contracts of the TPU layout hold:
 stable leaf-ordered windows, and the ``[F, B, 3]`` (g, h, count) histogram
 that ``combine_hist_raw`` returns.
 
+The u16 mode (``SegRows.wide``): past 256 padded bins the TPU packs one u16
+plane a feature (lightgbm_tpu/ops/pallas/seg.py:96, :111-115); here a
+feature is two byte planes, lo at plane 2j and hi at 2j + 1 (``[2F, n]``
+u8, ``byte_planes``), so the partition moves planes of bytes whatever they
+mean and only its decision and the histogram read a feature's bin as
+``lo | hi << 8``.  The histogram kernel then takes the bins in ranges of
+``RANGE_BINS`` (``hist_ranges``: enough for the widest feature's bins,
+``SegRows.used_bins``).
+
 ``seg_hist_batch`` (kernel ``csrc/seg_hist.cu``: K windows per call, f32
 sums or the int8 2-digit grid, the lane histogram of ``csrc/lane_hist.cuh``
 in two launches), ``sort_partition`` and
 ``sort_partition_batch`` (kernel ``csrc/partition.cu``: one window, or K
 disjoint windows per call) dispatch on the device of the tensors they are given:
 on the CPU they run their plain PyTorch versions, on a CUDA device they
-launch the kernel.  Each counts its kernel launches in ``_build.LAUNCHES``.
+launch the kernel.  Each counts its kernel launches in ``_build.LAUNCHES``
+(and, on u16 rows, under its name with ``_u16`` too).
 """
 
 from __future__ import annotations
@@ -40,11 +50,16 @@ from .. import _build
 class SegRows:
     """The leaf-ordered training rows of one tree (updated in place)."""
 
-    bins: torch.Tensor  # [F, n] u8
+    bins: torch.Tensor  # [P, n] u8: P = F, or 2F byte planes when wide
     g: torch.Tensor  # [n] f32
     h: torch.Tensor  # [n] f32
     m: torch.Tensor  # [n] f32 (1 in bag, 0 out)
     ridx: torch.Tensor  # [n] i32 original row index
+    # the u16 mode: feature j's bin is bins[2j] | bins[2j + 1] << 8
+    wide: bool = False
+    # every bin lies below this (the widest feature's bins; 0: unknown, the
+    # histogram's padded width): sizes the u16 mode's histogram ranges
+    used_bins: int = 0
     # the partition kernel's buffers, made at its first call on these rows
     part: Optional["PartitionScratch"] = dataclasses.field(default=None, repr=False,
                                                            compare=False)
@@ -58,8 +73,13 @@ class SegRows:
         return int(self.g.shape[0])
 
     @property
-    def f(self) -> int:
+    def planes(self) -> int:
         return int(self.bins.shape[0])
+
+    @property
+    def f(self) -> int:
+        """Features (a plane each, or two in the u16 mode)."""
+        return self.planes // 2 if self.wide else self.planes
 
     @property
     def device(self) -> torch.device:
@@ -67,21 +87,46 @@ class SegRows:
 
 
 def pack_rows(
-    bins_fn: torch.Tensor,  # [F, N] u8, feature-major
+    bins_fn: torch.Tensor,  # [F, N] u8 feature-major, or [2F, N] byte planes (wide)
     grad: torch.Tensor,  # [N] f32
     hess: torch.Tensor,  # [N] f32
     mask: torch.Tensor,  # [N] f32
+    wide: bool = False,
+    used_bins: int = 0,
 ) -> SegRows:
     """Rows in their original order (ridx = iota), ready for the root
     histogram.  The bins are copied: the tree partitions them in place."""
     n = int(grad.shape[0])
+    if wide and int(bins_fn.shape[0]) % 2:
+        raise ValueError("u16 seg rows hold two byte planes a feature")
     return SegRows(
         bins=bins_fn.clone(),
         g=grad.to(torch.float32).contiguous().clone(),
         h=hess.to(torch.float32).contiguous().clone(),
         m=(mask > 0).to(torch.float32),
         ridx=torch.arange(n, dtype=torch.int32, device=grad.device),
+        wide=wide,
+        used_bins=int(used_bins),
     )
+
+
+def byte_planes(bins: torch.Tensor) -> torch.Tensor:
+    """[F, N] integer bins below 65,536 -> the u16 mode's [2F, N] u8 byte
+    planes (lo at 2j, hi at 2j + 1)."""
+    b = bins.to(torch.int32)
+    f, n = int(b.shape[0]), int(b.shape[1])
+    return torch.stack([b & 0xFF, b >> 8], dim=1).reshape(2 * f, n).to(torch.uint8)
+
+
+def feature_bins(rows: SegRows, win, feat: Optional[int] = None) -> torch.Tensor:
+    """The bins of rows ``win`` (a slice, or an index tensor) as i64: [F,
+    cnt], or [cnt] of feature ``feat`` (the u16 mode's lo | hi << 8)."""
+    if not rows.wide:
+        planes = rows.bins[:, win] if feat is None else rows.bins[feat, win]
+        return planes.to(torch.int64)
+    lo = slice(0, None, 2) if feat is None else 2 * feat
+    hi = slice(1, None, 2) if feat is None else 2 * feat + 1
+    return rows.bins[lo, win].to(torch.int64) | (rows.bins[hi, win].to(torch.int64) << 8)
 
 
 def go_left(col: torch.Tensor, tbin: int, dl: bool, nanb: int, table=None) -> torch.Tensor:
@@ -89,7 +134,8 @@ def go_left(col: torch.Tensor, tbin: int, dl: bool, nanb: int, table=None) -> to
     threshold bin, or the NaN bin when missing values go left; or, given a
     goes-left ``table`` ([B] bool: an EFB bundle-plane split, the branch of
     lightgbm_tpu/ops/pallas/partition.py:271-285), the table's entry of the
-    bin (a bin past its end goes right, as there and in ops/segpart.py:57)."""
+    bin (a bin past its end goes right, as there and in ops/segpart.py:57).
+    ``col``: a u8 column, or the u16 mode's bins as integers."""
     if table is not None:
         t = torch.as_tensor(np.asarray(table, bool), device=col.device)
         c = col.long()
@@ -145,6 +191,7 @@ def member_go_left(col: torch.Tensor, row) -> torch.Tensor:
 # ---------------------------------------------------------------------------
 
 QMAX = 127 * 128  # 2-digit int8 grid ceiling (lightgbm_tpu/ops/pallas/seg.py:100)
+RANGE_BINS = 256  # bins of a histogram block's table (kRangeBins of lane_hist.cuh)
 # the i32 digit sums are exact up to this many rows per window (|hi| <= 127)
 MAX_INT8_ROWS = (2**31 - 1) // 127
 MAX_WINDOWS = 16  # windows per launch (kMaxWindows of seg_hist.cu, partition.cu, lane_hist.cuh)
@@ -164,7 +211,7 @@ def seg_hist_plain(rows: SegRows, start: int, cnt: int, num_bins: int) -> torch.
     win = slice(start, start + cnt)
     m = rows.m[win]
     stats = torch.stack([rows.g[win] * m, rows.h[win] * m, m], dim=1)  # [cnt, 3]
-    ids = rows.bins[:, win].to(torch.int64) + (
+    ids = feature_bins(rows, win) + (
         torch.arange(f, device=dev, dtype=torch.int64)[:, None] * num_bins
     )  # [F, cnt]
     data = stats.unsqueeze(0).expand(f, cnt, 3).reshape(-1, 3)
@@ -197,7 +244,7 @@ def seg_hist_int8_raw_plain(
         g_hi, g_lo = int8_digits(rows.g[win] * m, scales[0])
         h_hi, h_lo = int8_digits(rows.h[win] * m, scales[1])
         stats = torch.stack([g_hi, g_lo, h_hi, h_lo, (m != 0).to(torch.int32)], 1)
-        ids = rows.bins[:, win].to(torch.int64) + (
+        ids = feature_bins(rows, win) + (
             torch.arange(f, device=dev, dtype=torch.int64)[:, None] * num_bins
         )
         data = stats.to(torch.int64).unsqueeze(0).expand(f, cnt, 5).reshape(-1, 5)
@@ -269,6 +316,21 @@ def seg_hist_batch(
     return _seg_hist_launch(rows, wins, num_bins, scales)
 
 
+def hist_ranges(rows: SegRows, num_bins: int) -> int:
+    """Bin ranges of ``RANGE_BINS`` the histogram kernels run at
+    ``num_bins``: one in the u8 mode, else enough for the rows' widest
+    feature (``used_bins``; 1,025 bins: 5, not 8).  Raises when the rows'
+    mode is not the one ``num_bins`` implies (u16 past 256 bins)."""
+    if rows.wide != (num_bins > RANGE_BINS):
+        raise ValueError(
+            f"{'u16' if rows.wide else 'u8'} seg rows with a {num_bins}-bin histogram "
+            f"(bins take two byte planes exactly past {RANGE_BINS} bins)")
+    if not rows.wide:
+        return 1
+    used = min(rows.used_bins or num_bins, num_bins)
+    return max(1, -(-used // RANGE_BINS))
+
+
 @functools.lru_cache(maxsize=None)
 def seg_hist_scratch_bytes(f: int, num_bins: int, int8: bool) -> int:
     """Bytes of the scratch a ``csrc/seg_hist.cu`` call over any K <= 16
@@ -290,6 +352,7 @@ def _seg_hist_launch(rows: SegRows, wins, num_bins: int, scales, fn=None) -> tor
     if not 1 <= k <= MAX_WINDOWS:
         raise ValueError(f"the seg_hist kernel takes 1 to {MAX_WINDOWS} windows, got {k}")
     _require_cuda(rows)
+    ranges = hist_ranges(rows, int(num_bins))
     dev = rows.device
     need = seg_hist_scratch_bytes(f, int(num_bins), scales is not None)
     if rows.step is None or rows.step.numel() < need:
@@ -299,12 +362,15 @@ def _seg_hist_launch(rows: SegRows, wins, num_bins: int, scales, fn=None) -> tor
     win_host = np.asarray(wins, dtype=np.int64).reshape(k, 2)
     rc = (fn or _build.entry("seg_hist"))(
         rows.bins.data_ptr(), rows.g.data_ptr(), rows.h.data_ptr(), rows.m.data_ptr(),
-        rows.n, win_host.ctypes.data, k, f, int(num_bins),
+        rows.n, win_host.ctypes.data, k, f, int(num_bins), ranges,
         None if sp is None else sp.data_ptr(), rows.step.data_ptr(), rows.step.numel(),
         out.data_ptr(), torch.cuda.current_stream(dev).cuda_stream,
     )
     _build.check(rc, "seg_hist kernels")
-    _build.LAUNCHES["seg_hist" if scales is None else "seg_hist_int8"] += 1
+    name = "seg_hist" if scales is None else "seg_hist_int8"
+    _build.LAUNCHES[name] += 1
+    if rows.wide:
+        _build.LAUNCHES[name + "_u16"] += 1
     if k > 1:
         _build.LAUNCHES["seg_hist:K>1"] += 1
     return out
@@ -339,7 +405,7 @@ def sort_partition_plain(
     if cnt <= 0:
         return torch.zeros((), dtype=torch.int32, device=rows.device)
     win = slice(start, start + cnt)
-    gl = go_left(rows.bins[feat, win], tbin, dl, nanb, table)
+    gl = go_left(feature_bins(rows, win, feat), tbin, dl, nanb, table)
     perm = torch.cat([torch.nonzero(gl)[:, 0], torch.nonzero(~gl)[:, 0]])
     rows.bins[:, win] = rows.bins[:, win][:, perm]
     for col in (rows.g, rows.h, rows.m, rows.ridx):
@@ -458,9 +524,9 @@ class PartitionScratch:
 
     def __init__(self, rows: SegRows):
         dev = rows.device
-        self.shape = (rows.f, rows.n)
+        self.shape = (rows.planes, rows.n)
         self.stride = partition_scratch_rows(rows.n)
-        self.planes = torch.empty((rows.f, self.stride), dtype=torch.uint8, device=dev)
+        self.planes = torch.empty((rows.planes, self.stride), dtype=torch.uint8, device=dev)
         self.cols = torch.empty((4, self.stride), dtype=torch.int32, device=dev)
         tiles = -(-rows.n // PART_TILES[-1]) + MAX_WINDOWS  # at the smallest tile
         self.status = torch.zeros(tiles, dtype=torch.int64, device=dev)
@@ -486,7 +552,7 @@ def partition_scratch(rows: SegRows) -> PartitionScratch:
     _require_cuda(rows)
     if any(t.data_ptr() % 16 for t in (rows.bins, rows.g, rows.h, rows.m, rows.ridx)):
         raise ValueError("the partition kernel needs seg rows columns at 16-byte aligned starts")
-    if rows.part is None or rows.part.shape != (rows.f, rows.n):
+    if rows.part is None or rows.part.shape != (rows.planes, rows.n):
         rows.part = PartitionScratch(rows)
     return rows.part
 
@@ -503,8 +569,8 @@ def _partition_launch(rows: SegRows, mem: np.ndarray, counted_as: str, fn=None) 
     nl = torch.empty((k,), dtype=torch.int32, device=dev)
     rc = (fn or _build.entry("partition"))(
         rows.bins.data_ptr(), rows.g.data_ptr(), rows.h.data_ptr(), rows.m.data_ptr(),
-        rows.ridx.data_ptr(), rows.n, rows.f, mem.ctypes.data, k,
-        partition_tile_rows(rows.f, int(mem[:, 1].sum())), ps.planes.data_ptr(),
+        rows.ridx.data_ptr(), rows.n, rows.planes, int(rows.wide), mem.ctypes.data, k,
+        partition_tile_rows(rows.planes, int(mem[:, 1].sum())), ps.planes.data_ptr(),
         ps.cols.data_ptr(), ps.stride, ps.status.data_ptr(), ps.staged.data_ptr(),
         ps.counter.data_ptr(), ps.next_epoch(), nl.data_ptr(),
         torch.cuda.current_stream(dev).cuda_stream,
@@ -513,6 +579,8 @@ def _partition_launch(rows: SegRows, mem: np.ndarray, counted_as: str, fn=None) 
     _build.LAUNCHES[counted_as] += 1
     if table_mode(mem):
         _build.LAUNCHES[counted_as + "_table"] += 1
+    if rows.wide:
+        _build.LAUNCHES[counted_as + "_u16"] += 1
     return nl
 
 

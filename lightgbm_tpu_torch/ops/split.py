@@ -68,25 +68,30 @@ class SplitCandidate(NamedTuple):
 
 def prefix_sum_bins(x: torch.Tensor) -> torch.Tensor:
     """Inclusive f32 prefix sum over axis 1 of ``[F, B, ...]``, associated
-    in blocks of 16 bins: sequential inside a block, then the block totals
-    carried in order.  This is the order of XLA's CPU cumsum that the JAX
-    package's best_split runs (bins <= 256), and the order of the split-scan
-    kernel, so all three give the same f32 sums."""
+    in blocks of 16 bins: sequential inside a block, then each block's
+    inclusive prefix of the block totals (itself this prefix sum, in blocks
+    of 16 totals past 16 blocks) added to the next block.  This is the order
+    of XLA's CPU cumsum that the JAX package's best_split runs, and, at up to
+    256 bins, where the totals are carried in order, the order of the
+    split-scan kernel, so all three give the same f32 sums."""
     f, b = x.shape[0], x.shape[1]
     nblk = -(-b // PREFIX_BLOCK)
     pad = nblk * PREFIX_BLOCK - b
     xb = torch.cat([x, x.new_zeros((f, pad) + x.shape[2:])], 1) if pad else x
     xb = xb.reshape((f, nblk, PREFIX_BLOCK) + x.shape[2:])
-    # every block's running sums at once, one bin position a step; then the
-    # block totals carried in order, in place
+    # every block's running sums at once, one bin position a step
     sums = []
     s = torch.zeros_like(xb[:, :, 0])
     for i in range(PREFIX_BLOCK):
         s = s + xb[:, :, i]
         sums.append(s)
     out = torch.stack(sums, 2)
-    for k in range(1, nblk):
-        out[:, k].add_(out[:, k - 1, PREFIX_BLOCK - 1 : PREFIX_BLOCK])
+    if nblk <= PREFIX_BLOCK:  # the block totals carried in order, in place
+        for k in range(1, nblk):
+            out[:, k].add_(out[:, k - 1, PREFIX_BLOCK - 1 : PREFIX_BLOCK])
+    else:  # the totals' own prefix sum, carried into the blocks after
+        carry = prefix_sum_bins(out[:, :, PREFIX_BLOCK - 1].contiguous())
+        out[:, 1:] += carry[:, :-1].unsqueeze(2)
     return out.reshape((f, nblk * PREFIX_BLOCK) + x.shape[2:])[:, :b]
 
 

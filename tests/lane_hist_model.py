@@ -5,12 +5,15 @@ step (test_torch_grow_step_model.py: the elected children).
 
 The kernels run only on the card.  ``model_lane_hist`` repeats, in plain
 PyTorch, what their two launches compute: the accumulate blocks, one per
-(row chunk, 32-feature group), each window's chunks as ``plan_chunks`` plans
-them, in a random order (blocks of one launch wait on nothing but the launch
-before), each taking its chunk of its window's rows as the kernel cuts them
-and writing its table to its own slot; then the reduce, which sums each
-window's slots in the kernel's fixed order and recombines the int8 digit
-sums as the kernel does.  A block's f32 table adds its rows in row order
+(row chunk, 32-feature group, bin range), each window's chunks as
+``plan_chunks`` plans them for the groups times the ranges, in a random
+order (blocks of one launch wait on nothing but the launch before), each
+taking its chunk of its window's rows as the kernel cuts them, adding the
+rows whose bin lies in its range (the u16 mode's ranges of 256 bins, its
+bins read as lo | hi << 8; the u8 mode is one range) and writing its table
+to its own slot; then the reduce, which sums each window's slots of a
+cell's range in the kernel's fixed order, writes 0 past the launch's
+ranges, and recombines the int8 digit sums as the kernel does.  A block's f32 table adds its rows in row order
 (one warp, the block's only thread of each cell) or, where the header's
 ``Acc`` gives the caller's f32 blocks shared atomics, in a random order
 (``source_in_order`` reads which from the source).
@@ -30,6 +33,7 @@ LANES = 32  # features a block's lanes take (kLanes)
 MIN_ROWS = 256  # rows a chunk takes at least, where a window has them (kMinRowsPerBlock)
 PLANES = {False: 3, True: 5}  # 32-bit planes of a table cell (Table<kInt8>::kWords)
 SLICES = 8  # threads of the reduce a cell (kSlices)
+RANGE_BINS = 256  # bins of a block's table in the u16 mode (kRangeBins)
 
 
 def source_in_order(int8: bool, seg_caller: bool) -> bool:
@@ -95,14 +99,27 @@ def recombine(raw: np.ndarray, scales: np.ndarray) -> np.ndarray:
     return np.stack([g, h, a[..., 4]], axis=-1)
 
 
-def block_table(rows, s, i0, i1, f0, nf, num_bins, scales, rng=None):
+def feature_col(rows, feat, r):
+    """Feature ``feat``'s bins of rows ``r`` (an index tensor) as i64: its
+    plane, or in the u16 mode its lo and hi planes."""
+    if not rows.wide:
+        return rows.bins[feat, r].to(torch.int64)
+    return (rows.bins[2 * feat, r].to(torch.int64)
+            | rows.bins[2 * feat + 1, r].to(torch.int64) << 8)
+
+
+def block_table(rows, s, i0, i1, f0, nf, num_bins, scales, rng=None, rng_idx=0):
     """One accumulate block's table: [planes, B, 32] over rows [s + i0,
-    s + i1) and features [f0, f0 + nf) (lane j: feature f0 + j); int8
-    digit sums as i64 (exact), f32 sums in a random order (``rng``: the
-    shared atomics') or, with no ``rng``, in row order (the in-order warp:
-    one add after another from +0.0)."""
+    s + i1) and features [f0, f0 + nf) (lane j: feature f0 + j), of the
+    bins of range ``rng_idx`` (B = min(num_bins, 256) bins from 256 x
+    rng_idx; a row outside them adds nothing); int8 digit sums as i64
+    (exact), f32 sums in a random order (``rng``: the shared atomics') or,
+    with no ``rng``, in row order (the in-order warp: one add after another
+    from +0.0)."""
     int8 = scales is not None
-    table = torch.zeros((PLANES[int8], num_bins * LANES), dtype=torch.int64 if int8
+    rbins = min(num_bins, RANGE_BINS)
+    base = rng_idx * RANGE_BINS
+    table = torch.zeros((PLANES[int8], rbins * LANES), dtype=torch.int64 if int8
                         else torch.float32)
     order = np.arange(i1 - i0) if rng is None else rng.permutation(i1 - i0)
     r = s + i0 + torch.as_tensor(order, dtype=torch.int64)
@@ -114,29 +131,31 @@ def block_table(rows, s, i0, i1, f0, nf, num_bins, scales, rng=None):
     else:
         vals = torch.stack([rows.g[r] * m, rows.h[r] * m, (m != 0).to(torch.float32)])
     for j in range(nf):
-        b = rows.bins[f0 + j, r].to(torch.int64)
-        cell, keep = b * LANES + j, b < num_bins
+        b = feature_col(rows, f0 + j, r) - base
+        cell, keep = b * LANES + j, (b >= 0) & (b < rbins)
         for p in range(PLANES[int8]):
             if int8 or rng is not None:
                 table[p].index_add_(0, cell[keep], vals[p][keep])
             else:  # one f32 add after another, in row order (np.add.at is unbuffered)
                 t = table[p].numpy()
                 np.add.at(t, cell[keep].numpy(), vals[p][keep].numpy())
-    return table.reshape(PLANES[int8], num_bins, LANES)
+    return table.reshape(PLANES[int8], rbins, LANES)
 
 
-def model_lane_hist(rows, windows, chunk0, num_bins, scales, rng, in_order=False):
+def model_lane_hist(rows, windows, chunk0, num_bins, scales, rng, in_order=False, ranges=1):
     """The two launches over K windows [(start, cnt)], window w taking
-    chunks [chunk0[w], chunk0[w + 1]) of the launch: the accumulate blocks
-    in a random order (``rng``), each table to its own slot (f32 in row
-    order with ``in_order``), then the reduce's fixed order and recombine.
-    Returns [K, F, B, 3] f32."""
+    chunks [chunk0[w], chunk0[w + 1]) of the launch in each of ``ranges``
+    bin ranges: the accumulate blocks in a random order (``rng``), each
+    table to its own slot (f32 in row order with ``in_order``), then the
+    reduce's fixed order and recombine.  Returns [K, F, B, 3] f32."""
     k, f = len(windows), rows.f
     groups = -(-f // LANES)
+    rbins = min(num_bins, RANGE_BINS)
     slots = {}
-    blocks = [(y, x) for y in range(groups) for x in range(chunk0[-1])]
+    blocks = [(z, y, x) for z in range(ranges) for y in range(groups)
+              for x in range(chunk0[-1])]
     for i in rng.permutation(len(blocks)):
-        y, x = blocks[i]
+        z, y, x = blocks[i]
         w = max(v for v in range(k) if chunk0[v] <= x)
         s, c = windows[w]
         runs = chunk_rows(c, chunk0[w + 1] - chunk0[w])
@@ -146,15 +165,16 @@ def model_lane_hist(rows, windows, chunk0, num_bins, scales, rng, in_order=False
         i0, i1 = runs[xi]
         assert 0 <= i0 <= i1 <= c  # a chunk never reads past its window
         f0 = y * LANES
-        slots[(y, x)] = block_table(rows, s, i0, i1, f0, min(LANES, f - f0), num_bins, scales,
-                                    None if in_order else rng)
+        slots[(z, y, x)] = block_table(rows, s, i0, i1, f0, min(LANES, f - f0), num_bins,
+                                       scales, None if in_order else rng, z)
 
-    hist = torch.zeros((k, f, num_bins, 3), dtype=torch.float32)
-    for w in range(k):
+    hist = torch.zeros((k, f, num_bins, 3), dtype=torch.float32)  # 0 past the ranges
+    for w, z in ((w, z) for w in range(k) for z in range(ranges)):
         wc = window_chunks(windows[w][1], chunk0[w + 1] - chunk0[w])
+        bins = slice(z * RANGE_BINS, z * RANGE_BINS + rbins)
         for y in range(groups):
-            parts = [slots[(y, chunk0[w] + q)] for q in range(wc)]
-            assert all((y, x) not in slots for x in range(chunk0[w] + wc, chunk0[w + 1]))
+            parts = [slots[(z, y, chunk0[w] + q)] for q in range(wc)]
+            assert all((z, y, x) not in slots for x in range(chunk0[w] + wc, chunk0[w + 1]))
             # thread slice t sums chunks t, t + SLICES, ... in order, then the
             # slices are summed in order
             sliced = []
@@ -169,8 +189,8 @@ def model_lane_hist(rows, windows, chunk0, num_bins, scales, rng, in_order=False
             nf = min(LANES, f - y * LANES)
             cells = total[:, :, :nf].permute(2, 1, 0)  # [nf, B, planes]
             if scales is None:
-                hist[w, y * LANES:y * LANES + nf] = cells
+                hist[w, y * LANES:y * LANES + nf, bins] = cells
             else:
-                hist[w, y * LANES:y * LANES + nf] = torch.as_tensor(
+                hist[w, y * LANES:y * LANES + nf, bins] = torch.as_tensor(
                     recombine(cells.numpy(), scales.numpy()))
     return hist

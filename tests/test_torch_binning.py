@@ -98,7 +98,7 @@ def test_config_accepts_the_jax_defaults():
     ({"hist_acc": "fp16"}, "hist_acc"),
     ({"grow_fused": "off", "fused_split_scan": False}, "grow_fused"),
     ({"hist_mode": "gather"}, "hist_mode"),
-    ({"max_bin": 1000}, "max_bin"),
+    ({"max_bin": 1000, "hist_mode": "ordered"}, "max_bin"),
     ({"leaf_batch": 0}, "leaf_batch"),
     ({"grow_fused": "sometimes"}, "grow_fused"),
     ({"hist_near_tie_tol": -1.0}, "hist_near_tie_tol"),

@@ -48,10 +48,11 @@ def model_grow_step(rows, mem, num_bins, scales, fill, rng, tile=None):
     """The four launches on the CPU (see the module docstring): partitions
     the rows in place; returns (dec [K, 4] i32, hist [K, F, B, 3] f32)."""
     k, f = len(mem), rows.f
-    tile = tile or seg.partition_tile_rows(f, int(mem[:, 1].sum()))
+    tile = tile or seg.partition_tile_rows(rows.planes, int(mem[:, 1].sum()))
     nl = model_partition(rows, mem, tile, rng).numpy().astype(np.int64)
     groups = -(-f // LANES)
-    chunk0 = plan_chunks([int(c) for c in mem[:, 1]], True, groups, fill)
+    ranges = seg.hist_ranges(rows, num_bins)
+    chunk0 = plan_chunks([int(c) for c in mem[:, 1]], True, groups * ranges, fill)
 
     def child(w):  # hist_window: the elected child of window w
         s, c, l = int(mem[w, 0]), int(mem[w, 1]), int(nl[w])
@@ -59,7 +60,7 @@ def model_grow_step(rows, mem, num_bins, scales, fill, rng, tile=None):
 
     children = [child(w) for w in range(k)]
     hist = model_lane_hist(rows, children, chunk0, num_bins, scales, rng,
-                           in_order=source_in_order(scales is not None, False))
+                           in_order=source_in_order(scales is not None, False), ranges=ranges)
     dec = np.zeros((k, 4), np.int64)
     for w, (s, c) in enumerate(children):
         dec[w] = (nl[w], int(mem[w, 1]) - nl[w], s, c)
@@ -176,6 +177,22 @@ def test_model_equals_jax_fused_grow_step(mode):
         assert bool(((hist[..., :2] - hist_j[..., :2]).abs() <= tol).all())
 
 
+@pytest.mark.parametrize("mode", ["f32", "int8"])
+@pytest.mark.parametrize("case", ["random K=4", "tbin 256", "NaN bin past 255 left",
+                                  "table members"])
+def test_model_equals_plain_on_u16_windows(case, mode):
+    """The u16 mode at a padded width of 1,024 (37 features as two byte
+    planes each): the partition's key lo | hi << 8, the elected children's
+    histograms in bin ranges of 256, on random windows and the bench's u16
+    edge cases."""
+    rows, nb = bench_partition.synthetic_rows_u16(4_000, 37, torch.device("cpu"), seed=5)
+    rng = np.random.default_rng(6)
+    mem = (_members(rows.n, nb, rng, 4) if case == "random K=4"
+           else bench_partition.u16_edge_cases(rows.n, nb)[case])
+    scales = _int8_scales(rows) if mode == "int8" else None
+    _run(rows, mem, 1024, scales, 24, 7)
+
+
 def test_recombine_model_is_bit_equal_to_combine_int8():
     """The reduce's f32 recombine against the plain version's, on digit sums
     up to 2^28 (past f32's exact integers) and scales of every size."""
@@ -260,7 +277,7 @@ def test_kernel_source_agrees_with_the_model():
                  "long long cap = window_chunks(children ? w.cnt[i] / 2 : w.cnt[i], share);",
                  "const long long fair = total > 0 ? share * w.cnt[i] / total : 0;",
                  "if (cap > fair) cap = fair > 0 ? fair : 1;",
-                 "const long long blocks = groups * (fill / groups + kMaxWindows);",
+                 "const long long blocks = fill + groups * kMaxWindows;",
                  "const long long per = (c + chunks - 1) / chunks;",
                  "const long long i1 = min(i0 + per, c);",
                  "for (long long q = slice; q < chunks; q += kSlices)",

@@ -59,7 +59,15 @@ def _rows(n, f, seed):
 
 def _clone(rows):
     return seg.SegRows(rows.bins.clone(), rows.g.clone(), rows.h.clone(), rows.m.clone(),
-                       rows.ridx.clone())
+                       rows.ridx.clone(), wide=rows.wide, used_bins=rows.used_bins)
+
+
+def _key(bins, feat, wide):
+    """Feature ``feat``'s bins of a [P, cnt] block of planes: its plane, or
+    in the u16 mode lo | hi << 8 (the kernel's load_keys)."""
+    if not wide:
+        return bins[feat]
+    return bins[2 * feat].to(torch.int64) | bins[2 * feat + 1].to(torch.int64) << 8
 
 
 def _offsets(mem, tile):
@@ -80,7 +88,7 @@ def model_partition(rows, mem, tile, rng):
     the window's part of the scratch, scratch parts disjoint and clear of
     the scratch's ends."""
     tile0, s0 = _offsets(mem, tile)
-    k, f, n = mem.shape[0], rows.f, rows.n
+    k, f, n = mem.shape[0], rows.planes, rows.n
     stride = seg.partition_scratch_rows(n)
     s_bins = torch.zeros((f, stride), dtype=torch.uint8)
     s_cols = {c: torch.zeros(stride, dtype=getattr(rows, c).dtype) for c in COLS}
@@ -99,7 +107,8 @@ def model_partition(rows, mem, tile, rng):
 
     def count(w, t):  # the split feature's bytes, read directly, by the rule
         lo, hi = bounds(w, t)  # of the window (its threshold or its table)
-        gl = seg.member_go_left(rows.bins[int(mem[w, 2]), lo:hi].clone(), mem[w])
+        gl = seg.member_go_left(_key(rows.bins[:, lo:hi].clone(), int(mem[w, 2]), rows.wide),
+                                mem[w])
         counted[(w, t)] = (gl, torch.cat([torch.nonzero(gl)[:, 0], torch.nonzero(~gl)[:, 0]]))
 
     def stage(w, t):  # every byte the tile moves
@@ -121,7 +130,7 @@ def model_partition(rows, mem, tile, rng):
         snap = staged[(w, t)]
         feat = int(mem[w, 2])
         # the bytes ranked and the bytes staged are the same bytes
-        assert torch.equal(gl, seg.member_go_left(snap["bins"][feat], mem[w]))
+        assert torch.equal(gl, seg.member_go_left(_key(snap["bins"], feat, rows.wide), mem[w]))
         tl, tt = int(gl.sum()), len(gl)
         l0 = l0_of(w, t)
         r0 = t * tile - l0
@@ -202,6 +211,29 @@ def test_model_equals_plain_on_the_bench_edge_cases(case, tile):
         assert int(nl[0]) == int(mem[0, 1])
     if case == "all right":
         assert int(nl[0]) == 0
+
+
+@pytest.mark.parametrize("case", ["random K=4", "tbin 255", "tbin 256", "NaN bin past 255 left",
+                                  "all left", "cnt 0 among K", "cnt < 32", "table members"])
+@pytest.mark.parametrize("tile", ["kernel", 128])
+def test_model_equals_plain_on_u16_windows(case, tile):
+    """The u16 mode (two byte planes a feature, 300-1,024 bins, NaN bins
+    past 255): the kernel's key lo | hi << 8, its tiles moving the planes as
+    bytes, on random windows and the bench's u16 edge cases (thresholds on
+    either side of the byte, table members whose bins past 255 go right)."""
+    rows, nb = bench_partition.synthetic_rows_u16(24_000, 5, torch.device("cpu"), seed=3)
+    assert rows.wide and rows.planes == 10
+    rng = np.random.default_rng(4)
+    mem = (_members(rows.n, nb, rng, 4) if case == "random K=4"
+           else bench_partition.u16_edge_cases(rows.n, nb)[case])
+    t = seg.partition_tile_rows(rows.planes, int(mem[:, 1].sum())) if tile == "kernel" else tile
+    want = _clone(rows)
+    nl_p = seg.sort_partition_batch_plain(want, mem)
+    nl = model_partition(rows, mem, t, rng)
+    assert torch.equal(nl, nl_p)
+    _assert_same(rows, want)
+    if case == "all left":
+        assert int(nl[0]) == int(mem[0, 1])
 
 
 def test_model_equals_jax_sort_partition_batch():
@@ -303,7 +335,14 @@ def test_kernel_source_agrees_with_the_host_side():
     # the member row's table columns and the rule the tiles rank by
     assert "P.iscat[i] = r[6] != 0;" in src
     assert "for (int j = 0; j < kTableWords; ++j) P.table[i][j] = (unsigned)r[7 + j];" in src
-    assert "by_table ? (int)((s_table[v >> 5] >> (v & 31)) & 1u) : go_left(v, tbin, dl, nanb)" in src
+    # a bin past the table's 256 goes right, as member_go_left sends it
+    assert ("by_table ? (v < 32 * kTableWords && ((s_table[v >> 5] >> (v & 31)) & 1u))\n"
+            "                        : go_left(v, tbin, dl, nanb)") in src
+    # the u16 mode's key: the feature's two planes, lo | hi << 8 (_key above)
+    assert "a.bins + (long long)P.feat[w] * (a.wide ? 2 : 1) * n + row0;" in src
+    assert "load_keys<T>(tt, col, a.wide ? col + n : nullptr, key);" in src
+    with open(os.path.join(_build.CSRC, "partition_tile.cuh")) as fh:
+        assert "hi != nullptr ? (int)col[r] | (int)hi[r] << 8 : (int)col[r];" in fh.read()
     # the offsets of _offsets above
     assert "P.tile0[i + 1] = P.tile0[i] + (P.cnt[i] + tile - 1) / tile;" in src
     assert "long long most = 0, s0 = 16;" in src and "s0 += (P.cnt[i] + 15) / 16 * 16;" in src

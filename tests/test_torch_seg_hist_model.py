@@ -26,7 +26,8 @@ import numpy as np
 import pytest
 import torch
 
-from lightgbm_tpu.ops.pallas.seg import seg_hist_pallas_batch
+from lightgbm_tpu.ops.pallas.seg import pack_rows as jax_pack_rows
+from lightgbm_tpu.ops.pallas.seg import padded_rows, seg_hist_pallas_batch
 
 from lightgbm_tpu_torch import _build, bench_partition, bench_seg_hist
 from lightgbm_tpu_torch._bench import f32_tol
@@ -42,9 +43,10 @@ def model_seg_hist(rows, windows, num_bins, scales, fill, rng):
     """The two launches of lgbt_seg_hist on the CPU: [K, F, B, 3] f32."""
     wins = [(int(s), max(int(c), 0)) for s, c in windows]
     groups = -(-rows.f // LANES)
-    chunk0 = plan_chunks([c for _, c in wins], False, groups, fill)
+    ranges = seg.hist_ranges(rows, num_bins)
+    chunk0 = plan_chunks([c for _, c in wins], False, groups * ranges, fill)
     return model_lane_hist(rows, wins, chunk0, num_bins, scales, rng,
-                           in_order=source_in_order(scales is not None, True))
+                           in_order=source_in_order(scales is not None, True), ranges=ranges)
 
 
 def _check(got, want, rows, windows, num_bins, scales):
@@ -141,6 +143,54 @@ def test_model_equals_jax_seg_hist_pallas_batch(mode):
         assert torch.equal(got[..., 2], want[..., 2])
         assert float((got - want).abs().max() / want.abs().max()) < 5e-6
     assert not got[3].any()  # cnt = 0: a zero histogram
+
+
+@pytest.mark.parametrize("mode", ["f32", "int8"])
+@pytest.mark.parametrize("k,seed,fill,span", [(1, 0, 40, (300, 1024)), (4, 1, 7, (257, 700))])
+def test_model_equals_plain_on_u16_windows(k, seed, fill, span, mode):
+    """The u16 mode at a padded width of 1,024: 37 features as two byte
+    planes each, their bins read lo | hi << 8, a block's rows routed to its
+    bin range of 256 (the others to the trash bin), the ranges sized by the
+    widest feature (700 bins: three, the fourth range written 0); random
+    windows, f32 the same bits with the blocks in another order."""
+    rows, _ = bench_partition.synthetic_rows_u16(4_000, 37, torch.device("cpu"), seed=seed,
+                                                 bins=span)
+    ranges = seg.hist_ranges(rows, 1024)
+    assert ranges == -(-span[1] // 256)
+    rng = np.random.default_rng(seed)
+    wins = _windows(rows.n, rng, k)
+    scales = _scales_of(rows, mode)
+    got = model_seg_hist(rows, wins, 1024, scales, fill, rng)
+    want = seg.seg_hist_batch_plain(rows, wins, 1024, scales)
+    _check(got, want, rows, wins, 1024, scales)
+    assert not got[:, :, 256 * ranges:].any()
+    if scales is None:
+        again = model_seg_hist(rows, wins, 1024, None, fill, np.random.default_rng(seed + 99))
+        assert torch.equal(got, again)
+
+
+def test_model_equals_jax_seg_hist_pallas_batch_u16():
+    """The u16 mode against the JAX package's wide kernel in interpret mode
+    (one u16 plane a feature): K=3 windows at 512 bins, int8 bit for bit."""
+    rng = np.random.default_rng(3)
+    n, f, nb = 400, 3, 512
+    bins = rng.integers(0, nb, size=(n, f)).astype(np.int32)
+    grad = rng.normal(size=n).astype(np.float32)
+    hess = (rng.random(n) + 0.5).astype(np.float32)
+    mask = (rng.random(n) < 0.9).astype(np.float32)
+    rows = seg.pack_rows(seg.byte_planes(torch.as_tensor(bins.T.copy())), torch.as_tensor(grad),
+                         torch.as_tensor(hess), torch.as_tensor(mask), wide=True, used_bins=nb)
+    n_pad = padded_rows(n)
+    seg_j = jax_pack_rows(jnp.asarray(bins), jnp.asarray(grad), jnp.asarray(hess),
+                          jnp.asarray(mask), n_pad, wide=True)
+    st, sj = _scales(grad, hess, mask)
+    windows = [(0, 400), (37, 200), (399, 1)]
+    with jax_interpret(grow_step=False):
+        want = seg_hist_pallas_batch(seg_j, jnp.asarray(windows, jnp.int32), sj, f=f,
+                                     num_bins=nb, n_pad=n_pad, quantized=True, wide=True,
+                                     interpret=True)
+    got = model_seg_hist(rows, windows, nb, st, 5, np.random.default_rng(0))
+    assert torch.equal(got, torch.as_tensor(np.array(want)))
 
 
 def test_chunks_cover_every_window_row_once():
