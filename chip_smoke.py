@@ -8,6 +8,8 @@ then stop without the result lines.)
 Phases (any failed check raises, and the script exits non-zero):
   device   the card's name and power limit (nvidia-smi); no CUDA -> exit 1
   build    every kernel of lightgbm_tpu_torch/csrc compiled by nvcc
+  xla_exp  the binary objective's exp (objectives.xla_exp) on the card
+           against the CPU on 4,000,001 points of [-89, 89]: bit-equal
   kernels  each kernel against its plain PyTorch version on the card, at the
            main path's shapes (1,048,576 rows, 28 features, 256 bins,
            255-leaf trees), with its median time, the plain version's time,
@@ -43,7 +45,17 @@ Phases (any failed check raises, and the script exits non-zero):
            thresholds at bins 255 and 256, a NaN bin past 255 sent left, an
            empty window among K, windows under 32 rows, table members on a
            u16 layout, rows of at most 700 bins at 1,024; order and nl
-           bit-equal, int8 exact, f32 the same bits on two calls)
+           bit-equal, int8 exact, f32 the same bits on two calls); the u16
+           mode of the ordered histograms (f32 and int8: the run_u16 cases
+           of lightgbm_tpu_torch/bench_ordered.py on synthetic u16 bins,
+           1,048,576 x 700 at 1,024 bins on the root, K=2, 14,000 rows,
+           K=4 x 14,000 and 4,000 rows, each beside the u8 mode on the same
+           windows, the index_add_ yardstick and the bound, the roots of
+           1,048,576 x 28 at 8,192 and 16,384 bins, then the edge cases: a
+           feature narrower than the widest, bins 255 / 256, a NaN bin past
+           255, an empty window among K, windows under 32 rows, rows of at
+           most 700 bins; int8 bit-equal, f32 within ordered_tol and the
+           same bits on two calls)
   main     train() of the Higgs-shaped binary model (1,048,576 x 28,
            255 leaves, max_bin 255, learning rate 0.1) with the default
            path parameters (fused grow step, int8 accumulation with the
@@ -51,7 +63,7 @@ Phases (any failed check raises, and the script exits non-zero):
            on the same rows; launch counts of its kernels (each must be
            > 0), near-tie refines per tree, and the training log-loss per
            round (it must fall); one warm predict split into its phases
-           (the host's f64 copy, column gather and f32 conversion, the
+           (the host's column gather and f32 conversion, the
            binning tables, copy to the card, bin_numeric, suspect rows,
            walk, copy back); the walk kernel's scores bit-equal to the
            plain walker's, every row in the same leaf of every tree, then
@@ -118,8 +130,8 @@ Phases (any failed check raises, and the script exits non-zero):
            launch in table mode, the split-scan kernel never: best_split
            decides every leaf), one iteration each under the profiler
            (launches per split, best_split calls); predict of the rows
-           against the training score (1e-5 relative); the model text read
-           back: its real-space predict may differ from the bundled predict
+           against the training score (1e-5 relative, and its log-loss
+           against training's); the model text read back: its real-space predict may differ from the bundled predict
            only on rows with two nonzero members in one plane (counted);
            2 rounds each of the two-launch path at K=1 and K=4 (the
            partition in table mode); card vs CPU at 65,536 rows, int8 on
@@ -152,8 +164,9 @@ Phases (any failed check raises, and the script exits non-zero):
   wide     train() with no path parameters: the layout rule must pick
            hist_mode='ordered'; 5 rounds (log-loss must fall), launches
            (ordered_hist and split_scan, no seg kernel), predict through
-           the plain walker (700 features > the walk kernel's 512): its
-           log-loss must equal training's; one iteration under the
+           the plain walker (700 features > the walk kernel's 512) against
+           the training score (1e-5 relative), the walker alone on the
+           rows' bins; one iteration under the
            profiler, with the tree's ordered_hist time against its bound
            (each launch's rows * (F + 16) + K * F * B * 12 bytes)
   wide-batch  bench.py's batch parameters (leaf_batch 4) for 3 rounds:
@@ -163,11 +176,24 @@ Phases (any failed check raises, and the script exits non-zero):
            rounds: ordered_hist_int8 only
   wide-parity  32,768 of the wide rows for 3 rounds, card vs CPU, f32 and
            quantized: share of identical splits, log-loss
+  wide-u16 the Expo shape at max_bin 1023 (262,144 x 700 normals on a
+           grid of 1/1024, 2% NaN, padded to 1,024 bins): with no path parameters
+           the rule must pick hist_mode='ordered' (its warning printed);
+           3 rounds in f32 (ordered_hist_u16 launched, no seg kernel),
+           predict of the rows through the plain walker against the
+           training score (1e-5 relative); wide-u16-quant: 3 quantized
+           rounds on the same rows (ordered_hist_int8_u16, not
+           ordered_hist_u16); wide-u16-parity: the first 8,192 rows, card
+           vs CPU for 3 rounds, quantized (>= 0.95 of splits identical,
+           log-loss within 1e-4) and f32 (the trees may part only at a
+           near tie: the first differing split's two gains within 1e-5
+           relative; log-loss within 2e-4; its share printed)
 The last lines: the kernels JSON (launches summed over the main, batch,
 off, batch-off, io, efb, efb-batch, efb-off, efb-batch-off, efb-flat,
-widebin, widebin-batch, widebin-off, widebin-batch-off, wide, wide-batch
-and wide-quant runs; the table and u16 modes of the partition, the fused
-step and the segment histogram are entries of their own), the card, and
+widebin, widebin-batch, widebin-off, widebin-batch-off, wide, wide-batch,
+wide-quant, wide-u16 and wide-u16-quant runs; the table and u16 modes of
+the partition, the fused step, the segment histogram and the ordered
+histograms are entries of their own), the card, and
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 """
 
@@ -240,6 +266,26 @@ WIDEBIN_ROUNDS = 10
 WIDEBIN_BATCH_ROUNDS = 5
 WIDEBIN_OFF_ROUNDS = 2
 
+# the wide-u16 phase: the Expo shape (binary, 700 columns) at max_bin 1023,
+# the ordered layout's u16 mode (the rule takes 'ordered' past 121 columns
+# at 1,024 bins); normals on a grid of 1/1024 with 2% NaN, so that every
+# column fills its ~1,023 bins (the wide table's 1/32 grid gives ~300 bins a
+# column; continuous values, 200,000 distinct a column in the binning
+# sample, took 78-97 s of bin search); rows cut from 11,000,000 to 262,144
+# for the time limit (the phase takes ~150-200 s), widths not
+WIDE_U16_ROWS = 1 << 18
+WIDE_U16_GRID = 1024
+WIDE_U16_PARAMS = {**PARAMS, "max_bin": 1023}
+WIDE_U16_ROUNDS = 3
+WIDE_U16_PARITY_ROWS = 8192
+# f32 card vs CPU: the card adds a window's rows in chunks, so its sums
+# differ from the CPU's row order in the last bits, and at 700 x 1,023
+# thresholds on 8,192 rows the trees part at a near tie in the first tree
+# (0.836-0.850 of splits identical); the log-loss after 3 rounds was then
+# 5.8e-5 and 1.06e-4 apart (relative, two runs), hence this limit; the
+# quantized runs (exact sums) keep 0.95 of splits and 1e-4
+WIDE_U16_F32_LOSS_TOL = 2e-4
+
 # H100 SXM published peaks: HBM bytes/s and
 # f32 operations/s outside the tensor cores
 HBM_BYTES_PER_S = 3.35e12
@@ -280,6 +326,11 @@ SOURCES = {
                             "lightgbm_tpu/ops/pallas/partition.py:525"),
     "fused_grow_step_u16": ("lightgbm_tpu_torch/csrc/grow_step.cu",
                             "lightgbm_tpu/ops/pallas/grow_step.py:260"),
+    # the u16 mode (max_bin > 256) of rows 7 and 8: the ordered layout
+    "ordered_hist_u16": ("lightgbm_tpu_torch/csrc/ordered_hist.cu",
+                         "lightgbm_tpu/ops/pallas/histogram.py:140"),
+    "ordered_hist_int8_u16": ("lightgbm_tpu_torch/csrc/ordered_hist.cu",
+                              "lightgbm_tpu/ops/pallas/histogram_int8.py:43"),
 }
 # CUDA launches per split of the profiled iterations with the rows-only scan
 # and its candidates in PyTorch operators on the host side (PERF.md section 5)
@@ -301,16 +352,16 @@ def make_data(n_rows: int, n_features: int, seed: int = 42):
     return x, (logits > 0).astype(np.float64)
 
 
-def make_wide_data(n_rows: int, n_features: int, seed: int = 42):
-    """The Expo-shaped table: standard normal values on a grid of 1/32
-    (~300 distinct values a column, so each fills ~255 bins), 2% NaN; the
-    label a fixed linear-plus-quadratic function of the first 32 columns
-    plus noise."""
+def make_wide_data(n_rows: int, n_features: int, seed: int = 42, grid: int = 32):
+    """The Expo-shaped table: standard normal values on a grid of 1/grid
+    (at 32, ~300 distinct values a column, so each fills ~255 bins; at 1024,
+    ~8,000, so each fills ~1,023), 2% NaN; the label a fixed
+    linear-plus-quadratic function of the first 32 columns plus noise."""
     rng = np.random.default_rng(seed)
     x = rng.standard_normal((n_rows, n_features), dtype=np.float32)
-    x *= 32.0
+    x *= float(grid)
     np.round(x, out=x)
-    x /= 32.0
+    x /= float(grid)
     for lo in range(0, n_rows, 1 << 16):  # the NaN draw in row blocks
         blk = x[lo:lo + (1 << 16)]
         blk[rng.random(blk.shape, dtype=np.float32) < 0.02] = np.nan
@@ -980,8 +1031,8 @@ def check_forest_walk(booster, x, dev):
 
 
 def predict_phases(booster, x) -> dict:
-    """One warm predict, split: the host's f64 copy of the input, its column
-    gather and f32 conversion, the device binning tables, the copy to the
+    """One warm predict, split: the host's column gather (none when every
+    column is used) and f32 conversion, the device binning tables, the copy to the
     card, bin_numeric, the suspect rows (their count read to the host, their
     host re-binning and the patch copied back), the walk (the cast to u8,
     the kernel), and the scores' conversion and
@@ -993,22 +1044,21 @@ def predict_phases(booster, x) -> dict:
 
     dev = booster.device
     want = booster.predict(x)  # warm
-    ph = dict.fromkeys(("f64 copy", "gather + f32", "binning tables", "to card", "bin_numeric",
-                        "suspects", "walk", "back to host"), 0.0)
+    ph = dict.fromkeys(("gather + f32", "binning tables", "to card", "bin_numeric", "suspects",
+                        "walk", "back to host"), 0.0)
     n_suspect = 0
+    every = list(booster.used_features) == list(range(x.shape[1]))
     torch.cuda.synchronize()
     t_all = t = time.perf_counter()
-    xd = np.asarray(x, dtype=np.float64)
-    ph["f64 copy"] = time.perf_counter() - t
-    t = time.perf_counter()
     dbt = fw.build_devbin_tables(booster.bin_mappers, booster.used_features, dev)
     torch.cuda.synchronize()
     ph["binning tables"] = time.perf_counter() - t
     parts = []
-    for lo in range(0, len(xd), PREDICT_CHUNK):
+    for lo in range(0, len(x), PREDICT_CHUNK):
         t = time.perf_counter()
-        xo = xd[lo:lo + PREDICT_CHUNK]
-        host = np.ascontiguousarray(xo[:, booster.used_features], dtype=np.float32)
+        xo = x[lo:lo + PREDICT_CHUNK]
+        host = np.ascontiguousarray(xo if every else xo[:, booster.used_features],
+                                    dtype=np.float32)
         ph["gather + f32"] += time.perf_counter() - t
         t = time.perf_counter()
         xs = torch.as_tensor(host, device=dev)
@@ -1041,8 +1091,8 @@ def predict_phases(booster, x) -> dict:
     if not np.array_equal(got, want):
         raise AssertionError("predict phases: the split steps differ from Booster.predict")
     ms = {k: v * 1e3 for k, v in ph.items()}
-    print(f"main: predict phases of one warm predict of {len(xd)} rows, {total * 1e3:.1f} ms "
-          f"({len(xd) / total:.0f} rows/s): "
+    print(f"main: predict phases of one warm predict of {len(x)} rows, {total * 1e3:.1f} ms "
+          f"({len(x) / total:.0f} rows/s): "
           + ", ".join(f"{k} {v:.2f} ms" for k, v in ms.items())
           + f"; {n_suspect} suspect rows re-binned on the host; the last chunk's walk "
           f"{walk_dev:.4f} ms device time in {walk_ops:.0f} device operations, its u8 bins "
@@ -1251,6 +1301,29 @@ def _leaf_depths(tree, width: int) -> np.ndarray:
             else:
                 depth[~int(c)] = d
     return depth
+
+
+def first_difference(a, b):
+    """The first split, in tree and node order, where boosters ``a`` (the
+    card's) and ``b`` (the CPU's) part: {tree, node, each one's (feature,
+    bin, default_left) and gain}, or None when every split is the same; a
+    tree with more splits than the other's parts after the last shared one
+    (its gains then never agree)."""
+    def split(tree, i):
+        return int(tree.split_feature[i]), int(tree.split_bin[i]), bool(tree.default_left[i])
+
+    for t, (ta, tb) in enumerate(zip(a.trees, b.trees)):
+        k = min(len(ta.split_feature), len(tb.split_feature))
+        diff = np.nonzero((ta.split_feature[:k] != tb.split_feature[:k])
+                          | (ta.split_bin[:k] != tb.split_bin[:k])
+                          | (ta.default_left[:k] != tb.default_left[:k]))[0]
+        if len(diff):
+            i = int(diff[0])
+            return {"tree": t, "node": i, "cuda": split(ta, i), "cpu": split(tb, i),
+                    "gain cuda": float(ta.split_gain[i]), "gain cpu": float(tb.split_gain[i])}
+        if len(ta.split_feature) != len(tb.split_feature):
+            return {"tree": t, "node": k, "gain cuda": 0.0, "gain cpu": float("inf")}
+    return None
 
 
 def split_share(a, b) -> float:
@@ -1761,7 +1834,7 @@ def efb_predict_and_text(lt, booster, x, y, train_loss, lay):
     err = float(np.max(np.abs(raw - score) / np.maximum(np.abs(score), 1.0)))
     p = np.clip(1.0 / (1.0 + np.exp(-raw)), 1e-15, 1 - 1e-15)
     loss = float(-np.mean(y * np.log(p) + (1 - y) * np.log(1 - p)))
-    print(f"efb: predict {EFB_ROWS / pred_s:.0f} rows/s through the plain walker with tables; raw "
+    print(f"efb: predict {len(x) / pred_s:.0f} rows/s through the plain walker with tables; raw "
           f"scores vs the training score max relative |diff| {err:.3g}, log-loss {loss:.7f} vs "
           f"training {train_loss:.7f}")
     if err > 1e-5 or abs(loss - train_loss) > 1e-5 * train_loss:
@@ -1777,6 +1850,20 @@ def efb_predict_and_text(lt, booster, x, y, train_loss, lay):
           "differ without one")
     if (differ & ~conflict).any():
         raise AssertionError("efb: the real-space predict differs on a row without a conflict")
+
+
+def check_xla_exp(dev):
+    """The binary objective's exp on the card against the CPU, bit for bit,
+    on a dense sweep of f32 (its clamp ends and flush to 0 included)."""
+    from lightgbm_tpu_torch.objectives import xla_exp
+
+    x = torch.linspace(-89.0, 89.0, 4_000_001, dtype=torch.float32)
+    cpu = xla_exp(x).view(torch.int32)
+    card = xla_exp(x.to(dev)).view(torch.int32).cpu()
+    differ = int((cpu != card).sum())
+    print(f"xla_exp: card vs CPU on {len(x)} points of [-89, 89]: {differ} differ")
+    if differ:
+        raise AssertionError("xla_exp: the card's exp differs from the CPU's")
 
 
 def falls(losses, rounds) -> bool:
@@ -1822,6 +1909,42 @@ def check_u16_kernels(dev):
               f"[{res['u8 device']:.4f}] on the same windows, bound {res['bound']:.5f} ms, plain "
               f"{res['plain']:.4f} ms, {lib} {res[lib]:.4f} ms, max |err| {err_k:.3g}")
     print(f"kernels u16: checked and timed in {time.perf_counter() - t0:.1f} s")
+    return kernels
+
+
+def check_ordered_u16_kernels(dev):
+    """The u16 mode of rows 7 and 8 on synthetic bins made on the card
+    (``bench_ordered.run_u16``: 1,048,576 x 700 at 1,024 bins on the root,
+    K=2, 14,000 rows, K=4 x 14,000 and 4,000 rows beside the u8 mode on the
+    same windows, the roots of 1,048,576 x 28 at 8,192 and 16,384 bins,
+    then the edge cases) through the public wrappers: f32 within
+    ``ordered_tol`` and the same bits on two calls, int8 bit-equal.  The
+    kernel entries of the 1,024-bin root.  Raises on a difference."""
+    from lightgbm_tpu_torch import bench_ordered
+
+    t0 = time.perf_counter()
+    res = bench_ordered.run_u16(WIDE_ROWS, dev, reps=20, plain_reps=3, features=WIDE_FEATURES)
+    root = res["root"]
+    kernels = {}
+    for name, mode in (("ordered_hist_u16", "f32"), ("ordered_hist_int8_u16", "int8")):
+        entry = kernel_entry(name, root["f32 max err"] if mode == "f32" else 0.0, root[mode],
+                             root[f"{mode} plain"], (root["bound"], "bytes"),
+                             root[f"index_add_ {mode}"])
+        entry.update({
+            "device_ms": root[f"{mode} device"], "u8_device_ms": root[f"u8 {mode} device"],
+            "shape": f"{WIDE_ROWS} x {WIDE_FEATURES} at {bench_ordered.U16_BINS} bins (u16), root",
+            "cases_device_ms": {case: r[f"{mode} device"] for case, r in res.items()},
+            "cases_u8_device_ms": {case: r[f"u8 {mode} device"] for case, r in res.items()
+                                   if f"u8 {mode} device" in r},
+            "cases_index_add_ms": {case: r[f"index_add_ {mode}"] for case, r in res.items()},
+            "cases_bound_ms": {case: r["bound"] for case, r in res.items()},
+        })
+        kernels[name] = entry
+        print(f"kernel {name}: root {root[mode]:.4f} ms [device {root[f'{mode} device']:.4f}] "
+              f"against the u8 mode's [{root[f'u8 {mode} device']:.4f}] on the same windows, "
+              f"bound {root['bound']:.5f} ms, plain {root[f'{mode} plain']:.4f} ms, index_add_ "
+              f"{root[f'index_add_ {mode}']:.4f} ms")
+    print(f"kernels ordered u16: checked and timed in {time.perf_counter() - t0:.1f} s")
     return kernels
 
 
@@ -1970,13 +2093,13 @@ def wide_phases(lt, _build, dev):
     _build.LAUNCHES.clear()
     wb, losses, train_s, setup_s = train_rounds(lt, PARAMS, ds, WIDE_ROUNDS)
     t0 = time.perf_counter()
-    pred = wb.predict(x)
+    raw = wb.predict(x, raw_score=True)
     torch.cuda.synchronize()
     pred_s = time.perf_counter() - t0
     phases["wide"] = launches = dict(_build.LAUNCHES)
     print(f"wide: hist_mode resolved to {wb.hist_mode!r}; {len(wb.trees)} trees of "
           f"{[t.num_leaves for t in wb.trees]} leaves, {len(losses) / train_s:.4f} iterations/s "
-          f"(set-up {setup_s:.1f} s), predict {WIDE_ROWS / pred_s:.0f} rows/s")
+          f"(set-up {setup_s:.1f} s), predict {len(x) / pred_s:.0f} rows/s")
     print("wide: training log-loss per round " + " ".join(f"{v:.6f}" for v in losses))
     print(f"wide: kernel launches {json.dumps(launches)}")
     if wb.hist_mode != "ordered":
@@ -1990,21 +2113,19 @@ def wide_phases(lt, _build, dev):
         raise AssertionError(f"wide path launched kernels of another path: {seg}")
     if isinstance(wb._walk_tables(), ForestTables):
         raise AssertionError(f"wide: predict went through the walk kernel at {WIDE_FEATURES} features")
-    if pred.shape != (WIDE_ROWS,) or not np.all(np.isfinite(pred)):
-        raise AssertionError("wide: predictions are not finite")
-    p = np.clip(pred, 1e-15, 1 - 1e-15)
-    pred_loss = float(-np.mean(y * np.log(p) + (1 - y) * np.log(1 - p)))
-    if abs(pred_loss - losses[-1]) > 1e-5 * losses[-1]:
-        raise AssertionError(f"wide: predict log-loss {pred_loss} vs train {losses[-1]}")
+    score = wb.score.double().cpu().numpy()
+    err = float(np.max(np.abs(raw - score) / np.maximum(np.abs(score), 1.0)))
+    if raw.shape != (WIDE_ROWS,) or not np.all(np.isfinite(raw)) or err > 1e-5:
+        raise AssertionError(f"wide: predict is off the training score by {err:.3g} (relative)")
     bins = wb._bins_nf[:, :WIDE_FEATURES]
     walk_ms = time_ms(lambda: wb.predict_raw_bins(bins), reps=3, warmup=1)
-    print(f"wide: predict through the plain walker, log-loss {pred_loss:.6f} matches the "
-          f"training score; the walker alone on the binned rows {walk_ms:.1f} ms "
+    print(f"wide: predict through the plain walker matches the training score (max relative "
+          f"|diff| {err:.3g}); the walker alone on the binned rows {walk_ms:.1f} ms "
           f"({WIDE_ROWS / walk_ms * 1e3:.0f} rows/s): the rest of predict is the host's "
           "conversion of the values and the device binning")
     del bins
     profile_iteration(wb, "wide profile")
-    del wb, pred
+    del wb, raw, score
 
     # -- frontier batching, K = 4
     _build.LAUNCHES.clear()
@@ -2058,6 +2179,112 @@ def wide_phases(lt, _build, dev):
     return kernels, phases
 
 
+def wide_u16_phase(lt, _build):
+    """The Expo shape at max_bin 1023 on the ordered layout's u16 mode.
+    Returns {phase: kernel launches}."""
+    import warnings
+
+    t_phase = time.perf_counter()
+    x, y = make_wide_data(WIDE_U16_ROWS, WIDE_FEATURES, seed=43, grid=WIDE_U16_GRID)
+    t0 = time.perf_counter()
+    ds = lt.Dataset(x, y, params=WIDE_U16_PARAMS).construct()
+    nb = ds.num_bins()
+    print(f"wide-u16 data: {WIDE_U16_ROWS} x {WIDE_FEATURES} normals on a grid of "
+          f"1/{WIDE_U16_GRID}, 2% NaN (Expo shape, rows cut from 11,000,000) binned at max_bin "
+          f"1023 in {time.perf_counter() - t0:.1f} s: {ds.bins.dtype} bins, "
+          f"{int(nb.min())}-{int(nb.max())} bins a feature, {ds.max_bin_padded} histogram bins")
+    if ds.max_bin_padded != WIDEBIN_BINS or ds.bins.dtype != np.uint16:
+        raise AssertionError("wide-u16: the bins are not the u16 mode's")
+    phases = {}
+
+    # -- no path parameters: the rule must pick the ordered layout, f32
+    _build.LAUNCHES.clear()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        wb, losses, train_s, setup_s = train_rounds(lt, WIDE_U16_PARAMS, ds, WIDE_U16_ROUNDS)
+    phases["wide-u16"] = launches = dict(_build.LAUNCHES)
+    rule = [str(w.message) for w in caught if "segment-resident" in str(w.message)]
+    print(f"wide-u16: the layout rule's warning: {rule[0] if rule else None}")
+    print(f"wide-u16: hist_mode {wb.hist_mode!r}, {len(wb.trees)} trees of "
+          f"{[t.num_leaves for t in wb.trees]} leaves, {len(losses) / train_s:.4f} iterations/s "
+          f"(set-up {setup_s:.1f} s)")
+    print("wide-u16: training log-loss per round " + " ".join(f"{v:.6f}" for v in losses))
+    print(f"wide-u16: kernel launches {json.dumps(launches)}")
+    if wb.hist_mode != "ordered" or not rule or not falls(losses, WIDE_U16_ROUNDS):
+        raise AssertionError(f"wide-u16: layout {wb.hist_mode!r} (warning {bool(rule)}), or the "
+                             "log-loss did not fall every round")
+    require_launches(launches, ("ordered_hist_u16",), "wide-u16 path")
+    other = {k: launches[k] for k in SEG_KERNELS + U16_KERNELS + ("ordered_hist_int8",)
+             if launches.get(k)}
+    if other:
+        raise AssertionError(f"wide-u16 launched kernels of another path: {other}")
+    t0 = time.perf_counter()
+    raw = wb.predict(x, raw_score=True)
+    pred_s = time.perf_counter() - t0
+    score = wb.score.double().cpu().numpy()
+    err = float(np.max(np.abs(raw - score) / np.maximum(np.abs(score), 1.0)))
+    print(f"wide-u16: predict {len(x) / pred_s:.0f} rows/s through the plain walker; raw scores "
+          f"vs the training score max relative |diff| {err:.3g}")
+    if raw.shape != (WIDE_U16_ROWS,) or not np.all(np.isfinite(raw)) or err > 1e-5:
+        raise AssertionError("wide-u16: predict disagrees with the training score")
+    del wb, raw, score
+
+    # -- quantized training on the int8 kernel's u16 mode, the same rows
+    _build.LAUNCHES.clear()
+    qparams = {**QUANT_PARAMS, "max_bin": 1023}
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")  # the rule's warning, printed above
+        qb, losses, train_s, setup_s = train_rounds(lt, qparams, ds, WIDE_U16_ROUNDS)
+    phases["wide-u16-quant"] = launches = dict(_build.LAUNCHES)
+    print(f"wide-u16-quant: use_quantized_grad, 4 bins, hist_method 'pallas_int8', {WIDE_U16_ROWS} rows: "
+          f"{len(losses) / train_s:.4f} iterations/s (set-up {setup_s:.1f} s), log-loss per round "
+          + " ".join(f"{v:.6f}" for v in losses) + f"; kernel launches {json.dumps(launches)}")
+    if qb.hist_mode != "ordered" or not falls(losses, WIDE_U16_ROUNDS):
+        raise AssertionError("wide-u16-quant: not the ordered layout, or the log-loss did not fall")
+    require_launches(launches, ("ordered_hist_int8_u16",), "wide-u16 quantized path")
+    if launches.get("ordered_hist_u16", 0) or launches.get("ordered_hist", 0):
+        raise AssertionError("wide-u16-quant: the f32 ordered histogram launched")
+    del qb, ds
+
+    # -- card vs CPU on the first rows for PARITY_ROUNDS: quantized (exact
+    # int8 sums: the same trees), then f32, whose sums the card adds in
+    # another order
+    xs, ys = x[:WIDE_U16_PARITY_ROWS].copy(), y[:WIDE_U16_PARITY_ROWS].copy()
+    del x, y
+    for name, params, loss_tol in (("quantized", qparams, 1e-4),
+                                   ("f32", WIDE_U16_PARAMS, WIDE_U16_F32_LOSS_TOL)):
+        runs = {}
+        with warnings.catch_warnings():
+            warnings.simplefilter("ignore")
+            for d in ("cuda", "cpu"):
+                t0 = time.perf_counter()
+                runs[d] = lt.train(params, lt.Dataset(xs, ys, params=params), PARITY_ROUNDS,
+                                   device=d)
+                print(f"wide-u16-parity {name}: {d} trained {PARITY_ROUNDS} rounds in "
+                      f"{time.perf_counter() - t0:.1f} s ({runs[d].hist_mode}, "
+                      f"{runs[d]._max_bin} bins)")
+        share = split_share(runs["cuda"], runs["cpu"])
+        lc, lp = runs["cuda"].train_loss(), runs["cpu"].train_loss()
+        first = first_difference(runs["cuda"], runs["cpu"])
+        print(f"wide-u16-parity {name}: {share:.4f} of splits identical, log-loss cuda {lc:.7f} "
+              f"cpu {lp:.7f}; first differing split: {first}")
+        if abs(lc - lp) > loss_tol * abs(lp):
+            raise AssertionError(f"wide-u16-parity {name}: card and CPU log-loss disagree")
+        if name == "quantized" and share < 0.95:
+            raise AssertionError("wide-u16-parity quantized: card and CPU trees disagree")
+        # f32: the card adds a window's rows in chunks, so its sums differ from
+        # the CPU's row order in the last bits; the trees may part only at a
+        # near tie, where the two chosen splits' gains agree within 1e-5
+        if first is not None and abs(first["gain cuda"] - first["gain cpu"]) > 1e-5 * max(
+                abs(first["gain cpu"]), 1e-12):
+            raise AssertionError(f"wide-u16-parity {name}: the trees part at a split that is not "
+                                 "a near tie")
+        del runs
+    torch.cuda.empty_cache()
+    print(f"wide-u16: phase {time.perf_counter() - t_phase:.1f} s")
+    return phases
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -2075,6 +2302,7 @@ def main() -> int:
     print(f"build: {time.perf_counter() - t0:.1f} s for {len(took)} sources")
     for name, (secs, report) in sorted(took.items()):
         print(f"build: {name} {secs:.1f} s; ptxas: {report}")
+    check_xla_exp(dev)
 
     x, y = make_data(ROWS, FEATURES)
     t0 = time.perf_counter()
@@ -2084,6 +2312,7 @@ def main() -> int:
 
     kernels = {k["name"]: k for k in check_seg_kernels(ds, dev)}
     kernels.update(check_u16_kernels(dev))
+    kernels.update(check_ordered_u16_kernels(dev))
     if "--kernels" in sys.argv[1:]:
         del ds, x, y
         # synthetic Expo-shaped bins made on the card (the binned table takes
@@ -2201,6 +2430,8 @@ def main() -> int:
     wide_kernels, wide_launches = wide_phases(lt, _build, dev)
     kernels.update({k["name"]: k for k in wide_kernels})
     phases.update(wide_launches)
+
+    phases.update(wide_u16_phase(lt, _build))
     for name, kern in kernels.items():
         kern["launches"] = sum(ph.get(name, 0) for ph in phases.values())
     for kern in kernels.values():

@@ -50,11 +50,11 @@ SIGNATURES: Dict[str, Sequence] = {
                                 _VP, ctypes.c_uint, _VP, _VP),
     "split_scan": (_VP,) * 5 + (_I32,) * 4 + (_F32,) * 4 + (_VP, _F32, _I32) + (_VP,) * 4,
     "forest_walk": (_VP,) * 3 + (_I64,) + (_I32,) * 9 + (_VP,) * 2,
-    "ordered_hist": (_VP, _I64) + (_VP,) * 5 + (_I32,) * 3 + (_VP, _VP, _I64, _VP, _VP),
+    "ordered_hist": (_VP, _I64) + (_VP,) * 5 + (_I32,) * 5 + (_VP, _VP, _I64, _VP, _VP),
 }
 # further C entries of a source: name -> (source, argtypes, restype)
 EXTRA_ENTRIES: Dict[str, Tuple[str, Sequence, object]] = {
-    "ordered_hist_scratch": ("ordered_hist", (_VP,) + (_I32,) * 4, _I64),
+    "ordered_hist_scratch": ("ordered_hist", (_VP,) + (_I32,) * 6, _I64),
     "grow_step_scratch": ("grow_step", (_I32,) * 3, _I64),
     "seg_hist_scratch": ("seg_hist", (_I32,) * 3, _I64),
 }
@@ -67,9 +67,9 @@ _LOCK = threading.Lock()
 # and "split_scan_batch" the K-window and M-leaf calls of partition.cu and
 # split_scan.cu, "split_candidates" the split_scan.cu launches, of one leaf
 # or of M, that also reduce each leaf to its candidate; "<name>_table" and
-# "<name>_u16" count the calls of the partition, fused step and segment
-# histogram in their goes-left-table and u16 modes beside their plain
-# names); a wrapper adds one
+# "<name>_u16" count the calls of the partition, fused step, segment
+# histogram and ordered histogram in their goes-left-table and u16 modes
+# beside their plain names); a wrapper adds one
 # where it launches its kernel, nowhere else, so a run shows which kernels
 # it went through
 LAUNCHES: Counter = Counter()

@@ -209,20 +209,20 @@ class Booster:
         # the budget counts bin columns: EFB planes (boosting/gbdt.py:1295-1297)
         self.hist_mode = cfg.hist_mode or resolve_hist_mode(ds.num_planes, ds.max_bin_padded)
         cfg.check_layout(self.hist_mode)
-        if self.hist_mode == "ordered" and ds.max_bin_padded > 256:
-            raise NotImplementedError(
-                f"hist_mode='ordered' at max_bin padded to {ds.max_bin_padded} not yet "
-                "ported to lightgbm_tpu_torch (ROADMAP Queue 1, item 4: the ordered "
-                "histogram's u16 mode, kernel rows 7-8); the seg layout takes such "
-                f"bins at up to {SEG_MAX_FEATURES_WIDE} columns and a padded width of "
-                f"{SEG_MAX_BIN_PADDED}")
-        # feature-major bins; past 256 bins each column as two byte planes
-        # (lo, hi: the seg rows' u16 mode, ops/seg.py)
-        bins_fn = np.ascontiguousarray(ds.bins.T)
-        self._bins_fn = (torch.as_tensor(bins_fn, device=dev) if bins_fn.dtype == np.uint8
-                         else byte_planes(torch.as_tensor(bins_fn.astype(np.int32))).to(dev))
-        # the ordered layout reads whole rows: a row-major copy beside the
-        # feature-major one that its partition reads a column of
+        # feature-major bins, transposed on the device (a host transpose of
+        # 1,048,576 x 700 bytes takes ~10 s); past 256 bins each column as
+        # two byte planes (lo, hi: the seg rows' u16 mode, ops/seg.py, and
+        # the ordered partition's column reads), the u16 bins read through
+        # an i16 view (PyTorch's uint16 takes few operators)
+        bins = np.ascontiguousarray(ds.bins)
+        if bins.dtype == np.uint8:
+            self._bins_fn = torch.as_tensor(bins).to(dev).T.contiguous()
+        else:
+            wide = torch.as_tensor(bins.view(np.int16)).to(dev).to(torch.int32) & 0xFFFF
+            self._bins_fn = byte_planes(wide.T)
+        # the ordered layout reads whole rows: a row-major copy (u16 past 256
+        # bins, the histogram's u16 mode) beside the feature-major one that
+        # its partition reads a column of
         self._bins_nf = (
             row_major_bins(ds.bins, dev) if self.hist_mode == "ordered" else None
         )
@@ -479,7 +479,9 @@ class Booster:
         the training Dataset's, then packed into its EFB planes where it
         has them.  A model read from text walks the raw values in real
         space."""
-        x = np.asarray(data, dtype=np.float64)
+        x = np.asarray(data)
+        if x.dtype not in (np.float32, np.float64):
+            x = x.astype(np.float64)
         if x.ndim != 2:
             raise ValueError(f"data must be 2-D, got shape {x.shape}")
         n = x.shape[0]
@@ -491,13 +493,18 @@ class Booster:
         if t1 <= t0:
             return np.zeros(n)
         if self.bin_mappers is None:
-            return self._finish_predict(self._predict_real(x, t0, t1), raw_score)
+            raw = self._predict_real(x.astype(np.float64, copy=False), t0, t1)
+            return self._finish_predict(raw, raw_score)
         dbt = build_devbin_tables(self.bin_mappers, self.used_features, self.device)
+        # the used columns of a chunk in f32, without a copy of the whole
+        # table in f64 (_bin_host reads the suspect rows' values in f64)
+        every = list(self.used_features) == list(range(x.shape[1]))
         parts = []
         for lo in range(0, n, PREDICT_CHUNK):
             xo = x[lo : lo + PREDICT_CHUNK]
             xs = torch.as_tensor(
-                np.ascontiguousarray(xo[:, self.used_features], dtype=np.float32),
+                np.ascontiguousarray(xo if every else xo[:, self.used_features],
+                                     dtype=np.float32),
                 device=self.device,
             )
             bins, suspect = bin_numeric(xs, *dbt)

@@ -280,13 +280,6 @@ class Config:
             raise ValueError("max_conflict_rate must be in [0, 1)")
         if cfg.max_bin < 2:
             raise ValueError("max_bin must be >= 2")
-        if cfg.max_bin > 255 and cfg.hist_mode == "ordered":
-            raise ValueError(
-                "max_bin > 255 on hist_mode='ordered' not yet ported to "
-                "lightgbm_tpu_torch (the ordered histogram's u16 mode, kernel "
-                "rows 7-8): leave hist_mode to the layout rule, which trains "
-                "such data on 'seg' at up to 121 features"
-            )
         return cfg
 
     def _check_quantized(self) -> None:

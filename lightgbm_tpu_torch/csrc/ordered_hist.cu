@@ -19,19 +19,31 @@
 // (S_g_hi, S_g_lo, S_h_hi, S_h_lo, count) that ops/seg.py combine_int8
 // recombines outside the kernel, as combine_hist_raw does on the TPU.
 //
+// The bins are u8 (B <= 256) or, past a byte, u16 (the u16 mode, B up to
+// 65,536; the TPU kernels take any integer bins).  A block's table holds
+// kRangeBins = 256 bins, since 32 features x 1,024 bins of f32 sums (384
+// KB) do not fit a multiprocessor's shared memory: the u16 mode adds a grid
+// dimension of bin ranges of 256, as many as the widest feature needs (the
+// host passes them), and each block is the u8 mode's block over the bins
+// [256 r, 256 r + 256) of its range r, a row whose bin lies outside them
+// adding to its trash bin.  Every row is read once a range; the sums, and
+// their order, are the u8 mode's.
+//
 // The TPU needs the one-hot matmul because it has no fast scatter-add; the
 // card scatters into shared memory, in two passes (two launches):
 //   1. the accumulate, a grid of (row chunk, 32-feature group, window)
-//      blocks.  Lane j of every warp owns feature f0 + j, and a block's
+//      blocks (times the bin ranges).  Lane j of every warp owns feature
+//      f0 + j, and a block's
 //      histogram is [plane][bin][32] words in shared memory, so lane j's
 //      cell is always in bank j: the 32 adds of a warp never share a bank
 //      or an address, whatever the bins (a skewed feature included).  The
 //      chunks of a window are as many as fill the card once, each of at
 //      least kMinRows rows.  How a block adds (Acc):
 //        * int8 (ordered_hist_accumulate): 32 warps, one row at a time a
-//          warp, its 32 lanes reading 32 consecutive bin bytes of the row
-//          (one 32-byte sector) and adding the row's digits with shared
-//          integer atomics, whose sums do not depend on the order; the
+//          warp, its 32 lanes reading 32 consecutive bins of the row (one
+//          32-byte sector, two in the u16 mode) and adding the row's digits
+//          with shared integer atomics, whose sums do not depend on the
+//          order (a trash bin takes the rows that add nothing); the
 //          digits of 32 rows are made once, one row a lane, and passed to
 //          the warp by shuffles, the bins of 8 rows loaded before their
 //          adds;
@@ -43,7 +55,9 @@
 //          changes from run to run; sm_90 has no shared f32 atomic add
 //          either: atomicAdd(float*) there is a compare-and-swap loop).
 //          Lane u stages row u of a batch of 32 (its g, h, m and its
-//          group's 32 bin bytes) in a ring of eight batches in shared
+//          group's 32 bins) in a ring of eight batches (five in the u16
+//          mode, whose batches are twice the bins, so that two blocks
+//          still fit a multiprocessor) in shared
 //          memory by cp.async, seven batches ahead of the adds (the row
 //          indices of a window, by cp.async into a ring of their own, eight
 //          batches before that), so that a gathered window's loads (a
@@ -52,11 +66,12 @@
 //          broadcast) and its own feature's byte from the ring; four rows
 //          at a time, a row whose cell an earlier row of the four holds
 //          adding to that row's new value; a trash bin takes the rows that
-//          add nothing (a bin >= nbins, a lane past the features), so no
-//          row needs a test;
+//          add nothing (a bin outside the range or >= nbins, a lane past
+//          the features), so no row needs a test;
 //      the block then copies its whole histogram to its own slot of a
 //      scratch buffer;
-//   2. ordered_hist_reduce sums each output cell over the window's chunks,
+//   2. ordered_hist_reduce sums each output cell over the window's chunks
+//      (of the cell's range; a bin past the launch's ranges sums nothing),
 //      in chunk order, and writes every cell (zeros included) through a
 //      shared-memory transpose, so that each feature's bins go out as one
 //      run.  No global atomics, the output needs no zeroing, and the sums
@@ -67,10 +82,11 @@
 // 98 KB table).
 //
 // What bounds it on an H100 in principle: memory, one pass over cnt *
-// (F + 16) bytes (the bins, three f32 statistics and the row index) plus
-// the output; the kernel reads each bin byte once (whole sectors) and the
-// statistics once per feature group (from L2 after the first).  In
-// practice the shared-memory pipe bounds it (above).
+// (F + 16) bytes (the bins, three f32 statistics and the row index; 2F in
+// the u16 mode) plus the output; the kernel reads each bin once a range
+// (whole sectors) and the statistics once per feature group and range
+// (from L2 after the first).  In practice the shared-memory pipe bounds it
+// (above), times the ranges in the u16 mode.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -81,8 +97,32 @@ constexpr int kUnroll = 8;  // int8: rows whose bins are loaded before their add
 constexpr int kMaxWindows = 16;
 constexpr int kQmax = 127 * 128;
 constexpr int kReduceThreads = 256;
-constexpr int kOrderBins = 257;  // the in-order table's bins: 256 and a trash bin
+constexpr int kRangeBins = 256;  // bins of a block's table (a range of the u16 mode)
+constexpr int kOrderBins = kRangeBins + 1;  // the in-order table's bins: 256 and a trash bin
 constexpr int kOrderPlane = kOrderBins * 32;  // words of a plane of that table
+constexpr int kMaxBins = 65536;  // the u16 mode's widest bin axis
+
+// The bins of a block's table (the image it leaves in the scratch): all of
+// them in the u8 mode, a range of kRangeBins past it.
+__host__ __device__ __forceinline__ int range_width(int nbins) {
+  return nbins < kRangeBins ? nbins : kRangeBins;
+}
+
+// A block's bin range: [lo, lo + nb) of the nbins, range r of the grid's
+// y = group * ranges + r.
+struct Range {
+  int group, lo, nb;
+  __device__ __forceinline__ Range(int y, int ranges, int nbins) {
+    group = y / ranges;
+    lo = (y - group * ranges) * kRangeBins;
+    nb = min(kRangeBins, nbins - lo);
+  }
+  // the table row of bin b: b - lo inside the range, else `trash`
+  __device__ __forceinline__ int row(int b, bool has, int trash) const {
+    const unsigned d = (unsigned)(b - lo);
+    return has && d < (unsigned)nb ? (int)d : trash;
+  }
+};
 
 struct Windows {
   long long start[kMaxWindows];
@@ -93,7 +133,8 @@ struct Windows {
 // integer atomics; f32, one warp in row order.  A cell is kWords 32-bit
 // words in the image a block leaves in the scratch, one per plane (f32: g,
 // h, count; int8: g_hi, g_lo, h_hi, h_lo, count), each plane a [bin][32]
-// table, so lane j's cells are all in column j (bank j).
+// table of the block's range_width(nbins) bins, so lane j's cells are all
+// in column j (bank j).
 template <bool kInt8>
 struct Acc {
   static constexpr int kWords = kInt8 ? 5 : 3;
@@ -103,10 +144,11 @@ struct Acc {
   // (kMinRows), so their tiles are smaller, one cell a thread
   static constexpr int kReduceBins = kInt8 ? 32 : 8;
   // bytes of a block's image in the scratch
-  static size_t image_bytes(int nbins) { return (size_t)kWords * nbins * 32 * 4; }
-  // bytes of a block's shared memory: the image itself (int8), or the
-  // in-order table, (g, h) pairs f32 [kOrderBins][32] and counts i32
-  // [kOrderBins][32], then the ring of staged batches (f32)
+  static size_t image_bytes(int nbins) { return (size_t)kWords * range_width(nbins) * 32 * 4; }
+  // bytes of a block's shared memory: the image with a trash bin a plane
+  // (int8), or the in-order table, (g, h) pairs f32 [kOrderBins][32] and
+  // counts i32 [kOrderBins][32], then the ring of staged batches (f32)
+  template <typename BinT>
   static size_t shared_bytes(int nbins);
 };
 
@@ -148,14 +190,16 @@ __device__ __host__ __forceinline__ long long window_chunks(long long cnt,
   return c < 1 ? 1 : c;
 }
 
-// Pass 1, int8: the (row chunk, feature group, window) block's digit sums
-// in shared memory, copied out whole into its slot of the scratch.
+// Pass 1, int8: the (row chunk, feature group x bin range, window) block's
+// digit sums in shared memory ([plane][bin][32] with a trash bin a plane),
+// copied out whole, less the trash bins, into its slot of the scratch.
+template <typename BinT>
 __global__ void __launch_bounds__(Acc<true>::kThreads)
-    ordered_hist_accumulate(const uint8_t* __restrict__ bins, long long stride,
+    ordered_hist_accumulate(const BinT* __restrict__ bins, long long stride,
                             const int* __restrict__ order, const float* __restrict__ g,
                             const float* __restrict__ h, const float* __restrict__ m,
-                            Windows win, int f, int nbins, const float* __restrict__ scales,
-                            int* __restrict__ scratch) {
+                            Windows win, int f, int nbins, int ranges,
+                            const float* __restrict__ scales, int* __restrict__ scratch) {
   using A = Acc<true>;
   constexpr int kWarps = A::kThreads / 32;
   extern __shared__ __align__(16) int smem[];
@@ -168,10 +212,11 @@ __global__ void __launch_bounds__(Acc<true>::kThreads)
 
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
-  const int f0 = blockIdx.y * 32;
-  const int pw = nbins * 32;  // words of a 32-bit plane
-  const int words = A::kWords * pw;
-  for (int i = threadIdx.x; i < words; i += A::kThreads) smem[i] = 0;
+  const Range rg(blockIdx.y, ranges, nbins);
+  const int f0 = rg.group * 32;
+  const int bw = range_width(nbins);
+  const int pw = (bw + 1) * 32;  // words of a plane of the table (the trash bin last)
+  for (int i = threadIdx.x; i < A::kWords * pw; i += A::kThreads) smem[i] = 0;
   __syncthreads();
 
   const bool has = f0 + lane < f;  // whether the lane's feature exists
@@ -179,7 +224,7 @@ __global__ void __launch_bounds__(Acc<true>::kThreads)
   const long long rows_per_block = (cnt + chunks - 1) / chunks;
   const long long i0 = (long long)blockIdx.x * rows_per_block;
   const long long i1 = min(i0 + rows_per_block, cnt);
-  const uint8_t* col = bins + f0 + lane;
+  const BinT* col = bins + f0 + lane;
 
   for (long long base = i0 + (long long)warp * 32; base < i1; base += (long long)kWarps * 32) {
     // lane u holds row base + u: its index and the digits it adds
@@ -192,44 +237,53 @@ __global__ void __launch_bounds__(Acc<true>::kThreads)
       digit_vals(g[r], h[r], m[r], sg, sh, dw, dc);
     }
     for (int u0 = 0; u0 < nvalid; u0 += kUnroll) {
-      int b[kUnroll];
+      int cell[kUnroll];
 #pragma unroll
       for (int q = 0; q < kUnroll; ++q) {
         const long long rq = __shfl_sync(0xffffffffu, r, u0 + q);
-        b[q] = (u0 + q < nvalid && has) ? (int)col[rq * stride] : nbins;
+        const bool live = u0 + q < nvalid && has;
+        cell[q] = rg.row(live ? (int)col[rq * stride] : -1, live, bw) * 32 + lane;
       }
 #pragma unroll
       for (int q = 0; q < kUnroll; ++q) {
         const unsigned w = __shfl_sync(0xffffffffu, dw, u0 + q);
         const int c = __shfl_sync(0xffffffffu, dc, u0 + q);
-        if (b[q] < nbins) {
-          const int cell = b[q] * 32 + lane;
 #pragma unroll
-          for (int p = 0; p < 4; ++p) atomicAdd(&smem[p * pw + cell], digit(w, p));
-          atomicAdd(&smem[4 * pw + cell], c);
-        }
+        for (int p = 0; p < 4; ++p) atomicAdd(&smem[p * pw + cell[q]], digit(w, p));
+        atomicAdd(&smem[4 * pw + cell[q]], c);
       }
     }
   }
   __syncthreads();
 
-  // the image, 16 bytes a thread (words is a multiple of 32)
+  // the image, 16 bytes a thread, each plane's bw bins (bw * 32 words, a
+  // multiple of 4) without its trash bin
+  const int ipw = bw * 32 / 4;  // 16-byte words of an image's plane
   const long long slot = ((long long)k * gridDim.y + blockIdx.y) * gridDim.x + blockIdx.x;
-  int4* dst = reinterpret_cast<int4*>(scratch + slot * words);
+  int4* dst = reinterpret_cast<int4*>(scratch + slot * A::kWords * bw * 32);
   const int4* src = reinterpret_cast<const int4*>(smem);
-  for (int i = threadIdx.x; i < words / 4; i += A::kThreads) dst[i] = src[i];
+  for (int i = threadIdx.x; i < A::kWords * ipw; i += A::kThreads) {
+    const int p = i / ipw;
+    dst[i] = src[p * (pw / 4) + (i - p * ipw)];
+  }
 }
 
 // The f32 block's ring of staged batches: kRing batches of 32 rows, each
-// row's (g, h, m) and its group's 32 bin bytes, copied from global memory
-// by cp.async kRing - 1 batches ahead of the adds, so that the loads of a
+// row's (g, h, m) and its group's 32 bins, copied from global memory by
+// cp.async kRing - 1 batches ahead of the adds, so that the loads of a
 // gathered window (a random row each) are in flight while earlier batches
-// add, without registers held for them.
-constexpr int kRing = 8;
+// add, without registers held for them.  The u16 mode's batches are twice
+// the bytes, so its ring is shorter: two blocks still fit a multiprocessor.
+template <typename BinT>
+struct Ring {
+  static constexpr int kBatches = sizeof(BinT) == 1 ? 8 : 5;
+  static constexpr int kVecs = 2 * (int)sizeof(BinT);  // 16-byte loads of a row's 32 bins
+};
 constexpr int kIndexSlots = 16;  // the index ring: batches of 32 row indices
+template <typename BinT>
 struct Slot {
   float4 row[32];  // (g, h, m, 0) of row q
-  uint4 bins[64];  // row q's bytes f0 .. f0 + 31 at bytes 32 q .. 32 q + 31
+  uint4 bins[32 * Ring<BinT>::kVecs];  // row q's bins f0 .. f0 + 31 from vector kVecs q
 };
 constexpr int kOrderWords = 3 * kOrderPlane;  // of the table, before the ring
 
@@ -257,24 +311,32 @@ __device__ __forceinline__ void stage_index(int* slot, const int* order, long lo
   else slot[lane] = -1;
 }
 
-// Lane u's copies of row r into the slot (zeros for no row), then the
-// batch's commit: one cp.async group a batch, empty ones included, so
-// that the group count tells which batches have landed.
-__device__ __forceinline__ void stage_row(Slot* slot, long long r, const uint8_t* grp,
-                                          long long stride, bool two, const float* g,
+// Lane u's copies of row r into the slot (zeros for no row): its g, h, m
+// and the first nvec of its group's 16-byte vectors of bins (those that lie
+// in the row; zeros after them), then the batch's commit: one cp.async
+// group a batch, empty ones included, so that the group count tells which
+// batches have landed.
+template <typename BinT>
+__device__ __forceinline__ void stage_row(Slot<BinT>* slot, long long r, const BinT* grp,
+                                          long long stride, int nvec, const float* g,
                                           const float* h, const float* m, int lane) {
+  constexpr int kVecs = Ring<BinT>::kVecs;
+  uint4* dst = &slot->bins[kVecs * lane];
   if (r >= 0) {
     float* row = reinterpret_cast<float*>(&slot->row[lane]);
     cp_async(row, g + r, 4);
     cp_async(row + 1, h + r, 4);
     cp_async(row + 2, m + r, 4);
     const uint4* p = reinterpret_cast<const uint4*>(grp + r * stride);
-    cp_async(&slot->bins[2 * lane], p, 16);
-    if (two) cp_async(&slot->bins[2 * lane + 1], p + 1, 16);
-    else slot->bins[2 * lane + 1] = make_uint4(0u, 0u, 0u, 0u);
+#pragma unroll
+    for (int v = 0; v < kVecs; ++v) {
+      if (v < nvec) cp_async(dst + v, p + v, 16);
+      else dst[v] = make_uint4(0u, 0u, 0u, 0u);
+    }
   } else {
     slot->row[lane] = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
-    slot->bins[2 * lane] = slot->bins[2 * lane + 1] = make_uint4(0u, 0u, 0u, 0u);
+#pragma unroll
+    for (int v = 0; v < kVecs; ++v) dst[v] = make_uint4(0u, 0u, 0u, 0u);
   }
   asm volatile("cp.async.commit_group;\n" ::: "memory");
 }
@@ -287,9 +349,10 @@ __device__ __forceinline__ void stage_row(Slot* slot, long long r, const uint8_t
 // write of a cell holds all its rows.  Rows past nv add +0.0 and no count.
 constexpr int kGroup = 4;
 
-__device__ __forceinline__ void add_in_order(float2* gh, int* counts, const Slot* slot, int nv,
-                                             int nbins, bool has, int lane) {
-  const uint8_t* bb = reinterpret_cast<const uint8_t*>(slot->bins) + lane;
+template <typename BinT>
+__device__ __forceinline__ void add_in_order(float2* gh, int* counts, const Slot<BinT>* slot,
+                                             int nv, const Range& rg, bool has, int lane) {
+  const BinT* bb = reinterpret_cast<const BinT*>(slot->bins) + lane;
 #pragma unroll
   for (int q0 = 0; q0 < 32; q0 += kGroup) {
     if (q0 >= nv) break;  // nv is the same on every lane
@@ -300,8 +363,7 @@ __device__ __forceinline__ void add_in_order(float2* gh, int* counts, const Slot
       const float4 v = slot->row[q0 + k];  // a broadcast
       x[k] = make_float2(v.x * v.z, v.y * v.z);
       c[k] = v.z != 0.0f ? 1 : 0;
-      const int b = bb[(q0 + k) * 32];
-      cell[k] = (has && b < nbins ? b : kOrderBins - 1) * 32;
+      cell[k] = rg.row((int)bb[(q0 + k) * 32], has, kOrderBins - 1) * 32;
     }
 #pragma unroll
     for (int k = 0; k < kGroup; ++k) {
@@ -329,15 +391,18 @@ __device__ __forceinline__ void add_in_order(float2* gh, int* counts, const Slot
   }
 }
 
-// Pass 1, f32: the (row chunk, feature group, window) block's sums, one
-// warp adding the chunk's rows in row order from the ring, copied out as
-// the image [plane][bin][32] into its slot of the scratch.
+// Pass 1, f32: the (row chunk, feature group x bin range, window) block's
+// sums, one warp adding the chunk's rows in row order from the ring,
+// copied out as the image [plane][bin][32] into its slot of the scratch.
+template <typename BinT>
 __global__ void __launch_bounds__(Acc<false>::kThreads)
-    ordered_hist_in_order(const uint8_t* __restrict__ bins, long long stride,
+    ordered_hist_in_order(const BinT* __restrict__ bins, long long stride,
                           const int* __restrict__ order, const float* __restrict__ g,
                           const float* __restrict__ h, const float* __restrict__ m,
-                          Windows win, int f, int nbins, int* __restrict__ scratch) {
+                          Windows win, int f, int nbins, int ranges, int* __restrict__ scratch) {
   using A = Acc<false>;
+  constexpr int kRing = Ring<BinT>::kBatches;
+  constexpr int kPerVec = 16 / (int)sizeof(BinT);  // features of a 16-byte vector
   extern __shared__ __align__(16) int smem[];
 
   const int k = blockIdx.z;
@@ -347,17 +412,20 @@ __global__ void __launch_bounds__(Acc<false>::kThreads)
   if ((long long)blockIdx.x >= chunks) return;
 
   const int lane = threadIdx.x;
-  const int f0 = blockIdx.y * 32;
+  const Range rg(blockIdx.y, ranges, nbins);
+  const int f0 = rg.group * 32;
   int4* zero = reinterpret_cast<int4*>(smem);
   for (int i = lane; i < kOrderWords / 4; i += 32) zero[i] = make_int4(0, 0, 0, 0);
 
   float2* gh = reinterpret_cast<float2*>(smem) + lane;
   int* cnts = smem + 2 * kOrderPlane + lane;
-  Slot* ring = reinterpret_cast<Slot*>(smem + kOrderWords);
+  Slot<BinT>* ring = reinterpret_cast<Slot<BinT>*>(smem + kOrderWords);
   int* idx = reinterpret_cast<int*>(ring + kRing);  // [kIndexSlots][32]
   const bool has = f0 + lane < f;
-  const bool two = f0 + 16 < f;  // then f0 + 32 <= stride: the second 16 bytes are the row's
-  const uint8_t* grp = bins + f0;
+  // the group's vectors that lie in the row: stride is a multiple of a
+  // vector and >= f, so a vector that starts before f ends within the row
+  const int nvec = min(Ring<BinT>::kVecs, (f - f0 + kPerVec - 1) / kPerVec);
+  const BinT* grp = bins + f0;
   const long long rows_per_block = (cnt + chunks - 1) / chunks;
   const long long i0 = (long long)blockIdx.x * rows_per_block;
   const long long i1 = min(i0 + rows_per_block, cnt);
@@ -370,7 +438,7 @@ __global__ void __launch_bounds__(Acc<false>::kThreads)
   for (long long j = 0; j < 2 * kRing - 1; ++j) {
     const long long b0 = i0 + 32 * j;
     if (j < kRing - 1) {
-      stage_row(&ring[j], row_of(order, start, b0, i1, lane), grp, stride, two, g, h, m, lane);
+      stage_row(&ring[j], row_of(order, start, b0, i1, lane), grp, stride, nvec, g, h, m, lane);
     } else if (order != nullptr) {
       stage_index(idx + (j % kIndexSlots) * 32, order, start, b0, i1, lane);
     }
@@ -383,17 +451,18 @@ __global__ void __launch_bounds__(Acc<false>::kThreads)
                                          : idx[(j % kIndexSlots) * 32 + lane];
     if (order != nullptr) stage_index(idx + ((j + kRing) % kIndexSlots) * 32, order, start,
                                       i0 + 32 * (j + kRing), i1, lane);
-    stage_row(&ring[j % kRing], r, grp, stride, two, g, h, m, lane);
+    stage_row(&ring[j % kRing], r, grp, stride, nvec, g, h, m, lane);
     asm volatile("cp.async.wait_group %0;\n" ::"n"(kRing - 1) : "memory");
     __syncwarp();  // every lane's copies of this batch have landed
-    add_in_order(gh, cnts, &ring[batch % kRing], (int)min(32LL, i1 - base), nbins, has, lane);
+    add_in_order(gh, cnts, &ring[batch % kRing], (int)min(32LL, i1 - base), rg, has, lane);
     __syncwarp();  // the slot is free for the batch kRing - 1 ahead
   }
   asm volatile("cp.async.wait_all;\n" ::: "memory");
   __syncwarp();
 
-  // the image: the pairs split into the g and h planes, then the counts
-  const int pw = nbins * 32;
+  // the image: the pairs split into the g and h planes, then the counts,
+  // each plane the range's bw bins
+  const int pw = range_width(nbins) * 32;
   int4* dst = reinterpret_cast<int4*>(scratch + ((long long)k * gridDim.y + blockIdx.y) *
                                                     gridDim.x * A::kWords * pw +
                                       (long long)blockIdx.x * A::kWords * pw);
@@ -410,9 +479,11 @@ __global__ void __launch_bounds__(Acc<false>::kThreads)
 }
 
 template <bool kInt8>
+template <typename BinT>
 size_t Acc<kInt8>::shared_bytes(int nbins) {
-  return kInt8 ? image_bytes(nbins)
-               : (size_t)kOrderWords * 4 + kRing * sizeof(Slot) + kIndexSlots * 32 * 4;
+  return kInt8 ? (size_t)kWords * (range_width(nbins) + 1) * 32 * 4
+               : (size_t)kOrderWords * 4 + Ring<BinT>::kBatches * sizeof(Slot<BinT>) +
+                     kIndexSlots * 32 * 4;
 }
 
 // One cell of an image in the scratch as the output planes: f32 (g, h,
@@ -432,30 +503,35 @@ __device__ __forceinline__ void read_cell(const int* s, int cell, int pw, int (&
 }
 
 // Pass 2: each (32 features, kReduceBins bins, window) tile of the output
-// summed over the window's chunks, in chunk order, transposed in shared
-// memory and written out whole (every cell, zeros included).
+// summed over the window's chunks of the tile's bin range (kReduceBins
+// divides kRangeBins: a tile lies in one range), in chunk order, transposed
+// in shared memory and written out whole (every cell, zeros included; a
+// bin past the launch's ranges sums nothing).
 template <bool kInt8>
 __global__ void __launch_bounds__(kReduceThreads)
     ordered_hist_reduce(const int* __restrict__ scratch, Windows win, int f, int nbins,
-                        int grid_chunks, void* __restrict__ out) {
+                        int ranges, int grid_chunks, void* __restrict__ out) {
   using A = Acc<kInt8>;
   constexpr int P = A::kWords;
   constexpr int kBins = A::kReduceBins;
   constexpr int kRow = kBins * P + 1;  // words a feature, odd: no conflicts
+  static_assert(kRangeBins % kBins == 0, "a reduce tile lies in one bin range");
   __shared__ int tile[32 * kRow];
 
   const int k = blockIdx.z;
   const int grp = blockIdx.y;
   const int bin0 = blockIdx.x * kBins;
   const int nb = min(kBins, nbins - bin0);
-  const int pw = nbins * 32;
+  const int r = bin0 / kRangeBins;  // the tile's bin range
+  const int pw = range_width(nbins) * 32;  // words of an image's plane
   const int words = P * pw;
-  const long long chunks = window_chunks<kInt8>(win.cnt[k], grid_chunks);
-  const int* part = scratch + ((long long)k * gridDim.y + grp) * grid_chunks * (long long)words;
+  const long long chunks = r < ranges ? window_chunks<kInt8>(win.cnt[k], grid_chunks) : 0;
+  const int* part = scratch + (((long long)k * gridDim.y + grp) * ranges + r) * grid_chunks *
+                                  (long long)words;
 
   for (int e = threadIdx.x; e < nb * 32; e += kReduceThreads) {
     const int j = e & 31;
-    const int cell = (bin0 + (e >> 5)) * 32 + j;
+    const int cell = (bin0 - r * kRangeBins + (e >> 5)) * 32 + j;
     int o[5] = {0, 0, 0, 0, 0};
     float of[3] = {0.0f, 0.0f, 0.0f};
     // f32: kLoads chunks' cells loaded before they are added (in chunk
@@ -509,22 +585,23 @@ int sm_count() {
   return sms;
 }
 
-template <bool kInt8>
+template <bool kInt8, typename BinT>
 const void* accumulate_fn() {
-  return kInt8 ? (const void*)ordered_hist_accumulate : (const void*)ordered_hist_in_order;
+  return kInt8 ? (const void*)ordered_hist_accumulate<BinT>
+               : (const void*)ordered_hist_in_order<BinT>;
 }
 
-// blocks of the accumulate pass a multiprocessor holds at 256 bins (0 on
-// error, with the error in *err)
-template <bool kInt8>
+// blocks of the accumulate pass a multiprocessor holds at a full table (0
+// on error, with the error in *err)
+template <bool kInt8, typename BinT>
 int resident_blocks(cudaError_t* err) {
   static int resident = 0;
   if (resident == 0) {
-    const int bytes = (int)Acc<kInt8>::shared_bytes(256);
-    *err = cudaFuncSetAttribute(accumulate_fn<kInt8>(),
+    const int bytes = (int)Acc<kInt8>::template shared_bytes<BinT>(kRangeBins);
+    *err = cudaFuncSetAttribute(accumulate_fn<kInt8, BinT>(),
                                 cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
     if (*err != cudaSuccess) return 0;
-    *err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&resident, accumulate_fn<kInt8>(),
+    *err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&resident, accumulate_fn<kInt8, BinT>(),
                                                          Acc<kInt8>::kThreads, bytes);
     if (*err != cudaSuccess) return 0;
     if (resident < 1) *err = cudaErrorInvalidConfiguration;
@@ -533,7 +610,8 @@ int resident_blocks(cudaError_t* err) {
 }
 
 // row chunks of the launch: enough blocks to fill the card once, each with
-// at least kMinRows rows
+// at least kMinRows rows; `groups` counts the feature groups times the bin
+// ranges (the blocks a chunk takes)
 template <bool kInt8>
 long long grid_chunks(int k, long long max_cnt, int groups, int resident) {
   long long chunks = (max_cnt + Acc<kInt8>::kMinRows - 1) / Acc<kInt8>::kMinRows;
@@ -543,46 +621,47 @@ long long grid_chunks(int k, long long max_cnt, int groups, int resident) {
   return chunks < 1 ? 1 : chunks;
 }
 
-template <bool kInt8>
-long long scratch_bytes(int k, long long max_cnt, int f, int nbins, int* groups_out,
-                        long long* chunks_out) {
+template <bool kInt8, typename BinT>
+long long scratch_bytes(int k, long long max_cnt, int f, int nbins, int ranges,
+                        int* groups_out, long long* chunks_out) {
   cudaError_t e = cudaSuccess;
-  const int resident = resident_blocks<kInt8>(&e);
+  const int resident = resident_blocks<kInt8, BinT>(&e);
   if (e != cudaSuccess) return -(long long)e;
   const int groups = (f + 31) / 32;
-  const long long chunks = grid_chunks<kInt8>(k, max_cnt, groups, resident);
+  const long long chunks = grid_chunks<kInt8>(k, max_cnt, groups * ranges, resident);
   if (groups_out) *groups_out = groups;
   if (chunks_out) *chunks_out = chunks;
-  return (long long)k * groups * chunks * (long long)Acc<kInt8>::image_bytes(nbins);
+  return (long long)k * groups * ranges * chunks * (long long)Acc<kInt8>::image_bytes(nbins);
 }
 
-template <bool kInt8>
+template <bool kInt8, typename BinT>
 int launch(const void* bins, long long stride, const void* order, const void* g, const void* h,
            const void* m, const Windows& win, int k, long long max_cnt, int f, int nbins,
-           const void* scales, void* scratch, long long scratch_size, void* out,
+           int ranges, const void* scales, void* scratch, long long scratch_size, void* out,
            cudaStream_t stream) {
   int groups = 0;
   long long chunks = 0;
-  const long long need = scratch_bytes<kInt8>(k, max_cnt, f, nbins, &groups, &chunks);
+  const long long need =
+      scratch_bytes<kInt8, BinT>(k, max_cnt, f, nbins, ranges, &groups, &chunks);
   if (need < 0) return (int)(-need);
   if (scratch_size < need || scratch == nullptr) return (int)cudaErrorInvalidValue;
-  dim3 grid((unsigned)chunks, (unsigned)groups, (unsigned)k);
-  const size_t smem = Acc<kInt8>::shared_bytes(nbins);
+  dim3 grid((unsigned)chunks, (unsigned)(groups * ranges), (unsigned)k);
+  const size_t smem = Acc<kInt8>::template shared_bytes<BinT>(nbins);
   if constexpr (kInt8) {
-    ordered_hist_accumulate<<<grid, Acc<true>::kThreads, smem, stream>>>(
-        (const uint8_t*)bins, stride, (const int*)order, (const float*)g, (const float*)h,
-        (const float*)m, win, f, nbins, (const float*)scales, (int*)scratch);
+    ordered_hist_accumulate<BinT><<<grid, Acc<true>::kThreads, smem, stream>>>(
+        (const BinT*)bins, stride, (const int*)order, (const float*)g, (const float*)h,
+        (const float*)m, win, f, nbins, ranges, (const float*)scales, (int*)scratch);
   } else {
-    ordered_hist_in_order<<<grid, Acc<false>::kThreads, smem, stream>>>(
-        (const uint8_t*)bins, stride, (const int*)order, (const float*)g, (const float*)h,
-        (const float*)m, win, f, nbins, (int*)scratch);
+    ordered_hist_in_order<BinT><<<grid, Acc<false>::kThreads, smem, stream>>>(
+        (const BinT*)bins, stride, (const int*)order, (const float*)g, (const float*)h,
+        (const float*)m, win, f, nbins, ranges, (int*)scratch);
   }
   cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess) return (int)e;
   constexpr int kBins = Acc<kInt8>::kReduceBins;
   dim3 rgrid((unsigned)((nbins + kBins - 1) / kBins), (unsigned)groups, (unsigned)k);
   ordered_hist_reduce<kInt8><<<rgrid, kReduceThreads, 0, stream>>>(
-      (const int*)scratch, win, f, nbins, (int)chunks, out);
+      (const int*)scratch, win, f, nbins, ranges, (int)chunks, out);
   return (int)cudaGetLastError();
 }
 
@@ -598,47 +677,73 @@ bool read_windows(const long long* windows, int k, Windows* win,
   return true;
 }
 
+// whether (f, nbins, bin_bytes, ranges) is a shape the kernels take: u8
+// bins at most kRangeBins wide and one range, or u16 bins up to kMaxBins
+// in 1 .. ceil(nbins / kRangeBins) ranges, the grid's feature groups times
+// ranges within its y dimension
+bool shape_ok(int f, int nbins, int bin_bytes, int ranges) {
+  if (f <= 0 || nbins <= 0 || ranges < 1) return false;
+  if (bin_bytes == 1) return nbins <= kRangeBins && ranges == 1;
+  if (bin_bytes != 2 || nbins > kMaxBins) return false;
+  return ranges <= (nbins + kRangeBins - 1) / kRangeBins &&
+         (long long)((f + 31) / 32) * ranges <= 65535;
+}
+
 }  // namespace
 
 // Bytes of scratch that lgbt_ordered_hist needs for these windows (HOST
-// [k, 2] i64 (start, cnt)), f features, nbins bins, int8 != 0 for the int8
-// mode; a negative value is minus a CUDA error code.
+// [k, 2] i64 (start, cnt)), f features, nbins bins of bin_bytes bytes (1:
+// u8, 2: u16) in `ranges` bin ranges of 256, int8 != 0 for the int8 mode;
+// a negative value is minus a CUDA error code.
 extern "C" long long lgbt_ordered_hist_scratch(const long long* windows, int k,
-                                               int f, int nbins, int int8) {
+                                               int f, int nbins, int int8,
+                                               int bin_bytes, int ranges) {
   Windows win;
   long long max_cnt = 0;
-  if (!read_windows(windows, k, &win, &max_cnt) || f <= 0 || nbins <= 0 ||
-      nbins > 256)
+  if (!read_windows(windows, k, &win, &max_cnt) || !shape_ok(f, nbins, bin_bytes, ranges))
     return -(long long)cudaErrorInvalidValue;
-  return int8 ? scratch_bytes<true>(k, max_cnt, f, nbins, nullptr, nullptr)
-              : scratch_bytes<false>(k, max_cnt, f, nbins, nullptr, nullptr);
+  if (bin_bytes == 2)
+    return int8 ? scratch_bytes<true, uint16_t>(k, max_cnt, f, nbins, ranges, nullptr, nullptr)
+                : scratch_bytes<false, uint16_t>(k, max_cnt, f, nbins, ranges, nullptr, nullptr);
+  return int8 ? scratch_bytes<true, uint8_t>(k, max_cnt, f, nbins, ranges, nullptr, nullptr)
+              : scratch_bytes<false, uint8_t>(k, max_cnt, f, nbins, ranges, nullptr, nullptr);
 }
 
-// bins: [n, stride] u8 row-major, stride a multiple of 16 and >= f, 16-byte
-// aligned; order: [*] i32 row indices, or null (windows index rows
-// directly); g, h, m: [n] f32; windows: HOST [k, 2] i64 (start, cnt) into
-// order (or the rows); scales: device [2] f32 (g_scale, h_scale) for the
-// int8 mode, null for f32; scratch: device, 16-byte aligned, of at least
-// lgbt_ordered_hist_scratch(...) bytes.  out (every cell is written): f32
-// [k, f, nbins, 3], or (int8) i32 [k, f, nbins, 5] raw planes.  nbins <=
-// 256.  Two launches (accumulate, reduce).  Returns cudaGetLastError()
-// after them (0 on success).
+// bins: [n, stride] row-major, u8 (bin_bytes 1) or u16 (bin_bytes 2), the
+// stride in bins, a multiple of 16 bytes and >= f, 16-byte aligned; order:
+// [*] i32 row indices, or null (windows index rows directly); g, h, m: [n]
+// f32; windows: HOST [k, 2] i64 (start, cnt) into order (or the rows);
+// ranges: the bin ranges of 256 the launch adds (1 for u8 bins; the widest
+// feature's for u16 ones: the bins past them are written 0); scales: device
+// [2] f32 (g_scale, h_scale) for the int8 mode, null for f32; scratch:
+// device, 16-byte aligned, of at least lgbt_ordered_hist_scratch(...) bytes.
+// out (every cell is written): f32 [k, f, nbins, 3], or (int8) i32 [k, f,
+// nbins, 5] raw planes.  Two launches (accumulate, reduce).  Returns
+// cudaGetLastError() after them (0 on success).
 extern "C" int lgbt_ordered_hist(const void* bins, long long stride,
                                  const void* order, const void* g,
                                  const void* h, const void* m,
                                  const long long* windows, int k, int f,
-                                 int nbins, const void* scales, void* scratch,
+                                 int nbins, int bin_bytes, int ranges,
+                                 const void* scales, void* scratch,
                                  long long scratch_size, void* out,
                                  void* stream) {
   Windows win;
   long long max_cnt = 0;
-  if (!read_windows(windows, k, &win, &max_cnt) || f <= 0 || nbins <= 0 ||
-      nbins > 256 || stride % 16 || stride < f)
+  if (!read_windows(windows, k, &win, &max_cnt) || !shape_ok(f, nbins, bin_bytes, ranges) ||
+      (stride * bin_bytes) % 16 || stride < f)
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
-  if (scales != nullptr)
-    return launch<true>(bins, stride, order, g, h, m, win, k, max_cnt, f,
-                        nbins, scales, scratch, scratch_size, out, st);
-  return launch<false>(bins, stride, order, g, h, m, win, k, max_cnt, f,
-                       nbins, nullptr, scratch, scratch_size, out, st);
+  if (bin_bytes == 2) {
+    return scales != nullptr
+               ? launch<true, uint16_t>(bins, stride, order, g, h, m, win, k, max_cnt, f, nbins,
+                                        ranges, scales, scratch, scratch_size, out, st)
+               : launch<false, uint16_t>(bins, stride, order, g, h, m, win, k, max_cnt, f, nbins,
+                                         ranges, nullptr, scratch, scratch_size, out, st);
+  }
+  return scales != nullptr
+             ? launch<true, uint8_t>(bins, stride, order, g, h, m, win, k, max_cnt, f, nbins,
+                                     ranges, scales, scratch, scratch_size, out, st)
+             : launch<false, uint8_t>(bins, stride, order, g, h, m, win, k, max_cnt, f, nbins,
+                                      ranges, nullptr, scratch, scratch_size, out, st);
 }

@@ -70,10 +70,11 @@ array ``order`` holds every leaf's rows as one window, a split partitions
 its window of the index stably (``_make_part_branch`` :1240-1272, plain
 PyTorch: a column gather, a compare, two cumsums and a scatter, as it is
 XLA there), and a histogram reads the gathered rows of the row-major bins
-(``ops/histogram.py``: K windows per launch).  On the ordered layout
-``quant_scales`` are those of quantized training (``hist_method=
-'pallas_int8'``): every histogram is on the exact int8 grid and no
-decision is refined.
+(``ops/histogram.py``: K windows per launch; past 256 bins u16 rows, the
+kernel's u16 mode, and the partition reads a feature's two byte planes).
+On the ordered layout ``quant_scales`` are those of quantized training
+(``hist_method='pallas_int8'``): every histogram is on the exact int8 grid
+and no decision is refined.
 """
 
 from __future__ import annotations
@@ -258,25 +259,39 @@ class _OrderedStore:
     """The ordered layout: the rows stay where they are, the i32 index
     array ``order`` holds each leaf's rows as one window (the reference's
     DataPartition), the row-major bins serve the histograms and the
-    feature-major ones the partition's column reads."""
+    feature-major ones the partition's column reads.  Past 256 bins the
+    row-major bins are u16 (the histogram's u16 mode) and the feature-major
+    ones two byte planes a feature, read as lo | hi << 8."""
 
-    def __init__(self, bins_fn, bins_nf, grad, hess, mask, num_bins: int, qs):
-        if num_bins > RANGE_BINS:
-            raise NotImplementedError(
-                "hist_mode='ordered' past 256 bins not yet ported to lightgbm_tpu_torch "
-                "(the ordered histogram's u16 mode, kernel rows 7-8)")
-        f, n = int(bins_fn.shape[0]), int(bins_fn.shape[1])
-        if bins_nf is None or int(bins_nf.shape[0]) != n or int(bins_nf.shape[1]) < f:
-            raise ValueError("the ordered layout needs the [N, >= F] row-major bins (bins_nf)")
+    def __init__(self, bins_fn, bins_nf, grad, hess, mask, num_bins: int, qs, f: int,
+                 used_bins: int = 0):
+        n = int(bins_fn.shape[1])
+        self.wide = num_bins > RANGE_BINS
+        if int(bins_fn.shape[0]) != (2 * f if self.wide else f):
+            raise ValueError("the ordered layout's feature-major bins: one plane a feature, "
+                             "two byte planes past 256 bins")
+        if (bins_nf is None or int(bins_nf.shape[0]) != n or int(bins_nf.shape[1]) < f
+                or (bins_nf.dtype == torch.uint16) != self.wide):
+            raise ValueError("the ordered layout needs the [N, >= F] row-major bins (bins_nf), "
+                             "u16 past 256 bins")
         self.rows = OrderedRows(
             bins=bins_nf, f=f,
             g=grad.to(torch.float32).contiguous(), h=hess.to(torch.float32).contiguous(),
-            m=(mask > 0).to(torch.float32),
+            m=(mask > 0).to(torch.float32), used_bins=int(used_bins),
         )
         self.cols = bins_fn
         self.device = self.rows.device
         self.order = torch.arange(n, dtype=torch.int32, device=self.device)
         self.B, self.qs = num_bins, qs
+
+    def _column(self, feat: int, win: torch.Tensor) -> torch.Tensor:
+        """Feature ``feat``'s bins of the rows ``win`` (i64 indices): the
+        u8 column, or past 256 bins its two byte planes as lo | hi << 8
+        (``seg.feature_bins``)."""
+        if not self.wide:
+            return self.cols[feat][win]
+        return (self.cols[2 * feat][win].to(torch.int64)
+                | (self.cols[2 * feat + 1][win].to(torch.int64) << 8))
 
     def _hist(self, order, windows) -> torch.Tensor:
         if self.qs is None:
@@ -293,7 +308,7 @@ class _OrderedStore:
         right rows to [nleft, cnt), each in their old order.  Returns nleft,
         a 0-d i32 tensor."""
         win = self.order[start : start + cnt]
-        gl = go_left(self.cols[feat][win.long()], tbin, dl, nanb, table)
+        gl = go_left(self._column(feat, win.long()), tbin, dl, nanb, table)
         pos_l = torch.cumsum(gl, 0, dtype=torch.int32)
         nleft = pos_l[-1]
         pos_r = nleft + torch.cumsum(~gl, 0, dtype=torch.int32)
@@ -328,7 +343,7 @@ def grow_tree(
     feature_mask: torch.Tensor,  # [F] bool
     params: GrowerParams,
     quant_scales: Optional[torch.Tensor] = None,  # [2] f32: int8 grid
-    bins_nf: Optional[torch.Tensor] = None,  # [N, stride] u8 row-major (ordered)
+    bins_nf: Optional[torch.Tensor] = None,  # [N, stride] u8 / u16 row-major (ordered)
     bundle_end: Optional[torch.Tensor] = None,  # [F, B] i32: EFB sub-range ends
 ) -> Tuple[TreeArrays, torch.Tensor]:
     """Grow one tree.  Returns (TreeArrays, leaf_id [N] i32 on the input
@@ -348,11 +363,11 @@ def grow_tree(
     f, n = int(bins_fn.shape[0]) // (2 if wide else 1), int(bins_fn.shape[1])
     nan_host = nan_bins.cpu().numpy()
     qs = quant_scales
+    used = int(num_bins.max()) if wide and f else 0
     if p.hist_mode == "ordered":
-        store = _OrderedStore(bins_fn, bins_nf, grad, hess, count_mask, B, qs)
+        store = _OrderedStore(bins_fn, bins_nf, grad, hess, count_mask, B, qs, f, used)
         refine = False
     elif p.hist_mode == "seg":
-        used = int(num_bins.max()) if wide and f else 0
         store = _SegStore(bins_fn, grad, hess, count_mask, B, qs, p.grow_fused, used)
         refine = qs is not None
     else:

@@ -11,8 +11,12 @@ ops/pallas/histogram.py:140) and ``histogram_pallas_int8`` (the int8
 Layout: the bins are ``[N, stride]`` u8, row-major (one row's features are
 one run of bytes), with the row stride padded to a multiple of 16 bytes so
 the kernel loads 16 features at once; the padding is never read as a
-feature.  g, h and the 0/1 mask are f32 columns ``[N]``.  A window
-``(start, cnt)`` covers the rows ``order[start : start + cnt]`` of an i32
+feature.  Past a byte (a histogram of more than 256 bins) they are u16, the
+stride padded to 8 features (16 bytes), and the kernel runs its u16 mode:
+bin ranges of 256, as many as the widest feature needs
+(``OrderedRows.used_bins``), a grid dimension, each block the u8 mode's
+table over its range.  g, h and the 0/1 mask are f32 columns ``[N]``.  A
+window ``(start, cnt)`` covers the rows ``order[start : start + cnt]`` of an i32
 index array, or, with no index, the rows ``start .. start + cnt`` (the
 root).  The JAX package gathers the rows in XLA before its kernel; the
 port's kernel folds that gather into its loads: the same function, the
@@ -25,7 +29,7 @@ the rows: the plain PyTorch version on the CPU, one call of the
 ``csrc/ordered_hist.cu`` kernel on a CUDA device (two launches: the
 per-block histograms into a scratch buffer, then their sum into the
 output; counted once, in ``_build.LAUNCHES['ordered_hist']`` and
-``['ordered_hist_int8']``).
+``['ordered_hist_int8']``, and on u16 bins also as ``..._u16``).
 """
 
 from __future__ import annotations
@@ -37,7 +41,15 @@ import numpy as np
 import torch
 
 from .. import _build
-from .seg import MAX_INT8_ROWS, MAX_WINDOWS, QMAX, _device_scales, _windows_list, combine_int8
+from .seg import (
+    MAX_INT8_ROWS,
+    MAX_WINDOWS,
+    QMAX,
+    RANGE_BINS,
+    _device_scales,
+    _windows_list,
+    combine_int8,
+)
 
 ROW_ALIGN = 16  # bytes: the kernel's vector load of 16 features
 # rows x features gathered per step of the plain versions (bounds their
@@ -50,11 +62,13 @@ class OrderedRows:
     """The training rows of the ordered layout (never reordered: the leaf
     windows live in a separate index array)."""
 
-    bins: torch.Tensor  # [N, stride] u8 row-major, stride >= f
-    f: int  # features (the first f bytes of a row)
+    bins: torch.Tensor  # [N, stride] u8 (u16 past a byte) row-major, stride >= f
+    f: int  # features (the first f bins of a row)
     g: torch.Tensor  # [N] f32
     h: torch.Tensor  # [N] f32
     m: torch.Tensor  # [N] f32 (1 in bag, 0 out)
+    # the widest feature's bins (0: the histogram's): the u16 mode's ranges
+    used_bins: int = 0
 
     @property
     def n(self) -> int:
@@ -64,14 +78,44 @@ class OrderedRows:
     def device(self) -> torch.device:
         return self.g.device
 
+    @property
+    def wide(self) -> bool:
+        """Whether the bins are u16 (the kernel's u16 mode)."""
+        return self.bins.dtype == torch.uint16
+
 
 def row_major_bins(bins: np.ndarray, device) -> torch.Tensor:
-    """[N, F] u8 host bins -> [N, stride] u8 on ``device``, the row stride
-    F padded to a multiple of ROW_ALIGN bytes with zeros."""
+    """[N, F] u8 or u16 host bins -> [N, stride] of the same type on
+    ``device``, the row stride F padded to a multiple of ROW_ALIGN bytes
+    with zeros."""
     n, f = bins.shape
-    out = np.zeros((n, -(-max(f, 1) // ROW_ALIGN) * ROW_ALIGN), np.uint8)
+    dt = np.uint16 if bins.dtype == np.uint16 else np.uint8
+    per = ROW_ALIGN // np.dtype(dt).itemsize  # bins of a ROW_ALIGN-byte vector
+    out = np.zeros((n, -(-max(f, 1) // per) * per), dt)
     out[:, :f] = bins
     return torch.as_tensor(out, device=device)
+
+
+def gather_bins(bins: torch.Tensor, idx: torch.Tensor, f0: int, f1: int) -> torch.Tensor:
+    """[cnt, f1 - f0] i64 bins of features [f0, f1) of the rows ``idx``
+    (u16 bins read through an i16 view: PyTorch's uint16 tensors take few
+    operators)."""
+    if bins.dtype == torch.uint16:
+        return bins.view(torch.int16)[idx, f0:f1].to(torch.int64) & 0xFFFF
+    return bins[idx, f0:f1].to(torch.int64)
+
+
+def ordered_ranges(rows: OrderedRows, num_bins: int) -> int:
+    """Bin ranges of ``RANGE_BINS`` the kernel runs at ``num_bins``: one in
+    the u8 mode, else enough for the rows' widest feature (``used_bins``;
+    1,025 bins: 5, not 8).  Raises on u8 rows past 256 bins."""
+    if not rows.wide:
+        if num_bins > RANGE_BINS:
+            raise ValueError(f"u8 ordered rows with a {num_bins}-bin histogram (u16 bins "
+                             f"past {RANGE_BINS})")
+        return 1
+    used = min(rows.used_bins or num_bins, num_bins)
+    return max(1, -(-used // RANGE_BINS))
 
 
 def window_rows(order: Optional[torch.Tensor], start: int, cnt: int, dev) -> torch.Tensor:
@@ -95,7 +139,7 @@ def _scatter_rows(rows: OrderedRows, idx: torch.Tensor, stats: torch.Tensor,
     fb = max(1, min(f, _PLAIN_CELLS // cnt))
     for f0 in range(0, f, fb):
         f1 = min(f, f0 + fb)
-        ids = rows.bins[idx, f0:f1].to(torch.int64) + (
+        ids = gather_bins(rows.bins, idx, f0, f1) + (
             torch.arange(f0, f1, device=dev, dtype=torch.int64)[None, :] * num_bins
         )  # [cnt, fb] row-major
         data = stats.unsqueeze(1).expand(cnt, f1 - f0, planes).reshape(-1, planes)
@@ -192,6 +236,7 @@ def _launch(rows: OrderedRows, order, wins, num_bins: int, scales) -> torch.Tens
                           for i in range(0, k, MAX_WINDOWS)])
     if k < 1:
         raise ValueError("ordered_hist takes at least one window")
+    ranges = ordered_ranges(rows, num_bins)
     if f == 0 or not any(c for _, c in wins):  # nothing to read: no launch
         return torch.zeros((k, f, num_bins, 3), dtype=torch.float32, device=dev)
     end = max(s + c for s, c in wins if c)
@@ -203,37 +248,44 @@ def _launch(rows: OrderedRows, order, wins, num_bins: int, scales) -> torch.Tens
     else:
         scales = _device_scales(scales, dev)
         sp = scales.data_ptr()
+    width = rows.bins.element_size()
     out, scratch = kernel_buffers(_build.entry("ordered_hist_scratch"), k, f, int(num_bins),
-                                  scales is not None, dev)
+                                  scales is not None, dev, width, ranges)
     rc = _build.entry("ordered_hist")(
         rows.bins.data_ptr(), int(rows.bins.shape[1]),
         None if order is None else order.data_ptr(),
         rows.g.data_ptr(), rows.h.data_ptr(), rows.m.data_ptr(),
-        win_host.ctypes.data, k, f, int(num_bins), sp, scratch.data_ptr(),
+        win_host.ctypes.data, k, f, int(num_bins), width, ranges, sp, scratch.data_ptr(),
         scratch.numel(), out.data_ptr(), torch.cuda.current_stream(dev).cuda_stream,
     )
     _build.check(rc, "ordered_hist kernel")
-    _build.LAUNCHES["ordered_hist" if scales is None else "ordered_hist_int8"] += 1
+    name = "ordered_hist" if scales is None else "ordered_hist_int8"
+    _build.LAUNCHES[name] += 1
+    if rows.wide:
+        _build.LAUNCHES[name + "_u16"] += 1
     if k > 1:
         _build.LAUNCHES["ordered_hist:K>1"] += 1
     return out if scales is None else combine_int8(out, scales)
 
 
-# scratch bytes by (entry, K, F, B, int8): the most any windows need
+# scratch bytes by (entry, K, F, B, int8, bin bytes, ranges): the most any
+# windows need
 _SCRATCH_BYTES: dict = {}
 
 
-def kernel_buffers(scratch_entry, k: int, f: int, num_bins: int, int8: bool, dev) -> tuple:
+def kernel_buffers(scratch_entry, k: int, f: int, num_bins: int, int8: bool, dev,
+                   bin_bytes: int = 1, ranges: int = 1) -> tuple:
     """(out, scratch) of a launch over k windows: the kernel writes every
     cell of out, f32 [K, F, B, 3] or i32 [K, F, B, 5], and keeps one
     histogram per block in the scratch.  Its size is
     ``lgbt_ordered_hist_scratch`` of k windows of the most rows (the blocks
-    of a launch are capped), asked once per shape."""
-    key = (id(scratch_entry), k, f, num_bins, bool(int8))
+    of a launch are capped, the bin ranges counted in the cap), asked once
+    per shape."""
+    key = (id(scratch_entry), k, f, num_bins, bool(int8), bin_bytes, ranges)
     need = _SCRATCH_BYTES.get(key)
     if need is None:
         most = np.tile(np.array([[0, 1 << 40]], dtype=np.int64), (k, 1))
-        need = scratch_entry(most.ctypes.data, k, f, num_bins, int(int8))
+        need = scratch_entry(most.ctypes.data, k, f, num_bins, int(int8), bin_bytes, ranges)
         if need < 0:
             _build.check(-need, "ordered_hist scratch size")
         _SCRATCH_BYTES[key] = need
@@ -247,12 +299,13 @@ def _require_cuda(rows: OrderedRows, order) -> None:
     if rows.device.type != "cuda":
         raise ValueError(f"no kernel for device {rows.device}")
     b = rows.bins
-    if (b.dtype != torch.uint8 or b.dim() != 2 or not b.is_contiguous()
-            or b.shape[1] % ROW_ALIGN or b.shape[1] < rows.f or b.data_ptr() % ROW_ALIGN
+    per = ROW_ALIGN // b.element_size()  # bins of a 16-byte vector
+    if (b.dtype not in (torch.uint8, torch.uint16) or b.dim() != 2 or not b.is_contiguous()
+            or b.shape[1] % per or b.shape[1] < rows.f or b.data_ptr() % ROW_ALIGN
             or b.shape[0] != rows.n):
         raise ValueError(
-            f"ordered rows: need contiguous [N, stride] u8 bins with stride a "
-            f"multiple of {ROW_ALIGN} and >= {rows.f}, got {tuple(b.shape)} {b.dtype}"
+            f"ordered rows: need contiguous [N, stride] u8 or u16 bins with a stride of a "
+            f"multiple of {ROW_ALIGN} bytes and >= {rows.f} bins, got {tuple(b.shape)} {b.dtype}"
         )
     cols = [("g", rows.g, torch.float32), ("h", rows.h, torch.float32),
             ("m", rows.m, torch.float32)]

@@ -98,7 +98,6 @@ def test_config_accepts_the_jax_defaults():
     ({"hist_acc": "fp16"}, "hist_acc"),
     ({"grow_fused": "off", "fused_split_scan": False}, "grow_fused"),
     ({"hist_mode": "gather"}, "hist_mode"),
-    ({"max_bin": 1000, "hist_mode": "ordered"}, "max_bin"),
     ({"leaf_batch": 0}, "leaf_batch"),
     ({"grow_fused": "sometimes"}, "grow_fused"),
     ({"hist_near_tie_tol": -1.0}, "hist_near_tie_tol"),
@@ -107,6 +106,13 @@ def test_config_accepts_the_jax_defaults():
 def test_config_raises_on_what_is_not_ported(params, word):
     with pytest.raises(ValueError, match=word):
         Config.from_params(params)
+
+
+def test_config_takes_max_bin_past_255_on_the_ordered_layout():
+    """max_bin 1000 with hist_mode='ordered' (refused before the ordered
+    histograms' u16 mode) passes the config."""
+    cfg = Config.from_params({"max_bin": 1000, "hist_mode": "ordered"})
+    assert (cfg.max_bin, cfg.hist_mode) == (1000, "ordered")
 
 
 def _one_hot_data(n=3000, seed=0):

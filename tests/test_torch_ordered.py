@@ -291,14 +291,27 @@ def test_layout_rule_resolves_ordered_when_wide_and_matches_jax():
     ({"hist_method": "pallas_int8"}, "use_quantized_grad"),
     ({"hist_method": "onehot"}, "hist_method"),
     ({**QUANT, "num_grad_quant_bins": 200}, "num_grad_quant_bins"),
-    ({"max_bin": 300, "hist_mode": "ordered"}, "max_bin"),
     ({"hist_mode": "gather"}, "gather"),
     ({"hist_mode": "full"}, "full"),
 ], ids=["stochastic", "renew", "quantized-seg", "int8-unquantized", "onehot",
-        "quant-bins", "max_bin", "gather", "full"])
+        "quant-bins", "gather", "full"])
 def test_config_refuses_what_is_not_ported(params, word):
     with pytest.raises(ValueError, match=word):
         Config.from_params(params)
+
+
+@pytest.mark.parametrize("quantized", [False, True], ids=["f32", "quantized"])
+def test_config_and_booster_take_the_ordered_layout_past_255_bins(quantized):
+    """max_bin 300 on hist_mode='ordered' (refused before the u16 mode of
+    the ordered histograms): the config and the Booster take it, with u16
+    row-major bins, quantized or not."""
+    params = {"max_bin": 300, "hist_mode": "ordered", **(QUANT if quantized else {})}
+    assert Config.from_params(params).max_bin == 300
+    x, y = _data("binary", n=600, seed=11)
+    tb = lt.Booster({**params, "objective": "binary"}, lt.Dataset(x, y, params=params),
+                    device="cpu")
+    assert tb.hist_mode == "ordered" and tb._max_bin == 512
+    assert tb._bins_nf.dtype == torch.uint16 and not tb.update()
 
 
 def test_quantized_training_refused_where_the_rule_picks_seg():

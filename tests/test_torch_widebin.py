@@ -7,8 +7,8 @@ The same numpy inputs, made from a seed, go through both packages:
   ``max_bin_padded`` at ``max_bin`` 300 and 1023, with NaNs and a feature
   of few distinct values; a validation set inherits the width;
 * the layout rule (``resolve_hist_mode``) against the JAX package's on a
-  grid of (columns, padded width), and the ordered layout refused past
-  256 bins;
+  grid of (columns, padded width), and the ordered layout taken past 256
+  bins (tests/test_torch_ordered_widebin.py holds it to the JAX package);
 * the u16 modes' plain versions (two byte planes a feature: the segment
   histogram in f32 and on the int8 grid, the partition with and without a
   goes-left-table member, the fused step) against the JAX package's wide
@@ -105,17 +105,17 @@ def test_layout_rule_equals_jax(n_used, b):
         assert ("exceeds the budget" in text) == (b > 8192)
 
 
-def test_wide_config_passes_and_the_ordered_layout_refuses():
+def test_wide_config_passes_and_the_ordered_layout_takes_it():
     assert Config.from_params({"max_bin": 1023}).max_bin == 1023
-    with pytest.raises(ValueError, match="rows 7-8"):
-        Config.from_params({"max_bin": 300, "hist_mode": "ordered"})
-    # 122 wide columns: the rule picks 'ordered', whose u16 mode is not ported
+    assert Config.from_params({"max_bin": 300, "hist_mode": "ordered"}).max_bin == 300
+    # 122 wide columns: the rule picks 'ordered', on u16 row-major bins
     rng = np.random.default_rng(0)
     x = rng.normal(size=(400, 122))
     ds = lt.Dataset(x, x[:, 0], params={"max_bin": 300})
     with pytest.warns(UserWarning, match="122 used features > 121"):
-        with pytest.raises(NotImplementedError, match="rows 7-8"):
-            lt.Booster({"max_bin": 300}, ds, device="cpu")
+        tb = lt.Booster({"max_bin": 300}, ds, device="cpu")
+    assert tb.hist_mode == "ordered" and tb._bins_nf.dtype == torch.uint16
+    assert not tb.update() and tb.trees[0].num_leaves > 1
 
 
 @pytest.mark.parametrize("b", [512, 2048, 8192])
@@ -241,9 +241,8 @@ def test_plain_u16_fused_step_equals_jax(mode):
 
 # ----------------------------------------------------------------- training
 def _train_data(n=800, f=5, seed=0):
-    """Regression rows with NaNs (l2 gradients: the binary objective's f32
-    exp may differ in the last ulp between the packages, which at 1,024
-    bins and few rows a bin can flip a near-tie)."""
+    """Regression rows with NaNs (tests/test_torch_exp.py trains binary
+    trees on them, with y = z > 0)."""
     rng = np.random.default_rng(seed)
     x = rng.normal(size=(n, f))
     x[rng.random((n, f)) < 0.05] = np.nan
