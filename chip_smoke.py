@@ -331,6 +331,12 @@ SOURCES = {
                          "lightgbm_tpu/ops/pallas/histogram.py:140"),
     "ordered_hist_int8_u16": ("lightgbm_tpu_torch/csrc/ordered_hist.cu",
                               "lightgbm_tpu/ops/pallas/histogram_int8.py:43"),
+    # the live mode (dead features skipped) of rows 1 and 6: feature_fraction
+    "seg_hist_live": ("lightgbm_tpu_torch/csrc/seg_hist.cu", "lightgbm_tpu/ops/pallas/seg.py:587"),
+    "seg_hist_int8_live": ("lightgbm_tpu_torch/csrc/seg_hist.cu",
+                           "lightgbm_tpu/ops/pallas/seg.py:587"),
+    "fused_grow_step_live": ("lightgbm_tpu_torch/csrc/grow_step.cu",
+                             "lightgbm_tpu/ops/pallas/grow_step.py:260"),
 }
 # CUDA launches per split of the profiled iterations with the rows-only scan
 # and its candidates in PyTorch operators on the host side (PERF.md section 5)
@@ -1106,7 +1112,9 @@ def profile_iteration(booster, label: str = "profile") -> dict:
     update(), device time by kernel against the host's wall time, and the
     host's own time by operator (self time: the rest of the wall is Python
     outside PyTorch's operators, and the profiler's overhead).  Returns
-    {"launches a split", "best_split calls"} of the iteration."""
+    {"launches a split", "best_split calls", "hist device ms" (the lane
+    histogram's kernels: the segment histograms and the fused steps'
+    histograms), "wall ms"} of the iteration."""
     from torch.profiler import ProfilerActivity, profile
 
     from lightgbm_tpu_torch import _build
@@ -1151,16 +1159,16 @@ def profile_iteration(booster, label: str = "profile") -> dict:
     steps = []  # rows of each window of each fused grow step
     step_launch = grow_step._launch
 
-    def step_recorded(rows, mem, num_bins, quant_scales, fn=None):
+    def step_recorded(rows, mem, num_bins, quant_scales, fn=None, live=None):
         steps.append([int(c) for c in mem[:, 1]])
-        return step_launch(rows, mem, num_bins, quant_scales, fn)
+        return step_launch(rows, mem, num_bins, quant_scales, fn, live=live)
 
     hists = {"f32": [], "int8": []}  # rows of each window of each segment histogram call
     hist_launch = seg._seg_hist_launch
 
-    def hist_recorded(rows, wins, num_bins, scales, fn=None):
+    def hist_recorded(rows, wins, num_bins, scales, fn=None, live=None):
         hists["f32" if scales is None else "int8"].append([int(c) for _, c in wins])
-        return hist_launch(rows, wins, num_bins, scales, fn)
+        return hist_launch(rows, wins, num_bins, scales, fn, live=live)
 
     oh._launch = recorded
     grower.fused_best_split_batch = scan_timed
@@ -1287,7 +1295,8 @@ def profile_iteration(booster, label: str = "profile") -> dict:
           f"{sum(e.count for e in host)} calls; top by self time:")
     for e in sorted(host, key=lambda e: -e.self_cpu_time_total)[:10]:
         print(f"{label}:   host {e.self_cpu_time_total / 1e3:8.2f} ms  {e.count:6d} calls  {e.key[:60]}")
-    return {"launches a split": cuda_launches / splits, "best_split calls": len(best)}
+    return {"launches a split": cuda_launches / splits, "best_split calls": len(best),
+            "hist device ms": sum(lane_us.values()) / 1e3, "wall ms": wall_ms}
 
 
 def _leaf_depths(tree, width: int) -> np.ndarray:
@@ -2285,6 +2294,355 @@ def wide_u16_phase(lt, _build):
     return phases
 
 
+
+# ---------------------------------------------------------------- sampling
+# the sampling phases (the Higgs rows of the main phase): scen_bagging's
+# sampling parameters, scen_goss's, and feature_fraction_bynode at bench.py's
+# batch parameters (tests/golden/scen_*.params.json)
+BAG_PARAMS = {**PARAMS, "bagging_fraction": 0.7, "bagging_freq": 1, "feature_fraction": 0.8}
+GOSS_PARAMS = {**PARAMS, "boosting": "goss", "top_rate": 0.2, "other_rate": 0.1,
+               "learning_rate": 0.15}
+BYNODE_PARAMS = {**BATCH_PARAMS, "feature_fraction_bynode": 0.5}
+SAMPLING_ROUNDS = 10
+BYNODE_ROUNDS = 3
+# in-bag share at a refresh: bagging within 0.002 of its fraction (4 sigma
+# at 1,048,576 rows), GOSS at least 0.95 of top_rate + other_rate
+BAG_SHARE_TOL = 0.002
+# card vs CPU: GOSS at learning rate 0.5 (a warm-up of 2 iterations, so 3
+# rounds sample once); every run quantized with stochastic rounding on the
+# int8 histogram (hist_method='pallas_int8') as well
+PARITY_GOSS_PARAMS = {**GOSS_PARAMS, "learning_rate": 0.5}
+# the sampling-wide phase: MSLR-WEB30K's 136 features (binary labels on
+# normals on a grid of 1/32: the port has no ranking objective), rows cut
+# to 262,144
+SAMPLING_WIDE_ROWS = 1 << 18
+SAMPLING_WIDE_FEATURES = 136
+SAMPLING_WIDE_ROUNDS = 3
+# the live kernel check: F = 242 (the seg layout's widest table), half the
+# features dead, feature 0 live
+LIVE_SEED = 5
+
+
+def live_features(f: int, seed: int = LIVE_SEED) -> np.ndarray:
+    """Feature 0 and f / 2 - 1 others drawn from a seed: half the features
+    live, spread over every group of 32."""
+    rng = np.random.default_rng(seed)
+    rest = rng.choice(np.arange(1, f), f // 2 - 1, replace=False)
+    return np.sort(np.concatenate([[0], rest])).astype(np.int32)
+
+
+def check_live_kernels(dev):
+    """The live mode of the segment histogram (f32 and int8) and of the
+    fused grow step at F = 242 on synthetic rows (``bench_partition
+    .synthetic_rows``), half the features dead: at the root and on the K=4
+    windows of ``bench_partition.cases``, the live features' cells bit-equal
+    to the all-live call's, the dead ones' 0, and the same bits on a second
+    call; against the plain version with the same live list (counts exact,
+    int8 bit-equal, f32 within ``_bench.f32_tol``); the fused step's dec
+    and rows equal to the all-live call's.  Times (event and device) of the
+    live and the all-live call, the plain version's, ``index_add_`` of the
+    live features' rows, and the bound of the live planes' bytes.  Returns
+    the three kernel entries."""
+    from lightgbm_tpu_torch import _bench
+    from lightgbm_tpu_torch import bench_partition as bp
+    from lightgbm_tpu_torch import bench_seg_hist as bs
+    from lightgbm_tpu_torch.ops import grow_step, seg
+
+    n, f, b = ROWS, bp.WIDE_FEATURES, 256
+    rows, nb = bp.synthetic_rows(n, f, dev)
+    live = live_features(f)
+    live_t = torch.as_tensor(live, device=dev).long()
+    dead_t = torch.as_tensor(np.setdiff1d(np.arange(f), live), device=dev).long()
+    nl = len(live)
+    qs = bs.int8_scales(rows)
+    members = {"root": bp.cases(n, nb)["root"], "K=4": bp.cases(n, nb)["K=4"]}
+    out = {}
+    print(f"live: F = {f}, {nl} live features (feature 0 and {nl - 1} drawn from seed "
+          f"{LIVE_SEED}), {(nl + 31) // 32} of {(f + 31) // 32} groups of 32 run")
+
+    def held(what, got, full, again, plain, tol):
+        if not torch.equal(got[:, live_t], full[:, live_t]):
+            raise AssertionError(f"{what}: live cells differ from the all-live call")
+        if bool(got[:, dead_t].any()):
+            raise AssertionError(f"{what}: a dead feature's cell is not 0")
+        if not torch.equal(got, again):
+            raise AssertionError(f"{what}: two live calls differ")
+        if not torch.equal(got[..., 2], plain[..., 2]):
+            raise AssertionError(f"{what}: counts differ from the plain version")
+        err = (got[..., :2] - plain[..., :2]).abs()
+        if tol is None and not torch.equal(got, plain):
+            raise AssertionError(f"{what}: int8 histogram differs from the plain version")
+        if tol is not None and bool((err > tol).any()):
+            raise AssertionError(f"{what}: f32 off the plain version by {float(err.max())}")
+        return float(err.max())
+
+    for name, q in (("seg_hist_live", None), ("seg_hist_int8_live", qs)):
+        res = {}
+        for where, mem in members.items():
+            wins = [(int(s), int(c)) for s, c in mem[:, :2]]
+            full = seg.seg_hist_batch(rows, wins, b, q)
+            got = seg.seg_hist_batch(rows, wins, b, q, live=live)
+            again = seg.seg_hist_batch(rows, wins, b, q, live=live)
+            plain = seg.seg_hist_batch_plain(rows, wins, b, q, live)
+            tol = None if q is not None else _bench.f32_tol(rows, wins, b, plain[..., 2:3])
+            err = held(f"{name} {where}", got, full, again, plain, tol)
+            del full, again, plain, tol
+            torch.cuda.empty_cache()
+            call = lambda: seg.seg_hist_batch(rows, wins, b, q, live=live)  # noqa: E731
+            call_all = lambda: seg.seg_hist_batch(rows, wins, b, q)  # noqa: E731
+            sub = seg.SegRows(rows.bins[live_t], rows.g, rows.h, rows.m, rows.ridx)
+            lib = bs.library_call(sub, wins, b, q)
+            r = {"ms": time_ms(call), "all ms": time_ms(call_all),
+                 "device": _bench.device_ms(call), "all device": _bench.device_ms(call_all),
+                 "plain": time_ms(lambda: seg.seg_hist_batch_plain(rows, wins, b, q, live),
+                                  reps=1, warmup=0),
+                 "library": time_ms(lib, reps=5), "err": err,
+                 "bound": bound_ms(sum(c for _, c in wins) * (nl + 12) + len(wins) * f * b * 12)}
+            del sub, lib
+            torch.cuda.empty_cache()
+            res[where] = r
+            print(f"kernel {name} {where} {wins}: live {r['ms']:.4f} ms (device "
+                  f"{r['device']:.4f}) against all live {r['all ms']:.4f} ms (device "
+                  f"{r['all device']:.4f}), bound {r['bound'][0]:.5f} ms (the live planes), plain "
+                  f"{r['plain']:.4f} ms, index_add_ of the live features {r['library']:.4f} ms; "
+                  "live cells bit-equal to the all-live call, dead cells 0, the same bits on "
+                  "two calls, " + ("bit-equal to the plain version" if q is not None else
+                                   f"within f32_tol of the plain version (max |err| {err:.3g})"))
+        r, r4 = res["root"], res["K=4"]
+        entry = kernel_entry(name, r["err"], r["ms"], r["plain"], r["bound"], r["library"])
+        entry.update(device_ms=r["device"], all_live_ms=r["all ms"],
+                     all_live_device_ms=r["all device"], k4_ms=r4["ms"],
+                     k4_device_ms=r4["device"], k4_all_live_device_ms=r4["all device"],
+                     live_features=nl, features=f,
+                     library_call="index_add_ of the live features' rows into a [K, F, B] table")
+        out[name] = entry
+
+    res = {}
+    for mode, q in (("int8", qs), ("f32", None)):
+        for where, mem in members.items():
+            work = bp._clone_rows(rows)
+            restore = lambda: bp._copy_rows(work, rows)  # noqa: E731
+            full = grow_step.fused_grow_step(work, *seg.member_args(mem)[0], b, quant_scales=q)
+            full_rows = bp._clone_rows(work)
+            restore()
+            got = grow_step.fused_grow_step(work, *seg.member_args(mem)[0], b, quant_scales=q,
+                                            live=live)
+            if not bp.same_rows(work, full_rows) or not all(
+                    torch.equal(a, c) for a, c in zip(got[:4], full[:4])):
+                raise AssertionError(f"fused_grow_step live {mode} {where}: dec or rows differ "
+                                     "from the all-live call")
+            restore()
+            again = grow_step.fused_grow_step(work, *seg.member_args(mem)[0], b, quant_scales=q,
+                                              live=live)
+            restore()
+            dec_p, plain = grow_step.fused_grow_step_plain(work, mem, b, q, live)
+            if not bp.same_rows(work, full_rows) or not torch.equal(
+                    dec_p, torch.stack(got[:4], 1)):
+                raise AssertionError(f"fused_grow_step live {mode} {where}: dec or rows differ "
+                                     "from the plain version")
+            wins = [(int(s), int(c)) for s, c in dec_p[:, 2:4].tolist()]
+            tol = None if q is not None else _bench.f32_tol(work, wins, b, plain[..., 2:3])
+            err = held(f"fused_grow_step live {mode} {where}", got[4], full[4], again[4], plain,
+                       tol)
+            del full, full_rows, again, plain, tol
+            call = lambda: grow_step.fused_grow_step(  # noqa: E731
+                work, *seg.member_args(mem)[0], b, quant_scales=q, live=live)
+            call_all = lambda: grow_step.fused_grow_step(  # noqa: E731
+                work, *seg.member_args(mem)[0], b, quant_scales=q)
+            r = {"ms": _bench.time_ms(call, setup=restore),
+                 "all ms": _bench.time_ms(call_all, setup=restore),
+                 "device": _bench.device_ms(call, setup=restore),
+                 "all device": _bench.device_ms(call_all, setup=restore),
+                 "plain": _bench.time_ms(lambda: grow_step.fused_grow_step_plain(
+                     work, mem, b, q, live), reps=1, warmup=0, setup=restore),
+                 "err": err,
+                 "bound": bound_ms(2 * int(mem[:, 1].sum()) * (f + 16)
+                                   + sum(c for _, c in wins) * (nl + 12) + len(wins) * f * b * 12)}
+            res[mode, where] = r
+            print(f"kernel fused_grow_step_live {mode} {where} (windows {mem[:, :2].tolist()}): "
+                  f"live {r['ms']:.4f} ms (device {r['device']:.4f}) against all live "
+                  f"{r['all ms']:.4f} ms (device {r['all device']:.4f}), bound "
+                  f"{r['bound'][0]:.5f} ms, plain {r['plain']:.4f} ms; dec and rows equal to the "
+                  "all-live call and the plain version, live cells bit-equal to the all-live "
+                  "call, dead cells 0, the same bits on two calls")
+            del work
+            torch.cuda.empty_cache()
+    r = res["int8", "root"]
+    entry = kernel_entry("fused_grow_step_live", r["err"], r["ms"], r["plain"], r["bound"], None)
+    entry.update(device_ms=r["device"], all_live_ms=r["all ms"], all_live_device_ms=r["all device"],
+                 f32_device_ms=res["f32", "root"]["device"],
+                 f32_all_live_device_ms=res["f32", "root"]["all device"],
+                 k4_device_ms=res["int8", "K=4"]["device"],
+                 k4_all_live_device_ms=res["int8", "K=4"]["all device"],
+                 live_features=nl, features=f)
+    out["fused_grow_step_live"] = entry
+    del rows
+    torch.cuda.empty_cache()
+    return out
+
+
+def sampling_phases(lt, _build, ds, main_rate, card):
+    """Bagging, GOSS and feature_fraction_bynode on the main phase's rows
+    (see the top).  Returns the kernel launches of each run."""
+    phases = {}
+    # yardsticks in this phase (host-bound rates drift between phases): the
+    # main and batch parameters, unsampled
+    near = {}
+    for label, params, rounds in (("main", PARAMS, SAMPLING_ROUNDS),
+                                  ("batch", BATCH_PARAMS, BYNODE_ROUNDS)):
+        bst, losses, secs, _ = train_rounds(lt, params, ds, rounds)
+        near[label] = len(losses) / secs
+        steps = bst.grow_steps
+        del bst
+    print(f"sampling: unsampled yardsticks in this phase: main parameters {near['main']:.3f}, "
+          f"batch parameters {near['batch']:.3f} iterations/s (grow steps per tree {steps}; "
+          f"the main phase's {main_rate:.3f}) [{card}]")
+    for label, params, rounds in (("bag", BAG_PARAMS, SAMPLING_ROUNDS),
+                                  ("goss", GOSS_PARAMS, SAMPLING_ROUNDS),
+                                  ("bynode", BYNODE_PARAMS, BYNODE_ROUNDS)):
+        _build.LAUNCHES.clear()
+        bst, losses, secs, _ = train_rounds(lt, params, ds, rounds)
+        launches = dict(_build.LAUNCHES)
+        phases["sampling-" + label] = launches
+        rate = len(losses) / secs
+        yard = near["batch" if label == "bynode" else "main"]
+        print(f"sampling {label}: {len(bst.trees)} trees, {rate:.3f} iterations/s against "
+              f"{yard:.3f} unsampled in this phase ({rate / yard:.3f}x) [{card}]")
+        print(f"sampling {label}: training log-loss per round "
+              + " ".join(f"{v:.6f}" for v in losses) + f" [{card}]")
+        print(f"sampling {label}: in-bag share at each fresh mask (iteration, share) "
+              f"{[(i, round(s, 6)) for i, s in bst.bag_shares]}; refines per tree "
+              f"{bst.refine_counts}; grow steps per tree {bst.grow_steps}, effective K "
+              f"{bst.leaf_batch_effective}, commit rate "
+              + " ".join(f"{r:.3f}" for r in bst.commit_rates))
+        print(f"sampling {label}: kernel launches {json.dumps(launches)}")
+        if len(losses) != rounds or not falls(losses, rounds):
+            raise AssertionError(f"sampling {label}: log-loss did not fall every round")
+        if label == "bag":
+            if len(bst.bag_shares) != rounds or any(
+                    abs(s - params["bagging_fraction"]) > BAG_SHARE_TOL for _, s in bst.bag_shares):
+                raise AssertionError("sampling bag: an in-bag share is off 0.7 by more than "
+                                     f"{BAG_SHARE_TOL}")
+            require_launches(launches, ("fused_grow_step_live", "seg_hist_int8_live"),
+                             "sampling bag")
+        if label == "goss":
+            warm = int(1.0 / params["learning_rate"])
+            least = (params["top_rate"] + params["other_rate"]) * 0.95
+            if len(bst.bag_shares) != rounds - warm or any(s < least for _, s in bst.bag_shares):
+                raise AssertionError(f"sampling goss: {rounds - warm} sampled iterations, each "
+                                     f"with an in-bag share of at least {least}")
+        if label == "bynode":
+            require_launches(launches, ("split_scan_batch", "fused_grow_step"), "sampling bynode")
+        del bst
+    return phases
+
+
+def sampling_parity(lt, ds, card):
+    """Card against CPU: the samplers' masks and gradients from the same
+    keys (bit-equal), stochastic quantize_gradients on the main phase's
+    1,048,576 gradients (bit-equal), then 3 rounds of bag and of goss at
+    65,536 x 28, int8 on both (>= 0.95 of splits identical, log-loss within
+    1e-4 relative)."""
+    from lightgbm_tpu_torch import random as rnd
+    from lightgbm_tpu_torch.boosting.sampling import create_sample_strategy
+    from lightgbm_tpu_torch.config import Config
+    from lightgbm_tpu_torch.objectives import create_objective
+    from lightgbm_tpu_torch.ops import grower
+    from lightgbm_tpu_torch.quantize import quantize_gradients
+
+    dev = torch.device("cuda")
+    n = ds.num_data
+    obj = create_objective("binary", ds.label, dev)
+    score = torch.full((n,), obj.boost_from_score(), dtype=torch.float32, device=dev)
+    score += torch.randn(n, generator=torch.Generator(device=dev).manual_seed(1), device=dev)
+    grad, hess = obj.get_gradients(score)
+    key = rnd.prng_key(0)
+    for label, params in (("bag", BAG_PARAMS), ("goss", PARITY_GOSS_PARAMS)):
+        cfg = Config.from_params(params)
+        on = {d: create_sample_strategy(cfg, n, d, ds.label) for d in ("cuda", "cpu")}
+        for it in range(6):
+            key, sub = rnd.split(key)
+            got = {d: s.sample(it, grad.to(d), hess.to(d), sub) for d, s in on.items()}
+            for a, c in zip(got["cuda"], got["cpu"]):
+                if not torch.equal(a.cpu(), c):
+                    raise AssertionError(f"sampling-parity {label}: iteration {it}'s mask or "
+                                         "gradients differ between the card and the CPU")
+        print(f"sampling-parity {label}: masks and reweighted gradients of 6 iterations "
+              f"({n} rows) bit-equal on the card and the CPU")
+    qk = quantize_gradients(grad, hess, 4, key=key)
+    qc = quantize_gradients(grad.cpu(), hess.cpu(), 4, key=key)
+    if not all(torch.equal(a.cpu(), c) for a, c in zip(qk, qc)):
+        raise AssertionError("sampling-parity: stochastic quantize_gradients differs between "
+                             "the card and the CPU")
+    print(f"sampling-parity: stochastic quantize_gradients of the {n} main-phase gradients "
+          "bit-equal on the card and the CPU")
+    del grad, hess, score, qk, qc
+
+    xs, ys = make_data(PARITY_ROWS, FEATURES, seed=7)
+    quant = {"use_quantized_grad": True, "hist_method": "pallas_int8"}
+    grower.INT8_ON_CPU = True
+    try:
+        for label, params in (("bag", BAG_PARAMS), ("goss", PARITY_GOSS_PARAMS),
+                              ("bag quantized", {**BAG_PARAMS, **quant}),
+                              ("goss quantized", {**PARITY_GOSS_PARAMS, **quant})):
+            runs = {}
+            for d in ("cuda", "cpu"):
+                t0 = time.perf_counter()
+                runs[d] = lt.train(params, lt.Dataset(xs, ys, params=params), PARITY_ROUNDS,
+                                   device=d)
+                secs = time.perf_counter() - t0
+            share = split_share(runs["cuda"], runs["cpu"])
+            lc, lp = runs["cuda"].train_loss(), runs["cpu"].train_loss()
+            # bagging's masks do not depend on the scores, so the two runs
+            # draw the same ones; GOSS's follow |g * h|, whose last bits
+            # follow the card's f32 sums
+            shares = [runs[d].bag_shares for d in ("cuda", "cpu")]
+            print(f"sampling-parity {label}: {share:.4f} of splits identical, log-loss cuda "
+                  f"{lc:.7f} cpu {lp:.7f} [{card}]; in-bag shares cuda {shares[0]}, cpu "
+                  f"{shares[1]} (CPU run {secs:.1f} s)")
+            if share < 0.95 or abs(lc - lp) > 1e-4 * abs(lp) or (
+                    label.startswith("bag") and shares[0] != shares[1]):
+                raise AssertionError(f"sampling-parity {label}: card and CPU disagree")
+    finally:
+        grower.INT8_ON_CPU = False
+
+
+def sampling_wide_phase(lt, _build, card):
+    """The sampling-wide phase (see the top): 3 rounds at feature_fraction
+    0.5 and 3 at 1.0 on 262,144 x 136, their rates and one profiled
+    iteration each (the trees' lane-histogram device time).  Returns the
+    launches of the feature_fraction run."""
+    x, y = make_wide_data(SAMPLING_WIDE_ROWS, SAMPLING_WIDE_FEATURES)
+    t0 = time.perf_counter()
+    ds = lt.Dataset(x, y, params=PARAMS).construct()
+    print(f"sampling-wide: {SAMPLING_WIDE_ROWS} x {SAMPLING_WIDE_FEATURES} binned in "
+          f"{time.perf_counter() - t0:.1f} s, {ds.num_planes} planes")
+    out = {}
+    for ff in (0.5, 1.0):
+        _build.LAUNCHES.clear()
+        bst, losses, secs, _ = train_rounds(lt, {**PARAMS, "feature_fraction": ff}, ds,
+                                            SAMPLING_WIDE_ROUNDS)
+        launches = dict(_build.LAUNCHES)
+        if bst.hist_mode != "seg":
+            raise AssertionError(f"sampling-wide: layout {bst.hist_mode}, not seg")
+        prof = profile_iteration(bst, f"sampling-wide ff {ff} profile")
+        print(f"sampling-wide feature_fraction {ff}: {len(losses) / secs:.3f} iterations/s, "
+              f"log-loss per round " + " ".join(f"{v:.6f}" for v in losses)
+              + f"; profiled tree: lane histograms {prof['hist device ms']:.3f} ms device, "
+              f"{prof['wall ms']:.1f} ms wall [{card}]")
+        print(f"sampling-wide feature_fraction {ff}: kernel launches {json.dumps(launches)}")
+        if not falls(losses, SAMPLING_WIDE_ROUNDS):
+            raise AssertionError(f"sampling-wide {ff}: log-loss did not fall every round")
+        if ff < 1.0:
+            require_launches(launches, ("fused_grow_step_live", "seg_hist_int8_live"),
+                             "sampling-wide")
+            out["sampling-wide"] = launches
+        elif any(k.endswith("_live") for k in launches):
+            raise AssertionError("sampling-wide: a live-mode launch with every feature live")
+        del bst
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -2293,6 +2651,7 @@ def main() -> int:
     from lightgbm_tpu_torch import _build
     from lightgbm_tpu_torch.ops import grower
 
+    t_script = time.perf_counter()
     dev = torch.device("cuda")
     card = card_line()
     print(f"device: {card}; torch {torch.__version__} cuda {torch.version.cuda}")
@@ -2313,6 +2672,7 @@ def main() -> int:
     kernels = {k["name"]: k for k in check_seg_kernels(ds, dev)}
     kernels.update(check_u16_kernels(dev))
     kernels.update(check_ordered_u16_kernels(dev))
+    kernels.update(check_live_kernels(dev))
     if "--kernels" in sys.argv[1:]:
         del ds, x, y
         # synthetic Expo-shaped bins made on the card (the binned table takes
@@ -2332,8 +2692,9 @@ def main() -> int:
     torch.cuda.synchronize()
     pred_s = time.perf_counter() - t0
     main_launches = dict(_build.LAUNCHES)
+    main_rate = len(losses) / train_s
     print(f"main: {len(booster.trees)} trees of {[t.num_leaves for t in booster.trees]} leaves, "
-          f"{len(losses) / train_s:.3f} iterations/s, predict {ROWS / pred_s:.0f} rows/s")
+          f"{main_rate:.3f} iterations/s, predict {ROWS / pred_s:.0f} rows/s")
     print("main: training log-loss per round " + " ".join(f"{v:.6f}" for v in losses))
     print(f"main: near-tie f32 refines per tree {booster.refine_counts}, refine rate per tree "
           + " ".join(f"{booster.refine_rate(i):.3f}" for i in range(len(booster.trees))))
@@ -2398,6 +2759,11 @@ def main() -> int:
     phases = {"main": main_launches, "batch": batch_launches, "off": off_launches,
               "batch-off": boff_launches}
 
+    t0 = time.perf_counter()
+    phases.update(sampling_phases(lt, _build, ds, main_rate, card))
+    sampling_parity(lt, ds, card)
+    print(f"sampling: the sampling and sampling-parity phases took {time.perf_counter() - t0:.1f} s")
+
     # -- card vs CPU on the default path, int8 accumulation on both
     xs, ys = make_data(PARITY_ROWS, FEATURES, seed=7)
     runs = {}
@@ -2418,6 +2784,10 @@ def main() -> int:
     if share < 0.95 or abs(lc - lp) > 1e-4 * abs(lp):
         raise AssertionError("card and CPU training disagree")
     del runs, xs, ys, x, ds
+
+    t0 = time.perf_counter()
+    phases.update(sampling_wide_phase(lt, _build, card))
+    print(f"sampling-wide: the phase took {time.perf_counter() - t0:.1f} s")
 
     phases["io"] = io_phase(lt, _build, ROWS, dev)
 
@@ -2443,6 +2813,7 @@ def main() -> int:
     missing = [name for name, kern in kernels.items() if kern["launches"] <= 0]
     if len(kernels) != len(SOURCES) or missing:
         raise AssertionError(f"kernels not checked or never launched on a path: {missing}")
+    print(f"chip_smoke: the script took {time.perf_counter() - t_script:.1f} s [{card}]")
     print(json.dumps({"kernels": list(kernels.values())}))
     print(card)
     print(json.dumps({"ok": True, "device": {

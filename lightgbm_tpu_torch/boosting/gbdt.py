@@ -20,6 +20,16 @@ and the training set's (``metrics.py``) read the scores where they lie.
 Row weights and ``init_score`` come from the Dataset (an init score starts
 the score and turns ``boost_from_average`` off, :712-717, :2071-2082).
 
+Sampling and keys (:807, :1632-1660, :1842, :2364-2385): one key stream
+(``random.py``, equal to ``jax.random``'s) from ``seed``, drawn in the JAX
+Booster's order each iteration: the gradients' key (the port's objectives
+take none), the row sampler's (``boosting/sampling.py``: bagging, GOSS),
+then the quantization's and the tree's (``feature_fraction_bynode``), in
+that order once a tree exists (the JAX pipelined update, :405-412) and the
+other way round on the first (:2125, :1032); the by-tree
+``feature_fraction`` mask from numpy's ``default_rng(feature_fraction_seed
++ iteration)``.
+
 EFB (:761-786, :896-936, :2728-2735, :2872-2875): on a bundled Dataset the
 columns are planes; the layout rule counts them, every leaf is decided by
 ``best_split`` with the planes' ``bundle_end``, trees keep the goes-left
@@ -65,7 +75,9 @@ from ..ops.histogram import row_major_bins
 from ..ops.seg import byte_planes
 from ..predict import predict_bins_raw, predict_real_raw, stack_bin_trees, stack_real_trees
 from ..quantize import hist_acc_scales, quantize_gradients
+from ..random import fold_in, prng_key, split
 from ..tree import Tree
+from .sampling import create_sample_strategy
 
 _EPS = 1e-15
 _MODEL_VERSION = "v4"
@@ -176,6 +188,8 @@ class Booster:
         self.leaf_batch_cap: Optional[int] = None
         # (num_leaves, grow_steps) of the last tree, noted one tree late
         self._unnoted: Optional[tuple] = None
+        # (iteration, in-bag share of the rows) at each fresh sampled mask
+        self.bag_shares: List[tuple] = []
         # constant added to every raw score (predict-only boosters, see
         # convert.booster_from_arrays); training folds its init score into
         # the first tree instead
@@ -208,7 +222,6 @@ class Booster:
         self.max_feature_idx = ds.num_total_features - 1
         # the budget counts bin columns: EFB planes (boosting/gbdt.py:1295-1297)
         self.hist_mode = cfg.hist_mode or resolve_hist_mode(ds.num_planes, ds.max_bin_padded)
-        cfg.check_layout(self.hist_mode)
         # feature-major bins, transposed on the device (a host transpose of
         # 1,048,576 x 700 bytes takes ~10 s); past 256 bins each column as
         # two byte planes (lo, hi: the seg rows' u16 mode, ops/seg.py, and
@@ -233,7 +246,9 @@ class Booster:
         self._feature_mask = torch.ones(ds.num_planes, dtype=torch.bool, device=dev)
         self._bundle_end = None if self.bundle_layout is None else torch.as_tensor(
             self.bundle_layout.bundle_end_array(self._max_bin), device=dev)
-        self._count_mask = torch.ones(n, dtype=torch.float32, device=dev)
+        # the key stream (boosting/gbdt.py:807) and the row sampler
+        self._rng = prng_key(cfg.seed if cfg.seed is not None else 0)
+        self._sampler = create_sample_strategy(cfg, n, dev, ds.label)
         # the JAX grower takes its split-scan kernel's tie rule only where
         # the kernel runs (fused_ok, ops/grower.py:460-478): the scan or the
         # fused step on ('on' fuses on either layout, 'auto' on seg), at
@@ -255,6 +270,8 @@ class Booster:
             leaf_batch=self._leaf_k(),
             hist_mode=self.hist_mode,
             case_major_ties=not kernel_ties,
+            feature_fraction_bynode=cfg.feature_fraction_bynode,
+            quantized=cfg.use_quantized_grad and cfg.hist_method == "pallas_int8",
         )
         self._int8_acc = int8_acc_eligible(cfg.hist_acc, self.hist_mode, dev)
 
@@ -310,14 +327,28 @@ class Booster:
                 init_score = s
                 self._add_to_scores(s)
         grad, hess = self.objective.get_gradients(self.score)
+        self._next_rng()  # the gradients' key (the JAX objectives take one)
+        mask, grad, hess = self._sampler.sample(self._iter, grad, hess, self._bagging_rng())
+        if self._sampler.refreshed:
+            self.bag_shares.append((self._iter, float(mask.mean())))
+        feature_mask = self._feature_mask_for_iter()
         n_leaves, refines, steps = 1, 0, 0
         k = self._grower_params.leaf_batch
         if self.objective.need_train and self.used_features:
-            grad, hess, qs = self._grow_inputs(grad, hess)
+            # the first iteration draws the tree's key before the
+            # quantization's, the JAX Booster's pipelined update after it
+            # (boosting/gbdt.py:2125 with :1032; :405-412)
+            if not self.trees:
+                tree_rng = self._tree_rng()
+                grad, hess, qs = self._grow_inputs(grad, hess, mask)
+            else:
+                grad, hess, qs = self._grow_inputs(grad, hess, mask)
+                tree_rng = self._tree_rng()
             ta, leaf_id = grow_tree(
-                self._bins_fn, grad, hess, self._count_mask, self._num_bins_t,
-                self._nan_bins_t, self._feature_mask, self._grower_params,
+                self._bins_fn, grad, hess, mask, self._num_bins_t,
+                self._nan_bins_t, feature_mask, self._grower_params,
                 quant_scales=qs, bins_nf=self._bins_nf, bundle_end=self._bundle_end,
+                rng=tree_rng,
             )
             n_leaves, refines, steps = ta.num_leaves, ta.refine_count, ta.grow_steps
         if self._unnoted is not None:
@@ -376,23 +407,61 @@ class Booster:
             return forest_walk(bins, tables, 1)[:, 0]
         return predict_bins_raw(tables, bins, 1)[:, 0]
 
-    def _grow_inputs(self, grad, hess):
+    def _next_rng(self):
+        """The next key of the stream (boosting/gbdt.py:1632-1634)."""
+        self._rng, sub = split(self._rng)
+        return sub
+
+    def _tree_rng(self):
+        """The tree's key for ``feature_fraction_bynode`` (:1636-1649),
+        drawn only when it is below 1."""
+        if self.config.feature_fraction_bynode >= 1.0:
+            return None
+        return self._next_rng()
+
+    def _bagging_rng(self):
+        """The row sampler's key, drawn every iteration; an explicit
+        ``bagging_seed`` folds in (:1651-1660)."""
+        key = self._next_rng()
+        if "bagging_seed" in self.config.raw:
+            key = fold_in(key, self.config.bagging_seed)
+        return key
+
+    def _feature_mask_for_iter(self) -> torch.Tensor:
+        """The tree's features (by-tree ``feature_fraction``,
+        boosting/gbdt.py:2364-2385): ``round(F * fraction)`` of the F
+        columns (EFB planes) chosen by ``np.random.default_rng(
+        feature_fraction_seed + iteration)``; all at fraction 1."""
+        cfg = self.config
+        f = int(self._feature_mask.shape[0])
+        if cfg.feature_fraction >= 1.0 or f == 0:
+            return self._feature_mask
+        rng = np.random.default_rng(cfg.feature_fraction_seed + self._iter)
+        chosen = rng.choice(f, size=max(1, int(round(f * cfg.feature_fraction))), replace=False)
+        m = np.zeros(f, dtype=bool)
+        m[chosen] = True
+        return torch.as_tensor(m, device=self.device)
+
+    def _grow_inputs(self, grad, hess, mask):
         """(grad, hess, quant_scales) the tree grows on.  Quantized training
-        (``_quant_grow_inputs``, boosting/gbdt.py:1020-1040): the quantized
-        gradients, and their scales for the int8 histogram when
-        ``hist_method='pallas_int8'``; else the true gradients, and the int8
-        accumulator's scales where the gate admits it."""
+        (``_quant_grow_inputs``, boosting/gbdt.py:1020-1040, its key drawn
+        whether or not the rounding is stochastic): the quantized gradients,
+        and their scales for the int8 histograms when
+        ``hist_method='pallas_int8'``; else the true (or quantized)
+        gradients, and the int8 accumulator's scales over the in-bag rows
+        ``mask`` where the gate admits it."""
         cfg = self.config
         if cfg.use_quantized_grad:
+            key = self._next_rng()
             grad, hess, g_scale, h_scale = quantize_gradients(
                 grad, hess, cfg.num_grad_quant_bins,
                 constant_hessian=self.objective.is_constant_hessian,
+                key=key if cfg.stochastic_rounding else None,
             )
-            if cfg.hist_method != "pallas_int8":
-                return grad, hess, None
-            return grad, hess, torch.stack([g_scale, h_scale])
+            if cfg.hist_method == "pallas_int8":
+                return grad, hess, torch.stack([g_scale, h_scale])
         if self._int8_acc:
-            return grad, hess, hist_acc_scales(grad, hess, self._count_mask)
+            return grad, hess, hist_acc_scales(grad, hess, mask)
         return grad, hess, None
 
     def _note_tree(self, refines: int, steps: int, k: int, n_leaves: int) -> None:

@@ -12,13 +12,15 @@ The path parameters take the JAX package's defaults and values
   0 < used features <= 242, else the ordered layout ('ordered': an index
   array of leaf windows over the row-major bins), which wide data takes;
   'seg' and 'ordered' may be named; 'gather' and 'full' are not ported;
-* ``hist_method``: 'auto', or 'pallas_int8' (the ordered layout's exact
-  int8 histogram of quantized gradients, which needs
-  ``use_quantized_grad``);
+* ``hist_method``: 'auto', or 'pallas_int8' (the exact int8 histograms
+  of quantized gradients on their scales, the ordered layout's and the
+  segment histogram's, which needs ``use_quantized_grad``);
 * ``use_quantized_grad`` with ``num_grad_quant_bins`` (<= 127): trees grow
-  on gradients quantized once per iteration (ops/quantize.py:32-80), in
-  the deterministic form (``stochastic_rounding=False``) and without
-  ``quant_train_renew_leaf``, on the ordered layout only;
+  on gradients quantized once per iteration (ops/quantize.py:32-80), with
+  LightGBM's default ``stochastic_rounding=True`` (threefry draws,
+  ``random.py``) or deterministically, on either layout (on seg with
+  ``hist_method='pallas_int8'`` the segment histogram's exact int8 mode,
+  else the default seg path); ``quant_train_renew_leaf`` still raises;
 * ``grow_fused`` in auto/on/off (seg only): one fused grow step per split,
   or a partition and a histogram launch ('off'); 'auto' is on, as it is
   on the seg path (boosting/gbdt.py:1410-1415);
@@ -39,6 +41,17 @@ The path parameters take the JAX package's defaults and values
   ``metric_freq``, ``is_provide_training_metric``, ``early_stopping_round``
   (> 0 adds the early-stopping callback) with ``early_stopping_min_delta``
   and ``first_metric_only``;
+* sampling (``boosting/sampling.py``): ``bagging_fraction`` with
+  ``bagging_freq`` (per row, or balanced by ``pos_bagging_fraction`` /
+  ``neg_bagging_fraction`` on the binary objective), ``boosting='goss'`` or
+  ``data_sample_strategy='goss'`` with ``top_rate`` / ``other_rate``,
+  ``feature_fraction`` (by tree) and ``feature_fraction_bynode``, with the
+  JAX package's aliases (lightgbm_tpu/config.py:27-28, :74-88) and seeds:
+  ``seed`` (aliases ``random_seed``, ``random_state``) re-derives
+  ``bagging_seed``, ``feature_fraction_seed`` and ``data_random_seed``
+  where the params do not name them (:640-655).  ``boosting`` other than
+  'gbdt' and 'goss', ``extra_trees`` and ``bagging_by_query`` are not
+  ported and raise;
 * ``enable_bundle`` (default True, aliases ``is_enable_bundle`` and
   ``bundle``) with ``max_conflict_rate``: Exclusive Feature Bundling, as
   the JAX package does it (lightgbm_tpu/config.py:488): mutually exclusive
@@ -83,6 +96,25 @@ _PARAM_ALIASES: Dict[str, str] = {
     "max_bins": "max_bin",
     "subsample_for_bin": "bin_construct_sample_cnt",
     "data_seed": "data_random_seed",
+    "random_seed": "seed",
+    "random_state": "seed",
+    "boosting_type": "boosting",
+    "boost": "boosting",
+    "sub_row": "bagging_fraction",
+    "subsample": "bagging_fraction",
+    "bagging": "bagging_fraction",
+    "pos_sub_row": "pos_bagging_fraction",
+    "pos_subsample": "pos_bagging_fraction",
+    "pos_bagging": "pos_bagging_fraction",
+    "neg_sub_row": "neg_bagging_fraction",
+    "neg_subsample": "neg_bagging_fraction",
+    "neg_bagging": "neg_bagging_fraction",
+    "subsample_freq": "bagging_freq",
+    "bagging_fraction_seed": "bagging_seed",
+    "sub_feature": "feature_fraction",
+    "colsample_bytree": "feature_fraction",
+    "sub_feature_bynode": "feature_fraction_bynode",
+    "colsample_bynode": "feature_fraction_bynode",
     "is_enable_bundle": "enable_bundle",
     "bundle": "enable_bundle",
     "num_iteration": "num_iterations",
@@ -164,6 +196,21 @@ class Config:
     bin_construct_sample_cnt: int = 200000
     data_random_seed: int = 1
     boost_from_average: bool = True
+    # sampling (boosting/sampling.py) and its seeds; ``seed`` re-derives the
+    # seeds the params do not name (_apply_seed)
+    seed: Optional[int] = None
+    boosting: str = "gbdt"
+    data_sample_strategy: str = "bagging"
+    bagging_fraction: float = 1.0
+    pos_bagging_fraction: float = 1.0
+    neg_bagging_fraction: float = 1.0
+    bagging_freq: int = 0
+    bagging_seed: int = 3
+    top_rate: float = 0.2
+    other_rate: float = 0.1
+    feature_fraction: float = 1.0
+    feature_fraction_bynode: float = 1.0
+    feature_fraction_seed: int = 2
     # Exclusive Feature Bundling (bundling.py): True bundles mutually
     # exclusive sparse columns into shared planes, False keeps a plane a column
     enable_bundle: bool = True
@@ -219,6 +266,8 @@ class Config:
                     setattr(cfg, name, int(float(v)))
                 elif typ in ("float", float):
                     setattr(cfg, name, float(v))
+                elif name == "seed":
+                    setattr(cfg, name, None if v is None else int(float(v)))
                 elif name == "metric":
                     setattr(cfg, name, _to_str_list(v))
                 else:
@@ -226,6 +275,7 @@ class Config:
             except (TypeError, ValueError) as exc:
                 raise ValueError(f"bad value for parameter {name!r}: {v!r}") from exc
         cfg.raw = resolved
+        cfg._apply_seed()
         obj = _OBJECTIVE_ALIASES.get(cfg.objective)
         if obj is None:
             raise ValueError(
@@ -246,6 +296,7 @@ class Config:
                 f"lightgbm_tpu_torch (ported: {', '.join(HIST_METHODS)})"
             )
         cfg._check_quantized()
+        cfg._check_sampling()
         if cfg.leaf_batch < 1:
             raise ValueError("leaf_batch must be >= 1")
         if cfg.leaf_batch > MAX_LEAF_BATCH:
@@ -272,8 +323,6 @@ class Config:
                 "splits with the split-scan kernel: set fused_split_scan=True "
                 "or grow_fused to 'auto' or 'on')"
             )
-        if cfg.hist_mode == "seg":
-            cfg.check_layout("seg")
         if cfg.num_leaves < 2:
             raise ValueError("num_leaves must be >= 2")
         if not 0.0 <= cfg.max_conflict_rate < 1.0:
@@ -281,6 +330,49 @@ class Config:
         if cfg.max_bin < 2:
             raise ValueError("max_bin must be >= 2")
         return cfg
+
+    def _apply_seed(self) -> None:
+        """``seed`` re-derives the seeds the port reads that the params do
+        not name (lightgbm_tpu/config.py:640-655): bagging_seed = seed + 3,
+        feature_fraction_seed = seed + 2, data_random_seed = seed + 1."""
+        if self.seed is None:
+            return
+        base = int(self.seed)
+        for name, off in (("bagging_seed", 3), ("feature_fraction_seed", 2),
+                          ("data_random_seed", 1)):
+            if name not in self.raw:
+                setattr(self, name, base + off)
+
+    def _check_sampling(self) -> None:
+        """The sampling keys: ``boosting`` 'gbdt' or 'goss' (or
+        ``data_sample_strategy='goss'``), the fractions in (0, 1], GOSS's
+        rates (boosting/sampling.py), and balanced bagging's binary
+        objective (lightgbm_tpu/config.py:747-749)."""
+        if self.boosting not in ("gbdt", "goss"):
+            raise ValueError(
+                f"boosting={self.boosting!r} not yet ported to lightgbm_tpu_torch "
+                "(ported: gbdt, goss)")
+        if self.data_sample_strategy not in ("bagging", "goss"):
+            raise ValueError(
+                f"data_sample_strategy must be 'bagging' or 'goss', got "
+                f"{self.data_sample_strategy!r}")
+        for name in ("bagging_fraction", "pos_bagging_fraction", "neg_bagging_fraction",
+                     "feature_fraction", "feature_fraction_bynode"):
+            if not 0.0 < getattr(self, name) <= 1.0:
+                raise ValueError(f"{name} must be in (0, 1]")
+        if self.is_goss():
+            if self.top_rate + self.other_rate > 1.0:
+                raise ValueError("top_rate + other_rate must be <= 1.0")
+            if self.top_rate <= 0 or self.other_rate <= 0:
+                raise ValueError("top_rate and other_rate must be > 0 for GOSS")
+        if (self.bagging_freq > 0 and self.objective != "binary"
+                and (self.pos_bagging_fraction < 1.0 or self.neg_bagging_fraction < 1.0)):
+            raise ValueError("pos/neg bagging fractions require binary objective")
+
+    def is_goss(self) -> bool:
+        """GOSS row sampling: ``boosting='goss'`` or
+        ``data_sample_strategy='goss'`` (boosting/sampling.py:213-216)."""
+        return self.boosting == "goss" or self.data_sample_strategy == "goss"
 
     def _check_quantized(self) -> None:
         """The quantized-training keys (lightgbm_tpu/config.py:475-478) and
@@ -292,29 +384,10 @@ class Config:
             )
         if self.num_grad_quant_bins > 127:
             raise ValueError("num_grad_quant_bins must be <= 127 (int8 grid)")
-        if not self.use_quantized_grad:
-            return
-        if self.stochastic_rounding:
-            raise ValueError(
-                "use_quantized_grad with stochastic_rounding=True not yet ported "
-                "to lightgbm_tpu_torch (it waits for the threefry generator); "
-                "set stochastic_rounding=False"
-            )
-        if self.quant_train_renew_leaf:
+        if self.use_quantized_grad and self.quant_train_renew_leaf:
             raise ValueError(
                 "quant_train_renew_leaf=True not yet ported to lightgbm_tpu_torch "
                 "(leaf values come from the quantized sums)"
-            )
-
-    def check_layout(self, hist_mode: str) -> None:
-        """What the resolved layout refuses: quantized training on seg (the
-        JAX package runs the seg kernel on the quantization scales there,
-        ops/grower.py:1082-1097, a path not yet ported)."""
-        if hist_mode == "seg" and self.use_quantized_grad:
-            raise ValueError(
-                "use_quantized_grad on hist_mode='seg' not yet ported to "
-                "lightgbm_tpu_torch (quantized training runs on the ordered "
-                "layout: set hist_mode='ordered')"
             )
 
     def default_metric(self) -> List[str]:

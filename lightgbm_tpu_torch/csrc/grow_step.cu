@@ -44,6 +44,10 @@
 // byte planes (lo, hi), f = 2 x features: the partition's u16 mode decides
 // by lo | hi << 8 and moves the planes as bytes, and the histogram runs
 // `ranges` bin ranges of 256 (lane_hist.cuh).
+//
+// The live mode (the TPU kernel's `live` operand, grow_step.py:93, :197,
+// :224): the partition moves every plane, the histogram reads only the live
+// features of its feature order and writes the dead ones' cells 0.
 
 #include "partition.cu"
 #include "lane_hist.cuh"
@@ -63,7 +67,9 @@ extern "C" long long lgbt_grow_step_scratch(int f, int nbins, int int8) {
 // members: host i64 [k, kMemberCols] rows (start, cnt, feat, tbin, dl, nanb,
 // iscat, the table's words); the partition's scratch, status and staged
 // words, counter, epoch).  ranges: the histogram's bin ranges of 256 (1 at
-// nbins <= 256).
+// nbins <= 256); order, nlive: the histogram's feature order, the nlive
+// live features first (lane_hist.cuh's live mode; the identity with nlive
+// = the features when every one is live).
 // scales: device [2] f32 for the int8 mode, null for f32; hscratch: device,
 // 16-byte aligned, of lgbt_grow_step_scratch bytes (hscratch_bytes); dec: i32
 // [k, 4] receives (nl, nr, child_start, child_cnt); out: f32 [k, f, nbins, 3],
@@ -72,8 +78,8 @@ extern "C" int lgbt_grow_step(void* bins, void* g, void* h, void* m, void* ridx,
                               int f, const long long* members, int k, int tile, void* s_planes,
                               void* s_cols, long long s_stride, void* status, void* staged,
                               void* counter, unsigned epoch, int nbins, int ranges,
-                              const void* scales, void* hscratch, long long hscratch_bytes,
-                              void* dec, void* out, void* stream) {
+                              const void* order, int nlive, const void* scales, void* hscratch,
+                              long long hscratch_bytes, void* dec, void* out, void* stream) {
   if (k < 1 || k > lhist::kMaxWindows || nbins <= 0 || nbins > 65536 ||
       hscratch_bytes < lhist::kNlBytes) {
     return (int)cudaErrorInvalidValue;
@@ -87,6 +93,8 @@ extern "C" int lgbt_grow_step(void* bins, void* g, void* h, void* m, void* ridx,
   lhist::Windows win;
   win.k = k;
   win.ranges = ranges;
+  win.order = (const int*)order;
+  win.nlive = nlive;
   for (int i = 0; i < k; ++i) {
     win.start[i] = members[kMemberCols * i];
     win.cnt[i] = members[kMemberCols * i + 1] > 0 ? members[kMemberCols * i + 1] : 0;

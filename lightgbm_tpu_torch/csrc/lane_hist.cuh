@@ -68,6 +68,21 @@
 // reads every row once a range: about the u8 time times the ranges, which
 // the host sizes by the widest feature's bins (1,024 bins: 4 ranges).
 //
+// The live mode (the TPU kernels' `live` plane-group skip, seg.py:62-65,
+// grow_step.py:93): every launch takes a feature order, a permutation of the
+// f features whose first nlive are the tree's live ones (feature 0 among
+// them), the rest dead.  Pass 1 runs ceil(nlive / 32) feature groups, lane j
+// of group y reading feature order[32 y + j]'s plane(s), so a feature mask
+// that leaves a few live features in every fixed group of 32 still drops
+// whole blocks; pass 2 runs every group of the order and writes each live
+// feature's cells at its own feature index and each dead one's as 0.  A call
+// with nothing dead takes the identity order with nlive = f: one code path.
+// The int8 mode plans its chunks over the live groups (the card's fill spread
+// over fewer groups); the f32 mode plans them as for all f features, so a
+// live feature's f32 sums are those of a call with every feature live, bit
+// for bit (its chunks and their order unchanged), and the int8 sums are so
+// in any plan.
+//
 // Used by csrc/seg_hist.cu (host windows: no left counts, no dec) and
 // csrc/grow_step.cu (the elected children).
 
@@ -129,13 +144,16 @@ struct Table {
 
 // k windows and their chunks: window i takes chunks [chunk0[i],
 // chunk0[i + 1]) of the launch (plan_chunks), in each of the launch's
-// `ranges` bin ranges (1 in the u8 mode)
+// `ranges` bin ranges (1 in the u8 mode); the feature order (device [f] i32,
+// the live features first) and the live count (the live mode, above)
 struct Windows {
   int k;
   int ranges;
   long long start[kMaxWindows];
   long long cnt[kMaxWindows];
   long long chunk0[kMaxWindows + 1];
+  const int* order;
+  int nlive;
 };
 
 // The window block row k takes: [start, start + cnt), or, with the left
@@ -374,7 +392,7 @@ __global__ void __launch_bounds__((Acc<kInt8, kSeg>::kThreads))
     lane_hist_accumulate(const uint8_t* __restrict__ bins, long long n,
                          const float* __restrict__ g, const float* __restrict__ h,
                          const float* __restrict__ m, Windows win, const int* __restrict__ nl,
-                         int f, int rbins, const float* __restrict__ scales,
+                         int rbins, const float* __restrict__ scales,
                          int* __restrict__ scratch) {
   constexpr int kThreads = Acc<kInt8, kSeg>::kThreads;
   constexpr int kWarps = Acc<kInt8, kSeg>::kWarps;
@@ -401,8 +419,9 @@ __global__ void __launch_bounds__((Acc<kInt8, kSeg>::kThreads))
   __syncthreads();
   HIST_MARK(slot, 1);
 
-  const int feat = blockIdx.y * kLanes + lane;
-  const bool has = feat < f;
+  const int pos = blockIdx.y * kLanes + lane;  // the lane's place in the order
+  const bool has = pos < win.nlive;
+  const int feat = has ? win.order[pos] : 0;
   const float inv_g = lgbt::inv_scale(scales, 0);
   const float inv_h = lgbt::inv_scale(scales, 1);
   const long long per = (c + chunks - 1) / chunks;
@@ -474,12 +493,14 @@ __global__ void __launch_bounds__((Acc<kInt8, kSeg>::kThreads))
   HIST_MARK(slot, 3);
 }
 
-// Pass 2: each (kReduceCells cells, feature group, window) tile of the
-// output summed over the window's chunks of the tile's bin range in a
-// fixed order (thread slice t over chunks t, t + kSlices, ... in order,
-// then the slices in order; a bin past the launch's ranges sums nothing),
-// recombined (int8), and written out through a transpose; with nl and dec,
-// block (0, 0, k) also writes dec[k] = (nl, nr, child start, child cnt).
+// Pass 2: each (kReduceCells cells, feature group of the order, window)
+// tile of the output summed over the window's chunks of the tile's bin
+// range in a fixed order (thread slice t over chunks t, t + kSlices, ... in
+// order, then the slices in order; a bin past the launch's ranges, and a
+// group past the live ones, sums nothing), recombined (int8), and written
+// out through a transpose at each feature's own index, a dead feature's
+// cells 0; with nl and dec, block (0, 0, k) also writes dec[k] = (nl, nr,
+// child start, child cnt).
 template <bool kInt8>
 __global__ void __launch_bounds__(kReduceThreads)
     lane_hist_reduce(const int* __restrict__ scratch, Windows win, const int* __restrict__ nl,
@@ -507,14 +528,15 @@ __global__ void __launch_bounds__(kReduceThreads)
   const int slice = threadIdx.x / kReduceCells;
   const int r = (int)(((long long)blockIdx.x * kReduceCells) / pw);  // the tile's range
   const int cell = blockIdx.x * kReduceCells + e - r * pw;  // its cell in the range's images
+  const int lgroups = (win.nlive + kLanes - 1) / kLanes;  // pass 1's groups
   const int* part =
-      scratch + (((long long)r * gridDim.y + blockIdx.y) * win.chunk0[win.k] + win.chunk0[k]) * words;
+      scratch + (((long long)r * lgroups + blockIdx.y) * win.chunk0[win.k] + win.chunk0[k]) * words;
 
   int acc[P];
   float fa = 0.0f, fb = 0.0f;
 #pragma unroll
   for (int p = 0; p < P; ++p) acc[p] = 0;
-  if (r < win.ranges && cell < pw) {
+  if ((int)blockIdx.y < lgroups && r < win.ranges && cell < pw) {
     for (long long q = slice; q < chunks; q += kSlices) {
       const int* im = part + q * words + cell;
       if constexpr (kInt8) {
@@ -563,15 +585,18 @@ __global__ void __launch_bounds__(kReduceThreads)
   }
   __syncthreads();
 
-  // each feature's nb * 3 words are one run of the output
+  // each feature's nb * 3 words are one run of the output, at the
+  // feature's own index
   const int f0 = blockIdx.y * kLanes;
   const int bin0 = blockIdx.x * kBins;
   const int nb = min(kBins, nbins - bin0);
   for (int x = threadIdx.x; x < kLanes * nb * 3; x += kReduceThreads) {
     const int j = x / (nb * 3);
     const int y = x - j * (nb * 3);
-    if (f0 + j >= f) continue;
-    out[(((long long)k * f + f0 + j) * nbins + bin0) * 3 + y] = tile[j * kRow + y];
+    const int pos = f0 + j;
+    if (pos >= f) continue;
+    out[(((long long)k * f + win.order[pos]) * nbins + bin0) * 3 + y] =
+        pos < win.nlive ? tile[j * kRow + y] : 0.0f;
   }
 }
 
@@ -639,34 +664,37 @@ long long scratch_bytes(int f, int nbins) {
 // win.ranges bin ranges: 1 when nbins <= kRangeBins, the u8 mode, else the
 // u16 mode's, 1 to max_ranges(nbins)); with nl (device), each window's
 // smaller child, and dec (device) written.  f: features (the u16 mode
-// reads 2 f planes).  scratch: the images, of scratch_bytes<kInt8, kSeg>
-// less the head.
+// reads 2 f planes); win.order / win.nlive: the feature order and its live
+// count (1 <= nlive <= f).  scratch: the images, of scratch_bytes<kInt8,
+// kSeg> less the head.
 template <bool kInt8, bool kSeg = false>
 int launch(const uint8_t* bins, long long n, const float* g, const float* h, const float* m,
            Windows win, const int* nl, int f, int nbins, const float* scales, int* scratch,
            long long scratch_size, int* dec, float* out, cudaStream_t st) {
   const bool wide = nbins > kRangeBins;
   if (win.ranges < 1 || win.ranges > max_ranges(nbins)) return (int)cudaErrorInvalidValue;
+  if (win.order == nullptr || win.nlive < 1 || win.nlive > f) return (int)cudaErrorInvalidValue;
   cudaError_t e = cudaSuccess;
   const long long fill = fill_blocks<kInt8, kSeg>(&e);
   if (e != cudaSuccess) return (int)e;
-  const int groups = (f + kLanes - 1) / kLanes;
-  plan_chunks(win, nl != nullptr, groups * win.ranges, fill);
+  const int groups = (f + kLanes - 1) / kLanes;  // of the order: pass 2
+  const int lgroups = (win.nlive + kLanes - 1) / kLanes;  // live: pass 1
+  plan_chunks(win, nl != nullptr, (kInt8 ? lgroups : groups) * win.ranges, fill);
   const long long chunks = win.chunk0[win.k];
   const int rbins = wide ? kRangeBins : nbins;
   const long long words = (long long)Table<kInt8>::kWords * rbins * kLanes;
-  if (scratch_size < (long long)win.ranges * groups * chunks * words * 4) {
+  if (scratch_size < (long long)win.ranges * lgroups * chunks * words * 4) {
     return (int)cudaErrorInvalidValue;
   }
-  const dim3 grid((unsigned)chunks, (unsigned)groups, (unsigned)win.ranges);
+  const dim3 grid((unsigned)chunks, (unsigned)lgroups, (unsigned)win.ranges);
   const size_t smem = Table<kInt8>::smem_bytes(rbins);
   constexpr int kThreads = Acc<kInt8, kSeg>::kThreads;
   if (wide) {
     lane_hist_accumulate<kInt8, kSeg, true><<<grid, kThreads, smem, st>>>(
-        bins, n, g, h, m, win, nl, f, rbins, scales, scratch);
+        bins, n, g, h, m, win, nl, rbins, scales, scratch);
   } else {
     lane_hist_accumulate<kInt8, kSeg, false><<<grid, kThreads, smem, st>>>(
-        bins, n, g, h, m, win, nl, f, rbins, scales, scratch);
+        bins, n, g, h, m, win, nl, rbins, scales, scratch);
   }
   e = cudaGetLastError();
   if (e != cudaSuccess) return (int)e;

@@ -54,12 +54,15 @@ extern "C" long long lgbt_seg_hist_scratch(int f, int nbins, int int8) {
 // every bin of the rows (1 in the u8 mode); scales: device [2] f32
 // (g_scale, h_scale) for the int8 mode, null for f32; scratch: device,
 // 16-byte aligned, of lgbt_seg_hist_scratch bytes (scratch_bytes); out: f32
-// [k, f, nbins, 3], every cell written.  Returns the CUDA error of the
-// launches (0 on success).
+// [k, f, nbins, 3], every cell written; order: device [f] i32, a
+// permutation of the features with the nlive live ones first (the live mode,
+// lane_hist.cuh: a dead feature is not read and its cells are written 0; the
+// identity with nlive = f when every feature is live).  Returns the CUDA
+// error of the launches (0 on success).
 extern "C" int lgbt_seg_hist(const void* bins, const void* g, const void* h, const void* m,
                              long long n, const long long* windows, int k, int f, int nbins,
-                             int ranges, const void* scales, void* scratch,
-                             long long scratch_bytes, void* out, void* stream) {
+                             int ranges, const void* order, int nlive, const void* scales,
+                             void* scratch, long long scratch_bytes, void* out, void* stream) {
   if (k < 1 || k > lhist::kMaxWindows || f <= 0 || nbins <= 0 || nbins > 65536 ||
       scratch_bytes < lhist::kNlBytes) {
     return (int)cudaErrorInvalidValue;
@@ -67,6 +70,8 @@ extern "C" int lgbt_seg_hist(const void* bins, const void* g, const void* h, con
   lhist::Windows win;
   win.k = k;
   win.ranges = ranges;
+  win.order = (const int*)order;
+  win.nlive = nlive;
   for (int i = 0; i < k; ++i) {
     win.start[i] = windows[2 * i];
     win.cnt[i] = windows[2 * i + 1] > 0 ? windows[2 * i + 1] : 0;

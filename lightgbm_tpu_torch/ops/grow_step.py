@@ -12,7 +12,8 @@ partition kernels of ``csrc/partition.cu`` then the histogram of
 read between them, counted once a call in
 ``_build.LAUNCHES['fused_grow_step']`` (and ``'fused_grow_step_table'`` when
 a live member partitions by its goes-left table, ``'fused_grow_step_u16'``
-on u16 rows).  A member splits by its
+on u16 rows, ``'fused_grow_step_live'`` with a dead feature: the
+histogram's live mode, ``seg.feature_order``).  A member splits by its
 threshold or, as the TPU kernel's ``cat_ref`` operand (grow_step.py:95,
 :224-226), by a [B] bool goes-left table: an EFB bundle-plane split.  Past
 256 bins (the TPU kernel's ``wide`` mode, grow_step.py:231) the rows are
@@ -34,6 +35,7 @@ from .seg import (
     MAX_WINDOWS,
     SegRows,
     _device_scales,
+    feature_order,
     hist_ranges,
     partition_scratch,
     partition_tile_rows,
@@ -55,14 +57,15 @@ def _decision(mem: np.ndarray, nl: np.ndarray) -> np.ndarray:
 
 
 def fused_grow_step_plain(
-    rows: SegRows, mem: np.ndarray, num_bins: int, quant_scales=None
+    rows: SegRows, mem: np.ndarray, num_bins: int, quant_scales=None, live=None
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """The oracle composition: K stable partitions (disjoint windows, so
     their order does not matter), the local election, the K smaller
-    children's histograms.  Returns (dec [K, 4] i32, hist [K, F, B, 3])."""
+    children's histograms (the features outside ``live`` 0).  Returns (dec
+    [K, 4] i32, hist [K, F, B, 3])."""
     nl = sort_partition_batch_plain(rows, mem).cpu().numpy().astype(np.int64)
     dec = _decision(mem, nl)
-    hist = seg_hist_batch_plain(rows, dec[:, 2:4], num_bins, quant_scales)
+    hist = seg_hist_batch_plain(rows, dec[:, 2:4], num_bins, quant_scales, live)
     return torch.as_tensor(dec, device=rows.device), hist
 
 
@@ -78,11 +81,13 @@ def fused_grow_step(
     quant_scales: Optional[torch.Tensor] = None,  # [2] f32: int8 grid
     iscats: Optional[Sequence[int]] = None,  # [K] partition by the table
     tables: Optional[Sequence] = None,  # [K] [B] bool goes-left tables (or None)
+    live: Optional[Sequence[int]] = None,  # the histogram's live features (None: all)
 ):
     """K fused partition + election + histogram steps.  Partitions the rows
     in place and returns (nl, nr, child_start, child_cnt) as [K] i32 and the
     smaller children's histograms [K, F, B, 3] f32 (int8 2-digit grid when
-    ``quant_scales`` is given), all on the rows' device."""
+    ``quant_scales`` is given; the features outside ``live`` 0), all on the
+    rows' device."""
     mem = split_members(sbegins, cnts, feats, tbins, dls, nanbs, iscats, tables)
     # the smaller child of a window holds at most cnt // 2 rows
     if quant_scales is not None and int(mem[:, 1].max(initial=0)) // 2 > MAX_INT8_ROWS:
@@ -91,9 +96,9 @@ def fused_grow_step(
             "(exact i32 digit sums)"
         )
     if rows.device.type == "cpu":
-        dec, hist = fused_grow_step_plain(rows, mem, num_bins, quant_scales)
+        dec, hist = fused_grow_step_plain(rows, mem, num_bins, quant_scales, live)
     else:
-        dec, hist = _launch(rows, mem, num_bins, quant_scales)
+        dec, hist = _launch(rows, mem, num_bins, quant_scales, live=live)
     return dec[:, 0], dec[:, 1], dec[:, 2], dec[:, 3], hist
 
 
@@ -108,11 +113,12 @@ def scratch_bytes(f: int, num_bins: int, int8: bool) -> int:
     return nbytes
 
 
-def _launch(rows: SegRows, mem: np.ndarray, num_bins: int, quant_scales, fn=None):
+def _launch(rows: SegRows, mem: np.ndarray, num_bins: int, quant_scales, fn=None, live=None):
     """One call of the ``csrc/grow_step.cu`` entry (``fn``: another build of
     it) on K members ([K, MEMBER_COLS] i64): (dec [K, 4] i32, hist [K, F, B, 3] f32) on
-    the card.  The partition's buffers and the histogram scratch live on the
-    rows; only the two outputs are allocated."""
+    the card, the histogram of the features of ``live`` (None: all).  The
+    partition's buffers and the histogram scratch live on the rows; only
+    the two outputs are allocated."""
     k, f = mem.shape[0], rows.f
     if not 1 <= k <= MAX_WINDOWS:
         raise ValueError(f"fused_grow_step takes 1 to {MAX_WINDOWS} windows, got {k}")
@@ -125,12 +131,13 @@ def _launch(rows: SegRows, mem: np.ndarray, num_bins: int, quant_scales, fn=None
     dec = torch.empty((k, 4), dtype=torch.int32, device=dev)
     out = torch.empty((k, f, num_bins, 3), dtype=torch.float32, device=dev)
     scales = None if quant_scales is None else _device_scales(quant_scales, dev)
+    order, nlive = feature_order(rows, live)
     rc = (fn or _build.entry("grow_step"))(
         rows.bins.data_ptr(), rows.g.data_ptr(), rows.h.data_ptr(), rows.m.data_ptr(),
         rows.ridx.data_ptr(), rows.n, rows.planes, mem.ctypes.data, k,
         partition_tile_rows(rows.planes, int(mem[:, 1].sum())), ps.planes.data_ptr(),
         ps.cols.data_ptr(), ps.stride, ps.status.data_ptr(), ps.staged.data_ptr(),
-        ps.counter.data_ptr(), ps.next_epoch(), int(num_bins), ranges,
+        ps.counter.data_ptr(), ps.next_epoch(), int(num_bins), ranges, order.data_ptr(), nlive,
         None if scales is None else scales.data_ptr(),
         rows.step.data_ptr(), rows.step.numel(), dec.data_ptr(), out.data_ptr(),
         torch.cuda.current_stream(dev).cuda_stream,
@@ -141,4 +148,6 @@ def _launch(rows: SegRows, mem: np.ndarray, num_bins: int, quant_scales, fn=None
         _build.LAUNCHES["fused_grow_step_table"] += 1
     if rows.wide:
         _build.LAUNCHES["fused_grow_step_u16"] += 1
+    if nlive < f:
+        _build.LAUNCHES["fused_grow_step_live"] += 1
     return dec, out

@@ -56,6 +56,22 @@ is decided by ``best_split``, near-tie refine included, as the JAX grower
 takes its scan kernel only at ``max_bin <= 256`` (``fused_ok``, :460-479);
 its ties go case-major (the booster's ``case_major_ties``).
 
+Feature sampling (the JAX grower's ``node_feature_mask``, :864-871, and
+``seg_live``, :1104-1127): the tree's ``feature_mask`` (by-tree
+``feature_fraction``) bounds every node's candidates, and on the seg
+layout its live features (feature 0 always among them: its histogram
+gives the root's totals) are the only ones the histograms read
+(``live_features``; the kernels' live mode, ops/seg.py).  With
+``feature_fraction_bynode`` < 1 each node's candidates are further those
+whose uniform draw from ``fold_in(rng, node seed)`` lies below it (node
+seeds 0 at the root, 2t + 1 and 2t + 2 for the children of split t,
+speculative batch members included), drawn once a tree on the host for
+every seed the tree can reach and copied to the device; they reach the
+split-scan kernel as its [M, F] masks and ``best_split_batch`` likewise.
+Quantized training on seg (``params.quantized``): the histograms run the
+int8 mode on the quantization scales, exact, and no decision is refined
+(:1082-1102).
+
 Growth stops at ``num_leaves`` or when no leaf has a positive gain.  The
 loop over splits runs on the host: each split reads back the left count
 and the two children's candidates (two host syncs per split -- the cost
@@ -85,6 +101,7 @@ from typing import List, NamedTuple, Optional, Tuple
 import numpy as np
 import torch
 
+from .. import random as rnd
 from .grow_step import fused_grow_step
 from .histogram import OrderedRows, ordered_hist, ordered_hist_int8
 from .seg import (
@@ -137,6 +154,12 @@ class GrowerParams:
     # exact gain ties between features go by best_split's case-major argmax
     # (missing-right first) instead of the split-scan kernel's first feature
     case_major_ties: bool = False
+    # feature_fraction_bynode: each node's candidates are the features of
+    # the tree's mask whose draw from fold_in(rng, node seed) is below it
+    feature_fraction_bynode: float = 1.0
+    # quant_scales are quantized training's (hist_method='pallas_int8'):
+    # the seg histograms run the exact int8 mode, no decision is refined
+    quantized: bool = False
 
 
 class TreeArrays(NamedTuple):
@@ -210,20 +233,23 @@ class _SegStore:
     fused grow step, or a partition and a histogram launch."""
 
     def __init__(self, bins_fn, grad, hess, mask, num_bins: int, qs, fused: bool,
-                 used_bins: int = 0):
+                 used_bins: int = 0, live=None):
         # past 256 bins, bins_fn holds each feature as two byte planes
         self.rows = pack_rows(bins_fn, grad, hess, mask, wide=num_bins > RANGE_BINS,
                               used_bins=used_bins)
         self.device = self.rows.device
         self.B, self.qs, self.fused = num_bins, qs, fused
+        # the tree's live features (None: all): every histogram skips the
+        # others and writes their cells 0
+        self.live = live
 
     def root_hist(self) -> torch.Tensor:
-        return seg_hist(self.rows, 0, self.rows.n, self.B, self.qs)
+        return seg_hist(self.rows, 0, self.rows.n, self.B, self.qs, live=self.live)
 
     def refine_hist(self, windows) -> torch.Tensor:
         """f32 histograms of K windows: the near-tie refine of the int8
         accumulation, which only this layout runs."""
-        return seg_hist_batch(self.rows, windows, self.B)
+        return seg_hist_batch(self.rows, windows, self.B, live=self.live)
 
     def split(self, begins, cnts, feats, tbins, dls, nanbs, tables):
         """Partition K disjoint windows (by threshold, or by a member's
@@ -236,7 +262,7 @@ class _SegStore:
         if self.fused:
             nl_t, _, _, _, sm = fused_grow_step(
                 self.rows, begins, cnts, feats, tbins, dls, nanbs, self.B,
-                quant_scales=self.qs, iscats=iscats, tables=tables,
+                quant_scales=self.qs, iscats=iscats, tables=tables, live=self.live,
             )
             return nl_t.cpu().numpy().astype(np.int64), sm
         if len(begins) == 1:  # the serial loop: the single partition
@@ -249,7 +275,7 @@ class _SegStore:
                 self.rows, begins, cnts, feats, tbins, dls, nanbs, iscats, tables
             ).cpu().numpy().astype(np.int64)
         windows = _smaller_windows(begins, cnts, nleft)
-        return nleft, seg_hist_batch(self.rows, windows, self.B, self.qs)
+        return nleft, seg_hist_batch(self.rows, windows, self.B, self.qs, live=self.live)
 
     def leaf_id(self, leaf_begin, leaf_nrows) -> torch.Tensor:
         return leaf_id_from_windows(self.rows.ridx, leaf_begin, leaf_nrows)
@@ -345,14 +371,20 @@ def grow_tree(
     quant_scales: Optional[torch.Tensor] = None,  # [2] f32: int8 grid
     bins_nf: Optional[torch.Tensor] = None,  # [N, stride] u8 / u16 row-major (ordered)
     bundle_end: Optional[torch.Tensor] = None,  # [F, B] i32: EFB sub-range ends
+    rng: Optional[rnd.Key] = None,  # the tree's key: feature_fraction_bynode
 ) -> Tuple[TreeArrays, torch.Tensor]:
     """Grow one tree.  Returns (TreeArrays, leaf_id [N] i32 on the input
     device).  ``params.hist_mode`` picks the row store: 'seg', where
     ``quant_scales`` (``quantize.hist_acc_scales``) turns on the int8
     accumulation with the near-tie f32 refine, or 'ordered' (``bins_nf``
     needed), where ``quant_scales`` (``quantize.quantize_gradients``) put
-    every histogram on the exact int8 grid.  ``params.leaf_batch`` > 1 runs
-    the frontier-batched loop.  ``bundle_end``
+    every histogram on the exact int8 grid (on 'seg' too with
+    ``params.quantized``).  ``params.leaf_batch`` > 1 runs the
+    frontier-batched loop.  ``feature_mask`` is the tree's (by-tree
+    sampling): on 'seg' its live features, feature 0 always among them, are
+    the only ones the histograms read (``live_features``); with
+    ``params.feature_fraction_bynode`` < 1 and ``rng``, each node's
+    candidates are further cut by ``node_feature_masks``.  ``bundle_end``
     (``BundleLayout.bundle_end_array``) makes the columns EFB planes: every
     leaf is decided by ``best_split``, and bundle-plane splits partition
     by their goes-left tables."""
@@ -364,12 +396,14 @@ def grow_tree(
     nan_host = nan_bins.cpu().numpy()
     qs = quant_scales
     used = int(num_bins.max()) if wide and f else 0
+    fm_host = feature_mask.detach().cpu().numpy().astype(bool).reshape(f)
     if p.hist_mode == "ordered":
         store = _OrderedStore(bins_fn, bins_nf, grad, hess, count_mask, B, qs, f, used)
         refine = False
     elif p.hist_mode == "seg":
-        store = _SegStore(bins_fn, grad, hess, count_mask, B, qs, p.grow_fused, used)
-        refine = qs is not None
+        store = _SegStore(bins_fn, grad, hess, count_mask, B, qs, p.grow_fused, used,
+                          live_features(fm_host))
+        refine = qs is not None and not p.quantized
     else:
         raise ValueError(f"hist_mode={p.hist_mode!r} not yet ported to lightgbm_tpu_torch")
     dev = store.device
@@ -384,29 +418,57 @@ def grow_tree(
 
     # the scan's per-feature inputs as its kernel reads them, once a tree
     scan_in = scan_inputs(num_bins, nan_bins, feature_mask, dev)
+    bynode = p.feature_fraction_bynode < 1.0 and rng is not None
 
     bs_kw = {k: v for k, v in kw.items() if k != "case_major"}
 
-    def scan(hists, stats, with_margin=False):
+    # every node's by-node mask, drawn once a tree (node seeds below
+    # 2 (L + K) + 1: the batched loop's speculative members go past L) and
+    # copied to the device in one go, in f32 as the scan kernel reads it
+    node_table = None
+    if bynode:
+        node_table = torch.as_tensor(node_feature_masks(
+            fm_host, rng, range(2 * (L + K) + 1), p.feature_fraction_bynode),
+            dtype=torch.float32, device=dev)
+
+    def node_masks(t0, k):
+        """[2k, F] masks on the device of the children of splits t0 .. t0 +
+        k - 1, the left ones' (seeds 2t + 1) then the right ones' (2t + 2);
+        k = 0: [1, F], the root's; None: the tree's mask serves every node.
+        Slices of the table, so no index goes to the device."""
+        if node_table is None:
+            return None
+        if k == 0:
+            return node_table[0:1]
+        lo = 2 * t0 + 1
+        if k == 1:
+            return node_table[lo:lo + 2]
+        return torch.cat([node_table[lo:lo + 2 * k:2], node_table[lo + 1:lo + 2 * k + 1:2]])
+
+    def scan(hists, stats, masks=None, with_margin=False):
         """Candidates of the leaves with histograms ``hists`` (a list of
-        [F, B, 3]): one launch and one transfer for all of them; with
+        [F, B, 3]) under their node masks (``masks`` [M, F], or None for
+        the tree's mask): one launch and one transfer for all of them; with
         ``bundle_end`` or past 256 bins, ``best_split`` of each, in one
         batched call."""
         if bundle_end is not None or wide:
-            return best_split_batch(torch.stack(hists), stats, num_bins, nan_bins, feature_mask,
+            fm = feature_mask if masks is None else masks
+            return best_split_batch(torch.stack(hists), stats, num_bins, nan_bins, fm,
                                     bundle_end=bundle_end, with_margin=with_margin, **bs_kw)
-        return fused_best_split_batch(hists, stats, *scan_in, with_margin=with_margin, **kw)
+        inputs = scan_in if masks is None else (*scan_in[:2], masks)
+        return fused_best_split_batch(hists, stats, *inputs, with_margin=with_margin, **kw)
 
-    def decide(hists, stats, windows, live=None):
-        """Candidates of the leaves with histograms ``hists``.  With the
-        int8 accumulation, a leaf whose near-tie margin is below the
-        tolerance (and that is ``live``) is decided on an f32 histogram of
-        its window instead (one launch for all such leaves, zero rows for
-        the others); the refined histogram is used for this decision only.
-        Returns (candidates, near flags)."""
+    def decide(hists, stats, windows, masks, live=None):
+        """Candidates of the leaves with histograms ``hists`` under their
+        by-node ``masks`` (``node_masks``).  With the int8 accumulation, a
+        leaf whose near-tie margin is below the tolerance (and that is
+        ``live``) is decided on an f32 histogram of its window instead (one
+        launch for all such leaves, zero rows for the others); the refined
+        histogram is used for this decision only.  Returns (candidates,
+        near flags)."""
         if not refine:
-            return scan(hists, stats), [False] * len(stats)
-        got = scan(hists, stats, True)
+            return scan(hists, stats, masks), [False] * len(stats)
+        got = scan(hists, stats, masks, True)
         near = [bool(margin < tol) and (live is None or bool(live[i]))
                 for i, (_, margin) in enumerate(got)]
         cands = [cand for cand, _ in got]
@@ -415,14 +477,17 @@ def grow_tree(
                 [(s, c if nr else 0) for (s, c), nr in zip(windows, near)]
             )
             idx = [i for i, nr in enumerate(near) if nr]
-            for i, cand in zip(idx, scan([refined[i] for i in idx], [stats[i] for i in idx])):
+            sub = None if masks is None else torch.stack([masks[i] for i in idx])
+            for i, cand in zip(idx, scan([refined[i] for i in idx], [stats[i] for i in idx],
+                                         sub)):
                 cands[i] = cand
         return cands, near
 
     hist_buf = torch.zeros((L, f, B, 3), dtype=torch.float32, device=dev)
     hist_buf[0] = store.root_hist()
     totals = _sum_bins(hist_buf[0, 0].cpu().numpy())  # every row: one bin of feature 0
-    (cand0,), near0 = decide([hist_buf[0]], [tuple(map(float, totals))], [(0, n)])
+    (cand0,), near0 = decide([hist_buf[0]], [tuple(map(float, totals))], [(0, n)],
+                             node_masks(0, 0))
     refines = int(sum(near0))
 
     leaf_g = np.zeros(L, _F32)
@@ -514,6 +579,7 @@ def grow_tree(
                 [hist_buf[l], hist_buf[new]],
                 [(c.left_g, c.left_h, c.left_cnt), (c.right_g, c.right_h, c.right_cnt)],
                 [(begin, nleft), (begin + nleft, nright)],
+                node_masks(t, 1),
             )
             refines += int(sum(near))
             record(t, l, new, begin, nleft, nright, cand2[0], cand2[1])
@@ -546,6 +612,7 @@ def grow_tree(
                 [(c.left_g, c.left_h, c.left_cnt) for c in cs]
                 + [(c.right_g, c.right_h, c.right_cnt) for c in cs],
                 list(zip(begins, nleft)) + list(zip(begins + nleft, nright)),
+                node_masks(int(t_k[0]), K),
                 live=np.concatenate([active, active]),
             )
             # prefix commit: strictly beat every earlier member's children
@@ -589,6 +656,30 @@ def grow_tree(
         split_table=split_table[: nl_ - 1] if bundle_end is not None else None,
     )
     return tree, store.leaf_id(leaf_begin[:nl_], leaf_nrows[:nl_])
+
+
+def live_features(feature_mask: np.ndarray) -> Optional[np.ndarray]:
+    """The features a tree's histograms read on the seg layout: those of
+    its mask, and feature 0, whose histogram gives the root's totals
+    (lightgbm_tpu/ops/pallas/seg.py:62-65 keeps its group live); None when
+    every feature is live.  The JAX package skips whole plane groups with
+    no live feature (ops/grower.py:1104-1127); the port skips features, and
+    the grower never reads a skipped one."""
+    keep = np.asarray(feature_mask, bool).copy()
+    if keep.size == 0 or keep.all():
+        return None
+    keep[0] = True
+    return None if keep.all() else np.flatnonzero(keep).astype(np.int32)
+
+
+def node_feature_masks(feature_mask: np.ndarray, rng, seeds, fraction: float) -> np.ndarray:
+    """[M, F] bool by-node masks of the nodes ``seeds`` (the JAX grower's
+    ``node_feature_mask``, ops/grower.py:864-871): the tree's mask and a
+    uniform draw from ``fold_in(rng, seed)`` below ``fraction`` in f32.
+    Node seeds: 0 at the root, 2t + 1 and 2t + 2 for the children of split
+    t (:2052, :2673-2674)."""
+    u = rnd.fold_in_uniform(rng, seeds, len(feature_mask)).numpy()
+    return np.asarray(feature_mask, bool)[None, :] & (u < np.float32(fraction))
 
 
 def leaf_id_from_windows(

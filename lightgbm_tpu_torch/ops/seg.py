@@ -32,6 +32,13 @@ disjoint windows per call) dispatch on the device of the tensors they are given:
 on the CPU they run their plain PyTorch versions, on a CUDA device they
 launch the kernel.  Each counts its kernel launches in ``_build.LAUNCHES``
 (and, on u16 rows, under its name with ``_u16`` too).
+
+The live mode (the TPU kernels' ``live`` plane-group mask, seg.py:62-65):
+the histograms take the tree's live features (``live``: the feature mask's,
+feature 0 always among them; None, every feature), read only those, and
+write every other feature's cells 0.  The kernel takes them as a feature
+order, the live ones first (``feature_order``); a call with a dead feature
+counts under its name with ``_live`` too.
 """
 
 from __future__ import annotations
@@ -67,6 +74,9 @@ class SegRows:
     # the fused grow step (ops/grow_step.py) and seg_hist_batch: both use it
     # in stream order on one stream, and it grows to the larger need
     step: Optional[torch.Tensor] = dataclasses.field(default=None, repr=False, compare=False)
+    # the histogram kernels' feature order of the last live set (its key,
+    # the order on the rows' device, its live count)
+    order: Optional[tuple] = dataclasses.field(default=None, repr=False, compare=False)
 
     @property
     def n(self) -> int:
@@ -197,8 +207,20 @@ MAX_INT8_ROWS = (2**31 - 1) // 127
 MAX_WINDOWS = 16  # windows per launch (kMaxWindows of seg_hist.cu, partition.cu, lane_hist.cuh)
 
 
-def seg_hist_plain(rows: SegRows, start: int, cnt: int, num_bins: int) -> torch.Tensor:
-    """[F, B, 3] (sum g*m, sum h*m, sum m) over rows [start, start+cnt).
+def _zero_dead(out: torch.Tensor, live) -> torch.Tensor:
+    """``out`` [F, ...] with the cells of the features outside ``live``
+    (None: none) 0."""
+    if live is not None:
+        dead = np.ones(int(out.shape[0]), bool)
+        dead[np.asarray(live, np.int64)] = False
+        out[torch.as_tensor(dead, device=out.device)] = 0
+    return out
+
+
+def seg_hist_plain(rows: SegRows, start: int, cnt: int, num_bins: int,
+                   live=None) -> torch.Tensor:
+    """[F, B, 3] (sum g*m, sum h*m, sum m) over rows [start, start+cnt);
+    the features outside ``live`` (None: none) 0.
 
     One scatter-add in row order per cell, the order of the JAX package's
     ``segment_sum`` (ops/histogram.py:55), so on the CPU both give the same
@@ -216,7 +238,7 @@ def seg_hist_plain(rows: SegRows, start: int, cnt: int, num_bins: int) -> torch.
     )  # [F, cnt]
     data = stats.unsqueeze(0).expand(f, cnt, 3).reshape(-1, 3)
     out.scatter_add_(0, ids.reshape(-1, 1).expand(-1, 3), data)
-    return out.reshape(f, num_bins, 3)
+    return _zero_dead(out.reshape(f, num_bins, 3), live)
 
 
 def int8_digits(x: torch.Tensor, scale: torch.Tensor):
@@ -230,11 +252,12 @@ def int8_digits(x: torch.Tensor, scale: torch.Tensor):
 
 
 def seg_hist_int8_raw_plain(
-    rows: SegRows, start: int, cnt: int, num_bins: int, scales: torch.Tensor
+    rows: SegRows, start: int, cnt: int, num_bins: int, scales: torch.Tensor, live=None
 ) -> torch.Tensor:
     """Raw i32 planes [F, B, 5] (S_g_hi, S_g_lo, S_h_hi, S_h_lo, count) of
     window [start, start+cnt) on the int8 2-digit grid with ``scales`` [2]
-    (g_scale, h_scale).  Integer sums: exact in any order."""
+    (g_scale, h_scale); the features outside ``live`` 0.  Integer sums:
+    exact in any order."""
     f = rows.f
     dev = rows.device
     out = torch.zeros((f * num_bins, 5), dtype=torch.int64, device=dev)
@@ -249,7 +272,7 @@ def seg_hist_int8_raw_plain(
         )
         data = stats.to(torch.int64).unsqueeze(0).expand(f, cnt, 5).reshape(-1, 5)
         out.scatter_add_(0, ids.reshape(-1, 1).expand(-1, 5), data)
-    return out.to(torch.int32).reshape(f, num_bins, 5)
+    return _zero_dead(out.to(torch.int32).reshape(f, num_bins, 5), live)
 
 
 def combine_int8(raw: torch.Tensor, scales: torch.Tensor) -> torch.Tensor:
@@ -272,26 +295,28 @@ def _windows_list(windows):
 
 
 def seg_hist_batch_plain(
-    rows: SegRows, windows, num_bins: int, scales=None
+    rows: SegRows, windows, num_bins: int, scales=None, live=None
 ) -> torch.Tensor:
     """[K, F, B, 3] histograms of K windows (start, cnt): f32 sums, or with
-    ``scales`` [2] f32 the int8 2-digit grid recombined to f32."""
+    ``scales`` [2] f32 the int8 2-digit grid recombined to f32; the
+    features outside ``live`` 0."""
     out = []
     for start, cnt in _windows_list(windows):
         if scales is None:
-            out.append(seg_hist_plain(rows, start, cnt, num_bins))
+            out.append(seg_hist_plain(rows, start, cnt, num_bins, live))
         else:
-            raw = seg_hist_int8_raw_plain(rows, start, cnt, num_bins, scales)
+            raw = seg_hist_int8_raw_plain(rows, start, cnt, num_bins, scales, live)
             out.append(combine_int8(raw, scales))
     return torch.stack(out)
 
 
 def seg_hist_batch(
-    rows: SegRows, windows, num_bins: int, scales=None
+    rows: SegRows, windows, num_bins: int, scales=None, live=None
 ) -> torch.Tensor:
     """K-window histogram ([K, 2] (start, cnt) host ints -> [K, F, B, 3];
     ``seg_hist_batch`` of seg.py:754): f32 sums, or with ``scales`` [2] f32
-    (``quantize.hist_acc_scales``) the int8 2-digit grid.  A window with
+    (``quantize.hist_acc_scales``) the int8 2-digit grid; only the features
+    of ``live`` (None: all) read, the others' cells 0.  A window with
     cnt = 0 gives a zero histogram.  Plain version on the CPU, the
     ``csrc/seg_hist.cu`` kernels on a CUDA device (one call of
     ``_seg_hist_launch`` per ``MAX_WINDOWS`` windows; none when every
@@ -303,17 +328,38 @@ def seg_hist_batch(
             "(exact i32 digit sums)"
         )
     if rows.device.type == "cpu":
-        return seg_hist_batch_plain(rows, wins, num_bins, scales)
+        return seg_hist_batch_plain(rows, wins, num_bins, scales, live)
     _require_cuda(rows)
     k = len(wins)
     if k > MAX_WINDOWS:  # one call per MAX_WINDOWS windows
-        return torch.cat([seg_hist_batch(rows, wins[i : i + MAX_WINDOWS], num_bins, scales)
+        return torch.cat([seg_hist_batch(rows, wins[i : i + MAX_WINDOWS], num_bins, scales,
+                                         live)
                           for i in range(0, k, MAX_WINDOWS)])
     if k < 1:
         raise ValueError("seg_hist takes at least one window")
     if not any(c for _, c in wins):  # nothing to read: no launch
         return torch.zeros((k, rows.f, num_bins, 3), dtype=torch.float32, device=rows.device)
-    return _seg_hist_launch(rows, wins, num_bins, scales)
+    return _seg_hist_launch(rows, wins, num_bins, scales, live=live)
+
+
+def feature_order(rows: SegRows, live=None):
+    """(order [F] i32 on the rows' device, live count) of the histogram
+    kernels: the features of ``live`` first (each once, in their order),
+    then the others; the identity and F when ``live`` is None.  Kept on the
+    rows, so a tree's calls copy it to the card once."""
+    f = rows.f
+    key = None if live is None else tuple(int(v) for v in live)
+    if rows.order is not None and rows.order[0] == key:
+        return rows.order[1], rows.order[2]
+    if key is None:
+        order = np.arange(f, dtype=np.int32)
+    else:
+        if len(set(key)) != len(key) or not all(0 <= v < f for v in key) or not key:
+            raise ValueError(f"live features: distinct indices below {f}, at least one")
+        dead = np.setdiff1d(np.arange(f), np.asarray(key))
+        order = np.concatenate([np.asarray(key, np.int64), dead]).astype(np.int32)
+    rows.order = (key, torch.as_tensor(order, device=rows.device), len(key or order))
+    return rows.order[1], rows.order[2]
 
 
 def hist_ranges(rows: SegRows, num_bins: int) -> int:
@@ -343,11 +389,13 @@ def seg_hist_scratch_bytes(f: int, num_bins: int, int8: bool) -> int:
     return nbytes
 
 
-def _seg_hist_launch(rows: SegRows, wins, num_bins: int, scales, fn=None) -> torch.Tensor:
+def _seg_hist_launch(rows: SegRows, wins, num_bins: int, scales, fn=None,
+                     live=None) -> torch.Tensor:
     """One call of the ``csrc/seg_hist.cu`` entry (``fn``: another build of
     it) on 1 to ``MAX_WINDOWS`` windows [(start, cnt)] of CUDA rows: [K, F,
-    B, 3] f32 on the card, every cell written by the kernels.  The scratch
-    lives on the rows (``SegRows.step``); only the output is allocated."""
+    B, 3] f32 on the card, every cell written by the kernels (the features
+    outside ``live`` 0).  The scratch lives on the rows (``SegRows.step``);
+    only the output is allocated."""
     k, f = len(wins), rows.f
     if not 1 <= k <= MAX_WINDOWS:
         raise ValueError(f"the seg_hist kernel takes 1 to {MAX_WINDOWS} windows, got {k}")
@@ -360,9 +408,10 @@ def _seg_hist_launch(rows: SegRows, wins, num_bins: int, scales, fn=None) -> tor
     out = torch.empty((k, f, num_bins, 3), dtype=torch.float32, device=dev)
     sp = None if scales is None else _device_scales(scales, dev)
     win_host = np.asarray(wins, dtype=np.int64).reshape(k, 2)
+    order, nlive = feature_order(rows, live)
     rc = (fn or _build.entry("seg_hist"))(
         rows.bins.data_ptr(), rows.g.data_ptr(), rows.h.data_ptr(), rows.m.data_ptr(),
-        rows.n, win_host.ctypes.data, k, f, int(num_bins), ranges,
+        rows.n, win_host.ctypes.data, k, f, int(num_bins), ranges, order.data_ptr(), nlive,
         None if sp is None else sp.data_ptr(), rows.step.data_ptr(), rows.step.numel(),
         out.data_ptr(), torch.cuda.current_stream(dev).cuda_stream,
     )
@@ -371,17 +420,19 @@ def _seg_hist_launch(rows: SegRows, wins, num_bins: int, scales, fn=None) -> tor
     _build.LAUNCHES[name] += 1
     if rows.wide:
         _build.LAUNCHES[name + "_u16"] += 1
+    if nlive < f:
+        _build.LAUNCHES[name + "_live"] += 1
     if k > 1:
         _build.LAUNCHES["seg_hist:K>1"] += 1
     return out
 
 
 def seg_hist(
-    rows: SegRows, start: int, cnt: int, num_bins: int, scales=None
+    rows: SegRows, start: int, cnt: int, num_bins: int, scales=None, live=None
 ) -> torch.Tensor:
     """Histogram [F, B, 3] of window [start, start+cnt): ``seg_hist_batch``
     with one window."""
-    return seg_hist_batch(rows, [(start, cnt)], num_bins, scales)[0]
+    return seg_hist_batch(rows, [(start, cnt)], num_bins, scales, live)[0]
 
 
 def _device_scales(scales, dev) -> torch.Tensor:

@@ -118,13 +118,14 @@ def split_gains(
     """[..., 2, F, B] gains of prefix sums [..., F, B, 3] and parents [...,
     3]: case 0 missing -> right, case 1 missing -> left (-inf where
     invalid), as best_split's eval_case (ops/split.py:215).  ``valid`` [F,
-    B]: the candidate bins, by default every ordered bin but the last."""
+    B]: the candidate bins, by default every ordered bin but the last;
+    ``feature_mask`` [F], or [..., F] a mask a leaf."""
     b = cum.shape[-2]
     if valid is None:
         bin_ids = torch.arange(b, device=cum.device)[None, :]
         num_ordered = num_bins - has_nan.to(num_bins.dtype)
         valid = bin_ids < (num_ordered[:, None] - 1)
-    valid = valid & feature_mask[:, None]
+    valid = valid & feature_mask[..., None]
     ninf = torch.tensor(float("-inf"), dtype=torch.float32, device=cum.device)
     pr = parent[..., None, None, :]
 
@@ -189,7 +190,7 @@ def best_split_batch(
     parents,  # M (g, h, count) host triples, exact f32 values
     num_bins: torch.Tensor,  # [F] i32 total bins (NaN bin included)
     nan_bins: torch.Tensor,  # [F] i32 NaN-bin index, -1 if none
-    feature_mask: torch.Tensor,  # [F] bool
+    feature_mask: torch.Tensor,  # [F] bool, or [M, F] a mask a leaf
     *,
     lambda_l1: float,
     lambda_l2: float,

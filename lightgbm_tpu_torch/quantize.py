@@ -9,11 +9,14 @@ Counterpart of ``lightgbm_tpu/ops/quantize.py``:
   ceiling is ``QMAX = 127*128``.  Every in-bag |g| maps to at most QMAX, a
   relative step of ~6e-5, inside the near-tie tolerance that the grower's
   f32 re-accumulation covers.
-* ``quantize_gradients`` (:32-80, the reference's GradientDiscretizer)
-  in its deterministic form: it DOES change the training values, onto
-  ``num_bins`` integer steps per iteration, kept as f32 multiples of the
-  scales, so the ordered layout's int8 histogram (``ops/histogram.py``)
-  recovers the integers exactly.
+* ``quantize_gradients`` (:32-80, the reference's GradientDiscretizer):
+  it DOES change the training values, onto ``num_bins`` integer steps per
+  iteration, kept as f32 multiples of the scales, so the int8 histograms
+  (the ordered layout's, ``ops/histogram.py``, and the segment
+  histogram's, ``ops/seg.py``) recover the integers exactly.  The rounding
+  offset is 0.5, or, with a key (stochastic rounding, :61-66), a uniform
+  draw per value from ``random.uniform`` of the key's two halves, equal to
+  the JAX function's ``jax.random`` draws.
 """
 
 from __future__ import annotations
@@ -23,6 +26,7 @@ from typing import Optional, Tuple
 import numpy as np
 import torch
 
+from . import random as rnd
 from .ops.seg import QMAX
 
 
@@ -50,12 +54,14 @@ def quantize_gradients(
     hess: torch.Tensor,  # [N] f32
     num_bins: int = 4,
     constant_hessian: bool = False,
+    key: Optional[rnd.Key] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
     """(qg, qh, g_scale, h_scale): grad and hess on the reference's integer
     grid (DiscretizeGradients, gradient_discretizer.cpp:70-160) with the
-    deterministic rounding offset 0.5, truncation toward zero, in the JAX
-    function's f32 operation order, so the values equal its
-    ``stochastic=False`` output bit for bit.  qg = k * g_scale for an
+    rounding offset 0.5 (``key`` None), or with a key the stochastic
+    offsets (the key split in two, a uniform [N] draw from each half),
+    truncation toward zero, in the JAX function's f32 operation order, so
+    the values equal its output bit for bit.  qg = k * g_scale for an
     integer k; a constant hessian quantizes to the scale itself."""
     if num_bins > 127:
         raise ValueError("num_grad_quant_bins must be <= 127 (int8 grid)")
@@ -71,7 +77,12 @@ def quantize_gradients(
     )
     gi = grad / g_scale
     hi = hess / h_scale
+    rg = rh = 0.5
+    if key is not None:
+        kg, kh = rnd.split(key)
+        rg = rnd.uniform(kg, int(grad.shape[0]), grad.device)
+        rh = rnd.uniform(kh, int(hess.shape[0]), hess.device)
     # C's int8 cast truncates toward zero; the offset follows the sign
-    qg = torch.trunc(torch.where(gi >= 0, gi + 0.5, gi - 0.5))
-    qh = torch.ones_like(hi) if constant_hessian else torch.trunc(hi + 0.5)
+    qg = torch.trunc(torch.where(gi >= 0, gi + rg, gi - rg))
+    qh = torch.ones_like(hi) if constant_hessian else torch.trunc(hi + rh)
     return qg * g_scale, qh * h_scale, g_scale, h_scale

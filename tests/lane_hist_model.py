@@ -108,9 +108,10 @@ def feature_col(rows, feat, r):
             | rows.bins[2 * feat + 1, r].to(torch.int64) << 8)
 
 
-def block_table(rows, s, i0, i1, f0, nf, num_bins, scales, rng=None, rng_idx=0):
+def block_table(rows, s, i0, i1, f0, nf, num_bins, scales, rng=None, rng_idx=0, feats=None):
     """One accumulate block's table: [planes, B, 32] over rows [s + i0,
-    s + i1) and features [f0, f0 + nf) (lane j: feature f0 + j), of the
+    s + i1) and features [f0, f0 + nf) (lane j: feature f0 + j, or
+    ``feats[j]``: the live mode's feature order), of the
     bins of range ``rng_idx`` (B = min(num_bins, 256) bins from 256 x
     rng_idx; a row outside them adds nothing); int8 digit sums as i64
     (exact), f32 sums in a random order (``rng``: the shared atomics') or,
@@ -131,7 +132,7 @@ def block_table(rows, s, i0, i1, f0, nf, num_bins, scales, rng=None, rng_idx=0):
     else:
         vals = torch.stack([rows.g[r] * m, rows.h[r] * m, (m != 0).to(torch.float32)])
     for j in range(nf):
-        b = feature_col(rows, f0 + j, r) - base
+        b = feature_col(rows, f0 + j if feats is None else int(feats[j]), r) - base
         cell, keep = b * LANES + j, (b >= 0) & (b < rbins)
         for p in range(PLANES[int8]):
             if int8 or rng is not None:
@@ -142,14 +143,21 @@ def block_table(rows, s, i0, i1, f0, nf, num_bins, scales, rng=None, rng_idx=0):
     return table.reshape(PLANES[int8], rbins, LANES)
 
 
-def model_lane_hist(rows, windows, chunk0, num_bins, scales, rng, in_order=False, ranges=1):
+def model_lane_hist(rows, windows, chunk0, num_bins, scales, rng, in_order=False, ranges=1,
+                    order=None, nlive=None):
     """The two launches over K windows [(start, cnt)], window w taking
     chunks [chunk0[w], chunk0[w + 1]) of the launch in each of ``ranges``
     bin ranges: the accumulate blocks in a random order (``rng``), each
     table to its own slot (f32 in row order with ``in_order``), then the
-    reduce's fixed order and recombine.  Returns [K, F, B, 3] f32."""
+    reduce's fixed order and recombine.  The live mode: ``order`` (a
+    permutation of the features, the ``nlive`` live ones first) gives lane
+    j of group y feature order[32 y + j], over the live groups only, and
+    the reduce writes each at its own index, a dead feature 0.  Returns [K,
+    F, B, 3] f32."""
     k, f = len(windows), rows.f
-    groups = -(-f // LANES)
+    if order is None:
+        order, nlive = np.arange(f), f
+    groups = -(-nlive // LANES)
     rbins = min(num_bins, RANGE_BINS)
     slots = {}
     blocks = [(z, y, x) for z in range(ranges) for y in range(groups)
@@ -165,8 +173,9 @@ def model_lane_hist(rows, windows, chunk0, num_bins, scales, rng, in_order=False
         i0, i1 = runs[xi]
         assert 0 <= i0 <= i1 <= c  # a chunk never reads past its window
         f0 = y * LANES
-        slots[(z, y, x)] = block_table(rows, s, i0, i1, f0, min(LANES, f - f0), num_bins,
-                                       scales, None if in_order else rng, z)
+        slots[(z, y, x)] = block_table(rows, s, i0, i1, f0, min(LANES, nlive - f0), num_bins,
+                                       scales, None if in_order else rng, z,
+                                       feats=order[f0:f0 + LANES])
 
     hist = torch.zeros((k, f, num_bins, 3), dtype=torch.float32)  # 0 past the ranges
     for w, z in ((w, z) for w in range(k) for z in range(ranges)):
@@ -186,11 +195,12 @@ def model_lane_hist(rows, windows, chunk0, num_bins, scales, rng, in_order=False
             total = sliced[0]
             for p in sliced[1:]:
                 total = total + p
-            nf = min(LANES, f - y * LANES)
+            nf = min(LANES, nlive - y * LANES)
             cells = total[:, :, :nf].permute(2, 1, 0)  # [nf, B, planes]
+            feats = torch.as_tensor(np.asarray(order[y * LANES:y * LANES + nf], np.int64))
             if scales is None:
-                hist[w, y * LANES:y * LANES + nf, bins] = cells
+                hist[w, feats, bins] = cells
             else:
-                hist[w, y * LANES:y * LANES + nf, bins] = torch.as_tensor(
+                hist[w, feats, bins] = torch.as_tensor(
                     recombine(cells.numpy(), scales.numpy()))
     return hist

@@ -93,7 +93,7 @@ def test_config_accepts_the_jax_defaults():
 
 
 @pytest.mark.parametrize("params,word", [
-    ({"bagging_fraction": 0.5}, "bagging_fraction"),
+    ({"extra_trees": True}, "extra_trees"),
     ({"objective": "multiclass"}, "multiclass"),
     ({"hist_acc": "fp16"}, "hist_acc"),
     ({"grow_fused": "off", "fused_split_scan": False}, "grow_fused"),

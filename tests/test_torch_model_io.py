@@ -12,7 +12,12 @@ walker (predict.py), on the CPU.
 * a port model string written, read and written again is byte-equal;
 * the port's tree blocks equal the JAX package's in structure, values
   within 1e-5;
-* categorical, linear and unported-objective files raise.
+* categorical, linear and unported-objective files raise;
+* the sampled scenarios (scen_bagging, scen_goss, scen_quantized: bagging
+  with ``feature_fraction``, GOSS, stochastic quantized training) trained
+  through the port: the JAX package's trees, and the final train l2 within
+  the 15% of ``test_consistency.py::test_scenario_golden_parity`` of the
+  reference's.
 """
 
 import json
@@ -189,3 +194,27 @@ def test_unported_objective_predicts_raw_scores_only(name):
     ref = lgb.Booster(model_str=model.read_text())
     np.testing.assert_allclose(b.predict(x, raw_score=True), ref.predict(x, raw_score=True),
                                rtol=1e-6, atol=1e-6)
+
+
+@pytest.mark.parametrize("name", ["bagging", "goss", "quantized"])
+def test_sampled_scenario_trains_the_jax_trees_and_reaches_the_reference(name):
+    x, y = _golden(name)
+    params = json.loads((GOLDEN / f"scen_{name}.params.json").read_text())
+    rounds = int(params.pop("num_trees"))
+    evals = json.loads((GOLDEN / f"scen_{name}.evals.json").read_text())
+    ref_final = evals["training:l2"][-1][1]
+    ds = lt.Dataset(x, y, params=params)
+    rec = {}
+    tb = lt.train(params, ds, rounds, valid_sets=[ds], valid_names=["training"],
+                  callbacks=[lt.record_evaluation(rec)], device="cpu")
+    assert tb.hist_mode == "seg" and len(tb.trees) == rounds
+    assert rec["training"]["l2"][-1] <= ref_final + 0.15 * abs(ref_final)
+    # the JAX package on the same layout (its CPU default is 'ordered')
+    jp = {**params, "hist_mode": "seg", "verbosity": -1, "metric": "none"}
+    jb = lgb.train(jp, lgb.Dataset(x, y, params=jp), rounds)
+    for i, (jr, tree) in enumerate(zip(jb._bin_records, tb.trees)):
+        tr = tree.record()
+        for key in ("split_feature", "split_bin", "default_left", "left_child", "right_child"):
+            np.testing.assert_array_equal(tr[key], jr[key], err_msg=f"tree {i} {key}")
+        np.testing.assert_allclose(tr["leaf_value"], jr["leaf_value"], rtol=0, atol=1e-5)
+    assert len(jb._bin_records) == rounds

@@ -285,15 +285,15 @@ def test_layout_rule_resolves_ordered_when_wide_and_matches_jax():
 
 
 @pytest.mark.parametrize("params,word", [
-    ({"use_quantized_grad": True}, "stochastic_rounding"),
+    ({"use_quantized_grad": True, "extra_trees": True}, "extra_trees"),
     ({**QUANT, "quant_train_renew_leaf": True}, "quant_train_renew_leaf"),
-    ({**QUANT, "hist_mode": "seg"}, "seg"),
+    ({**QUANT, "hist_mode": "seg", "bagging_by_query": True}, "bagging_by_query"),
     ({"hist_method": "pallas_int8"}, "use_quantized_grad"),
     ({"hist_method": "onehot"}, "hist_method"),
     ({**QUANT, "num_grad_quant_bins": 200}, "num_grad_quant_bins"),
     ({"hist_mode": "gather"}, "gather"),
     ({"hist_mode": "full"}, "full"),
-], ids=["stochastic", "renew", "quantized-seg", "int8-unquantized", "onehot",
+], ids=["extra-trees", "renew", "by-query", "int8-unquantized", "onehot",
         "quant-bins", "gather", "full"])
 def test_config_refuses_what_is_not_ported(params, word):
     with pytest.raises(ValueError, match=word):
@@ -315,10 +315,14 @@ def test_config_and_booster_take_the_ordered_layout_past_255_bins(quantized):
 
 
 def test_quantized_training_refused_where_the_rule_picks_seg():
+    """Where the rule picks seg, quantized training is no longer refused:
+    it trains on seg (stochastic rounding too), and the ordered defaults
+    pass the seg layout's split-scan check."""
     x, y = _data("binary", n=300)
-    params = {"objective": "binary", "num_leaves": 4, **QUANT}
-    with pytest.raises(ValueError, match="hist_mode='seg'"):
-        lt.Booster(params, lt.Dataset(x, y, params=params), device="cpu")
+    for params in ({"objective": "binary", "num_leaves": 4, **QUANT},
+                   {"objective": "binary", "num_leaves": 4, "use_quantized_grad": True}):
+        tb = lt.Booster(params, lt.Dataset(x, y, params=params), device="cpu")
+        assert tb.hist_mode == "seg" and not tb.update() and tb.trees[0].num_leaves == 4
     # the ordered defaults pass the seg layout's split-scan check
     Config.from_params({"hist_mode": "ordered", "grow_fused": "off", "fused_split_scan": False})
 

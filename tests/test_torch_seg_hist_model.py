@@ -39,14 +39,18 @@ from .test_torch_interpret import clear_jax_caches_after_module  # noqa: F401 (a
 from .test_torch_interpret import jax_interpret
 
 
-def model_seg_hist(rows, windows, num_bins, scales, fill, rng):
-    """The two launches of lgbt_seg_hist on the CPU: [K, F, B, 3] f32."""
+def model_seg_hist(rows, windows, num_bins, scales, fill, rng, live=None):
+    """The two launches of lgbt_seg_hist on the CPU: [K, F, B, 3] f32; with
+    ``live``, the live mode (the wrapper's feature order, the chunks
+    planned over the live groups in int8, over all groups in f32)."""
     wins = [(int(s), max(int(c), 0)) for s, c in windows]
-    groups = -(-rows.f // LANES)
+    order, nlive = (t.numpy() if hasattr(t, "numpy") else t for t in seg.feature_order(rows, live))
+    groups = -(-(nlive if scales is not None else rows.f) // LANES)
     ranges = seg.hist_ranges(rows, num_bins)
     chunk0 = plan_chunks([c for _, c in wins], False, groups * ranges, fill)
     return model_lane_hist(rows, wins, chunk0, num_bins, scales, rng,
-                           in_order=source_in_order(scales is not None, True), ranges=ranges)
+                           in_order=source_in_order(scales is not None, True), ranges=ranges,
+                           order=order, nlive=nlive)
 
 
 def _check(got, want, rows, windows, num_bins, scales):
@@ -263,9 +267,9 @@ def test_wrapper_splits_more_than_16_windows(monkeypatch):
     card = _OffTheCPU(rows.bins, rows.g, rows.h, rows.m, rows.ridx)
     calls = []
 
-    def launch(r, wins, num_bins, scales, fn=None):
+    def launch(r, wins, num_bins, scales, fn=None, live=None):
         calls.append(len(wins))
-        return seg.seg_hist_batch_plain(rows, wins, num_bins, scales)
+        return seg.seg_hist_batch_plain(rows, wins, num_bins, scales, live)
 
     monkeypatch.setattr(seg, "_require_cuda", lambda r: None)
     monkeypatch.setattr(seg, "_seg_hist_launch", launch)
@@ -297,3 +301,35 @@ def test_launch_refuses_rows_off_the_card():
     rows, _ = bench_partition.synthetic_rows(500, 3, torch.device("cpu"), seed=11)
     with pytest.raises(ValueError, match="no kernel for device cpu"):
         seg._seg_hist_launch(rows, [(0, 500)], 16, None)
+
+
+@pytest.mark.parametrize("mode", ["f32", "int8"])
+def test_model_live_mode_equals_plain_and_the_all_live_call(mode):
+    """The live mode at 70 features (three groups of lanes), half of them
+    dead and feature 0 live: the model (the live features compacted into
+    two groups, each written at its own index, the dead ones 0) equals the
+    plain version with the same live list, and its live cells are the
+    all-live model's bit for bit (f32: the chunks planned over every
+    group, as the all-live call plans them); the source's lines for it."""
+    rng = np.random.default_rng(12)
+    rows, _ = bench_partition.synthetic_rows(30_000, 70, torch.device("cpu"), seed=12)
+    live = np.sort(np.concatenate([[0], rng.choice(np.arange(1, 70), 34, replace=False)]))
+    wins = [(17, 9_000), (9_100, 0), (12_003, 17_997)]
+    scales = _scales_of(rows, mode)
+    got = model_seg_hist(rows, wins, 256, scales, 132, np.random.default_rng(3), live=live)
+    _check(got, seg.seg_hist_batch_plain(rows, wins, 256, scales, live), rows, wins, 256,
+           scales)
+    full = model_seg_hist(rows, wins, 256, scales, 132, np.random.default_rng(4))
+    dead = np.setdiff1d(np.arange(70), live)
+    assert torch.equal(got[:, live], full[:, live]) and not got[:, dead].any()
+    with open(os.path.join(_build.CSRC, "lane_hist.cuh")) as fh:
+        src = fh.read()
+    for line in ("const bool has = pos < win.nlive;",
+                 "const int feat = has ? win.order[pos] : 0;",
+                 "plan_chunks(win, nl != nullptr, (kInt8 ? lgroups : groups) * win.ranges, fill);",
+                 "const dim3 grid((unsigned)chunks, (unsigned)lgroups, (unsigned)win.ranges);",
+                 "pos < win.nlive ? tile[j * kRow + y] : 0.0f;"):
+        assert line in src, line
+    order, nlive = seg.feature_order(rows, live)
+    assert nlive == len(live) and sorted(order.tolist()) == list(range(70))
+    assert order[:nlive].tolist() == list(live)

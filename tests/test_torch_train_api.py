@@ -213,7 +213,7 @@ def test_num_iterations_alias_sets_the_rounds():
     assert b.num_trees() == b.current_iteration() == 3
 
 
-@pytest.mark.parametrize("key", ["bagging_fraction", "feature_fraction", "monotone_constraints",
+@pytest.mark.parametrize("key", ["extra_trees", "bagging_by_query", "monotone_constraints",
                                  "checkpoint_dir"])
 def test_unported_key_still_raises(key):
     with pytest.raises(ValueError, match="not yet ported"):
