@@ -124,8 +124,8 @@ Phases (any failed check raises, and the script exits non-zero):
            timed beside the threshold mode at the same bins and that
            threshold's own table (the same rows left), then
            bench_partition's table-mode edge cases (order and nl bit-equal,
-           int8 exact, f32 the same bits on two calls); 10 rounds with no
-           path parameters and 10 at bench.py's parameters (K=4):
+           int8 exact, f32 the same bits on two calls); 5 rounds with no
+           path parameters and 5 at bench.py's parameters (K=4):
            iterations/s, log-loss falling, launches (the fused step must
            launch in table mode, the split-scan kernel never: best_split
            decides every leaf), one iteration each under the profiler
@@ -135,10 +135,34 @@ Phases (any failed check raises, and the script exits non-zero):
            only on rows with two nonzero members in one plane (counted);
            2 rounds each of the two-launch path at K=1 and K=4 (the
            partition in table mode); card vs CPU at 65,536 rows, int8 on
-           both; the same rows with enable_bundle=False (the ordered layout;
-           cut to 262,144 rows if the phase has passed 240 s) for its rate
+           both; the first 262,144 of the rows with enable_bundle=False
+           (the ordered layout) for its rate
+  cat      categorical features end to end: the efb phase's draws kept as
+           8 integer-coded columns named by categorical_feature (the same
+           information, categorical instead of one-hot): 10 rounds with no
+           path parameters and 5 at bench.py's parameters (K=4):
+           iterations/s beside efb's, log-loss per round beside efb's (must
+           fall), categorical splits in every tree, launches (the fused step
+           in table mode, the split-scan kernel never, the walk kernel's
+           categorical mode at predict); predict against the training score
+           on the rows whose categories were all kept (1e-5 relative; a
+           category past the 99% cut is bin 0 in training and right at
+           predict), the model text read back on the card (within 1e-6);
+           the walk kernel on this forest bit-equal to the plain walker,
+           timed beside the same trees with every node numeric; one
+           iteration under the profiler
+  cat-wide the same rows at max_bin 1023 (the 300-level columns keep more
+           than 255 categories): the partition and the fused step (int8,
+           f32) with tables past 256 bins against their plain versions at
+           the root and on K=4 windows (one empty), timed beside the same
+           windows by 256-bin tables; 3 rounds at K=1, 2 at K=4, 2 each of
+           the two-launch path at K=1 and K=4 (the *_wtable launches must
+           be > 0), predict (the plain walker) against the training score,
+           the model text read back; cat-parity: 65,536 rows, 3 rounds,
+           card vs CPU with int8 on both (>= 0.95 of splits identical,
+           log-loss within 1e-4)
   widebin  the Higgs shape at max_bin 1023 (padded 1,024: the u16 modes;
-           rows cut from 11,000,000 to 1,048,576, rounds to 10): 10 rounds
+           rows cut from 11,000,000 to 1,048,576, rounds to 5): 5 rounds
            with no path parameters (iterations/s, log-loss falling, the
            u16 fused step, int8 root and f32 refine histograms launched,
            no split-scan kernel: best_split decides every leaf), one
@@ -189,17 +213,20 @@ Phases (any failed check raises, and the script exits non-zero):
            near tie: the first differing split's two gains within 1e-5
            relative; log-loss within 2e-4; its share printed)
 The last lines: the kernels JSON (launches summed over the main, batch,
-off, batch-off, io, efb, efb-batch, efb-off, efb-batch-off, efb-flat,
+off, batch-off, io, efb, efb-batch, efb-off, efb-batch-off, efb-flat, cat,
+cat-batch, cat-wide, cat-wide-batch, cat-wide-off, cat-wide-batch-off,
 widebin, widebin-batch, widebin-off, widebin-batch-off, wide, wide-batch,
-wide-quant, wide-u16 and wide-u16-quant runs; the table and u16 modes of
-the partition, the fused step, the segment histogram and the ordered
-histograms are entries of their own), the card, and
+wide-quant, wide-u16 and wide-u16-quant runs; the table, wide-table and
+u16 modes of the partition, the fused step, the segment histogram and the
+ordered histograms, and the walk's categorical mode, are entries of their
+own), the card, and
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 """
 
 from __future__ import annotations
 
 import json
+import math
 import pathlib
 import re
 import statistics
@@ -250,19 +277,33 @@ QUANT_PARAMS = {**PARAMS, "use_quantized_grad": True, "stochastic_rounding": Fal
 EFB_ROWS = 1 << 20
 EFB_LEVELS = (12, 31, 7, 24, 20, 300, 300, 6)
 EFB_ZIPF = 1.1
-EFB_ROUNDS = 10
+EFB_ROUNDS = 5  # 10 until the cat phases joined the script
 EFB_OFF_ROUNDS = 2
 EFB_FLAT_ROUNDS = 3
 # the unbundled run's rows when the phase has taken more than its budget
 EFB_FLAT_CUT_ROWS = 1 << 18
 EFB_BUDGET_S = 240.0
+# the cat phases (categorical features end to end): the efb phase's rows
+# and variables, the codes kept as 8 integer columns named by
+# categorical_feature (one-hot coded in efb: the comparison of the
+# reference's docs/Features.rst, "Optimal Split for Categorical Features");
+# cat-wide at max_bin 1023, where the two 300-level columns keep more than
+# 255 categories (tables past 256 bins)
+CAT_ROUNDS = 10
+CAT_BATCH_ROUNDS = 5
+CAT_WIDE_PARAMS = {**PARAMS, "max_bin": 1023}
+CAT_WIDE_ROUNDS = 3
+CAT_WIDE_BATCH_ROUNDS = 2
+CAT_WIDE_OFF_ROUNDS = 2
+# the efb phase's rates and losses, for the cat phases' lines
+EFB_RESULTS = {}
 # the widebin phase: the Higgs shape at max_bin 1023 (LightGBM's tuning
 # guide, docs/Parameters-Tuning.rst, "For Better Accuracy": "use large
 # max_bin"), padded to 1,024 bins: the u16 modes of rows 1, 2, 5, 6; rows cut
 # from 11,000,000 and rounds for the time limit, widths not
 WIDEBIN_PARAMS = {**PARAMS, "max_bin": 1023}
 WIDEBIN_BINS = 1024
-WIDEBIN_ROUNDS = 10
+WIDEBIN_ROUNDS = 5  # 10 until the cat phases joined the script
 WIDEBIN_BATCH_ROUNDS = 5
 WIDEBIN_OFF_ROUNDS = 2
 
@@ -290,6 +331,8 @@ WIDE_U16_F32_LOSS_TOL = 2e-4
 # f32 operations/s outside the tensor cores
 HBM_BYTES_PER_S = 3.35e12
 F32_OPS_PER_S = 67e12
+# idle time (s) at the end of a kernel entry's retaken device trace
+RETAKE_IDLE_S = 3.0
 
 SOURCES = {
     "seg_hist": ("lightgbm_tpu_torch/csrc/seg_hist.cu", "lightgbm_tpu/ops/pallas/seg.py:587"),
@@ -337,6 +380,16 @@ SOURCES = {
                            "lightgbm_tpu/ops/pallas/seg.py:587"),
     "fused_grow_step_live": ("lightgbm_tpu_torch/csrc/grow_step.cu",
                              "lightgbm_tpu/ops/pallas/grow_step.py:260"),
+    # the walk's categorical nodes (cat_gl) of row 4
+    "forest_walk_cat": ("lightgbm_tpu_torch/csrc/forest_walk.cu",
+                        "lightgbm_tpu/ops/pallas/forest_walk.py:418"),
+    # goes-left tables past 256 bins (cat_ref [K, bmt]) of rows 2, 5 and 6
+    "partition_wtable": ("lightgbm_tpu_torch/csrc/partition.cu",
+                         "lightgbm_tpu/ops/pallas/partition.py:446"),
+    "partition_batch_wtable": ("lightgbm_tpu_torch/csrc/partition.cu",
+                               "lightgbm_tpu/ops/pallas/partition.py:525"),
+    "fused_grow_step_wtable": ("lightgbm_tpu_torch/csrc/grow_step.cu",
+                               "lightgbm_tpu/ops/pallas/grow_step.py:260"),
 }
 # CUDA launches per split of the profiled iterations with the rows-only scan
 # and its candidates in PyTorch operators on the host side (PERF.md section 5)
@@ -422,13 +475,28 @@ def with_device(entry, fn):
     """The kernel entry with the device time of one call of ``fn`` alone
     (``_bench.device_profile``: the card's kernel times under
     torch.profiler, no host time between them) and its device operations;
-    the event time ``ms`` is the host's and the card's together."""
+    the event time ``ms`` is the host's and the card's together.  A trace
+    that lost device operations is taken again with RETAKE_IDLE_S of idle
+    time at the end of its window; if that one lost some too, both read
+    NaN (null in the kernels line: not measured)."""
     from lightgbm_tpu_torch._bench import device_profile
 
-    entry["device_ms"], entry["launches_per_call"] = device_profile(fn)
+    entry["device_ms"], entry["launches_per_call"] = device_profile(fn, idle=RETAKE_IDLE_S)
     print(f"kernel {entry['name']}: {entry['ms']:.4f} ms event time, {entry['device_ms']:.4f} ms "
           f"device time in {entry['launches_per_call']:.0f} device operations a call")
     return entry
+
+
+def nan_to_null(v):
+    """``v`` (a kernel entry, a list or a number) with every NaN (a device
+    time that was not measured) as None, so the line is strict JSON."""
+    if isinstance(v, float) and math.isnan(v):
+        return None
+    if isinstance(v, dict):
+        return {k: nan_to_null(x) for k, x in v.items()}
+    if isinstance(v, (list, tuple)):
+        return [nan_to_null(x) for x in v]
+    return v
 
 
 def check_seg_kernels(ds, dev):
@@ -1288,8 +1356,8 @@ def profile_iteration(booster, label: str = "profile") -> dict:
           f"profiler, {scan_ms / max(1, len(scans)):.4f} ms a call; device {scan_us / 1e3:.3f} ms")
     if best:
         ms = sum(t for _, t in best)
-        print(f"{label}: best_split (every leaf of an EFB or u16 tree, plain PyTorch on the card) "
-              f"{len(best)} calls ({sum(k for k, _ in best)} leaves, {len(best) / splits:.2f} a "
+        print(f"{label}: best_split (every leaf of an EFB, u16 or categorical tree, plain "
+              f"PyTorch on the card) {len(best)} calls ({sum(k for k, _ in best)} leaves, {len(best) / splits:.2f} a "
               f"split), {ms:.2f} ms in all under the profiler, {ms / len(best):.4f} ms a call")
     print(f"{label}: host operators {host_ms:.1f} ms self time ({host_ms / wall_ms:.3f} of wall), "
           f"{sum(e.count for e in host)} calls; top by self time:")
@@ -1752,6 +1820,7 @@ def efb_phase(lt, _build, dev):
         booster, losses, train_s, setup_s = train_rounds(lt, params, ds, EFB_ROUNDS)
         phases[name] = launches = dict(_build.LAUNCHES)
         runs[name] = len(losses) / train_s
+        EFB_RESULTS[name] = (runs[name], losses)
         print(f"{name}: leaf_batch {params.get('leaf_batch', 1)}: hist_mode {booster.hist_mode!r}, "
               f"{len(booster.trees)} trees of {[t.num_leaves for t in booster.trees]} leaves, "
               f"{runs[name]:.3f} iterations/s (set-up {setup_s:.1f} s)")
@@ -1861,6 +1930,308 @@ def efb_predict_and_text(lt, booster, x, y, train_loss, lay):
         raise AssertionError("efb: the real-space predict differs on a row without a conflict")
 
 
+def make_cat_data(n_rows: int, seed: int = 42):
+    """The cat phases' table: ``make_efb_data``'s draws in its order (the
+    same codes and labels), each variable's codes kept as one f64 column."""
+    rng = np.random.default_rng(seed)
+    x = np.zeros((n_rows, len(EFB_LEVELS)))
+    z = rng.normal(size=n_rows)
+    for i, levels in enumerate(EFB_LEVELS):
+        p = 1.0 / np.arange(1, levels + 1) ** EFB_ZIPF
+        codes = rng.choice(levels, size=n_rows, p=p / p.sum())
+        x[:, i] = codes
+        z += rng.normal(size=levels)[codes]
+    y = (rng.random(n_rows) < 1.0 / (1.0 + np.exp(-z))).astype(np.float64)
+    return x, y
+
+
+def kept_rows(ds, x) -> np.ndarray:
+    """[N] bool: rows whose every categorical value is a kept category.
+    Training bins a cut category (the 99% cut) at bin 0, predict sends it
+    right (lightgbm_tpu/binning.py:420-433 against boosting/gbdt.py:
+    3118-3129), so only these rows' predictions equal the training score."""
+    keep = np.ones(len(x), bool)
+    for j in ds.used_features:
+        m = ds.bin_mappers[j]
+        if m.is_categorical:
+            keep &= np.isin(x[:, j].astype(np.int64), m.bin_to_cat)
+    return keep
+
+
+def cat_predict_and_text(lt, booster, ds, x, y, what, card):
+    """Predict against the training score on the rows of kept categories,
+    then the model text read back on the card (real-space walk) against
+    the Booster's predict on every row."""
+    t0 = time.perf_counter()
+    pred = booster.predict(x)
+    torch.cuda.synchronize()
+    pred_s = time.perf_counter() - t0
+    keep = kept_rows(ds, x)
+    score = booster.score.double().cpu().numpy()
+    p = np.clip(pred[keep], 1e-15, 1 - 1e-15)
+    yk = y[keep]
+    loss = float(-np.mean(yk * np.log(p) + (1 - yk) * np.log(1 - p)))
+    ps = np.clip(1.0 / (1.0 + np.exp(-score[keep])), 1e-15, 1 - 1e-15)
+    train = float(-np.mean(yk * np.log(ps) + (1 - yk) * np.log(1 - ps)))
+    print(f"{what}: predict {len(x) / pred_s:.0f} rows/s; on the {int(keep.sum())} rows of kept "
+          f"categories ({int((~keep).sum())} rows hold a category past the 99% cut, which "
+          f"training bins at bin 0 and predict sends right) log-loss {loss:.7f} vs the training "
+          f"score's {train:.7f} [{card}]")
+    if abs(loss - train) > 1e-5 * train:
+        raise AssertionError(f"{what}: predict disagrees with the training score")
+    text = booster.model_to_string()
+    loaded = lt.Booster(model_str=text, device="cuda")
+    real = loaded.predict(x)
+    diff = float(np.abs(real - pred).max())
+    print(f"{what}: the model read back from its text ({len(text)} bytes, "
+          f"{text.count('cat_threshold=')} trees with categorical nodes) walks real values on "
+          f"the card: max |diff| {diff:.3g} from the Booster's predict")
+    if diff > 1e-6:
+        raise AssertionError(f"{what}: the model text predicts other values")
+
+
+def check_cat_walk(booster, x, dev):
+    """The walk kernel on the cat forest (categorical nodes) against the
+    plain walker, bit for bit, with the bins predict gives it; timed beside
+    the same trees with every categorical node made numeric (the numeric
+    mode on the same shape)."""
+    from lightgbm_tpu_torch.ops import forest_walk as fw
+    from lightgbm_tpu_torch.predict import predict_bins_leaves
+
+    tables = booster._walk_tables()
+    if not isinstance(tables, fw.ForestTables) or not tables.m_cat:
+        raise AssertionError("cat: the forest does not take the walk kernel's categorical mode")
+    bins = booster._bin_type(booster._bin_host(x))
+    sk = fw.forest_walk(bins, tables, 1)
+    sp = fw.forest_walk_plain(bins, tables, 1)
+    err = float((sk - sp).abs().max())
+    if not torch.equal(sk, sp):
+        raise AssertionError(f"forest_walk_cat: scores differ from the plain walker's (max "
+                             f"|err| {err})")
+    leaves = predict_bins_leaves(fw.decode_tables(tables), bins)
+    depth = torch.as_tensor(np.stack([_leaf_depths(t, int(tables.m_leaves))
+                                      for t in booster.trees]), device=dev)
+    visits = float(depth[torch.arange(len(booster.trees), device=dev)[None, :], leaves].sum())
+    n, f = bins.shape
+    entry = with_device(kernel_entry(
+        "forest_walk_cat", err, time_ms(lambda: fw.forest_walk(bins, tables, 1)),
+        time_ms(lambda: fw.forest_walk_plain(bins, tables, 1), reps=3),
+        bound_ms(n * f + tables.tables.numel() * 4 + n * 4, ops=visits), None,
+    ), lambda: fw.forest_walk(bins, tables, 1))
+    recs = []
+    for t in booster.trees:
+        r = dict(t.record())
+        r["split_is_cat"] = np.zeros(len(r["split_feature"]), bool)
+        r["split_bin"] = np.full(len(r["split_feature"]), 3, np.int32)
+        recs.append(r)
+    numeric = fw.build_tables(recs, booster.nan_bins, dev)
+    entry["numeric_twin_ms"] = time_ms(lambda: fw.forest_walk(bins, numeric, 1))
+    entry["cat_nodes"] = int(sum(t.num_cat for t in booster.trees))
+    print(f"kernel forest_walk_cat: {len(booster.trees)} trees, {entry['cat_nodes']} categorical "
+          f"nodes ({tables.m_cat} bitsets a tree at most), scores bit-equal to the plain walker, "
+          f"{visits / (n * len(booster.trees)):.3f} node visits a row-tree; {entry['ms']:.4f} ms "
+          f"against {entry['numeric_twin_ms']:.4f} ms for the same trees with every node numeric "
+          f"(threshold bin 3), plain {entry['plain_ms']:.4f} ms")
+    return entry
+
+
+def wide_table_members(n, nb, b):
+    """Members of the wide-table checks on the cat-wide rows: the root and
+    K=4 windows (the second one empty, none on a tile boundary), each split
+    by a table on a 300-level column with bits set past bin 256; beside
+    them the same windows by the tables cut to their first 256 bins (the
+    parameter path).  {name: (wide members, 256-bin members)}."""
+    from lightgbm_tpu_torch.ops import seg
+
+    wide_f = [j for j in range(len(nb)) if nb[j] > seg.TABLE_BINS]
+    bins = np.arange(b)
+    tabs = [((bins * (3 + i)) % 7 < 3) & (bins < nb[wide_f[i % len(wide_f)]]) for i in range(4)]
+    root = ([0], [n], [wide_f[0]], [0], [0], [-1])
+    k4 = ([37, n // 4 + 5, n // 4 + 5, n // 2 + 1001], [n // 4 - 100, 0, n // 4 - 900,
+                                                         n // 2 - 2000],
+          [wide_f[i % len(wide_f)] for i in range(4)], [0] * 4, [0] * 4, [-1] * 4)
+    out = {}
+    for name, cols, tables in (("root", root, tabs[:1]), ("K=4", k4, tabs)):
+        out[name] = (seg.split_members(*cols, [1] * len(tables), tables),
+                     seg.split_members(*cols, [1] * len(tables),
+                                       [t[:seg.TABLE_BINS] for t in tables]))
+        if out[name][0].shape[1] <= seg.MEMBER_COLS:
+            raise AssertionError("cat-wide: the checks' tables do not pass 256 bins")
+    return out
+
+
+def check_wide_table_kernels(ds, dev):
+    """The partition and the fused step (int8 and f32) with tables past 256
+    bins on the cat-wide rows (u16), through the wrappers, against their
+    plain versions (``bench_partition.run_case`` / ``bench_grow_step.
+    run_case``: nl, dec and every column of the rows exactly, int8
+    histograms bit-equal, f32 ones within f32_tol and the same bits on two
+    calls), at the root and on K=4 windows, each timed beside the 256-bin
+    table mode on the same windows.  Returns the three wide-table entries."""
+    from lightgbm_tpu_torch import bench_grow_step as bg
+    from lightgbm_tpu_torch import bench_partition as bp
+    from lightgbm_tpu_torch.objectives import create_objective
+    from lightgbm_tpu_torch.ops import seg
+    from lightgbm_tpu_torch.quantize import hist_acc_scales
+
+    n, f = ds.bins.shape
+    b = ds.max_bin_padded
+    nb = ds.num_bins()
+    obj = create_objective("binary", ds.label, dev)
+    score = torch.full((n,), obj.boost_from_score(), dtype=torch.float32, device=dev)
+    grad, hess = obj.get_gradients(score)
+    wide = torch.as_tensor(ds.bins.astype(np.int32), device=dev)
+    ones = torch.ones(n, dtype=torch.float32, device=dev)
+    rows = seg.pack_rows(seg.byte_planes(wide.T), grad, hess, ones, wide=True,
+                         used_bins=int(nb.max()))
+    del wide
+    members = wide_table_members(n, nb, b)
+    out = {}
+    for where, name in (("root", "partition_wtable"), ("K=4", "partition_batch_wtable")):
+        wmem, nmem = members[where]
+        entry = partition_entry(name, rows, wmem, f"{where} of the cat-wide rows, tables past "
+                                "256 bins", plain_reps=3)
+        res = bp.run_case(f"{where} 256-bin tables", rows, nmem, {"wrapper": bp.wrapper_launch},
+                          reps=20)
+        entry.update(table256_ms=res["wrapper"], table256_device_ms=res["wrapper device"])
+        print(f"kernel {name}: the same windows by 256-bin tables {res['wrapper']:.4f} ms "
+              f"(device {res['wrapper device']:.4f} ms)")
+        out[name] = entry
+    scales = hist_acc_scales(grad, hess, ones)
+    wrapper = {"wrapper": bg.this_launcher()}
+    step = {}
+    for mode, qs in (("int8", scales), ("f32", None)):
+        for where in ("root", "K=4"):
+            for kind, mem in zip(("wide", "256-bin"), members[where]):
+                res = bg.run_case(f"cat-wide {where} {mode} {kind}", rows, mem, b, qs, wrapper,
+                                  reps=10, plain_reps=3 if kind == "wide" and where == "root"
+                                  else 0)
+                repeatable(res, qs, f"cat-wide {where} {mode} {kind}")
+                step[mode, where, kind] = res
+                print(f"kernel fused_grow_step {mode} {kind} tables, {where} of the cat-wide rows "
+                      f"(windows {mem[:, :2].tolist()}): dec and every column equal to the plain "
+                      f"version, histogram {'bit-equal' if qs is not None else 'within f32_tol, the same bits on two calls'}; "
+                      f"{res['wrapper']:.4f} ms (device {res['wrapper device']:.4f} ms), bound "
+                      f"{res['bound']:.5f} ms, composite {res['composite']:.4f} ms")
+    r = step["int8", "root", "wide"]
+    entry = kernel_entry("fused_grow_step_wtable", 0.0, r["wrapper"], r["plain"],
+                         bound_ms(2 * n * (2 * f + 16) + f * b * 12), r["composite"])
+    entry.update(device_ms=r["wrapper device"], launches_per_call=r["wrapper ops"],
+                 f32_ms=step["f32", "root", "wide"]["wrapper"],
+                 table256_ms=step["int8", "root", "256-bin"]["wrapper"],
+                 table256_device_ms=step["int8", "root", "256-bin"]["wrapper device"],
+                 k4_ms=step["int8", "K=4", "wide"]["wrapper"],
+                 k4_table256_ms=step["int8", "K=4", "256-bin"]["wrapper"],
+                 library_call="composite: stable torch.sort of the go-left keys, index_select "
+                 "of every column, copy_ back, index_add_ of the child's i32 digit rows")
+    out["fused_grow_step_wtable"] = entry
+    del rows
+    torch.cuda.empty_cache()
+    return out
+
+
+def cat_phases(lt, _build, dev, card):
+    """Categorical features on the card: cat (the efb table's variables as
+    8 categorical columns, max_bin 255: the fused step's table mode, the
+    walk's categorical nodes), cat-wide (max_bin 1023: tables past 256
+    bins, the two-launch path too) and cat-parity (card against CPU).
+    Returns (kernel entries, {phase: kernel launches})."""
+    from lightgbm_tpu_torch.ops import grower
+
+    t_phase = time.perf_counter()
+    x, y = make_cat_data(EFB_ROWS)
+    cats = list(range(len(EFB_LEVELS)))
+    kernels, phases = {}, {}
+    for wide in (False, True):
+        base = CAT_WIDE_PARAMS if wide else PARAMS
+        t0 = time.perf_counter()
+        ds = lt.Dataset(x, y, params=base, categorical_feature=cats).construct()
+        tag = "cat-wide" if wide else "cat"
+        print(f"{tag} data: {EFB_ROWS} x {x.shape[1]} categorical columns ({list(EFB_LEVELS)} "
+              f"levels, Zipf s = {EFB_ZIPF}, the efb table's draws) at max_bin "
+              f"{base['max_bin']}, constructed in {time.perf_counter() - t0:.1f} s: bins per "
+              f"column {ds.num_bins().tolist()}, {ds.max_bin_padded} padded [{card}]")
+        if wide:
+            if int(ds.num_bins().max()) <= 256:
+                raise AssertionError("cat-wide: no column keeps more than 255 categories")
+            kernels.update(check_wide_table_kernels(ds, dev))
+            runs = (("cat-wide", CAT_WIDE_PARAMS, CAT_WIDE_ROUNDS),
+                    ("cat-wide-batch", {**BATCH_PARAMS, "max_bin": 1023}, CAT_WIDE_BATCH_ROUNDS),
+                    ("cat-wide-off", {**OFF_PARAMS, "max_bin": 1023}, CAT_WIDE_OFF_ROUNDS),
+                    ("cat-wide-batch-off", {**BATCH_OFF_PARAMS, "max_bin": 1023},
+                     CAT_WIDE_OFF_ROUNDS))
+        else:
+            runs = (("cat", PARAMS, CAT_ROUNDS), ("cat-batch", BATCH_PARAMS, CAT_BATCH_ROUNDS))
+        for name, params, rounds in runs:
+            _build.LAUNCHES.clear()
+            booster, losses, train_s, setup_s = train_rounds(lt, params, ds, rounds)
+            if name in ("cat", "cat-wide"):
+                cat_predict_and_text(lt, booster, ds, x, y, name, card)
+            phases[name] = launches = dict(_build.LAUNCHES)
+            rate = len(losses) / train_s
+            efb = EFB_RESULTS.get(name.replace("cat", "efb"))
+            print(f"{name}: leaf_batch {params.get('leaf_batch', 1)}, grow_fused "
+                  f"{params.get('grow_fused', 'auto')!r}: hist_mode {booster.hist_mode!r}, "
+                  f"{len(booster.trees)} trees of {[t.num_leaves for t in booster.trees]} "
+                  f"leaves, {rate:.3f} iterations/s (set-up {setup_s:.1f} s)"
+                  + (f" against efb's {efb[0]:.3f} one-hot coded" if efb else "")
+                  + f" [{card}]")
+            print(f"{name}: training log-loss per round " + " ".join(f"{v:.6f}" for v in losses)
+                  + ("; efb's " + " ".join(f"{v:.6f}" for v in efb[1][:len(losses)])
+                     if efb else "") + f" [{card}]")
+            print(f"{name}: categorical splits per tree {[t.num_cat for t in booster.trees]}, "
+                  f"refines per tree {booster.refine_counts}")
+            print(f"{name}: kernel launches {json.dumps(launches)}")
+            if booster.hist_mode != "seg" or not falls(losses, rounds):
+                raise AssertionError(f"{name}: layout {booster.hist_mode!r}, or the log-loss did "
+                                     "not fall every round")
+            if not all(t.num_cat > 0 for t in booster.trees):
+                raise AssertionError(f"{name}: a tree has no categorical split")
+            if launches.get("split_scan", 0) or launches.get("split_scan_batch", 0):
+                raise AssertionError(f"{name}: the split-scan kernel decided a categorical leaf")
+            fused = params.get("grow_fused", "auto") != "off"
+            batch = params.get("leaf_batch", 1) > 1
+            want = (["fused_grow_step", "fused_grow_step_table", "seg_hist_int8"] if fused
+                    else ["partition_batch_table" if batch else "partition_table", "seg_hist"])
+            if name == "cat":
+                want.append("forest_walk_cat")
+            require_launches(launches, want, f"{name} path")
+            if name == "cat":
+                kernels["forest_walk_cat"] = check_cat_walk(booster, x, dev)
+                profile_iteration(booster, "cat profile")
+            del booster
+        if wide:
+            wt = {k: sum(ph.get(k, 0) for n_, ph in phases.items() if n_.startswith("cat-wide"))
+                  for k in ("fused_grow_step_wtable", "partition_wtable",
+                            "partition_batch_wtable")}
+            print(f"cat-wide: launches with tables past 256 bins {json.dumps(wt)}")
+            require_launches(wt, list(wt), "cat-wide paths")
+        del ds
+
+    # card vs CPU on the first rows, int8 accumulation on both
+    xs, ys = x[:PARITY_ROWS].copy(), y[:PARITY_ROWS].copy()
+    pr = {}
+    grower.INT8_ON_CPU = True
+    try:
+        for d in ("cuda", "cpu"):
+            t0 = time.perf_counter()
+            pr[d] = lt.train(PARAMS, lt.Dataset(xs, ys, params=PARAMS, categorical_feature=cats),
+                             PARITY_ROUNDS, device=d)
+            print(f"cat-parity: {d} trained {PARITY_ROUNDS} rounds in "
+                  f"{time.perf_counter() - t0:.1f} s, refines per tree {pr[d].refine_counts}")
+    finally:
+        grower.INT8_ON_CPU = False
+    share = split_share(pr["cuda"], pr["cpu"])
+    lc, lp = pr["cuda"].train_loss(), pr["cpu"].train_loss()
+    print(f"cat-parity: {share:.4f} of splits identical, log-loss cuda {lc:.7f} cpu {lp:.7f} "
+          f"[{card}]")
+    if share < 0.95 or abs(lc - lp) > 1e-4 * abs(lp):
+        raise AssertionError("cat-parity: card and CPU training disagree")
+    torch.cuda.empty_cache()
+    print(f"cat: phases {time.perf_counter() - t_phase:.1f} s [{card}]")
+    return kernels, phases
+
+
 def check_xla_exp(dev):
     """The binary objective's exp on the card against the CPU, bit for bit,
     on a dense sweep of f32 (its clamp ends and flush to 0 included)."""
@@ -1967,8 +2338,8 @@ def widebin_phase(lt, _build, main_profile):
     t0 = time.perf_counter()
     ds = lt.Dataset(x, y, params=WIDEBIN_PARAMS).construct()
     nb = ds.num_bins()
-    print(f"widebin data: {ROWS} x {FEATURES} (Higgs shape, rows cut from 11,000,000, 10 rounds) "
-          f"binned at max_bin 1023 in {time.perf_counter() - t0:.1f} s: {ds.bins.dtype} bins, "
+    print(f"widebin data: {ROWS} x {FEATURES} (Higgs shape, rows cut from 11,000,000, "
+          f"{WIDEBIN_ROUNDS} rounds) binned at max_bin 1023 in {time.perf_counter() - t0:.1f} s: {ds.bins.dtype} bins, "
           f"{int(nb.min())}-{int(nb.max())} bins a feature, {ds.max_bin_padded} histogram bins")
     if ds.max_bin_padded != WIDEBIN_BINS or ds.bins.dtype != np.uint16:
         raise AssertionError("widebin: the bins are not the u16 mode's")
@@ -2795,6 +3166,10 @@ def main() -> int:
     kernels.update(efb_kernels)
     phases.update(efb_launches)
 
+    cat_kernels, cat_launches = cat_phases(lt, _build, dev, card)
+    kernels.update(cat_kernels)
+    phases.update(cat_launches)
+
     phases.update(widebin_phase(lt, _build, main_profile))
 
     wide_kernels, wide_launches = wide_phases(lt, _build, dev)
@@ -2813,8 +3188,12 @@ def main() -> int:
     missing = [name for name, kern in kernels.items() if kern["launches"] <= 0]
     if len(kernels) != len(SOURCES) or missing:
         raise AssertionError(f"kernels not checked or never launched on a path: {missing}")
+    from lightgbm_tpu_torch._bench import TRACES
+
+    print(f"device traces: {TRACES['lost']} of {TRACES['taken']} lost device operations (their "
+          "device times not measured: NaN here, null in the kernels line)")
     print(f"chip_smoke: the script took {time.perf_counter() - t_script:.1f} s [{card}]")
-    print(json.dumps({"kernels": list(kernels.values())}))
+    print(json.dumps({"kernels": nan_to_null(list(kernels.values()))}, allow_nan=False))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

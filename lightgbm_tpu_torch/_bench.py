@@ -9,6 +9,7 @@ from __future__ import annotations
 import os
 import statistics
 import subprocess
+import time
 from typing import Callable, Dict, Optional, Tuple
 
 import torch
@@ -49,7 +50,14 @@ def time_ms(fn: Callable, reps: int = 20, warmup: int = 2,
     return statistics.median(times)
 
 
-def _device_events(fn: Callable, reps: int, setup: Optional[Callable]):
+# the profiler can lose device operations of a short trace (none, or not a
+# whole number a call); such a trace reads NaN, "not measured", unless a
+# retake with idle host time at the end of its window is whole.  TRACES
+# counts the traces taken and lost in this process.
+TRACES = {"taken": 0, "lost": 0}
+
+
+def _device_events(fn: Callable, reps: int, setup: Optional[Callable], idle: float = 0.0):
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -60,41 +68,68 @@ def _device_events(fn: Callable, reps: int, setup: Optional[Callable]):
                 setup()
             fn()
         torch.cuda.synchronize()
+        time.sleep(idle)
     return [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+
+
+def _whole_trace(fn: Callable, reps: int, setup: Optional[Callable], idle: float = 0.0,
+                 empty_ok: bool = False):
+    """The device events of ``reps`` calls of ``fn``, or None when the
+    trace lost some (no device operation, unless ``empty_ok``, or a count
+    that is not a whole number a call) and, with ``idle`` > 0, so did a
+    retake with ``idle`` s of idle time at the end of its window."""
+    TRACES["taken"] += 1
+    for pad in (0.0, idle) if idle > 0 else (0.0,):
+        events = _device_events(fn, reps, setup, pad)
+        if (events or empty_ok) and len(events) % reps == 0:
+            if pad:
+                print(f"device trace: whole with {pad} s of idle time at the end of its window")
+            return events
+        print(f"device trace: {len(events)} device operations over {reps} calls with {pad} s of "
+              "idle time at the end of the window: the profiler lost some")
+    TRACES["lost"] += 1
+    print("device trace: lost; this device time is not measured (NaN)")
+    return None
 
 
 def device_ms(fn: Callable, reps: int = 10, setup: Optional[Callable] = None) -> float:
     """Device time of one call: the sum of the card's kernel times over
     ``reps`` calls under torch.profiler, divided by ``reps`` (no host time
-    between launches, unlike ``time_ms``)."""
+    between launches, unlike ``time_ms``); NaN when the trace lost device
+    operations."""
     return device_profile(fn, reps, setup)[0]
 
 
-def device_profile(fn: Callable, reps: int = 10,
-                   setup: Optional[Callable] = None) -> Tuple[float, float]:
+def device_profile(fn: Callable, reps: int = 10, setup: Optional[Callable] = None,
+                   idle: float = 0.0) -> Tuple[float, float]:
     """(device ms, device operations) of one call, as ``device_ms``; with
     ``setup`` (run before each call), the device time and operations of
     ``setup`` alone over as many calls (profiled on their own) are taken
-    out of both."""
+    out of both.  (NaN, NaN) when a trace lost device operations
+    (``_whole_trace``, retaken with ``idle`` s at the end of its window)."""
     fn()
-    events = _device_events(fn, reps, setup)
-    us = sum(e.time_range.elapsed_us() for e in events)
-    ops = len(events)
-    if setup is not None:
-        alone = _device_events(setup, reps, None)
-        us -= sum(e.time_range.elapsed_us() for e in alone)
-        ops -= len(alone)
-    return us / reps / 1e3, ops / reps
+    events = _whole_trace(fn, reps, setup, idle)
+    alone = [] if setup is None else _whole_trace(setup, reps, None, idle, empty_ok=True)
+    if events is None or alone is None:
+        return float("nan"), float("nan")
+    us = sum(e.time_range.elapsed_us() for e in events) - sum(
+        e.time_range.elapsed_us() for e in alone)
+    return us / reps / 1e3, (len(events) - len(alone)) / reps
 
 
 def device_by_name(fn: Callable, reps: int = 10,
                    setup: Optional[Callable] = None) -> Dict[str, float]:
     """{device operation: ms a call} of ``fn``, leaving out the operations
-    whose names ``setup`` alone runs."""
+    whose names ``setup`` alone runs; empty when a trace lost device
+    operations."""
     fn()
-    skip = set() if setup is None else {e.name for e in _device_events(setup, 1, None)}
+    alone = [] if setup is None else _whole_trace(setup, 1, None, empty_ok=True)
+    events = _whole_trace(fn, reps, setup)
+    if events is None or alone is None:
+        return {}
+    skip = {e.name for e in alone}
     out: Dict[str, float] = {}
-    for e in _device_events(fn, reps, setup):
+    for e in events:
         if e.name not in skip:
             out[e.name] = out.get(e.name, 0.0) + e.time_range.elapsed_us() / reps / 1e3
     return out

@@ -46,11 +46,11 @@ SIGNATURES: Dict[str, Sequence] = {
     "seg_hist": (_VP,) * 4 + (_I64, _VP) + (_I32,) * 4 + (_VP, _I32, _VP, _VP, _I64, _VP, _VP),
     "grow_step": (_VP,) * 5 + (_I64, _I32, _VP, _I32, _I32, _VP, _VP, _I64, _VP, _VP, _VP,
                                 ctypes.c_uint, _I32, _I32, _VP, _I32, _VP, _VP, _I64, _VP, _VP,
-                                _VP),
+                                _VP, _VP, _I32),
     "partition": (_VP,) * 5 + (_I64, _I32, _I32, _VP, _I32, _I32, _VP, _VP, _I64, _VP, _VP,
-                                _VP, ctypes.c_uint, _VP, _VP),
+                                _VP, ctypes.c_uint, _VP, _VP, _VP, _I32),
     "split_scan": (_VP,) * 5 + (_I32,) * 4 + (_F32,) * 4 + (_VP, _F32, _I32) + (_VP,) * 4,
-    "forest_walk": (_VP,) * 3 + (_I64,) + (_I32,) * 9 + (_VP,) * 2,
+    "forest_walk": (_VP,) * 3 + (_I64,) + (_I32,) * 9 + (_VP,) * 2 + (_I32,),
     "ordered_hist": (_VP, _I64) + (_VP,) * 5 + (_I32,) * 5 + (_VP, _VP, _I64, _VP, _VP),
 }
 # further C entries of a source: name -> (source, argtypes, restype)
@@ -70,7 +70,8 @@ _LOCK = threading.Lock()
 # or of M, that also reduce each leaf to its candidate; "<name>_table" and
 # "<name>_u16" count the calls of the partition, fused step, segment
 # histogram and ordered histogram in their goes-left-table and u16 modes
-# beside their plain names, "<name>_live" the calls of the segment histogram
+# beside their plain names, "<name>_wtable" the table calls of the partition
+# and the fused step whose tables pass 256 bins, "<name>_live" the calls of the segment histogram
 # and the fused step with a dead feature); a wrapper adds one
 # where it launches its kernel, nowhere else, so a run shows which kernels
 # it went through

@@ -35,6 +35,16 @@ row counts that are not a multiple of a tile, and 140,000 and 240,000
 rows (whose tiles want an odd number of half warps on 132
 multiprocessors); three classes.
 
+Categorical nodes (``categorize``): ``1,048,576 x 100, half categorical``
+is the x 100 forest with every other node made categorical, its 256-bit
+mask a random set of as many bins as its threshold sent left (so a row's
+depth is spread as the numeric forest's), timed beside that numeric forest
+on this source's builds; its edge case: 30 trees, every node categorical,
+10% of the rows in bin 255 (predict's sentinel of an unseen category,
+which no mask holds), checked.
+
+``--other NAME=SOURCE`` builds another forest_walk.cu of this C interface
+(for example the parent commit's) and times it on the numeric cases.
 ``--baseline`` builds another source with the C interface of the earlier
 design (node, child and leaf tables of one i32 a node each, the launch
 plan in the C entry) into a temporary directory and walks tables of that
@@ -138,6 +148,24 @@ def grow_forest(bins: torch.Tensor, n_trees: int, seed: int, n_leaves: int = LEA
     sample = bins[:SAMPLE].cpu().numpy()
     rng = np.random.default_rng(seed)
     return [grow_tree(sample, n_leaves, rng) for _ in range(n_trees)]
+
+
+def categorize(records: Sequence[dict], seed: int, every: int = 2) -> List[dict]:
+    """The records with every ``every``-th node categorical: its goes-left
+    mask [256] a random set of threshold + 1 of the BINS - 1 value bins
+    (the share of uniform rows its threshold sent left); bin 255 never in
+    a mask."""
+    rng = np.random.default_rng(seed)
+    out = []
+    for r in records:
+        n = len(r["split_feature"])
+        is_cat = (np.arange(n) % every) == 0
+        mask = np.zeros((n, 256), bool)
+        for i in np.flatnonzero(is_cat):
+            mask[i, rng.choice(BINS - 1, size=int(r["split_bin"][i]) + 1, replace=False)] = True
+        out.append({**r, "split_is_cat": is_cat, "cat_mask": mask,
+                    "default_left": np.where(is_cat, False, r["default_left"])})
+    return out
 
 
 # ----------------------------------------------------------- reference
@@ -252,9 +280,10 @@ def this_launcher(fn=None, max_groups: int = fw.MAX_GROUPS) -> Callable:
         plan = plan_of(case, max_groups)
         out = torch.empty((n, k), dtype=torch.float32, device=bins.device)
         rc = fn(bins.data_ptr(), tables.tables.data_ptr(), tables.nan_words.data_ptr(), n, f,
-                tables.nan_words.shape[0], tables.n_trees, tables.m_nodes, tables.m_leaves, k,
-                plan.threads, plan.chunk_trees, plan.groups, out.data_ptr(),
-                torch.cuda.current_stream(bins.device).cuda_stream)
+                tables.nan_words.shape[0], tables.n_trees, tables.m_nodes,
+                tables.m_leaves + 8 * tables.m_cat, k, plan.threads, plan.chunk_trees,
+                plan.groups, out.data_ptr(), torch.cuda.current_stream(bins.device).cuda_stream,
+                int(tables.m_cat > 0))
         _build.check(rc, "forest_walk (a variant build)")
         return out
 
@@ -265,8 +294,8 @@ def this_launcher(fn=None, max_groups: int = fw.MAX_GROUPS) -> Callable:
 def plan_of(case, max_groups: int = fw.MAX_GROUPS) -> fw.WalkPlan:
     bins, tables = case["bins"], case["tables"]
     return fw._walk_plan(bins.shape[0], bins.shape[1], tables.n_trees, tables.m_nodes,
-                         tables.m_leaves, fw.sm_count(bins.device), tables.nan_words.shape[0],
-                         max_groups)
+                         tables.m_leaves + 8 * tables.m_cat, fw.sm_count(bins.device),
+                         tables.nan_words.shape[0], max_groups)
 
 
 def _c_entry(lib: str):
@@ -368,6 +397,13 @@ def edge_cases(dev, builds: Dict[str, Callable]) -> None:
         c = case(bins, grow_forest(bins, 99, seed=16), nanb, k=3)
         check(f"3 classes F={f}", c, builds, plain(bins, c["tables"], 3))
     print("edge case 3 classes (99 trees, class t % 3), F = 28 and 100: bit-equal")
+    cat_builds = {k: v for k, v in builds.items() if k.startswith("this")}
+    bins, nanb = make_bins(100_000, 28, dev, seed=17)
+    bins[torch.rand(bins.shape, device=dev) < 0.1] = BINS  # the sentinel bin 255
+    c = case(bins, categorize(grow_forest(bins, 30, seed=17), seed=17, every=1), nanb)
+    check("categorical, sentinel rows", c, cat_builds, plain(bins, c["tables"], 1))
+    print("edge case 30 trees, every node categorical, 10% of the bins 255 (the sentinel): "
+          "bit-equal")
 
 
 def main(argv: Optional[List[str]] = None) -> int:
@@ -377,6 +413,8 @@ def main(argv: Optional[List[str]] = None) -> int:
     ap.add_argument("--sass", help="write this build's SASS to this file")
     ap.add_argument("--variant", action="append", default=[],
                     help="NAME=FLAGS: this source built with extra nvcc flags")
+    ap.add_argument("--other", action="append", default=[],
+                    help="NAME=SOURCE: another forest_walk.cu of this C interface")
     ap.add_argument("--reps", type=int, default=20)
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
@@ -402,8 +440,11 @@ def main(argv: Optional[List[str]] = None) -> int:
         with open(args.sass, "w") as fh:
             subprocess.run([cuobjdump, "-sass", os.path.join(_build.BUILD, "libforest_walk.so")],
                            stdout=fh, check=True)
-    for vname, _, flags in (v.partition("=") for v in args.variant):
-        lib, report = build_library(src, flags.split(), tmp)
+    extra = [(name, path, []) for name, _, path in (v.partition("=") for v in args.other)]
+    extra += [(name, src, flags.split())
+              for name, _, flags in (v.partition("=") for v in args.variant)]
+    for vname, vsrc, flags in extra:
+        lib, report = build_library(vsrc, flags, tmp)
         print(f"build {vname}: ptxas: {report}")
         builds[vname] = this_launcher(_c_entry(lib))
     results = {}
@@ -412,6 +453,14 @@ def main(argv: Optional[List[str]] = None) -> int:
     for name, n, t in (("1,048,576 x 10", ROWS, 10), ("1,048,576 x 100", ROWS, 100),
                        ("1,048,576 x 500", ROWS, 500), ("4,096 x 500", 4096, 500)):
         results[name] = run_case(name, case(bins[:n], forest[:t], nanb), builds, args.reps)
+    # categorical nodes: this source's builds (variants included), beside
+    # the numeric forest of the same trees
+    cat_builds = {k: v for k, v in builds.items()
+                  if k.startswith("this") or k in {n for n, _, _ in (
+                      v.partition("=") for v in args.variant)}}
+    name = "1,048,576 x 100, half categorical"
+    results[name] = run_case(name, case(bins, categorize(forest[:100], seed=2), nanb),
+                             cat_builds, args.reps)
     del bins
     for f in (242, 512):
         bins, nanb = make_bins(ROWS, f, dev, seed=f)

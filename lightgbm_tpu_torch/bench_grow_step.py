@@ -32,7 +32,9 @@ this interface's builds.  The u16 mode (bins past a byte, two byte planes a
 feature at a padded width of 1,024: ``bench_partition.synthetic_rows_u16``):
 ``bench_partition``'s ``u16_cases`` timed in both modes, each beside this
 build on the u8 rows' same windows (``u8``), and its ``u16_edge_cases``
-checked (``run_u16``).
+checked (``run_u16``).  Tables past 256 bins: ``bench_partition``'s
+``wide_table_cases`` at 1,024 and 8,192 bins in both modes on this build,
+each beside its 256-bin twin (``bench_partition.run_wide_tables``).
 
 Times: the builds in turns (baseline, this source, variants, then the
 reverse order) by CUDA events through the wrapper, one call at a time with
@@ -87,8 +89,8 @@ from .bench_partition import (ROOT_FEATURES, WIDE_FEATURES, _clone_rows, _copy_r
                               kernel_name, same_rows, sort_keys, synthetic_rows, window_rows)
 from .bench_partition import cases as partition_cases
 from .bench_partition import edge_cases as partition_edge_cases
-from .bench_partition import (U16_CASES, synthetic_rows_u16, table_cases, table_edge_cases,
-                              u16_cases, u16_edge_cases)
+from .bench_partition import (U16_CASES, run_wide_tables, synthetic_rows_u16, table_cases,
+                              table_edge_cases, u16_cases, u16_edge_cases)
 from .ops import grow_step, seg
 from .quantize import hist_acc_scales
 
@@ -487,6 +489,17 @@ def main(argv: Optional[List[str]] = None) -> int:
         del rows
         torch.cuda.empty_cache()
     results.update(run_u16(builds, args.rows, args.reps, dev))
+    # the wide tables in both modes on this build (another build of this
+    # interface reads only the parameter words)
+    this = {"this": builds["this"]}
+
+    def wide_modes(key, rows, mem, b):
+        scales = int8_scales(rows)
+        return {f"{key} {mode}": run_case(f"{key} {mode}", rows, mem, b,
+                                          scales if mode == "int8" else None, this, args.reps)
+                for mode in MODES}
+
+    results.update(run_wide_tables(wide_modes, args.rows, dev))
     print(json.dumps({"card": card, "cases": results}))
     return 0
 

@@ -47,7 +47,13 @@ rows), each timed beside this build on the u8 rows' same windows (``u8``),
 and ``u16_edge_cases`` (thresholds at bins 255 and 256, a NaN bin past 255
 sent left, an empty window among K, windows under 32 rows, table members
 on the u16 layout), checked; chip_smoke.py checks them in its widebin
-phase.
+phase.  Tables past 256 bins (a categorical split past 256 bins; the
+member rows carry every table's words, which go to the card):
+``wide_table_cases`` at 1,024 and 8,192 bins (u16 rows of 28 features, the
+widest with that many bins), the root and the K=4 layout, each window by
+a table of every third bin up to its feature's last, timed beside the same
+windows by those tables cut to their first 256 bins (the parameter path),
+on this build alone; chip_smoke.py checks them at the cat-wide phase's rows.
 
 ``--baseline`` builds another version of the source with the C interface
 of the earlier design (four launches over wrapper-allocated scratch, as
@@ -238,6 +244,55 @@ def u16_edge_cases(n: int, nb) -> Dict[str, np.ndarray]:
             nb, [5, n // 8 + 3, n // 2 + 7], [n // 8 - 20, n // 8, n // 4], [1, 2, 3],
             [(40, 90), None, (1, 255)]),
     }
+
+
+WIDE_TABLE_BINS = (1024, 8192)  # tables of 32 and 256 words a window
+
+
+def wide_table_cases(n: int, nb, b: int) -> Dict[str, np.ndarray]:
+    """{name: members}: the root and the K=4 layout of ``cases``, each window
+    by a ``b``-bin table of every third bin below its feature's bins (bits
+    past 256 set), and ``<name>, 256-bin tables``: the same windows by those
+    tables cut to their first 256 bins."""
+    nb = np.asarray(nb)
+    layouts = {"root": ([0], [n], [0]),
+               "K=4": ([37, n // 4 + 5, n // 4 + 5, n // 2 + 1001],
+                       [n // 4 - 100, 0, n // 4 - 900, n // 2 - 2000], [0, 3, 7, 11])}
+    out = {}
+    for name, (starts, cnts, feats) in layouts.items():
+        feats = [int(j) % len(nb) for j in feats]
+        tables = [(np.arange(b) % 3 == i % 3) & (np.arange(b) < nb[j] - 1)
+                  for i, j in enumerate(feats)]
+        cols = (starts, cnts, feats, [0] * len(feats), [0] * len(feats),
+                [int(nb[j]) - 1 for j in feats], [1] * len(feats))
+        out[f"{name}, {b}-bin tables"] = seg.split_members(*cols, tables)
+        out[f"{name}, 256-bin tables"] = seg.split_members(
+            *cols, [t[:seg.TABLE_BINS] for t in tables])
+    return out
+
+
+def run_wide_tables(run: Callable, n: int, dev,
+                    verbose: bool = True) -> Dict[str, Dict[str, float]]:
+    """``wide_table_cases`` at each of WIDE_TABLE_BINS, each wide case
+    beside its 256-bin twin: ``run(key, rows, mem, b)`` times one case (a
+    bench's ``run_case`` in each of its modes) and returns {key: results};
+    {key: results} of every case."""
+    results: Dict[str, Dict[str, float]] = {}
+    for b in WIDE_TABLE_BINS:
+        rows, nb = synthetic_rows_u16(n, ROOT_FEATURES, dev, seed=2, bins=(b // 2, b))
+        for cname, mem in wide_table_cases(n, nb, b).items():
+            if cname.endswith(f"{b}-bin tables") and mem.shape[1] <= seg.MEMBER_COLS:
+                raise AssertionError(f"{cname}: the tables do not pass 256 bins")
+            for key, res in run(f"u16 {cname}", rows, mem, b).items():
+                results[key] = res
+                if verbose:
+                    print(f"case {key}: {len(mem)} window(s), {int(mem[:, 1].sum())} rows x "
+                          f"{rows.f} features; " + ", ".join(
+                              f"{k} {v:.4f}" + ("" if k.endswith("ops") else " ms")
+                              for k, v in res.items()))
+        del rows
+        torch.cuda.empty_cache()
+    return results
 
 
 def bound_ms(f: int, mem: np.ndarray) -> float:
@@ -526,6 +581,12 @@ def main(argv: Optional[List[str]] = None) -> int:
         del rows
         torch.cuda.empty_cache()
     results.update(run_u16(builds, args.rows, args.reps, dev))
+    # the wide tables on this build (another build of this interface reads
+    # only the parameter words)
+    this = {"this": builds["this"]}
+    results.update(run_wide_tables(
+        lambda key, rows, mem, b: {key: run_case(key, rows, mem, this, args.reps)},
+        args.rows, dev))
     print(json.dumps({"card": card, "cases": results}))
     return 0
 

@@ -39,6 +39,19 @@ model predicts and scores its validation sets through the plain walker
 with tables (the forest-walk kernel stays the route of every unbundled
 model).
 
+Categorical features (:775-779, :1457-1466, :3118-3129): a Dataset with
+categorical columns grows every tree with the categorical split search
+(``grow_tree``'s ``is_cat``, every leaf by ``best_split``), trees keep
+their category masks (``Tree.cat_mask``) and bitsets (model text's
+``num_cat``, ``cat_boundaries``, ``cat_threshold``), and predict bins the
+categorical columns on the host: a value outside the kept categories, or
+NaN without a NaN bin, takes a sentinel bin that no categorical node
+sends left, so it goes right.  The walk kernel takes categorical nodes
+(``walk_reject_reason``: masks of at most 256 bins, none claiming bin 255)
+on u8 bins, where the sentinel is 255; a model it rejects takes the plain
+walker on i32 bins, where the sentinel is 65535, past every table (so a
+category kept at bin 255 at ``max_bin`` 256 stays a category).
+
 Model text (:3186-3421): ``model_to_string`` / ``save_model`` write
 LightGBM's format; ``Booster(model_file=...)`` / ``Booster(model_str=...)``
 / ``model_from_string`` read it.  A model read from text has no bin
@@ -57,6 +70,7 @@ from typing import Any, Dict, List, Optional
 import numpy as np
 import torch
 
+from ..binning import categorical_bins
 from ..config import _OBJECTIVE_ALIASES, Config
 from ..dataset import Dataset
 from ..device import resolve_device
@@ -246,17 +260,21 @@ class Booster:
         self._feature_mask = torch.ones(ds.num_planes, dtype=torch.bool, device=dev)
         self._bundle_end = None if self.bundle_layout is None else torch.as_tensor(
             self.bundle_layout.bundle_end_array(self._max_bin), device=dev)
+        # categorical columns (boosting/gbdt.py:775-779): None when there is none
+        is_cat = ds.plane_is_cat()
+        self._is_cat = torch.as_tensor(is_cat, device=dev) if is_cat.any() else None
         # the key stream (boosting/gbdt.py:807) and the row sampler
         self._rng = prng_key(cfg.seed if cfg.seed is not None else 0)
         self._sampler = create_sample_strategy(cfg, n, dev, ds.label)
         # the JAX grower takes its split-scan kernel's tie rule only where
         # the kernel runs (fused_ok, ops/grower.py:460-478): the scan or the
         # fused step on ('on' fuses on either layout, 'auto' on seg), at
-        # most 64 columns and 256 bins, no bundle; best_split's rule elsewhere
+        # most 64 columns and 256 bins, no bundle, no categorical feature;
+        # best_split's rule elsewhere
         kernel_scan = cfg.fused_split_scan or cfg.grow_fused == "on" or (
             cfg.grow_fused == "auto" and self.hist_mode == "seg")
         kernel_ties = (kernel_scan and ds.num_planes <= 64 and ds.max_bin_padded <= 256
-                       and self.bundle_layout is None)
+                       and self.bundle_layout is None and self._is_cat is None)
         self._grower_params = GrowerParams(
             num_leaves=cfg.num_leaves,
             max_bin=ds.max_bin_padded,
@@ -272,6 +290,7 @@ class Booster:
             case_major_ties=not kernel_ties,
             feature_fraction_bynode=cfg.feature_fraction_bynode,
             quantized=cfg.use_quantized_grad and cfg.hist_method == "pallas_int8",
+            cat_params=cfg.cat_params() if self._is_cat is not None else None,
         )
         self._int8_acc = int8_acc_eligible(cfg.hist_acc, self.hist_mode, dev)
 
@@ -348,7 +367,7 @@ class Booster:
                 self._bins_fn, grad, hess, mask, self._num_bins_t,
                 self._nan_bins_t, feature_mask, self._grower_params,
                 quant_scales=qs, bins_nf=self._bins_nf, bundle_end=self._bundle_end,
-                rng=tree_rng,
+                rng=tree_rng, is_cat=self._is_cat,
             )
             n_leaves, refines, steps = ta.num_leaves, ta.refine_count, ta.grow_steps
         if self._unnoted is not None:
@@ -510,26 +529,37 @@ class Booster:
             )
         return stack_bin_trees(records, self.nan_bins, self.device)
 
-    def _bin_host(self, x: np.ndarray) -> np.ndarray:
-        """Exact f64 host binning of rows x [n, F_total] -> [n, F_used]."""
-        cols = [self.bin_mappers[j].values_to_bins(x[:, j]) for j in self.used_features]
+    def _bin_host(self, x: np.ndarray, u8: Optional[bool] = None) -> np.ndarray:
+        """Exact f64 host binning of rows x [n, F_total] -> [n, F_used]
+        (categorical columns by ``_cat_bins``)."""
+        cols = [self._cat_bins(j, x[:, j], u8) if self.bin_mappers[j].is_categorical
+                else self.bin_mappers[j].values_to_bins(x[:, j]) for j in self.used_features]
         return np.stack(cols, axis=1) if cols else np.zeros((len(x), 0), np.int32)
 
-    def _bin_type(self, bins):
+    def _cat_bins(self, j: int, col: np.ndarray, u8: Optional[bool] = None) -> np.ndarray:
+        """Predict-time bins of categorical column j: unseen values, and
+        NaN without a NaN bin, at the sentinel bin that every categorical
+        node sends right: 255 in the walk kernel's u8 bins, else 65535
+        (``u8`` None: u8 up to 256 bins, as ``_bin_type``)."""
+        u8 = self._max_bin <= 256 if u8 is None else u8
+        return categorical_bins(self.bin_mappers[j], col, 255 if u8 else 65535)
+
+    def _bin_type(self, bins, u8: Optional[bool] = None):
         """Rows' bins [N, P] (an array or a tensor) as the walkers take them
-        on the booster's device: u8, or i32 past 256 bins (the plain walker
-        then walks them, ``walk_reject_reason``)."""
-        dt = torch.uint8 if self._max_bin <= 256 else torch.int32
+        on the booster's device: u8, or i32 (``u8`` None: u8 up to 256
+        bins; past them only the plain walker walks, ``walk_reject_reason``)."""
+        u8 = self._max_bin <= 256 if u8 is None else u8
+        dt = torch.uint8 if u8 else torch.int32
         if isinstance(bins, np.ndarray):
             bins = torch.as_tensor(bins.astype(np.int32) if bins.dtype == np.uint16 else bins)
         return bins.to(device=self.device, dtype=dt)
 
     def predict_raw_bins(self, bins: torch.Tensor, t0: int = 0,
                          t1: Optional[int] = None) -> torch.Tensor:
-        """Raw scores [N] of already-binned rows [N, P] (u8, or i32 past
-        256 bins; the training Dataset's columns: EFB planes, or used
-        features) on the booster's device, through trees [t0, t1) (all by
-        default)."""
+        """Raw scores [N] of already-binned rows [N, P] (u8 for the walk
+        kernel, u8 or i32 for the plain walker; the training Dataset's
+        columns: EFB planes, or used features) on the booster's device,
+        through trees [t0, t1) (all by default)."""
         tables = self._walk_tables(t0, t1)
         if isinstance(tables, ForestTables):
             raw = forest_walk(bins, tables, self.num_class)[:, 0]
@@ -565,9 +595,14 @@ class Booster:
             raw = self._predict_real(x.astype(np.float64, copy=False), t0, t1)
             return self._finish_predict(raw, raw_score)
         dbt = build_devbin_tables(self.bin_mappers, self.used_features, self.device)
+        # u8 bins (sentinel 255) for the walk kernel, i32 (sentinel 65535)
+        # for the plain walker, whose masks may claim bin 255
+        u8 = isinstance(self._walk_tables(t0, t1), ForestTables)
         # the used columns of a chunk in f32, without a copy of the whole
         # table in f64 (_bin_host reads the suspect rows' values in f64)
         every = list(self.used_features) == list(range(x.shape[1]))
+        cat_pos = [i for i, j in enumerate(self.used_features)
+                   if self.bin_mappers[j].is_categorical]
         parts = []
         for lo in range(0, n, PREDICT_CHUNK):
             xo = x[lo : lo + PREDICT_CHUNK]
@@ -577,15 +612,19 @@ class Booster:
                 device=self.device,
             )
             bins, suspect = bin_numeric(xs, *dbt)
+            if cat_pos:  # categorical columns: binned on the host
+                host = np.stack([self._cat_bins(self.used_features[i], xo[:, self.used_features[i]],
+                                                u8) for i in cat_pos], axis=1)
+                bins[:, cat_pos] = torch.as_tensor(host, device=self.device)
             sidx = torch.nonzero(suspect)[:, 0].cpu().numpy()
             if len(sidx):
-                patch = self._bin_host(xo[sidx])
+                patch = self._bin_host(xo[sidx], u8)
                 bins[torch.as_tensor(sidx, device=self.device)] = torch.as_tensor(
                     patch.astype(np.int32), device=self.device
                 )
             if self.bundle_layout is not None:
                 bins = self.bundle_layout.pack_tensor(bins, self.used_features)
-            parts.append(self.predict_raw_bins(self._bin_type(bins), t0, t1))
+            parts.append(self.predict_raw_bins(self._bin_type(bins, u8), t0, t1))
         raw = torch.cat(parts) if parts else torch.zeros(0, device=self.device)
         return self._finish_predict(raw, raw_score)
 

@@ -10,7 +10,8 @@ and ``pack_columns`` (:121), ``_eligible``, ``greedy_find_bundles`` and
 A bundle IS a bin plane of the ``[N, P]`` bin matrix: plane bin 0 is the
 shared all-default bin, and member feature ``k`` owns the sub-range
 ``[start_k, start_k + w_k)`` of its non-default bins (its local bin ``b``
-sits at plane bin ``start_k + b - 1``).  Only numeric features with no
+sits at plane bin ``start_k + b - 1``).  Only numeric features (never a
+categorical one) with no
 missing values and the value 0 in bin 0 bundle, so "a member at its
 default" always means "raw value 0" and every plane-bin split decodes to
 one threshold on one original feature (``Tree.from_tree_arrays``).  Dense
@@ -147,9 +148,11 @@ class BundleLayout:
 
 def _eligible(mapper, budget: int) -> bool:
     """Numeric, no missing values, value 0 in bin 0, and narrow enough to
-    share a plane (the restrictions that keep a bundle's decode exact)."""
+    share a plane (the restrictions that keep a bundle's decode exact); a
+    categorical column never bundles (lightgbm_tpu/bundling.py:162)."""
     return (
-        mapper.missing_type == MissingType.NONE
+        not mapper.is_categorical
+        and mapper.missing_type == MissingType.NONE
         and mapper.nan_bin < 0
         and default_bin(mapper) == 0
         and 2 <= mapper.num_bins

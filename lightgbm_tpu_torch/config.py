@@ -60,7 +60,17 @@ The path parameters take the JAX package's defaults and values
   ``enable_bundle=False`` trains every column in its own plane.  No option
   that the JAX package refuses beside a bundle (boosting/gbdt.py:896-936:
   monotone and interaction constraints, forced splits, extra_trees, CEGB,
-  feature- and voting-parallel learners) is ported, so none is refused here.
+  feature- and voting-parallel learners) is ported, so none is refused here;
+* ``categorical_feature`` (aliases ``cat_feature``, ``categorical_column``,
+  ``cat_column``, ``categorical_features``; indices, column names, names
+  with a ``name:`` prefix, or a comma-separated string; a Dataset argument
+  of the same name wins over it) with ``max_cat_to_onehot``,
+  ``max_cat_threshold``, ``cat_l2``, ``cat_smooth`` and
+  ``min_data_per_group``: integer-coded categorical columns of numpy input,
+  binned a bin a category and split by one-hot or sorted-subset search
+  (``ops/split.py``).  Pandas ``category`` columns and ``pandas_categorical``
+  in model text are not ported (a DataFrame is not an input of the port's
+  Dataset).
 """
 
 from __future__ import annotations
@@ -135,6 +145,10 @@ _PARAM_ALIASES: Dict[str, str] = {
     "metric_types": "metric",
     "output_freq": "metric_freq",
     "training_metric": "is_provide_training_metric",
+    "cat_feature": "categorical_feature",
+    "categorical_column": "categorical_feature",
+    "cat_column": "categorical_feature",
+    "categorical_features": "categorical_feature",
     "is_training_metric": "is_provide_training_metric",
     "train_metric": "is_provide_training_metric",
 }
@@ -215,6 +229,15 @@ class Config:
     # exclusive sparse columns into shared planes, False keeps a plane a column
     enable_bundle: bool = True
     max_conflict_rate: float = 0.0
+    # categorical features (lightgbm_tpu/config.py:408-412, :508): the
+    # columns (indices, names, a comma-separated string) and the sorted-
+    # subset split search's keys
+    categorical_feature: Any = ""
+    max_cat_to_onehot: int = 4
+    max_cat_threshold: int = 32
+    cat_l2: float = 10.0
+    cat_smooth: float = 10.0
+    min_data_per_group: int = 100
     hist_mode: Optional[str] = None  # None: the Booster's layout rule
     hist_method: str = "auto"
     use_quantized_grad: bool = False
@@ -270,6 +293,8 @@ class Config:
                     setattr(cfg, name, None if v is None else int(float(v)))
                 elif name == "metric":
                     setattr(cfg, name, _to_str_list(v))
+                elif name == "categorical_feature":
+                    setattr(cfg, name, v)
                 else:
                     setattr(cfg, name, str(v))
             except (TypeError, ValueError) as exc:
@@ -329,7 +354,18 @@ class Config:
             raise ValueError("max_conflict_rate must be in [0, 1)")
         if cfg.max_bin < 2:
             raise ValueError("max_bin must be >= 2")
+        if cfg.max_cat_to_onehot < 1 or cfg.max_cat_threshold < 1:
+            raise ValueError("max_cat_to_onehot and max_cat_threshold must be >= 1")
+        if cfg.cat_l2 < 0.0 or cfg.cat_smooth < 0.0 or cfg.min_data_per_group < 1:
+            raise ValueError("cat_l2 and cat_smooth must be >= 0, min_data_per_group >= 1")
         return cfg
+
+    def cat_params(self):
+        """The categorical split search's keys (``ops.split.CatParams``)."""
+        from .ops.split import CatParams
+
+        return CatParams(self.max_cat_to_onehot, self.max_cat_threshold, self.cat_l2,
+                         self.cat_smooth, self.min_data_per_group)
 
     def _apply_seed(self) -> None:
         """``seed`` re-derives the seeds the port reads that the params do

@@ -5,7 +5,10 @@ booster's bin-space tree records (``Booster._bin_records``) and its
 Dataset's bin mappers, and its EFB layout where it has one
 (``layout_from_arrays``) — and returns a port ``Booster`` that predicts
 what the JAX booster predicts: through the forest walk, or, for a bundled
-model, through the plain walker with its nodes' goes-left tables.
+model, through the plain walker with its nodes' goes-left tables.  A model
+trained with categorical features carries its categorical mappers
+(``bin_to_cats``) and its records' category masks (``split_is_cat``,
+``cat_mask``) across.
 """
 
 from __future__ import annotations
@@ -33,6 +36,7 @@ def booster_from_arrays(
     device=None,
     used_features: Optional[Sequence[int]] = None,
     bundle_layout: Optional[BundleLayout] = None,
+    bin_to_cats: Optional[Sequence[Optional[np.ndarray]]] = None,
 ) -> Booster:
     """A predict-only Booster.
 
@@ -48,7 +52,11 @@ def booster_from_arrays(
         columns of ``predict``'s input are the used features, in order);
     bundle_layout: the training Dataset's EFB planes; the records' columns
         are then planes, and a bundle-plane node carries ``split_is_cat``
-        and its ``cat_mask`` row, as the JAX package's records do.
+        and its ``cat_mask`` row, as the JAX package's records do;
+    bin_to_cats: per used feature, the category of each bin of a
+        categorical feature's mapper (its ``bin_to_cat``), None for a
+        numeric feature; a categorical node of the records then carries
+        ``split_is_cat`` and its ``cat_mask`` row.
     """
     if num_class != 1:
         raise ValueError("lightgbm_tpu_torch predicts one class per iteration (num_class=1)")
@@ -58,9 +66,17 @@ def booster_from_arrays(
     f = len(bin_upper_bounds)
     used = list(range(f)) if used_features is None else [int(j) for j in used_features]
     mappers = [None] * (max(used) + 1 if used else 0)
-    for j, ub, mt, nb in zip(used, bin_upper_bounds, missing_types, nan_bins):
+    cats = [None] * f if bin_to_cats is None else list(bin_to_cats)
+    for j, ub, mt, nb, bc in zip(used, bin_upper_bounds, missing_types, nan_bins, cats):
         ub = np.asarray(ub, np.float64)
-        mappers[j] = BinMapper(ub, int(mt), len(ub) + (1 if nb >= 0 else 0), int(nb))
+        if bc is None:
+            mappers[j] = BinMapper(ub, int(mt), len(ub) + (1 if nb >= 0 else 0), int(nb))
+            continue
+        bc = np.asarray(bc, np.int64)
+        mappers[j] = BinMapper(
+            np.array([np.inf]), int(mt), len(bc) + (1 if nb >= 0 else 0), int(nb),
+            float(bc.min(initial=0)), float(bc.max(initial=0)), is_categorical=True,
+            cat_to_bin={int(c): i for i, c in enumerate(bc)}, bin_to_cat=bc)
     b.bin_mappers = mappers
     b.used_features = used
     b.nan_bins = np.asarray(nan_bins, np.int32)

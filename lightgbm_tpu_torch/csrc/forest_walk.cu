@@ -6,8 +6,10 @@
 // forest_walk :367).  Same function: numeric splits in bin space, a row goes
 // left when its bin is <= the node's threshold bin, or when it sits in the
 // feature's NaN bin and the node sends missing values left; the leaf values
-// of tree t are added in f32 into class t % k, trees in order.  (Categorical
-// nodes are not part of this port yet.)
+// of tree t are added in f32 into class t % k, trees in order.  A
+// categorical node (the TPU kernel's cat_gl mode, forest_walk.py:318-346)
+// sends a row left when the bit of its bin is set in the node's 256-bit
+// bitset.
 //
 // The rows' bins, as a block stages them in shared memory for a tile: W =
 // ceil(f / 4) words a row (word q holds bins 4q .. 4q + 3), then W_A more
@@ -27,13 +29,27 @@
 //         w the staged word the node reads; the low 16 bits are the byte
 //         permute selector that puts byte (feat & 3) of that word in place
 //         of x's top byte, thr: the permuted word is <= x (unsigned) iff
-//         v <= thr.  Byte 0 is 0x54 in every numeric node; a categorical
-//         node would carry another byte 0 and its bitset's index.
+//         v <= thr.  Byte 0 is 0x54 in every numeric node.
+//     a categorical node: x = kCatMarker | ((feat & 3) | (o & 0x3F) << 2) << 8
+//         | w << 16 | (o >> 6) << 24, o its bitset's byte offset in the
+//         tree's block over 4 (w the row's own word: a category mask never
+//         holds the NaN bin, so a NaN row goes right with no extra test)
 //     y = left | right << 16, each the u16 byte offset of the child in the
 //         tree's block: 8 * i for node i, 8 * M + 4 * j for leaf j (so a
 //         child at or past 8 * M is a leaf, and its offset is where its
 //         value sits)
 //   leaf value j (f32) at byte 8 * M + 4 * j
+//   then the bitsets of the tree's categorical nodes, 32 bytes each (bit
+//   v & 31 of word v >> 5 for bin v), staged with the rest of the block
+//
+// Categorical nodes (on the TPU every tree with one gathers all 8 bitset
+// words of each node and picks one by v >> 5): a level loads the row's
+// word as at a numeric node, then, where byte 0 of the record is the
+// marker, picks the feature's byte v, loads word v >> 5 of the node's
+// bitset (one 4-byte shared load) and tests bit v & 31.  The marker test
+// is compiled in only for forests that have a categorical node (kCat, a
+// flag of the launch, not of each tree), so a numeric forest runs the
+// instructions it ran before.
 //
 // What bounds it on an H100: on paper the bytes of the bins (n * f, read
 // once) and of the scores; in practice the levels walked, each a dependent
@@ -94,6 +110,7 @@ constexpr int kRows = FW_ROWS;
 constexpr int kMaxThreads = 512;  // threads a block, at most
 constexpr int kSinkBytes = 16;    // the sink record after a chunk's tables
 constexpr int kMaxF = 512;        // staged words, with the NaN-left ones, fit a byte
+constexpr uint32_t kCatMarker = 0x01u;  // byte 0 of a categorical node's record
 
 __device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
   const unsigned s = (unsigned)__cvta_generic_to_shared(smem);
@@ -131,7 +148,7 @@ struct RowReader {
 // group g walks trees g, g + groups, ... of the chunk and keeps each leaf
 // value in a stash [tree][row slot], and group 0 then adds a row's stashed
 // values in tree order (a tile of few rows still fills the block).
-template <bool kOneClass, bool kSplit>
+template <bool kOneClass, bool kSplit, bool kCat>
 __global__ void __launch_bounds__(kMaxThreads, 2)
 forest_walk_kernel(const uint8_t* __restrict__ bins, const unsigned char* __restrict__ tables,
                    const int3* __restrict__ nan_words, long long n, int f, int n_nan_words,
@@ -210,7 +227,17 @@ forest_walk_kernel(const uint8_t* __restrict__ bins, const unsigned char* __rest
             const uint2 nd = *reinterpret_cast<const uint2*>(smem + node[j]);
             const uint32_t wv = *reinterpret_cast<const uint32_t*>(
                 smem + words0[j] + (int)prmt(nd.x, 0u, 0x4442u) * word_stride);
-            const bool gl = prmt(wv, nd.x, nd.x) <= nd.x;
+            bool gl;
+            if (kCat && (nd.x & 0xFFu) == kCatMarker) {
+              // the feature's byte of the word, and its bit in the bitset
+              const uint32_t v = prmt(wv, 0u, 0x4440u | ((nd.x >> 8) & 3u));
+              const uint32_t o = ((nd.x >> 10) & 0x3Fu) | ((nd.x >> 24) << 6);
+              const uint32_t bits = *reinterpret_cast<const uint32_t*>(
+                  smem + base[j] + 4 * (int)o + 4 * (int)(v >> 5));
+              gl = (bits >> (v & 31u)) & 1u;
+            } else {
+              gl = prmt(wv, nd.x, nd.x) <= nd.x;
+            }
             // the chosen child's byte offset in the tree (the u16, zero-extended)
             const int c = (int)prmt(nd.y, 0u, gl ? 0x4410u : 0x4432u);
             if (c >= leaf_off) {  // a leaf: add its value, start the next tree
@@ -277,9 +304,9 @@ forest_walk_kernel(const uint8_t* __restrict__ bins, const unsigned char* __rest
 // (0 and the error in *err on failure).  The attribute is set on every
 // launch that needs more than 48 KB: it holds for the current device only,
 // and the call is cheap beside a launch.
-template <bool kOneClass, bool kSplit>
+template <bool kOneClass, bool kSplit, bool kCat>
 const void* kernel_for(size_t shared, cudaError_t* err) {
-  const void* kernel = (const void*)forest_walk_kernel<kOneClass, kSplit>;
+  const void* kernel = (const void*)forest_walk_kernel<kOneClass, kSplit, kCat>;
   if (shared > 48 * 1024) {
     *err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)shared);
     if (*err == cudaSuccess) {
@@ -312,7 +339,7 @@ long long grid_blocks(const void* kernel, long long n, int tile_rows, size_t sha
 
 struct Walk {
   long long n;
-  int f, n_nan_words, n_trees, m_nodes, m_leaves, k, threads, chunk_trees, groups;
+  int f, n_nan_words, n_trees, m_nodes, m_leaves, k, threads, chunk_trees, groups, cat;
 
   int tree_bytes() const { return 8 * m_nodes + 4 * m_leaves; }
   int tile_rows() const { return threads / groups * kRows; }
@@ -327,26 +354,33 @@ struct Walk {
            m_leaves >= 1 && m_leaves % 4 == 0 && threads >= 32 && threads <= kMaxThreads &&
            threads % 32 == 0 && chunk_trees >= 1 && groups >= 1 && threads % groups == 0;
   }
-  const void* kernel(cudaError_t* err) const {
+  template <bool kCat>
+  const void* mode(cudaError_t* err) const {
     const size_t s = shared();
     if (groups > 1) {
-      return k == 1 ? kernel_for<true, true>(s, err) : kernel_for<false, true>(s, err);
+      return k == 1 ? kernel_for<true, true, kCat>(s, err) : kernel_for<false, true, kCat>(s, err);
     }
-    return k == 1 ? kernel_for<true, false>(s, err) : kernel_for<false, false>(s, err);
+    return k == 1 ? kernel_for<true, false, kCat>(s, err) : kernel_for<false, false, kCat>(s, err);
+  }
+  const void* kernel(cudaError_t* err) const {
+    return cat ? mode<true>(err) : mode<false>(err);
   }
 };
 
 }  // namespace
 
 // bins [n, f] u8 row-major; tables [n_trees, 8 * m_nodes + 4 * m_leaves]
-// bytes and nan_words [n_nan_words] int3 (build_tables) -> out [n, k] f32.
-// threads, chunk_trees and groups are the launch plan (walk_plan).
+// bytes and nan_words [n_nan_words] int3 (build_tables) -> out [n, k] f32;
+// m_leaves counts the words after the node records, the leaf values and
+// the categorical nodes' bitsets.  threads, chunk_trees and groups are the
+// launch plan (walk_plan); cat != 0: the tables hold categorical nodes.
 // Returns cudaGetLastError().
 extern "C" int lgbt_forest_walk(const void* bins, const void* tables, const void* nan_words,
                                 long long n, int f, int n_nan_words, int n_trees, int m_nodes,
                                 int m_leaves, int k, int threads, int chunk_trees, int groups,
-                                void* out, void* stream) {
-  const Walk w{n, f, n_nan_words, n_trees, m_nodes, m_leaves, k, threads, chunk_trees, groups};
+                                void* out, void* stream, int cat) {
+  const Walk w{n, f, n_nan_words, n_trees, m_nodes, m_leaves, k, threads, chunk_trees, groups,
+               cat != 0};
   if (n <= 0) return (int)cudaGetLastError();
   if (!w.valid()) return (int)cudaErrorInvalidValue;
   cudaError_t e = cudaSuccess;

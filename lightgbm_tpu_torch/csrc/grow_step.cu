@@ -13,7 +13,9 @@
 // child_cnt); the histogram is the smaller child's, f32 [K, F, B, 3], summed
 // in f32 or on the int8 2-digit grid and recombined.  A window partitions by
 // its threshold or by its goes-left table (partition.cu's table mode, the
-// TPU kernel's cat_ref, grow_step.py:95: an EFB bundle-plane split).
+// TPU kernel's cat_ref, grow_step.py:95, :222-226: an EFB bundle-plane split
+// or a categorical one; tables past 256 bins from the card, partition.cu's
+// wide tables).
 //
 // The TPU kernel relies on grid programs running in order: program (i, 0)
 // partitions and writes dec, programs (i, pt > 0) read it back.  CUDA blocks
@@ -73,13 +75,15 @@ extern "C" long long lgbt_grow_step_scratch(int f, int nbins, int int8) {
 // scales: device [2] f32 for the int8 mode, null for f32; hscratch: device,
 // 16-byte aligned, of lgbt_grow_step_scratch bytes (hscratch_bytes); dec: i32
 // [k, 4] receives (nl, nr, child_start, child_cnt); out: f32 [k, f, nbins, 3],
-// every cell written.  Returns the CUDA error of the launches (0 on success).
+// every cell written; wtable, wwords: lgbt_partition's wide tables (null, 0:
+// none).  Returns the CUDA error of the launches (0 on success).
 extern "C" int lgbt_grow_step(void* bins, void* g, void* h, void* m, void* ridx, long long n,
                               int f, const long long* members, int k, int tile, void* s_planes,
                               void* s_cols, long long s_stride, void* status, void* staged,
                               void* counter, unsigned epoch, int nbins, int ranges,
                               const void* order, int nlive, const void* scales, void* hscratch,
-                              long long hscratch_bytes, void* dec, void* out, void* stream) {
+                              long long hscratch_bytes, void* dec, void* out, void* stream,
+                              const void* wtable, int wwords) {
   if (k < 1 || k > lhist::kMaxWindows || nbins <= 0 || nbins > 65536 ||
       hscratch_bytes < lhist::kNlBytes) {
     return (int)cudaErrorInvalidValue;
@@ -87,7 +91,8 @@ extern "C" int lgbt_grow_step(void* bins, void* g, void* h, void* m, void* ridx,
   const int wide = nbins > lhist::kRangeBins;
   int* nl = (int*)hscratch;
   const int rc = lgbt_partition(bins, g, h, m, ridx, n, f, wide, members, k, tile, s_planes,
-                                s_cols, s_stride, status, staged, counter, epoch, nl, stream);
+                                s_cols, s_stride, status, staged, counter, epoch, nl, stream,
+                                wtable, wwords);
   if (rc != 0) return rc;
   if (wide) f /= 2;  // the histogram's features
   lhist::Windows win;

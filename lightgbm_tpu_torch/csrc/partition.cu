@@ -17,9 +17,11 @@
 // left by the window's rule: the threshold (its bin is <= the threshold bin,
 // or it sits in the feature's NaN bin and missing values go left,
 // ops/segpart.py:52 _go_left), or, for a table member (iscat), the bit of
-// its bin in the window's 256-bit goes-left table, the cat_ref operand of
-// the TPU kernel (partition.py:271-285): an EFB bundle-plane split, whose
-// left rows are every plane bin outside the member's [t, end].
+// its bin in the window's goes-left table, the cat_ref operand of the TPU
+// kernel (partition.py:115, :271-285, [1, bmt] with bmt = max(256, bins
+// rounded up to 128)): an EFB bundle-plane split, whose left rows are every
+// plane bin outside the member's [t, end], or a categorical split, whose
+// left rows are its categories' bins.
 //
 // Layout (the port's, not the TPU's i16 planes): bins u8 feature-major
 // [f, n]; g, h, m f32 and ridx i32 columns [n], moved as 32-bit words.
@@ -64,6 +66,15 @@
 // The table travels in the launch's parameters (8 words a window, beside
 // tbin, dl and nanb): no copy to the card and no launch more; a tile reads
 // its window's words into shared memory, and the rule is uniform per tile.
+// Wide tables (a call whose tables send a bin at or past 256 left: a
+// categorical split past 256 bins; up to 8,192 bins, 256 words, a window):
+// unrolled parameter words would not scale, so the call's table members
+// read their whole tables from a [k, W] u32 array on the card instead, the
+// tile's threads copying its window's W words into shared memory behind
+// the column stages with one coalesced load, and a row goes left by bit
+// v & 31 of word v >> 5 for v < 32 W (a bin past the table goes right).
+// The narrow tables keep the parameter path (W = 0), so a call of the EFB
+// table mode runs the same instructions as before.
 //
 // All moves are plain loads and stores: the result is exact and the same
 // on every run, and K windows in one call equal K calls of one window.
@@ -85,6 +96,7 @@ constexpr int kTableWords = 8;   // the goes-left table: a bit a bin, 256 bins
 constexpr int kMemberCols = 7 + kTableWords;
 constexpr int kWriteUnroll = 2;  // rows of the columns a thread of a tile moves at a time
 constexpr int kMaxPlanes = 512;  // the stage offsets' room; the host's tile rule allows fewer
+constexpr int kMaxWideWords = 2048;  // a wide table's words, at most: 65,536 bins
 
 struct Plan {
   int k;
@@ -138,7 +150,15 @@ struct Args {
   int* counter;
   unsigned epoch;
   int* nl_out;
+  const unsigned* wtable;  // [k, wwords] u32 goes-left tables, or null
+  int wwords;              // 0: the tables are the members' parameter words
 };
+
+// the wide table of a window into shared memory, one coalesced load of its
+// words by the block's threads; the caller synchronises
+__device__ __forceinline__ void load_wide_table(const unsigned* src, int words, unsigned* dst) {
+  for (int i = threadIdx.x; i < words; i += kThreads) dst[i] = src[i];
+}
 
 // bytes of a tile's stage: a plane of T rows, a 4-byte column of T rows
 template <int T>
@@ -215,17 +235,30 @@ __global__ void __launch_bounds__(kThreads) partition_tile_kernel(Args a, Plan P
   // 2. meanwhile rank the rows and publish the tile's left count
   const int tbin = P.tbin[w], dl = P.dl[w], nanb = P.nanb[w];
   const bool by_table = P.iscat[w] != 0;
-  if (by_table) {
+  // a wide call's table members: the window's words, behind the stages
+  const bool wide_table = by_table && a.wwords > 0;
+  unsigned* s_wide = reinterpret_cast<unsigned*>(cstage + 4 * Stage<T>::kCol);
+  if (wide_table) {
+    load_wide_table(a.wtable + (long long)w * a.wwords, a.wwords, s_wide);
+    __syncthreads();
+  } else if (by_table) {
     load_table(P, w, s_table);
     __syncthreads();
   }
-  const int tl = rank_tile<T>(
-      tt, key,
-      [&](int v) {
-        return by_table ? (v < 32 * kTableWords && ((s_table[v >> 5] >> (v & 31)) & 1u))
-                        : go_left(v, tbin, dl, nanb);
-      },
-      src_of, mask, pre, &s_left);
+  const int wbits = 32 * a.wwords;
+  const int tl =
+      wide_table
+          ? rank_tile<T>(
+                tt, key,
+                [&](int v) { return v < wbits && ((s_wide[v >> 5] >> (v & 31)) & 1u); },
+                src_of, mask, pre, &s_left)
+          : rank_tile<T>(
+                tt, key,
+                [&](int v) {
+                  return by_table ? (v < 32 * kTableWords && ((s_table[v >> 5] >> (v & 31)) & 1u))
+                                  : go_left(v, tbin, dl, nanb);
+                },
+                src_of, mask, pre, &s_left);
   publish_count(a.status, t, P.tile0[w], (unsigned)tl, a.epoch);
   PART_MARK(t, 2);
 
@@ -292,7 +325,7 @@ __global__ void __launch_bounds__(kThreads) partition_copy_kernel(Args a, Plan P
 
 template <int T>
 int launch_tiles(long long tiles, const Args& a, const Plan& P, cudaStream_t st) {
-  const int dyn = a.f * Stage<T>::kPlane + 4 * Stage<T>::kCol;
+  const int dyn = a.f * Stage<T>::kPlane + 4 * Stage<T>::kCol + 4 * a.wwords;
   static int allowed = 48 * 1024;  // dynamic shared memory this kernel may take
   if (dyn > allowed) {
     const cudaError_t e = cudaFuncSetAttribute(
@@ -311,7 +344,7 @@ int launch_tiles(long long tiles, const Args& a, const Plan& P, cudaStream_t st)
 // feature, its bins planes 2 feat and 2 feat + 1).
 // members: host i64 [k, kMemberCols] rows (start, cnt, feat, tbin, dl, nanb,
 // iscat, then the goes-left table's 8 words, bit v & 31 of word v >> 5 for
-// bin v, read when iscat != 0); the
+// bin v, read when iscat != 0 and wwords = 0); the
 // windows are cut into tiles of `tile` rows (the host's choice, one of the
 // instantiated sizes), counted over the windows in member order, and
 // window i's right run goes to the scratch at 16 plus the earlier
@@ -320,15 +353,20 @@ int launch_tiles(long long tiles, const Args& a, const Plan& P, cudaStream_t st)
 // [4, s_stride], status u64 and staged u32 [>= all tiles], counter i32 (0
 // between calls; the call leaves it 0), epoch in [1, 2^30) and new for
 // every call that shares the status and staged words.  nl_out [k] i32
-// receives the left counts.  Every pointer 16-byte aligned.  Returns
+// receives the left counts.  wtable, wwords: wwords > 0 gives every table
+// member's whole table as row i of a device u32 [k, wwords] array (bit
+// v & 31 of word v >> 5 for bin v, up to kMaxWideWords words), read in
+// place of its parameter words; wwords = 0 (wtable null) the parameter
+// path.  Every pointer 16-byte aligned (wtable 4-byte).  Returns
 // cudaGetLastError() after the launches (0 on success).
 extern "C" int lgbt_partition(void* bins, void* g, void* h, void* m, void* ridx, long long n,
                               int f, int wide, const long long* members, int k, int tile,
                               void* s_planes, void* s_cols, long long s_stride, void* status,
                               void* staged, void* counter, unsigned epoch, void* nl_out,
-                              void* stream) {
+                              void* stream, const void* wtable, int wwords) {
   if (k < 1 || k > kMaxWindows || f <= 0 || f > kMaxPlanes || tile <= 0 || epoch == 0 ||
-      epoch >= (1u << 30) || (wide && f % 2)) {
+      epoch >= (1u << 30) || (wide && f % 2) || wwords < 0 || wwords > kMaxWideWords ||
+      (wwords > 0 && wtable == nullptr)) {
     return (int)cudaErrorInvalidValue;
   }
   const int features = wide ? f / 2 : f;
@@ -364,7 +402,9 @@ extern "C" int lgbt_partition(void* bins, void* g, void* h, void* m, void* ridx,
                (unsigned*)staged,
                (int*)counter,
                epoch,
-               (int*)nl_out};
+               (int*)nl_out,
+               (const unsigned*)wtable,
+               wwords};
   cudaStream_t st = (cudaStream_t)stream;
   const long long tiles = P.tile0[k];
   if (tiles > 0) {

@@ -20,6 +20,12 @@ The metadata of ``lightgbm_tpu/dataset.py`` (:565-579): row ``weight`` and
 validation set is binned with its reference's mappers and used features
 and bundle layout (the row-major u8 bins the walkers read), so a tree of
 the training set walks it in bin space.
+
+Categorical columns (``categorical_feature=``, the argument or the param,
+resolved as lightgbm_tpu/dataset.py:1123-1138 does): integer-coded
+columns of the numpy input, binned a bin a category
+(``BinMapper.from_sample(..., is_categorical=True)``); such a column never
+joins an EFB bundle and keeps a plane of its own (``plane_is_cat``).
 """
 
 from __future__ import annotations
@@ -65,8 +71,10 @@ class Dataset:
         weight: Optional[np.ndarray] = None,
         init_score: Optional[np.ndarray] = None,
         params: Optional[Dict[str, Any]] = None,
+        categorical_feature: Any = "auto",
     ) -> None:
         self.params: Dict[str, Any] = dict(params or {})
+        self._categorical_feature = categorical_feature
         self._raw_data = data
         self._label = label
         self._weight = weight
@@ -106,7 +114,7 @@ class Dataset:
         if self.reference is not None:
             self._bin_like(self.reference.construct(), data)
         else:
-            self._fit_bins(cfg, data)
+            self._fit_bins(cfg, data, self._resolve_categorical(cfg, f))
         self.label = label
         self.constructed = True
         self._raw_data = None
@@ -144,7 +152,29 @@ class Dataset:
         return self.bundle_layout.pack_columns(
             data.shape[0], lambda j: local[:, pos[j]], dtype=dtype)
 
-    def _fit_bins(self, cfg: Config, data: np.ndarray) -> None:
+    def _resolve_categorical(self, cfg: Config, num_features: int) -> List[int]:
+        """The categorical columns (lightgbm_tpu/dataset.py:1123-1138): the
+        Dataset's argument, else the ``categorical_feature`` param; indices,
+        column names, ``name:``-prefixed or plain digit strings, or a
+        comma-separated string of them; unknown names and indices out of
+        range are dropped."""
+        cf = self._categorical_feature
+        if cf == "auto" or cf is None or cf == "":
+            cfg_cf = cfg.categorical_feature
+            cf = cfg_cf if cfg_cf not in ("", "auto", None) else []
+        if isinstance(cf, str):
+            cf = [c for c in cf.split(",") if c != ""]
+        out: List[int] = []
+        for c in cf:
+            if isinstance(c, (int, np.integer)):
+                out.append(int(c))
+            elif str(c) in self.feature_names:
+                out.append(self.feature_names.index(str(c)))
+            else:
+                out.append(int(str(c).replace("name:", "")) if str(c).isdigit() else -1)
+        return [c for c in out if 0 <= c < num_features]
+
+    def _fit_bins(self, cfg: Config, data: np.ndarray, cat_idx: List[int]) -> None:
         n, f = data.shape
         sample_cnt = min(n, cfg.bin_construct_sample_cnt)
         if sample_cnt < n:
@@ -156,7 +186,8 @@ class Dataset:
         self.used_features = []
         for j in range(f):
             m = BinMapper.from_sample(
-                sample[:, j], cfg.max_bin, min_data_in_bin=MIN_DATA_IN_BIN
+                sample[:, j], cfg.max_bin, min_data_in_bin=MIN_DATA_IN_BIN,
+                is_categorical=j in cat_idx,
             )
             self.bin_mappers.append(m)
             if not m.is_trivial:
@@ -207,6 +238,15 @@ class Dataset:
         return np.array(
             [self.bin_mappers[c[0]].nan_bin if len(c) == 1 else -1 for c in cols], np.int32
         )
+
+    def plane_is_cat(self) -> np.ndarray:
+        """[P] bool: the column of ``bins`` is a categorical feature (a
+        bundle plane never is; lightgbm_tpu/dataset.py:662-677)."""
+        self.construct()
+        cols = ([[j] for j in self.used_features] if self.bundle_layout is None
+                else self.bundle_layout.planes)
+        return np.array([len(c) == 1 and self.bin_mappers[c[0]].is_categorical for c in cols],
+                        bool)
 
     @property
     def max_bin_padded(self) -> int:

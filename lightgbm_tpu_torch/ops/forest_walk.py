@@ -4,19 +4,23 @@ Counterpart of ``lightgbm_tpu/ops/pallas/forest_walk.py``:
 
   * ``walk_reject_reason`` (:101-149) says why the kernel cannot walk a
     model (more than 512 features, bins or NaN bins past a byte, too many
-    nodes per tree, tables past the kernel's shared memory); the booster
+    nodes per tree, tables past the kernel's shared memory, a categorical
+    mask wider than 256 bins or claiming bin 255, the predict sentinel of
+    unseen categories, :124-137); the booster
     then walks with the plain level-synchronous walker of predict.py on
     the same device, as the JAX package falls back to its XLA walker;
   * ``build_tables`` (:158) stacks bin-space tree records into per-tree
     tables in the port's own encoding (an 8-byte record a node, then the
-    leaf values, and the NaN-left words; see ``csrc/forest_walk.cu``), and
+    leaf values, then a 256-bit bitset of each categorical node, and the
+    NaN-left words; see ``csrc/forest_walk.cu``), and
     ``walk_plan`` gives the kernel's launch plan for a call's shapes;
   * ``bin_numeric`` (:512) is value -> bin on the device in f32, flagging
     the rows whose f32 compare could disagree with the exact f64 host
     binning; the caller re-bins those rows on the host;
   * ``forest_walk`` (:367) walks every row through every tree: the plain
     PyTorch version on the CPU, the ``csrc/forest_walk.cu`` kernel on a
-    CUDA device (launches counted in ``_build.LAUNCHES['forest_walk']``).
+    CUDA device (launches counted in ``_build.LAUNCHES['forest_walk']``, and
+    as ``'forest_walk_cat'`` too when the tables hold a categorical node).
 """
 
 from __future__ import annotations
@@ -37,6 +41,8 @@ MAX_NODES = 1 << 15  # splits a tree, at most (the table size below binds first)
 # many bytes (the earlier kernel's check, kept); every chunk of the kernel
 # then holds at least one tree (walk_plan)
 SHARED_TABLE_BYTES = 48 * 1024
+CAT_MARKER = 0x01  # byte 0 of a categorical node's record (0x54: numeric)
+CAT_BITSET_BYTES = 32  # a categorical node's bitset: 256 bins, 8 words
 
 # the launch plan of csrc/forest_walk.cu (FW_ROWS, kMaxThreads, kSinkBytes
 # there; tests/test_torch_forest_walk.py checks the source)
@@ -62,34 +68,54 @@ def walk_reject_reason(
     if len(nan_bins) and int(np.max(nan_bins)) >= MAX_BIN_VALUE:
         return f"NaN bin {int(np.max(nan_bins))} >= {MAX_BIN_VALUE}"
     m_nodes = m_leaves = 1
+    m_cat = 0
     for r in records:
         sf = r["split_feature"]
         if len(sf) >= MAX_NODES:
             return f"a tree has {len(sf)} splits >= {MAX_NODES}"
-        if len(sf) and int(np.max(np.asarray(r["split_bin"]))) >= MAX_BIN_VALUE:
+        cat = _cat_nodes(r)
+        if cat.any():
+            cm = np.asarray(r["cat_mask"], bool)
+            if cm.shape[-1] > MAX_BIN_VALUE:
+                return "a categorical mask is wider than 256 bins"
+            if cm.shape[-1] >= MAX_BIN_VALUE and cm[cat][:, MAX_BIN_VALUE - 1].any():
+                return "a categorical mask claims bin 255 (sentinel clash)"
+        num = ~cat
+        if num.any() and int(np.max(np.asarray(r["split_bin"])[num])) >= MAX_BIN_VALUE:
             return f"a split threshold bin >= {MAX_BIN_VALUE}"
         m_nodes = max(m_nodes, len(sf))
         m_leaves = max(m_leaves, len(r["leaf_value"]))
-    table_bytes = m_nodes * 8 + m_leaves * 4
+        m_cat = max(m_cat, int(cat.sum()))
+    table_bytes = m_nodes * 8 + m_leaves * 4 + m_cat * CAT_BITSET_BYTES
     if table_bytes > SHARED_TABLE_BYTES:
         return (f"one tree's tables ({table_bytes} bytes) exceed the walk "
                 f"kernel's {SHARED_TABLE_BYTES} bytes of shared memory")
     return None
 
 
+def _cat_nodes(r: dict) -> np.ndarray:
+    """[nodes] bool: the record's categorical (goes-left-by-table) nodes."""
+    sic = r.get("split_is_cat")
+    n = len(r["split_feature"])
+    if sic is None or r.get("cat_mask") is None or not np.size(sic):
+        return np.zeros(n, bool)
+    return np.asarray(sic, bool)[:n]
+
+
 class ForestTables(NamedTuple):
     """Walk tables of T trees for rows of ``n_words`` staged words (``F``
-    bins, 4 a word): one row of ``2 * m_nodes + m_leaves`` words a tree, the
-    node records then the leaf values, and the NaN-left words
-    (``build_tables``)."""
+    bins, 4 a word): one row of ``2 * m_nodes + m_leaves + 8 * m_cat`` words
+    a tree, the node records, the leaf values, then the categorical nodes'
+    bitsets, and the NaN-left words (``build_tables``)."""
 
-    tables: torch.Tensor  # [T, 2M + Lm] i32
+    tables: torch.Tensor  # [T, 2M + Lm + 8C] i32
     nan_words: torch.Tensor  # [W_A, 3] i32: (word, its features' NaN bins, 0xFF mask)
     nan_bins: torch.Tensor  # [F] i64, -1 where a feature has none
     n_words: int  # W = ceil(F / 4)
     m_nodes: int  # M: node records a tree, even
     m_leaves: int  # Lm: leaf values a tree, a multiple of 4
     n_trees: int
+    m_cat: int = 0  # C: categorical nodes' bitsets a tree (0: a numeric forest)
 
 
 def _nan_words(nan_bins: np.ndarray) -> np.ndarray:
@@ -119,30 +145,46 @@ def _split_word(sf, thr, dl, nan_bins, n_words, nan_word_of):
     return 0x54 | ((0x06 | (sf & 3) << 4) << 8) | (word << 16) | (thr << 24)
 
 
+def _cat_word(sf, off):
+    """The first word of a categorical node's record: byte 0 CAT_MARKER,
+    byte 1 (feat & 3) | (o & 0x3F) << 2, byte 2 the row's staged word feat
+    >> 2 (a categorical node never reads a NaN-left word: its mask never
+    holds the NaN bin), byte 3 o >> 6, for o its bitset's byte offset in
+    the tree's tables over 4 (14 bits: the tables stay below 64 KB)."""
+    o = off // 4
+    return (CAT_MARKER | (((sf & 3) | (o & 0x3F) << 2) << 8) | ((sf >> 2) << 16)
+            | ((o >> 6) << 24))
+
+
 def build_tables(
     records: Sequence[dict], nan_bins: np.ndarray, device
 ) -> ForestTables:
     """Stack bin-space records (split_feature, split_bin, default_left,
-    left_child, right_child, leaf_value) into walk tables on ``device``:
-    per tree M node records of two words (``_split_word``; left | right <<
-    16, each the u16 byte offset of the child in the tree's tables: 8 * i
-    for node i, 8 * M + 4 * j for leaf j), then Lm f32 leaf values, M even
-    and Lm a multiple of 4 so every tree is 16-byte aligned; and the
-    NaN-left words of the features' NaN bins (``nan_bins``, one a used
-    feature)."""
+    left_child, right_child, leaf_value; split_is_cat and cat_mask where
+    categorical nodes go left by their category masks) into walk tables on
+    ``device``: per tree M node records of two words (``_split_word``, or
+    ``_cat_word`` for a categorical node; left | right << 16, each the u16
+    byte offset of the child in the tree's tables: 8 * i for node i, 8 * M +
+    4 * j for leaf j), then Lm f32 leaf values, then C 256-bit bitsets (8
+    words, bit v & 31 of word v >> 5 for bin v) of the tree's categorical
+    nodes in node order, M even and Lm a multiple of 4 so every tree is
+    16-byte aligned; and the NaN-left words of the features' NaN bins
+    (``nan_bins``, one a used feature)."""
     t = len(records)
     m = max([len(r["split_feature"]) for r in records] + [1])
     m += m % 2
     lm = max(len(r["leaf_value"]) for r in records)
     lm = -(-lm // 4) * 4
-    if 8 * m + 4 * lm > 0x10000:
+    cats = [_cat_nodes(r) for r in records]
+    mc = max([int(c.sum()) for c in cats] + [0])
+    if 8 * m + 4 * lm + CAT_BITSET_BYTES * mc > 0x10000:
         raise ValueError("a tree's tables pass the u16 child offsets of the walk tables")
     nan_bins = np.asarray(nan_bins, np.int64)
     n_words = -(-len(nan_bins) // 4)
     nan_words = _nan_words(nan_bins)
     nan_word_of = np.zeros(max(n_words, 1), np.int64)
     nan_word_of[nan_words[:, 0].astype(np.int64)] = np.arange(len(nan_words))
-    words = np.zeros((t, 2 * m + lm), np.uint32)
+    words = np.zeros((t, 2 * m + lm + 8 * mc), np.uint32)
     for i, r in enumerate(records):
         sf = np.asarray(r["split_feature"], np.int64)
         nn = len(sf)
@@ -153,46 +195,72 @@ def build_tables(
             words[i, 1] = 8 * m | (8 * m) << 16
             continue
         thr = np.asarray(r["split_bin"], np.int64)
+        cat = cats[i]
+        thr = np.where(cat, 0, thr)
         if thr.max() >= MAX_BIN_VALUE or sf.max() >= MAX_F:
             raise ValueError("forest walk tables need bins < 256 and < 512 features")
         dl = np.asarray(r["default_left"], np.int64)
         lc = np.asarray(r["left_child"], np.int64)
         rc = np.asarray(r["right_child"], np.int64)
         words[i, 0: 2 * nn: 2] = _split_word(sf, thr, dl, nan_bins, n_words, nan_word_of)
+        if cat.any():
+            nodes = np.flatnonzero(cat)
+            cm = np.asarray(r["cat_mask"], bool)[nodes, :MAX_BIN_VALUE]
+            if cm.shape[1] >= MAX_BIN_VALUE and cm[:, MAX_BIN_VALUE - 1].any():
+                raise ValueError("a categorical mask claims bin 255, the predict sentinel")
+            bits = np.zeros((len(nodes), MAX_BIN_VALUE), np.int64)
+            bits[:, : cm.shape[1]] = cm
+            at = 2 * m + lm + 8 * np.arange(len(nodes))
+            words[i, 2 * nodes] = _cat_word(sf[nodes], 4 * at)
+            for a, row in zip(at, bits.reshape(len(nodes), 8, 32)):
+                words[i, a: a + 8] = (row << np.arange(32)).sum(axis=1).astype(np.uint32)
         off = lambda c: np.where(c >= 0, 8 * c, 8 * m + 4 * ~c)  # noqa: E731
         words[i, 1: 2 * nn: 2] = off(lc) | (off(rc) << 16)
     return ForestTables(
         tables=torch.as_tensor(words.view(np.int32), device=device),
         nan_words=torch.as_tensor(nan_words.view(np.int32), device=device),
         nan_bins=torch.as_tensor(nan_bins, device=device),
-        n_words=n_words, m_nodes=m, m_leaves=lm, n_trees=t,
+        n_words=n_words, m_nodes=m, m_leaves=lm, n_trees=t, m_cat=mc,
     )
 
 
 def decode_tables(tables: ForestTables) -> BinTreeBatch:
     """The stacked trees of the plain walker that route every row as the
-    tables do: a node that reads a NaN-left word sends missing values left."""
-    m, nw = tables.m_nodes, tables.n_words
+    tables do: a node that reads a NaN-left word sends missing values left,
+    a categorical node goes left by its bitset (a [256] mask)."""
+    m, nw, lm = tables.m_nodes, tables.n_words, tables.m_leaves
     w = tables.tables.long() & 0xFFFFFFFF
     x, y = w[:, 0: 2 * m: 2], w[:, 1: 2 * m: 2]
     word = (x >> 16) & 0xFF
-    nan_left = word >= nw
+    is_cat = (x & 0xFF) == CAT_MARKER
+    nan_left = (word >= nw) & ~is_cat
     q_of = torch.cat([torch.arange(nw, device=w.device), tables.nan_words[:, 0].long()])
-    feat = q_of[word] * 4 + ((x >> 12) & 3)
+    feat = q_of[word] * 4 + torch.where(is_cat, (x >> 8) & 3, (x >> 12) & 3)
+    # a categorical node's bitset: 8 words at byte offset 4 * o
+    o = ((x >> 10) & 0x3F) | ((x >> 24) << 6)
+    span = torch.arange(8, device=w.device)
+    at = torch.where(is_cat, o, 2 * m + lm)[..., None] + span  # [T, M, 8] word index
+    width = int(w.shape[1])
+    bitset = torch.gather(w, 1, at.clamp(max=width - 1).reshape(w.shape[0], -1))
+    bitset = bitset.reshape(at.shape)
+    mask = ((bitset[..., None] >> torch.arange(32, device=w.device)) & 1).bool()
+    cat_mask = (mask.reshape(x.shape + (MAX_BIN_VALUE,)) & is_cat[..., None]
+                if tables.m_cat else torch.zeros(x.shape + (1,), dtype=torch.bool,
+                                                 device=w.device))
     # a child's byte offset -> node index, or ~leaf past the node records
     child = lambda off: torch.where(off < 8 * m, off // 8, ~((off - 8 * m) // 4))  # noqa: E731
     nan_bins = torch.cat([tables.nan_bins, torch.full((4 * nw - len(tables.nan_bins),), -1,
                                                       device=w.device, dtype=torch.long)])
     return BinTreeBatch(
         split_feature=feat,
-        split_bin=x >> 24,
+        split_bin=torch.where(is_cat, 0, x >> 24),
         default_left=nan_left,
         nan_bin=nan_bins[feat],
         left_child=child(y & 0xFFFF),
         right_child=child(y >> 16),
         leaf_value=tables.tables[:, 2 * m:].contiguous().view(torch.float32),
-        split_is_cat=torch.zeros(x.shape, dtype=torch.bool, device=w.device),
-        cat_mask=torch.zeros(x.shape + (1,), dtype=torch.bool, device=w.device),
+        split_is_cat=is_cat,
+        cat_mask=cat_mask,
     )
 
 
@@ -281,18 +349,22 @@ def forest_walk(bins: torch.Tensor, tables: ForestTables, k: int) -> torch.Tenso
     if -(-f // 4) != tables.n_words:
         raise ValueError(f"tables built for {tables.n_words} words of bins, not {f} features")
     n_nan = int(tables.nan_words.shape[0])
-    plan = walk_plan(n, f, tables.n_trees, tables.m_nodes, tables.m_leaves,
+    # the bitsets ride behind the leaf values: 8 more words a categorical node
+    leaf_words = tables.m_leaves + 8 * tables.m_cat
+    plan = walk_plan(n, f, tables.n_trees, tables.m_nodes, leaf_words,
                      sm_count(bins.device), n_nan)
     out = torch.empty((n, k), dtype=torch.float32, device=bins.device)
     fn = _build.entry("forest_walk")
     rc = fn(
         bins.data_ptr(), tables.tables.data_ptr(), tables.nan_words.data_ptr(), n, f, n_nan,
-        tables.n_trees, tables.m_nodes, tables.m_leaves, int(k), plan.threads,
+        tables.n_trees, tables.m_nodes, leaf_words, int(k), plan.threads,
         plan.chunk_trees, plan.groups, out.data_ptr(),
-        torch.cuda.current_stream(bins.device).cuda_stream,
+        torch.cuda.current_stream(bins.device).cuda_stream, int(tables.m_cat > 0),
     )
     _build.check(rc, "forest_walk kernel")
     _build.LAUNCHES["forest_walk"] += 1
+    if tables.m_cat:
+        _build.LAUNCHES["forest_walk_cat"] += 1
     return out
 
 

@@ -11,11 +11,14 @@ partition kernels of ``csrc/partition.cu`` then the histogram of
 ``csrc/lane_hist.cuh`` on each elected child, four launches with no host
 read between them, counted once a call in
 ``_build.LAUNCHES['fused_grow_step']`` (and ``'fused_grow_step_table'`` when
-a live member partitions by its goes-left table, ``'fused_grow_step_u16'``
+a live member partitions by its goes-left table, ``'fused_grow_step_wtable'``
+too when a table passes 256 bins, ``'fused_grow_step_u16'``
 on u16 rows, ``'fused_grow_step_live'`` with a dead feature: the
 histogram's live mode, ``seg.feature_order``).  A member splits by its
 threshold or, as the TPU kernel's ``cat_ref`` operand (grow_step.py:95,
-:224-226), by a [B] bool goes-left table: an EFB bundle-plane split.  Past
+:224-226), by a [B] bool goes-left table: an EFB bundle-plane split or a
+categorical one, of any width up to the padded bins (``seg.split_members``'
+wide rows).  Past
 256 bins (the TPU kernel's ``wide`` mode, grow_step.py:231) the rows are
 the u16 mode's byte planes (``SegRows.wide``) and the histogram runs
 ``seg.hist_ranges`` bin ranges.
@@ -35,14 +38,15 @@ from .seg import (
     MAX_WINDOWS,
     SegRows,
     _device_scales,
+    count_table_modes,
     feature_order,
+    kernel_members,
     hist_ranges,
     partition_scratch,
     partition_tile_rows,
     seg_hist_batch_plain,
     sort_partition_batch_plain,
     split_members,
-    table_mode,
 )
 
 
@@ -115,7 +119,8 @@ def scratch_bytes(f: int, num_bins: int, int8: bool) -> int:
 
 def _launch(rows: SegRows, mem: np.ndarray, num_bins: int, quant_scales, fn=None, live=None):
     """One call of the ``csrc/grow_step.cu`` entry (``fn``: another build of
-    it) on K members ([K, MEMBER_COLS] i64): (dec [K, 4] i32, hist [K, F, B, 3] f32) on
+    it) on K members ([K, MEMBER_COLS] i64, or wide rows whose table words
+    go to the card): (dec [K, 4] i32, hist [K, F, B, 3] f32) on
     the card, the histogram of the features of ``live`` (None: all).  The
     partition's buffers and the histogram scratch live on the rows; only
     the two outputs are allocated."""
@@ -132,20 +137,22 @@ def _launch(rows: SegRows, mem: np.ndarray, num_bins: int, quant_scales, fn=None
     out = torch.empty((k, f, num_bins, 3), dtype=torch.float32, device=dev)
     scales = None if quant_scales is None else _device_scales(quant_scales, dev)
     order, nlive = feature_order(rows, live)
+    cmem, wt, ww = kernel_members(mem, dev)
     rc = (fn or _build.entry("grow_step"))(
         rows.bins.data_ptr(), rows.g.data_ptr(), rows.h.data_ptr(), rows.m.data_ptr(),
-        rows.ridx.data_ptr(), rows.n, rows.planes, mem.ctypes.data, k,
-        partition_tile_rows(rows.planes, int(mem[:, 1].sum())), ps.planes.data_ptr(),
+        rows.ridx.data_ptr(), rows.n, rows.planes, cmem.ctypes.data, k,
+        partition_tile_rows(rows.planes, int(mem[:, 1].sum()), ww), ps.planes.data_ptr(),
         ps.cols.data_ptr(), ps.stride, ps.status.data_ptr(), ps.staged.data_ptr(),
         ps.counter.data_ptr(), ps.next_epoch(), int(num_bins), ranges, order.data_ptr(), nlive,
         None if scales is None else scales.data_ptr(),
         rows.step.data_ptr(), rows.step.numel(), dec.data_ptr(), out.data_ptr(),
         torch.cuda.current_stream(dev).cuda_stream,
+        # the wide tables close the call, as in seg._partition_launch
+        None if wt is None else wt.data_ptr(), ww,
     )
     _build.check(rc, "fused grow step kernels")
     _build.LAUNCHES["fused_grow_step"] += 1
-    if table_mode(mem):
-        _build.LAUNCHES["fused_grow_step_table"] += 1
+    count_table_modes("fused_grow_step", mem)
     if rows.wide:
         _build.LAUNCHES["fused_grow_step_u16"] += 1
     if nlive < f:

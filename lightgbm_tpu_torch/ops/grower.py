@@ -49,6 +49,15 @@ goes-left table, and the partition (the fused step, the partition kernel,
 or the ordered layout's PyTorch partition, :1251, :1758-1761) sends the
 rows of the plane bins outside its member's sub-range ``[t, end]`` left.
 
+Categorical features (``is_cat`` given, the JAX package's ``use_cat``,
+ops/grower.py:816-820): every leaf is decided by ``best_split`` with the
+categorical cases, near-tie refine included, as the JAX package never takes
+its scan kernel then (``not p.use_cat`` in ``fused_ok``, :467); a
+categorical winner carries its category mask as its goes-left table, as
+wide as the padded bin axis, which the partition (the fused step, the
+partition kernel, or the ordered layout's PyTorch partition) reads, and
+the tree keeps it (``TreeArrays.split_table``, ``split_is_cat``).
+
 Bins past a byte (``max_bin`` > 256, the JAX package's wide seg path): the
 seg rows hold each feature as two byte planes (``SegRows.wide``: the u16
 modes of the partition, the histogram and the fused step), and every leaf
@@ -106,7 +115,6 @@ from .grow_step import fused_grow_step
 from .histogram import OrderedRows, ordered_hist, ordered_hist_int8
 from .seg import (
     RANGE_BINS,
-    TABLE_BINS,
     go_left,
     pack_rows,
     seg_hist,
@@ -114,7 +122,7 @@ from .seg import (
     sort_partition,
     sort_partition_batch,
 )
-from .split import SplitCandidate, best_split_batch, leaf_output
+from .split import CatParams, SplitCandidate, best_split_batch, leaf_output
 from .split_scan import fused_best_split_batch, scan_inputs
 
 _F32 = np.float32
@@ -160,6 +168,8 @@ class GrowerParams:
     # quant_scales are quantized training's (hist_method='pallas_int8'):
     # the seg histograms run the exact int8 mode, no decision is refined
     quantized: bool = False
+    # the categorical split search's keys (used with grow_tree's is_cat)
+    cat_params: Optional[CatParams] = None
 
 
 class TreeArrays(NamedTuple):
@@ -183,9 +193,13 @@ class TreeArrays(NamedTuple):
     num_leaves: int
     refine_count: int = 0  # decisions taken on an f32 re-accumulation
     grow_steps: int = 0  # grow-loop steps (serial: splits; batched: steps)
-    # [L-1] per node: the [B] bool goes-left table of a bundle-plane split,
-    # None for a threshold split (None altogether without EFB)
+    # [L-1] per node: the [B] bool goes-left table of a bundle-plane or a
+    # categorical split, None for a threshold split (None altogether
+    # without EFB and categorical features)
     split_table: Optional[List[Optional[np.ndarray]]] = None
+    # [L-1] bool: the node is a categorical split (None without categorical
+    # features)
+    split_is_cat: Optional[np.ndarray] = None
 
 
 # the cached candidate of a leaf that does not exist yet (or cannot split)
@@ -256,9 +270,6 @@ class _SegStore:
         goes-left table where ``tables`` has one); (nleft [K] host i64, the
         smaller children's histograms [K, F, B, 3])."""
         iscats = [t is not None for t in tables]
-        # a goes-left table is a bundle plane's, whose bins stay below
-        # TABLE_BINS on a u16 layout too: the kernels take that many
-        tables = [None if t is None else t[:TABLE_BINS] for t in tables]
         if self.fused:
             nl_t, _, _, _, sm = fused_grow_step(
                 self.rows, begins, cnts, feats, tbins, dls, nanbs, self.B,
@@ -372,6 +383,7 @@ def grow_tree(
     bins_nf: Optional[torch.Tensor] = None,  # [N, stride] u8 / u16 row-major (ordered)
     bundle_end: Optional[torch.Tensor] = None,  # [F, B] i32: EFB sub-range ends
     rng: Optional[rnd.Key] = None,  # the tree's key: feature_fraction_bynode
+    is_cat: Optional[torch.Tensor] = None,  # [F] bool: categorical features
 ) -> Tuple[TreeArrays, torch.Tensor]:
     """Grow one tree.  Returns (TreeArrays, leaf_id [N] i32 on the input
     device).  ``params.hist_mode`` picks the row store: 'seg', where
@@ -387,7 +399,10 @@ def grow_tree(
     candidates are further cut by ``node_feature_masks``.  ``bundle_end``
     (``BundleLayout.bundle_end_array``) makes the columns EFB planes: every
     leaf is decided by ``best_split``, and bundle-plane splits partition
-    by their goes-left tables."""
+    by their goes-left tables.  ``is_cat`` (None: no categorical feature)
+    likewise sends every leaf to ``best_split``, with its categorical
+    cases (``params.cat_params``), and categorical splits partition by
+    their category masks."""
     p = params
     L, B = p.num_leaves, p.max_bin
     K = max(1, min(p.leaf_batch, L - 1))
@@ -449,12 +464,13 @@ def grow_tree(
         """Candidates of the leaves with histograms ``hists`` (a list of
         [F, B, 3]) under their node masks (``masks`` [M, F], or None for
         the tree's mask): one launch and one transfer for all of them; with
-        ``bundle_end`` or past 256 bins, ``best_split`` of each, in one
-        batched call."""
-        if bundle_end is not None or wide:
+        ``bundle_end``, categorical features or past 256 bins,
+        ``best_split`` of each, in one batched call."""
+        if bundle_end is not None or wide or is_cat is not None:
             fm = feature_mask if masks is None else masks
             return best_split_batch(torch.stack(hists), stats, num_bins, nan_bins, fm,
-                                    bundle_end=bundle_end, with_margin=with_margin, **bs_kw)
+                                    bundle_end=bundle_end, with_margin=with_margin,
+                                    is_cat=is_cat, cat_params=p.cat_params, **bs_kw)
         inputs = scan_in if masks is None else (*scan_in[:2], masks)
         return fused_best_split_batch(hists, stats, *inputs, with_margin=with_margin, **kw)
 
@@ -516,6 +532,7 @@ def grow_tree(
     internal_weight = np.zeros(nn, _F32)
     internal_count = np.zeros(nn, _F32)
     split_table: List[Optional[np.ndarray]] = [None] * nn
+    split_is_cat = np.zeros(nn, bool)
 
     def record(t, l, new, begin, nleft, nright, cand_l, cand_r):
         """Split leaf l by its cached candidate into node t, leaves l (left)
@@ -535,6 +552,7 @@ def grow_tree(
         split_gain[t] = _F32(c.gain) + _F32(p.min_gain_to_split)
         default_left[t] = c.default_left
         split_table[t] = c.table
+        split_is_cat[t] = c.is_cat
         internal_value[t] = _leaf_output(leaf_g[l], leaf_h[l], p)
         internal_weight[t] = leaf_h[l]
         internal_count[t] = leaf_cnt[l]
@@ -653,7 +671,9 @@ def grow_tree(
         num_leaves=nl_,
         refine_count=refines,
         grow_steps=steps,
-        split_table=split_table[: nl_ - 1] if bundle_end is not None else None,
+        split_table=(split_table[: nl_ - 1]
+                     if bundle_end is not None or is_cat is not None else None),
+        split_is_cat=split_is_cat[: nl_ - 1] if is_cat is not None else None,
     )
     return tree, store.leaf_id(leaf_begin[:nl_], leaf_nrows[:nl_])
 

@@ -31,7 +31,9 @@ in two launches), ``sort_partition`` and
 disjoint windows per call) dispatch on the device of the tensors they are given:
 on the CPU they run their plain PyTorch versions, on a CUDA device they
 launch the kernel.  Each counts its kernel launches in ``_build.LAUNCHES``
-(and, on u16 rows, under its name with ``_u16`` too).
+(and, on u16 rows, under its name with ``_u16`` too; a partition by
+goes-left tables with ``_table``, and with ``_wtable`` where a table passes
+256 bins: a categorical split past 256 bins, ``split_members``' wide rows).
 
 The live mode (the TPU kernels' ``live`` plane-group mask, seg.py:62-65):
 the histograms take the tree's live features (``live``: the feature mask's,
@@ -142,9 +144,10 @@ def feature_bins(rows: SegRows, win, feat: Optional[int] = None) -> torch.Tensor
 def go_left(col: torch.Tensor, tbin: int, dl: bool, nanb: int, table=None) -> torch.Tensor:
     """Split predicate in bin space (ops/segpart.py:52): bin <= the
     threshold bin, or the NaN bin when missing values go left; or, given a
-    goes-left ``table`` ([B] bool: an EFB bundle-plane split, the branch of
-    lightgbm_tpu/ops/pallas/partition.py:271-285), the table's entry of the
-    bin (a bin past its end goes right, as there and in ops/segpart.py:57).
+    goes-left ``table`` ([B] bool of any width: an EFB bundle-plane split or
+    a categorical one, the branch of lightgbm_tpu/ops/pallas/partition.py:
+    271-285), the table's entry of the bin (a bin past its end goes right,
+    as there and in ops/segpart.py:57).
     ``col``: a u8 column, or the u16 mode's bins as integers."""
     if table is not None:
         t = torch.as_tensor(np.asarray(table, bool), device=col.device)
@@ -158,29 +161,58 @@ def go_left(col: torch.Tensor, tbin: int, dl: bool, nanb: int, table=None) -> to
 
 # a member row of the partition kernels (csrc/partition.cu kMemberCols):
 # start, cnt, feat, tbin, dl, nanb, iscat, then the goes-left table as
-# TABLE_WORDS u32 words (bit v & 31 of word v >> 5 for bin v)
+# TABLE_WORDS u32 words (bit v & 31 of word v >> 5 for bin v), which travel
+# in the launch's parameters.  Where a table sends a bin at or past
+# TABLE_BINS left (a categorical split past 256 bins), the rows are wider,
+# 7 + W columns with W = ceil(widest table / 32) words a table, and the
+# wrappers give the kernel the words as a [K, W] u32 array on the card
+# (``wide_words``).
 TABLE_BINS = 256
 TABLE_WORDS = TABLE_BINS // 32
 MEMBER_COLS = 7 + TABLE_WORDS
 
 
-def table_words(table) -> np.ndarray:
-    """[TABLE_WORDS] i64 words of a goes-left table ([B] bool, B <= 256;
-    bins past its end go right, as ``go_left`` reads them)."""
-    t = np.asarray(table, bool)
-    if not 1 <= len(t) <= TABLE_BINS:
-        raise ValueError(f"a goes-left table holds 1 to {TABLE_BINS} bins, got {len(t)}")
-    full = np.concatenate([t, np.zeros(TABLE_BINS - len(t), bool)])
-    bits = full.reshape(TABLE_WORDS, 32).astype(np.int64)
+def _words(t: np.ndarray, words: int) -> np.ndarray:
+    """[words] i64 words of the bool bits ``t`` (at most 32 * words)."""
+    full = np.zeros(32 * words, bool)
+    full[: len(t)] = t
+    bits = full.reshape(words, 32).astype(np.int64)
     return (bits << np.arange(32, dtype=np.int64)).sum(axis=1)
 
 
+def table_words(table, words: int = TABLE_WORDS) -> np.ndarray:
+    """[words] i64 words of a goes-left table ([B] bool, 1 <= B; bins past
+    its end go right, as ``go_left`` reads them); raises when it sends a
+    bin at or past 32 * words left."""
+    t = np.asarray(table, bool)
+    if len(t) < 1 or t[32 * words:].any():
+        raise ValueError(f"a goes-left table holds 1 to {32 * words} bins, got {len(t)}")
+    return _words(t[: 32 * words], words)
+
+
+def table_width_words(tables) -> int:
+    """Words a member row gives each table: TABLE_WORDS, or, where a table
+    sends a bin at or past TABLE_BINS left, ceil(widest table / 32)."""
+    ts = [np.asarray(t, bool) for t in (tables or []) if t is not None]
+    if not any(t[TABLE_BINS:].any() for t in ts):
+        return TABLE_WORDS
+    return -(-max(len(t) for t in ts) // 32)
+
+
+def wide_words(mem: np.ndarray) -> Optional[np.ndarray]:
+    """[K, W] u32 table words of wide member rows (``split_members`` past
+    TABLE_BINS), None for rows of MEMBER_COLS (the parameter path)."""
+    if mem.shape[1] <= MEMBER_COLS:
+        return None
+    return np.ascontiguousarray(mem[:, 7:].astype(np.uint32))
+
+
 def member_table(row) -> Optional[np.ndarray]:
-    """The [256] bool goes-left table of a member row, None for a threshold
-    member."""
+    """The [32 W] bool goes-left table of a member row (W = 8, or a wide
+    row's words), None for a threshold member."""
     if not int(row[6]):
         return None
-    words = np.asarray(row[7:MEMBER_COLS], np.int64)
+    words = np.asarray(row[7:], np.int64)
     return ((words[:, None] >> np.arange(32)) & 1).astype(bool).reshape(-1)
 
 
@@ -470,8 +502,9 @@ def split_members(sbegins, cnts, feats, tbins, dls, nanbs, iscats=None,
     iscat, the goes-left table's words) of K splits over disjoint windows;
     a negative cnt counts as 0 (a no-op member).  ``iscats`` [K] marks the
     members that partition by their entry of ``tables`` ([K] of [B] bool
-    or None).  Raises when two non-empty windows overlap, or a table
-    member has no table."""
+    or None); where a table sends a bin at or past TABLE_BINS left, the
+    rows are [K, 7 + W], W words a table (``table_width_words``).  Raises
+    when two non-empty windows overlap, or a table member has no table."""
     cols = [np.asarray(a, dtype=np.int64).reshape(-1)
             for a in (sbegins, cnts, feats, tbins, dls, nanbs)]
     k = len(cols[0])
@@ -479,14 +512,15 @@ def split_members(sbegins, cnts, feats, tbins, dls, nanbs, iscats=None,
                 else (np.asarray(iscats).reshape(-1) != 0).astype(np.int64))
     if any(len(c) != k for c in cols):
         raise ValueError("split members: arrays differ in length")
-    mem = np.zeros((k, MEMBER_COLS), np.int64)
+    words = table_width_words(tables) if iscats is not None else TABLE_WORDS
+    mem = np.zeros((k, 7 + words), np.int64)
     if k:
         mem[:, :7] = np.stack(cols, axis=1)
     for i in np.flatnonzero(mem[:, 6]):
         if tables is None or tables[i] is None:
             raise ValueError("split members: a categorical (table) member needs its "
                              "goes-left table")
-        mem[i, 7:] = table_words(tables[i])
+        mem[i, 7:] = table_words(tables[i], words)
     mem[:, 1] = np.maximum(mem[:, 1], 0)
     live = mem[mem[:, 1] > 0]
     live = live[np.argsort(live[:, 0], kind="stable")]
@@ -512,8 +546,9 @@ def sort_partition_batch(
     sequences as ``split_members`` takes them; cnt = 0 is a no-op member).
     Returns nl [K] i32 on the rows' device.  Plain version on the CPU, ONE
     call of the ``csrc/partition.cu`` kernels (two launches) on a CUDA
-    device (counted as ``partition_batch``, and as ``partition_batch_table``
-    when a live member partitions by its table)."""
+    device (counted as ``partition_batch``, as ``partition_batch_table``
+    when a live member partitions by its table, and as
+    ``partition_batch_wtable`` when the tables pass TABLE_BINS)."""
     mem = split_members(sbegins, cnts, feats, tbins, dls, nanbs, iscats, tables)
     if rows.device.type == "cpu":
         return sort_partition_batch_plain(rows, mem)
@@ -530,16 +565,17 @@ PART_FILL_TILES = 264  # tiles a call aims for: two a multiprocessor
 PART_MIN_TILE = 256
 
 
-def partition_stage_bytes(f: int, tile: int) -> int:
+def partition_stage_bytes(f: int, tile: int, table_words: int = 0) -> int:
     """Shared memory of one tile block: f planes of tile + 32 bytes and four
     4-byte columns of 4 * tile + 32 (the 16-byte chunks that cover an
     unaligned run), the ranks (2 bytes a row), the ballot masks and their
     scan (8 bytes per 32 rows), the planes' stage offsets (512 bytes) and
-    a few words."""
-    return f * (tile + 32) + 4 * (4 * tile + 32) + 2 * tile + tile // 4 + 512 + 64
+    a few words; with wide tables, a window's ``table_words`` words."""
+    return (f * (tile + 32) + 4 * (4 * tile + 32) + 2 * tile + tile // 4 + 512 + 64
+            + 4 * table_words)
 
 
-def partition_tile_rows(f: int, rows: int = 0) -> int:
+def partition_tile_rows(f: int, rows: int = 0, table_words: int = 0) -> int:
     """Rows a tile of the partition kernel stages: the largest of
     ``PART_TILES`` whose stage fits ``PART_BLOCK_SMEM``; for a call on
     ``rows`` rows, no larger than gives ``PART_FILL_TILES`` tiles, and no
@@ -547,10 +583,10 @@ def partition_tile_rows(f: int, rows: int = 0) -> int:
     smaller tiles; large ones lose less to each tile's fixed cost in fewer,
     larger ones)."""
     for tile in PART_TILES:
-        if partition_stage_bytes(f, tile) <= PART_BLOCK_SMEM:
+        if partition_stage_bytes(f, tile, table_words) <= PART_BLOCK_SMEM:
             break
     else:
-        widest = ((PART_BLOCK_SMEM - partition_stage_bytes(0, PART_TILES[-1]))
+        widest = ((PART_BLOCK_SMEM - partition_stage_bytes(0, PART_TILES[-1], table_words))
                   // (PART_TILES[-1] + 32))
         raise ValueError(f"the partition kernel's tiles hold at most {widest} features, got {f}")
     while rows and tile > PART_MIN_TILE and rows < tile * PART_FILL_TILES:
@@ -608,28 +644,52 @@ def partition_scratch(rows: SegRows) -> PartitionScratch:
     return rows.part
 
 
+def kernel_members(mem: np.ndarray, dev):
+    """The C entries' view of member rows: ([K, MEMBER_COLS] i64 rows,
+    C-contiguous; the wide rows' table words on the card or None; their
+    words a table, 0 on the parameter path)."""
+    wide = wide_words(mem)
+    if wide is None:
+        return np.ascontiguousarray(mem), None, 0
+    rows = np.ascontiguousarray(mem[:, :MEMBER_COLS])
+    return rows, torch.as_tensor(wide.view(np.int32), device=dev), int(wide.shape[1])
+
+
+def count_table_modes(name: str, mem: np.ndarray) -> None:
+    """Count a partition or fused-step call in its goes-left-table modes:
+    ``<name>_table`` when a live member partitions by its table,
+    ``<name>_wtable`` too when the tables pass TABLE_BINS (wide rows)."""
+    if table_mode(mem):
+        _build.LAUNCHES[name + "_table"] += 1
+        if mem.shape[1] > MEMBER_COLS:
+            _build.LAUNCHES[name + "_wtable"] += 1
+
+
 def _partition_launch(rows: SegRows, mem: np.ndarray, counted_as: str, fn=None) -> torch.Tensor:
     """One call of the ``csrc/partition.cu`` entry (``fn``: another build
-    of it) on K members ([K, MEMBER_COLS] i64, C-contiguous); nl [K] i32 on
-    the card."""
+    of it) on K members ([K, MEMBER_COLS] i64 rows, or wide rows whose
+    table words go to the card); nl [K] i32 on the card."""
     k = mem.shape[0]
     if not 1 <= k <= MAX_WINDOWS:
         raise ValueError(f"the partition kernel takes 1 to {MAX_WINDOWS} windows, got {k}")
     ps = partition_scratch(rows)
     dev = rows.device
     nl = torch.empty((k,), dtype=torch.int32, device=dev)
-    rc = (fn or _build.entry("partition"))(
+    cmem, wt, ww = kernel_members(mem, dev)
+    args = [
         rows.bins.data_ptr(), rows.g.data_ptr(), rows.h.data_ptr(), rows.m.data_ptr(),
-        rows.ridx.data_ptr(), rows.n, rows.planes, int(rows.wide), mem.ctypes.data, k,
-        partition_tile_rows(rows.planes, int(mem[:, 1].sum())), ps.planes.data_ptr(),
+        rows.ridx.data_ptr(), rows.n, rows.planes, int(rows.wide), cmem.ctypes.data, k,
+        partition_tile_rows(rows.planes, int(mem[:, 1].sum()), ww), ps.planes.data_ptr(),
         ps.cols.data_ptr(), ps.stride, ps.status.data_ptr(), ps.staged.data_ptr(),
         ps.counter.data_ptr(), ps.next_epoch(), nl.data_ptr(),
         torch.cuda.current_stream(dev).cuda_stream,
-    )
+    ]
+    # the wide tables' pointer and words close the call (a build of the
+    # earlier entry, which ends at the stream, ignores them)
+    rc = (fn or _build.entry("partition"))(*args, None if wt is None else wt.data_ptr(), ww)
     _build.check(rc, "partition kernel")
     _build.LAUNCHES[counted_as] += 1
-    if table_mode(mem):
-        _build.LAUNCHES[counted_as + "_table"] += 1
+    count_table_modes(counted_as, mem)
     if rows.wide:
         _build.LAUNCHES[counted_as + "_u16"] += 1
     return nl

@@ -14,7 +14,10 @@ its walk kernel for such models, boosting/gbdt.py:2872-2875).
 ``stack_real_trees`` / ``predict_real_leaves`` / ``predict_real_raw`` are
 the real-space walker of a model read from text, which has no bin mappers
 (predict.py:133-284 and ``Tree._decide``, tree.py:286-305): NumericalDecision
-on the raw values, with the None, Zero and NaN missing types.  It decides
+on the raw values, with the None, Zero and NaN missing types, and
+CategoricalDecision (a NaN or negative value goes right, else the bit of
+``int(value)`` in the node's bitset goes left, a value past its words
+right).  It decides
 in f64 (the JAX package walks in f32 and re-walks the rows near a threshold
 in f64, so its decisions are the f64 ones) and sums f64 leaf values.
 """
@@ -27,7 +30,7 @@ import numpy as np
 import torch
 
 from .binning import K_ZERO_THRESHOLD
-from .tree import MISSING_NAN, MISSING_ZERO, missing_type_of
+from .tree import K_CATEGORICAL_MASK, MISSING_NAN, MISSING_ZERO, missing_type_of
 
 
 class BinTreeBatch(NamedTuple):
@@ -131,6 +134,10 @@ class RealTreeBatch(NamedTuple):
     left_child: torch.Tensor  # [T, M] i64 (neg = ~leaf)
     right_child: torch.Tensor  # [T, M] i64
     leaf_value: torch.Tensor  # [T, Lm] f64
+    is_cat: torch.Tensor  # [T, M] bool: a categorical decision
+    cat_begin: torch.Tensor  # [T, M] i64: the node's first word in cat_words
+    cat_nwords: torch.Tensor  # [T, M] i64: its words (0 for a numeric node)
+    cat_words: torch.Tensor  # [W + 1] i64: every tree's bitset words, then a 0
 
 
 def stack_real_trees(trees: Sequence, device) -> RealTreeBatch:
@@ -145,6 +152,9 @@ def stack_real_trees(trees: Sequence, device) -> RealTreeBatch:
     lc = np.full((t, m), -1, np.int64)
     rc = np.full((t, m), -1, np.int64)
     leaf = np.zeros((t, lm), np.float64)
+    cat_begin = np.zeros((t, m), np.int64)
+    cat_nwords = np.zeros((t, m), np.int64)
+    words = []
     for i, tr in enumerate(trees):
         nn = tr.num_leaves - 1
         sf[i, :nn] = tr.split_feature_real
@@ -153,6 +163,12 @@ def stack_real_trees(trees: Sequence, device) -> RealTreeBatch:
         lc[i, :nn] = tr.left_child
         rc[i, :nn] = tr.right_child
         leaf[i, : tr.num_leaves] = tr.leaf_value
+        if tr.num_cat:
+            cat = np.flatnonzero(np.asarray(tr.decision_type[:nn], np.int64) & K_CATEGORICAL_MASK)
+            idx = np.asarray(tr.threshold, np.float64)[cat].astype(np.int64)
+            cat_begin[i, cat] = len(words) + tr.cat_boundaries[idx]
+            cat_nwords[i, cat] = tr.cat_boundaries[idx + 1] - tr.cat_boundaries[idx]
+            words.extend(int(w) for w in tr.cat_threshold)
     as_t = lambda a: torch.as_tensor(a, device=device)  # noqa: E731
     return RealTreeBatch(
         split_feature=as_t(sf),
@@ -162,6 +178,10 @@ def stack_real_trees(trees: Sequence, device) -> RealTreeBatch:
         left_child=as_t(lc),
         right_child=as_t(rc),
         leaf_value=as_t(leaf),
+        is_cat=as_t((dt & K_CATEGORICAL_MASK) != 0),
+        cat_begin=as_t(cat_begin),
+        cat_nwords=as_t(cat_nwords),
+        cat_words=as_t(np.asarray(words + [0], np.int64)),
     )
 
 
@@ -169,7 +189,10 @@ def predict_real_leaves(batch: RealTreeBatch, x: torch.Tensor) -> torch.Tensor:
     """Leaf index [N, T] of every row in every tree; x [N, F] f64 raw
     values.  A NaN is 0 unless the node's missing type is NaN; a missing
     value (NaN for NaN, |v| <= 1e-35 for Zero) takes the default side,
-    else ``v <= threshold`` goes left."""
+    else ``v <= threshold`` goes left.  At a categorical node a NaN or
+    negative value goes right, else v's integer part c goes left when bit c
+    & 31 of the node's word c >> 5 is set (a word past the node's goes
+    right)."""
     n = x.shape[0]
     t = batch.split_feature.shape[0]
     trees = torch.arange(t, device=x.device)[None, :]
@@ -184,6 +207,16 @@ def predict_real_leaves(batch: RealTreeBatch, x: torch.Tensor) -> torch.Tensor:
             (mt == MISSING_NAN) & isnan)
         gl = torch.where(missing, batch.default_left[trees, cur],
                          fval <= batch.threshold[trees, cur])
+        if len(batch.cat_words) > 1:
+            raw = torch.gather(x, 1, batch.split_feature[trees, cur])
+            # values past 2^31 lie past every bitset: go right
+            ok = ~torch.isnan(raw) & (raw >= 0) & (raw < 2.0**31)
+            c = torch.where(ok, raw, torch.zeros_like(raw)).long()
+            w = c >> 5
+            ok &= w < batch.cat_nwords[trees, cur]
+            word = batch.cat_words[torch.where(ok, batch.cat_begin[trees, cur] + w, -1)]
+            gl_cat = ok & (((word >> (c & 31)) & 1) != 0)
+            gl = torch.where(batch.is_cat[trees, cur], gl_cat, gl)
         nxt = torch.where(gl, batch.left_child[trees, cur], batch.right_child[trees, cur])
         nodes = torch.where(nodes >= 0, nxt, nodes)
     return ~nodes

@@ -40,7 +40,7 @@ from lightgbm_tpu.ops.pallas.forest_walk import (
 )
 
 from lightgbm_tpu_torch import _build
-from lightgbm_tpu_torch.bench_forest_walk import grow_tree, leaf_depths
+from lightgbm_tpu_torch.bench_forest_walk import categorize, grow_tree, leaf_depths
 from lightgbm_tpu_torch.convert import booster_from_arrays
 from lightgbm_tpu_torch.ops.forest_walk import (
     bin_numeric,
@@ -197,7 +197,7 @@ def model_walk(bins: np.ndarray, tables, k: int, plan, grid: int, rng):
     {the same key: [(group, rows, trees) of each of its threads]})."""
     n, f = bins.shape
     t_all, m, lm, nw = tables.n_trees, tables.m_nodes, tables.m_leaves, tables.n_words
-    tb = 8 * m + 4 * lm
+    tb = 8 * m + 4 * lm + 32 * tables.m_cat
     raw = tables.tables.numpy().view(np.uint8).reshape(-1)
     nan_words = tables.nan_words.numpy().view(np.uint32)
     flat = np.concatenate([bins.reshape(-1), np.zeros(4 * nw + 4, np.uint8)])
@@ -243,7 +243,15 @@ def model_walk(bins: np.ndarray, tables, k: int, plan, grid: int, rng):
                         x, y = u32(smem, node), u32(smem, node + 4)
                         word = _prmt(x, np.zeros_like(x), np.full_like(x, 0x4442))
                         wv = staged[slot, word.astype(np.int64)]
-                        gl = _prmt(wv, x, x) <= x
+                        # a categorical node: the feature's byte v of the
+                        # word, then bit v & 31 of word v >> 5 of its bitset
+                        is_cat = (x & 0xFF) == fw.CAT_MARKER
+                        v = _prmt(wv, np.zeros_like(wv),
+                                  (0x4440 | ((x >> 8) & 3)).astype(np.uint32)).astype(np.int64)
+                        o = (((x >> 10) & 0x3F) | ((x >> 24) << 6)).astype(np.int64)
+                        bits = u32(smem, np.where(is_cat, base + 4 * o + 4 * (v >> 5), 0))
+                        gl = np.where(is_cat, ((bits >> (v & 31).astype(np.uint32)) & 1) != 0,
+                                      _prmt(wv, x, x) <= x)
                         c = _prmt(y, np.zeros_like(y),
                                   np.where(gl, 0x4410, 0x4432).astype(np.uint32)).astype(np.int64)
                         leaf = c >= 8 * m
@@ -318,6 +326,28 @@ def test_schedule_model_equals_plain_walker(f, k, sms, grid, n, max_groups):
             lockstep[g] = np.maximum(lockstep.get(g, 0), d.max(axis=0))
         assert n_iter == longest
         assert n_iter <= max([int(v.sum()) for v in lockstep.values()] + [0])
+
+
+@pytest.mark.parametrize("f,sms,grid,max_groups", [(28, 2, 3, 1), (13, 132, 7, 32)])
+def test_schedule_model_walks_categorical_nodes(f, sms, grid, max_groups):
+    """The kernel's schedule on a forest with categorical nodes (every other
+    node, ``bench_forest_walk.categorize``; the bitsets after the leaf
+    values, staged with the tree) and rows in bin 255, the predict sentinel
+    that no mask holds: the plain walker's scores to the bit, which are the
+    walk of the records themselves."""
+    leaves = [300, 1, 255, 40, 300, 2, 255, 300]
+    bins, recs, nanb = random_case(f, 1000, f, leaves, nbins=200)
+    bins[::7, :] = 255
+    recs = categorize(recs, seed=f)
+    tables = build_tables(recs, nanb, "cpu")
+    assert tables.m_cat > 0
+    plan = fw._walk_plan(1000, f, tables.n_trees, tables.m_nodes,
+                         tables.m_leaves + 8 * tables.m_cat, sms,
+                         int(tables.nan_words.shape[0]), max_groups)
+    want = predict_bins_raw(stack_bin_trees(recs, nanb, "cpu"), torch.as_tensor(bins), 1)
+    assert torch.equal(forest_walk(torch.as_tensor(bins), tables, 1), want)
+    got, _, _ = model_walk(bins, tables, 1, plan, grid, np.random.default_rng(0))
+    assert got.tobytes() == want.numpy().tobytes()
 
 
 def test_walk_plan():

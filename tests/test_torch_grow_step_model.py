@@ -179,16 +179,20 @@ def test_model_equals_jax_fused_grow_step(mode):
 
 @pytest.mark.parametrize("mode", ["f32", "int8"])
 @pytest.mark.parametrize("case", ["random K=4", "tbin 256", "NaN bin past 255 left",
-                                  "table members"])
+                                  "table members", "K=4, 1024-bin tables"])
 def test_model_equals_plain_on_u16_windows(case, mode):
     """The u16 mode at a padded width of 1,024 (37 features as two byte
     planes each): the partition's key lo | hi << 8, the elected children's
-    histograms in bin ranges of 256, on random windows and the bench's u16
-    edge cases."""
+    histograms in bin ranges of 256, on random windows, the bench's u16
+    edge cases and its wide tables (wide member rows)."""
     rows, nb = bench_partition.synthetic_rows_u16(4_000, 37, torch.device("cpu"), seed=5)
     rng = np.random.default_rng(6)
-    mem = (_members(rows.n, nb, rng, 4) if case == "random K=4"
-           else bench_partition.u16_edge_cases(rows.n, nb)[case])
+    if case == "random K=4":
+        mem = _members(rows.n, nb, rng, 4)
+    elif "1024-bin" in case:
+        mem = bench_partition.wide_table_cases(rows.n, nb, 1024)[case]
+    else:
+        mem = bench_partition.u16_edge_cases(rows.n, nb)[case]
     scales = _int8_scales(rows) if mode == "int8" else None
     _run(rows, mem, 1024, scales, 24, 7)
 

@@ -12,7 +12,12 @@ walker (predict.py), on the CPU.
 * a port model string written, read and written again is byte-equal;
 * the port's tree blocks equal the JAX package's in structure, values
   within 1e-5;
-* categorical, linear and unported-objective files raise;
+* the reference's categorical scenario (``scen_categorical``) predicts its
+  ``preds.txt`` through the port, and trains through the port to the JAX
+  package's trees, within the 0.05 of the reference's final l2 that
+  ``test_consistency.py::test_scenario_golden_parity`` allows, with
+  ``cat_threshold`` in its model text;
+* linear and unported-objective files raise;
 * the sampled scenarios (scen_bagging, scen_goss, scen_quantized: bagging
   with ``feature_fraction``, GOSS, stochastic quantized training) trained
   through the port: the JAX package's trees, and the final train l2 within
@@ -177,10 +182,44 @@ def test_port_tree_blocks_equal_jax_blocks(case):
         assert t.shrinkage == j.shrinkage
 
 
-@pytest.mark.parametrize("name,match", [("categorical", "categorical"), ("linear", "linear")])
+@pytest.mark.parametrize("name,match", [("linear", "linear")])
 def test_categorical_and_linear_files_raise(name, match):
     with pytest.raises(NotImplementedError, match=match):
         lt.Booster(model_file=str(GOLDEN / f"scen_{name}.model.txt"), device="cpu")
+
+
+def test_categorical_scenario_model_predicts_its_golden():
+    x, _ = _golden("categorical")
+    model = GOLDEN / "scen_categorical.model.txt"
+    b = lt.Booster(model_file=str(model), device="cpu")
+    assert b.num_trees() == model.read_text().count("\nTree=")
+    assert sum(t.num_cat for t in b.trees) > 0
+    want = np.loadtxt(GOLDEN / "scen_categorical.preds.txt", ndmin=1)
+    np.testing.assert_allclose(b.predict(x), want, rtol=1e-4, atol=1e-5)
+
+
+def test_categorical_scenario_trains_the_jax_trees_and_reaches_the_reference():
+    x, y = _golden("categorical")
+    params = json.loads((GOLDEN / "scen_categorical.params.json").read_text())
+    rounds = int(params.pop("num_trees"))
+    ref_final = json.loads((GOLDEN / "scen_categorical.evals.json").read_text())[
+        "training:l2"][-1][1]
+    rec = {}
+    ds = lt.Dataset(x, y, params=params)
+    tb = lt.train(params, ds, rounds, valid_sets=[ds], valid_names=["training"],
+                  callbacks=[lt.record_evaluation(rec)], device="cpu")
+    assert tb.hist_mode == "seg" and len(tb.trees) == rounds
+    assert rec["training"]["l2"][-1] <= ref_final + 0.05 * abs(ref_final)
+    assert "cat_threshold=" in tb.model_to_string()
+    jp = {**params, "hist_mode": "seg", "verbosity": -1, "metric": "none"}
+    jb = lgb.train(jp, lgb.Dataset(x, y, params=jp), rounds)
+    for i, (jr, tree) in enumerate(zip(jb._bin_records, tb.trees)):
+        tr = tree.record()
+        for key in ("split_feature", "split_bin", "default_left", "left_child", "right_child",
+                    "split_is_cat"):
+            np.testing.assert_array_equal(tr[key], jr[key], err_msg=f"tree {i} {key}")
+        np.testing.assert_allclose(tr["leaf_value"], jr["leaf_value"], rtol=0, atol=1e-5)
+    assert len(jb._bin_records) == rounds
 
 
 @pytest.mark.parametrize("name", ["obj_poisson", "obj_quantile", "obj_gamma"])

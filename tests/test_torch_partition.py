@@ -214,18 +214,25 @@ def test_model_equals_plain_on_the_bench_edge_cases(case, tile):
 
 
 @pytest.mark.parametrize("case", ["random K=4", "tbin 255", "tbin 256", "NaN bin past 255 left",
-                                  "all left", "cnt 0 among K", "cnt < 32", "table members"])
+                                  "all left", "cnt 0 among K", "cnt < 32", "table members",
+                                  "root, 1024-bin tables", "K=4, 1024-bin tables"])
 @pytest.mark.parametrize("tile", ["kernel", 128])
 def test_model_equals_plain_on_u16_windows(case, tile):
     """The u16 mode (two byte planes a feature, 300-1,024 bins, NaN bins
     past 255): the kernel's key lo | hi << 8, its tiles moving the planes as
     bytes, on random windows and the bench's u16 edge cases (thresholds on
-    either side of the byte, table members whose bins past 255 go right)."""
+    either side of the byte, table members whose bins past 255 go right),
+    and its wide tables (the bench's 1,024-bin tables: wide member rows)."""
     rows, nb = bench_partition.synthetic_rows_u16(24_000, 5, torch.device("cpu"), seed=3)
     assert rows.wide and rows.planes == 10
     rng = np.random.default_rng(4)
-    mem = (_members(rows.n, nb, rng, 4) if case == "random K=4"
-           else bench_partition.u16_edge_cases(rows.n, nb)[case])
+    if case == "random K=4":
+        mem = _members(rows.n, nb, rng, 4)
+    elif "1024-bin" in case:
+        mem = bench_partition.wide_table_cases(rows.n, nb, 1024)[case]
+        assert mem.shape == (len(mem), 7 + 32)
+    else:
+        mem = bench_partition.u16_edge_cases(rows.n, nb)[case]
     t = seg.partition_tile_rows(rows.planes, int(mem[:, 1].sum())) if tile == "kernel" else tile
     want = _clone(rows)
     nl_p = seg.sort_partition_batch_plain(want, mem)
@@ -337,7 +344,12 @@ def test_kernel_source_agrees_with_the_host_side():
     assert "for (int j = 0; j < kTableWords; ++j) P.table[i][j] = (unsigned)r[7 + j];" in src
     # a bin past the table's 256 goes right, as member_go_left sends it
     assert ("by_table ? (v < 32 * kTableWords && ((s_table[v >> 5] >> (v & 31)) & 1u))\n"
-            "                        : go_left(v, tbin, dl, nanb)") in src
+            "                                  : go_left(v, tbin, dl, nanb)") in src
+    # wide member rows: every table's words from the card, a bin past the
+    # table's 32 W bins right (member_table reads the row's words the same)
+    assert "const bool wide_table = by_table && a.wwords > 0;" in src
+    assert "[&](int v) { return v < wbits && ((s_wide[v >> 5] >> (v & 31)) & 1u); }" in src
+    assert "load_wide_table(a.wtable + (long long)w * a.wwords, a.wwords, s_wide);" in src
     # the u16 mode's key: the feature's two planes, lo | hi << 8 (_key above)
     assert "a.bins + (long long)P.feat[w] * (a.wide ? 2 : 1) * n + row0;" in src
     assert "load_keys<T>(tt, col, a.wide ? col + n : nullptr, key);" in src
