@@ -62,10 +62,18 @@ Phases (any failed check raises, and the script exits non-zero):
            near-tie f32 refine) for 10 rounds on the card, then predict()
            on the same rows; launch counts of its kernels (each must be
            > 0), near-tie refines per tree, and the training log-loss per
-           round (it must fall); one warm predict split into its phases
-           (the host's column gather and f32 conversion, the
-           binning tables, copy to the card, bin_numeric, suspect rows,
-           walk, copy back); the walk kernel's scores bit-equal to the
+           round (it must fall); one warm predict's last_predict_stats
+           (host wall time a phase: bin_ms, transfer_ms, walk_ms, host_ms)
+           beside its device time by operation (the walk kernel, then all);
+           the rest of prediction on the same model and rows, timed:
+           pred_leaf in 4,096-row chunks against the plain walker's leaves
+           of every row, the walk path in 262,144-row chunks at
+           pred_num_buffers 1 and 2 against one chunk, the streaming value
+           path at 4,096 against 1<<20 rows a chunk (bit for bit) and early
+           stopping (freq 2, margin 1.0) against the host's sum of the same
+           per-tree block on the first 262,144 rows, pred_contrib of 32 rows against the block's sum
+           (the SHAP identity, 1e-6), rows/s of each and their
+           last_predict_stats; the walk kernel's scores bit-equal to the
            plain walker's, every row in the same leaf of every tree, then
            the same at 500 trees (the 10 trees' records repeated 50 times,
            the Higgs run's forest size), timed; one more iteration under
@@ -139,7 +147,7 @@ Phases (any failed check raises, and the script exits non-zero):
            (the ordered layout) for its rate
   cat      categorical features end to end: the efb phase's draws kept as
            8 integer-coded columns named by categorical_feature (the same
-           information, categorical instead of one-hot): 10 rounds with no
+           information, categorical instead of one-hot): 5 rounds with no
            path parameters and 5 at bench.py's parameters (K=4):
            iterations/s beside efb's, log-loss per round beside efb's (must
            fall), categorical splits in every tree, launches (the fused step
@@ -189,8 +197,9 @@ Phases (any failed check raises, and the script exits non-zero):
            hist_mode='ordered'; 5 rounds (log-loss must fall), launches
            (ordered_hist and split_scan, no seg kernel), predict through
            the plain walker (700 features > the walk kernel's 512) against
-           the training score (1e-5 relative), the walker alone on the
-           rows' bins; one iteration under the
+           the training score (1e-5 relative), one warm predict's
+           last_predict_stats, the walker alone on the rows' bins; one
+           iteration under the
            profiler, with the tree's ordered_hist time against its bound
            (each launch's rows * (F + 16) + K * F * B * 12 bytes)
   wide-batch  bench.py's batch parameters (leaf_batch 4) for 3 rounds:
@@ -198,7 +207,7 @@ Phases (any failed check raises, and the script exits non-zero):
   wide-quant  quantized training on the int8 kernel (use_quantized_grad,
            stochastic_rounding=False, hist_method='pallas_int8') for 3
            rounds: ordered_hist_int8 only
-  wide-parity  32,768 of the wide rows for 3 rounds, card vs CPU, f32 and
+  wide-parity  32,768 of the wide rows for 2 rounds, card vs CPU, f32 and
            quantized: share of identical splits, log-loss
   wide-u16 the Expo shape at max_bin 1023 (262,144 x 700 normals on a
            grid of 1/1024, 2% NaN, padded to 1,024 bins): with no path parameters
@@ -208,7 +217,7 @@ Phases (any failed check raises, and the script exits non-zero):
            training score (1e-5 relative); wide-u16-quant: 3 quantized
            rounds on the same rows (ordered_hist_int8_u16, not
            ordered_hist_u16); wide-u16-parity: the first 8,192 rows, card
-           vs CPU for 3 rounds, quantized (>= 0.95 of splits identical,
+           vs CPU for 2 rounds, quantized (>= 0.95 of splits identical,
            log-loss within 1e-4) and f32 (the trees may part only at a
            near tie: the first differing split's two gains within 1e-5
            relative; log-loss within 2e-4; its share printed)
@@ -267,6 +276,13 @@ WIDE_QUANT_ROUNDS = 3
 # quantized, 700 features) takes ~1.6 s a thousand rows, so it is cut to
 # these rows for the time limit
 WIDE_PARITY_ROWS = 1 << 15
+# rows of the streaming value path's and early stopping's card checks (the
+# engine bins every row on the host, ~0.3 M rows/s)
+STREAM_CHECK_ROWS = 1 << 18
+# the two 700-column card-vs-CPU checks (wide-parity, wide-u16-parity): 2
+# rounds (3 until the prediction checks joined the script; their CPU side
+# took 40-45 s a mode at 3)
+WIDE_PARITY_ROUNDS = 2
 QUANT_PARAMS = {**PARAMS, "use_quantized_grad": True, "stochastic_rounding": False,
                 "num_grad_quant_bins": 4, "hist_method": "pallas_int8"}
 # the efb phase: the Expo / Flight Delay shape of the reference's experiment
@@ -289,7 +305,7 @@ EFB_BUDGET_S = 240.0
 # reference's docs/Features.rst, "Optimal Split for Categorical Features");
 # cat-wide at max_bin 1023, where the two 300-level columns keep more than
 # 255 categories (tables past 256 bins)
-CAT_ROUNDS = 10
+CAT_ROUNDS = 5  # 10 until the prediction checks joined the script
 CAT_BATCH_ROUNDS = 5
 CAT_WIDE_PARAMS = {**PARAMS, "max_bin": 1023}
 CAT_WIDE_ROUNDS = 3
@@ -1104,75 +1120,125 @@ def check_forest_walk(booster, x, dev):
     return entry
 
 
-def predict_phases(booster, x) -> dict:
-    """One warm predict, split: the host's column gather (none when every
-    column is used) and f32 conversion, the device binning tables, the copy to the
-    card, bin_numeric, the suspect rows (their count read to the host, their
-    host re-binning and the patch copied back), the walk (the cast to u8,
-    the kernel), and the scores' conversion and
-    copy back; each phase ends in a synchronize.  The steps are
-    Booster.predict's (its result must equal predict's to the bit)."""
-    from lightgbm_tpu_torch._bench import device_profile
-    from lightgbm_tpu_torch.boosting.gbdt import PREDICT_CHUNK
-    from lightgbm_tpu_torch.ops import forest_walk as fw
+def predict_stats(booster, x, label: str) -> dict:
+    """One warm predict of rows x: ``Booster.last_predict_stats`` (host wall
+    time a phase, taken without extra synchronisation), its rows/s, and the
+    device time of the same predict by operation (one trace of one call:
+    the walk kernel alone, and every device operation)."""
+    from lightgbm_tpu_torch._bench import device_by_name
 
-    dev = booster.device
-    want = booster.predict(x)  # warm
-    ph = dict.fromkeys(("gather + f32", "binning tables", "to card", "bin_numeric", "suspects",
-                        "walk", "back to host"), 0.0)
-    n_suspect = 0
-    every = list(booster.used_features) == list(range(x.shape[1]))
+    booster.predict(x)  # warm
     torch.cuda.synchronize()
-    t_all = t = time.perf_counter()
-    dbt = fw.build_devbin_tables(booster.bin_mappers, booster.used_features, dev)
-    torch.cuda.synchronize()
-    ph["binning tables"] = time.perf_counter() - t
-    parts = []
-    for lo in range(0, len(x), PREDICT_CHUNK):
-        t = time.perf_counter()
-        xo = x[lo:lo + PREDICT_CHUNK]
-        host = np.ascontiguousarray(xo if every else xo[:, booster.used_features],
-                                    dtype=np.float32)
-        ph["gather + f32"] += time.perf_counter() - t
-        t = time.perf_counter()
-        xs = torch.as_tensor(host, device=dev)
+    t0 = time.perf_counter()
+    booster.predict(x)
+    total = time.perf_counter() - t0
+    stats = dict(booster.last_predict_stats)
+    by_name = device_by_name(lambda: booster.predict(x), reps=1)
+    walk = sum(ms for name, ms in by_name.items() if "forest_walk" in name)
+    busy = sum(by_name.values())
+    dev = (f"device time of the same call (one trace): the walk kernel {walk:.4f} ms, "
+           f"{len(by_name)} kinds of device operation {busy:.3f} ms in all"
+           if by_name else "device time: the trace lost operations (not measured)")
+    print(f"{label}: one warm predict of {len(x)} rows {total * 1e3:.1f} ms "
+          f"({len(x) / total:.0f} rows/s); last_predict_stats {json.dumps(stats)}; {dev}")
+    return {"total_ms": total * 1e3, "stats": stats,
+            "walk_device_ms": walk if by_name else float("nan"),
+            "device_ms": busy if by_name else float("nan")}
+
+
+def early_stop_reference(per_tree: np.ndarray, freq: int, margin: float):
+    """(each row's sum up to the first checkpoint, every ``freq`` trees,
+    where 2 |sum| > margin, else its full sum; the rows stopped), adding
+    the trees in order row by row (reference gbdt_prediction.cpp:18-36)."""
+    acc = np.zeros(len(per_tree))
+    out = np.zeros(len(per_tree))
+    done = np.zeros(len(per_tree), bool)
+    for t in range(per_tree.shape[1]):
+        acc = acc + per_tree[:, t]
+        if (t + 1) % freq == 0:
+            stop = ~done & (2 * np.abs(acc) > margin)
+            out[stop] = acc[stop]
+            done |= stop
+    return np.where(done, out, acc), int(done.sum())
+
+
+def predict_checks(booster, x, dev) -> dict:
+    """The rest of prediction on the card, on the main phase's model and
+    rows, each timed: ``pred_leaf`` (chunks of 4,096 rows) against the
+    plain walker's leaves of every row; the walk path in chunks of 262,144
+    rows at ``pred_num_buffers`` 1 and 2 against one chunk; the streaming
+    value path at 4,096 against 1<<20 rows a chunk and prediction early
+    stopping against the same per-tree block summed on the host, both on
+    the first STREAM_CHECK_ROWS rows; and
+    ``pred_contrib`` of 32 rows against the per-tree block's sum (the SHAP
+    identity).  Every comparison is bit for bit but the last (1e-6)."""
+    from lightgbm_tpu_torch.boosting import gbdt
+    from lightgbm_tpu_torch.predict import predict_bins_leaves, stack_bin_trees
+
+    n, n_trees = len(x), len(booster.trees)
+    rates = {}
+
+    def timed(what, fn):
         torch.cuda.synchronize()
-        ph["to card"] += time.perf_counter() - t
-        t = time.perf_counter()
-        bins, suspect = fw.bin_numeric(xs, *dbt)
+        t0 = time.perf_counter()
+        out = fn()
         torch.cuda.synchronize()
-        ph["bin_numeric"] += time.perf_counter() - t
-        t = time.perf_counter()
-        sidx = torch.nonzero(suspect)[:, 0].cpu().numpy()
-        n_suspect += len(sidx)
-        if len(sidx):
-            patch = booster._bin_host(xo[sidx])
-            bins[torch.as_tensor(sidx, device=dev)] = torch.as_tensor(patch.astype(np.int32),
-                                                                      device=dev)
-        torch.cuda.synchronize()
-        ph["suspects"] += time.perf_counter() - t
-        t = time.perf_counter()
-        parts.append(booster.predict_raw_bins(bins.to(torch.uint8)))
-        torch.cuda.synchronize()
-        ph["walk"] += time.perf_counter() - t
-    # the last chunk's walk alone on the card: the cast to u8, then the
-    # kernel (row-major bins, so no copy between them)
-    walk_dev, walk_ops = device_profile(lambda: booster.predict_raw_bins(bins.to(torch.uint8)))
-    t = time.perf_counter()
-    got = booster._finish_predict(torch.cat(parts), False)
-    ph["back to host"] = time.perf_counter() - t
-    total = time.perf_counter() - t_all
-    if not np.array_equal(got, want):
-        raise AssertionError("predict phases: the split steps differ from Booster.predict")
-    ms = {k: v * 1e3 for k, v in ph.items()}
-    print(f"main: predict phases of one warm predict of {len(x)} rows, {total * 1e3:.1f} ms "
-          f"({len(x) / total:.0f} rows/s): "
-          + ", ".join(f"{k} {v:.2f} ms" for k, v in ms.items())
-          + f"; {n_suspect} suspect rows re-binned on the host; the last chunk's walk "
-          f"{walk_dev:.4f} ms device time in {walk_ops:.0f} device operations, its u8 bins "
-          f"{'row-major' if bins.to(torch.uint8).is_contiguous() else 'feature-major'}")
-    return {"total_ms": total * 1e3, "suspect_rows": n_suspect, "walk_device_ms": walk_dev,
-            "walk_ops": walk_ops, **ms}
+        rates[what] = len(out) / (time.perf_counter() - t0)
+        return out
+
+    t_all = time.perf_counter()
+    leaves = timed("pred_leaf", lambda: booster.predict(x, pred_leaf=True, pred_chunk_rows=4096))
+    leaf_stats = dict(booster.last_predict_stats)
+    batch = stack_bin_trees([t.record() for t in booster.trees], booster.nan_bins, dev)
+    plain = predict_bins_leaves(batch, torch.as_tensor(booster._bin_matrix(x), device=dev))
+    if leaves.shape != (n, n_trees) or not np.array_equal(leaves, plain.cpu().numpy()):
+        raise AssertionError("pred_leaf: leaves differ from the plain walker's")
+    del plain
+    want = booster.predict(x)
+    chunk = gbdt.PREDICT_CHUNK
+    gbdt.PREDICT_CHUNK = 1 << 18
+    try:
+        for nb in (1, 2):
+            got = timed(f"walk path, 262,144-row chunks, {nb} buffers",
+                        lambda: booster.predict(x, pred_num_buffers=nb))
+            if not np.array_equal(got, want):
+                raise AssertionError(f"walk path: {nb} buffers differ from one chunk")
+        chunk_stats = dict(booster.last_predict_stats)
+    finally:
+        gbdt.PREDICT_CHUNK = chunk
+    eng = booster._stream_engine()
+    xq = x[:STREAM_CHECK_ROWS]
+    small = timed("stream value, 4,096-row chunks",
+                  lambda: eng.run(xq, 0, n_trees, space="bin", kind="value", chunk=4096))
+    stream_stats = dict(eng.last_stats)
+    big = timed("stream value, 1<<20-row chunks",
+                lambda: eng.run(xq, 0, n_trees, space="bin", kind="value", chunk=1 << 20))
+    if not np.array_equal(small, big):
+        raise AssertionError("streaming value path: 4,096 and 1<<20 rows a chunk differ")
+    margin = 1.0
+    es = timed("early stopping, freq 2, margin 1.0", lambda: booster.predict(
+        xq, raw_score=True, pred_early_stop=True, pred_early_stop_freq=2,
+        pred_early_stop_margin=margin))
+    ref, stopped = early_stop_reference(small, 2, margin)
+    if not np.array_equal(es, ref) or not 0 < stopped < len(xq):
+        raise AssertionError(f"early stopping: card and host differ ({stopped} rows stopped)")
+    contrib = timed("pred_contrib, 32 rows", lambda: booster.predict(x[:32], pred_contrib=True))
+    err = float(np.abs(contrib.sum(axis=1) - small[:32].sum(axis=1)).max())
+    if contrib.shape != (32, x.shape[1] + 1) or err > 1e-6:
+        raise AssertionError(f"pred_contrib: the SHAP identity is off by {err:.3g}")
+    took = time.perf_counter() - t_all
+    print(f"main: pred_leaf of {n} rows (4,096-row chunks) equals the plain walker's leaves; "
+          f"the walk path in 262,144-row chunks at 1 and 2 buffers bit-equal to one chunk; on "
+          f"the first {len(xq)} rows the streaming value path at 4,096 and 1<<20 rows a chunk "
+          f"bit-equal; early stopping "
+          f"(freq 2, margin {margin}) equals the host's sum of the same per-tree block, "
+          f"{stopped} rows stopped early; pred_contrib of 32 rows sums to the raw score within "
+          f"{err:.3g}; the checks took {took:.1f} s")
+    print("main: predict rows/s " + ", ".join(f"{k} {v:.0f}" for k, v in rates.items()))
+    print(f"main: last_predict_stats of pred_leaf {json.dumps(leaf_stats)}; of the walk path "
+          f"in 262,144-row chunks {json.dumps(chunk_stats)}; of the streaming value path at "
+          f"4,096 {json.dumps(stream_stats)}")
+    return {"rows_per_s": rates, "seconds": took, "stopped": stopped}
 
 
 def profile_iteration(booster, label: str = "profile") -> dict:
@@ -2497,6 +2563,7 @@ def wide_phases(lt, _build, dev):
     err = float(np.max(np.abs(raw - score) / np.maximum(np.abs(score), 1.0)))
     if raw.shape != (WIDE_ROWS,) or not np.all(np.isfinite(raw)) or err > 1e-5:
         raise AssertionError(f"wide: predict is off the training score by {err:.3g} (relative)")
+    predict_stats(wb, x, "wide")
     bins = wb._bins_nf[:, :WIDE_FEATURES]
     walk_ms = time_ms(lambda: wb.predict_raw_bins(bins), reps=3, warmup=1)
     print(f"wide: predict through the plain walker matches the training score (max relative "
@@ -2547,8 +2614,9 @@ def wide_phases(lt, _build, dev):
         runs = {}
         for d in ("cuda", "cpu"):
             t0 = time.perf_counter()
-            runs[d] = lt.train(params, lt.Dataset(xs, ys, params=params), PARITY_ROUNDS, device=d)
-            print(f"wide-parity {name}: {d} trained {PARITY_ROUNDS} rounds in "
+            runs[d] = lt.train(params, lt.Dataset(xs, ys, params=params), WIDE_PARITY_ROUNDS,
+                               device=d)
+            print(f"wide-parity {name}: {d} trained {WIDE_PARITY_ROUNDS} rounds in "
                   f"{time.perf_counter() - t0:.1f} s ({runs[d].hist_mode})")
         share = split_share(runs["cuda"], runs["cpu"])
         lc, lp = runs["cuda"].train_loss(), runs["cpu"].train_loss()
@@ -2626,7 +2694,7 @@ def wide_u16_phase(lt, _build):
         raise AssertionError("wide-u16-quant: the f32 ordered histogram launched")
     del qb, ds
 
-    # -- card vs CPU on the first rows for PARITY_ROUNDS: quantized (exact
+    # -- card vs CPU on the first rows for WIDE_PARITY_ROUNDS: quantized (exact
     # int8 sums: the same trees), then f32, whose sums the card adds in
     # another order
     xs, ys = x[:WIDE_U16_PARITY_ROWS].copy(), y[:WIDE_U16_PARITY_ROWS].copy()
@@ -2638,9 +2706,9 @@ def wide_u16_phase(lt, _build):
             warnings.simplefilter("ignore")
             for d in ("cuda", "cpu"):
                 t0 = time.perf_counter()
-                runs[d] = lt.train(params, lt.Dataset(xs, ys, params=params), PARITY_ROUNDS,
-                                   device=d)
-                print(f"wide-u16-parity {name}: {d} trained {PARITY_ROUNDS} rounds in "
+                runs[d] = lt.train(params, lt.Dataset(xs, ys, params=params),
+                                   WIDE_PARITY_ROUNDS, device=d)
+                print(f"wide-u16-parity {name}: {d} trained {WIDE_PARITY_ROUNDS} rounds in "
                       f"{time.perf_counter() - t0:.1f} s ({runs[d].hist_mode}, "
                       f"{runs[d]._max_bin} bins)")
         share = split_share(runs["cuda"], runs["cpu"])
@@ -3083,7 +3151,8 @@ def main() -> int:
         raise AssertionError(f"predict log-loss {pred_loss} vs train {losses[-1]}")
     print(f"main: predict log-loss {pred_loss:.6f} matches the training score")
 
-    predict_phases(booster, x)
+    predict_stats(booster, x, "main")
+    predict_checks(booster, x, dev)
     kernels["forest_walk"] = check_forest_walk(booster, x, dev)
     main_profile = profile_iteration(booster)
     del booster
@@ -3190,8 +3259,10 @@ def main() -> int:
         raise AssertionError(f"kernels not checked or never launched on a path: {missing}")
     from lightgbm_tpu_torch._bench import TRACES
 
-    print(f"device traces: {TRACES['lost']} of {TRACES['taken']} lost device operations (their "
-          "device times not measured: NaN here, null in the kernels line)")
+    print(f"device traces: {TRACES['lost']} of {TRACES['taken']} lost (their device times not "
+          f"measured: NaN here, null in the kernels line); {TRACES['session']} of them lost device "
+          f"operations in one session, and of those taken again with CUPTI's forced flush "
+          f"{TRACES['flush']} lost them again")
     print(f"chip_smoke: the script took {time.perf_counter() - t_script:.1f} s [{card}]")
     print(json.dumps({"kernels": nan_to_null(list(kernels.values()))}, allow_nan=False))
     print(card)

@@ -50,43 +50,104 @@ def time_ms(fn: Callable, reps: int = 20, warmup: int = 2,
     return statistics.median(times)
 
 
-# the profiler can lose device operations of a short trace (none, or not a
-# whole number a call); such a trace reads NaN, "not measured", unless a
-# retake with idle host time at the end of its window is whole.  TRACES
-# counts the traces taken and lost in this process.
-TRACES = {"taken": 0, "lost": 0}
+# The profiler can lose device operations of a trace (none, or not a whole
+# number a call).  A trace is one profiler session over every part of a
+# measurement (``setup`` alone, then ``setup`` and ``fn``), the parts told
+# apart by a marker kernel between them, read once after a synchronize; a
+# take that lost operations is taken again with a forced flush of CUPTI's
+# activity buffers before the profiler stops (``_flush_activity``), and
+# then, where asked, with idle host time at the end of its window.  A
+# trace whose takes all lost operations reads NaN, "not measured".  TRACES
+# counts the traces taken, those lost in the end, and the takes that lost
+# operations in one session ("session") and with the flush ("flush").
+TRACES = {"taken": 0, "lost": 0, "session": 0, "flush": 0}
+# torch.cuda._sleep's kernel, at::cuda::(anonymous namespace)::spin_kernel(long)
+_MARKER = "spin_kernel"
+_CUPTI = {}
 
 
-def _device_events(fn: Callable, reps: int, setup: Optional[Callable], idle: float = 0.0):
+def _flush_activity() -> bool:
+    """cuptiActivityFlushAll with CUPTI_ACTIVITY_FLAG_FLUSH_FORCED on the
+    CUPTI library this process loaded (found in /proc/self/maps), so that
+    buffers holding incomplete records are delivered before the profiler
+    stops; False when no such library is loaded."""
+    if "fn" not in _CUPTI:
+        _CUPTI["fn"] = None
+        try:
+            with open("/proc/self/maps") as fh:
+                paths = sorted({ln.split()[-1] for ln in fh if "libcupti" in ln})
+        except OSError:
+            paths = []
+        if paths:
+            import ctypes
+
+            fn = ctypes.CDLL(paths[0]).cuptiActivityFlushAll
+            fn.argtypes, fn.restype = [ctypes.c_uint32], ctypes.c_int
+            _CUPTI["fn"] = fn
+    if _CUPTI["fn"] is None:
+        return False
+    return _CUPTI["fn"](1) == 0
+
+
+def _session(parts, flush: bool, idle: float):
+    """The device events of each part [(fn, reps, setup)] of one profiler
+    session, or None when the markers between the parts were lost."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            if setup is not None:
-                setup()
-            fn()
+        for i, (fn, reps, setup) in enumerate(parts):
+            if i:
+                torch.cuda._sleep(1000)
+            for _ in range(reps):
+                if setup is not None:
+                    setup()
+                fn()
         torch.cuda.synchronize()
+        if flush:
+            _flush_activity()
         time.sleep(idle)
-    return [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    events = sorted((e for e in prof.events() if e.device_type == DeviceType.CUDA),
+                    key=lambda e: e.time_range.start)
+    marks = [i for i, e in enumerate(events) if _MARKER in e.name]
+    if len(marks) != len(parts) - 1:
+        return None
+    bounds = [-1] + marks + [len(events)]
+    return [events[a + 1:b] for a, b in zip(bounds, bounds[1:])]
 
 
-def _whole_trace(fn: Callable, reps: int, setup: Optional[Callable], idle: float = 0.0,
-                 empty_ok: bool = False):
-    """The device events of ``reps`` calls of ``fn``, or None when the
-    trace lost some (no device operation, unless ``empty_ok``, or a count
-    that is not a whole number a call) and, with ``idle`` > 0, so did a
-    retake with ``idle`` s of idle time at the end of its window."""
+def _device_events(fn: Callable, reps: int, setup: Optional[Callable], idle: float = 0.0):
+    """The device events of one session of ``reps`` calls of ``fn``
+    (``setup`` before each), read after the forced flush; [] when the
+    session lost its parts."""
+    got = _session([(fn, reps, setup)], True, idle)
+    return [] if got is None else got[0]
+
+
+def _whole_trace(parts, idle: float = 0.0):
+    """The device events of each part [(fn, reps, setup, empty_ok)] of one
+    trace (``_session``), or None when every take lost some: no device
+    operation in a part (unless ``empty_ok``), or a count that is not a
+    whole number of its reps.  Taken in one session, again with the forced
+    flush, and with ``idle`` > 0 once more with ``idle`` s at the end of
+    the window."""
     TRACES["taken"] += 1
-    for pad in (0.0, idle) if idle > 0 else (0.0,):
-        events = _device_events(fn, reps, setup, pad)
-        if (events or empty_ok) and len(events) % reps == 0:
-            if pad:
-                print(f"device trace: whole with {pad} s of idle time at the end of its window")
-            return events
-        print(f"device trace: {len(events)} device operations over {reps} calls with {pad} s of "
-              "idle time at the end of the window: the profiler lost some")
+    calls = [(fn, reps, setup) for fn, reps, setup, _ in parts]
+    takes = [("session", False, 0.0), ("flush", True, 0.0)]
+    if idle > 0:
+        takes.append(("idle", True, idle))
+    for name, flush, pad in takes:
+        got = _session(calls, flush, pad)
+        if got is not None and all((ev or empty_ok) and len(ev) % reps == 0
+                                   for ev, (_, reps, _, empty_ok) in zip(got, parts)):
+            if name != "session":
+                print(f"device trace: whole when taken again ({name})")
+            return got
+        TRACES[name] = TRACES.get(name, 0) + 1
+        got_n = "markers lost" if got is None else [len(ev) for ev in got]
+        print(f"device trace: a take ({name}) lost device operations (device operations a "
+              f"part {got_n}, calls a part {[reps for _, reps, _ in calls]})")
     TRACES["lost"] += 1
     print("device trace: lost; this device time is not measured (NaN)")
     return None
@@ -104,14 +165,18 @@ def device_profile(fn: Callable, reps: int = 10, setup: Optional[Callable] = Non
                    idle: float = 0.0) -> Tuple[float, float]:
     """(device ms, device operations) of one call, as ``device_ms``; with
     ``setup`` (run before each call), the device time and operations of
-    ``setup`` alone over as many calls (profiled on their own) are taken
-    out of both.  (NaN, NaN) when a trace lost device operations
-    (``_whole_trace``, retaken with ``idle`` s at the end of its window)."""
+    ``setup`` alone over as many calls (the first part of the same
+    session) are taken out of both.  (NaN, NaN) when the trace lost device
+    operations (``_whole_trace``, retaken with ``idle`` s at the end of its
+    window)."""
     fn()
-    events = _whole_trace(fn, reps, setup, idle)
-    alone = [] if setup is None else _whole_trace(setup, reps, None, idle, empty_ok=True)
-    if events is None or alone is None:
+    parts = [(fn, reps, setup, False)]
+    if setup is not None:
+        parts.insert(0, (setup, reps, None, True))
+    got = _whole_trace(parts, idle)
+    if got is None:
         return float("nan"), float("nan")
+    events, alone = got[-1], (got[0] if setup is not None else [])
     us = sum(e.time_range.elapsed_us() for e in events) - sum(
         e.time_range.elapsed_us() for e in alone)
     return us / reps / 1e3, (len(events) - len(alone)) / reps
@@ -120,16 +185,18 @@ def device_profile(fn: Callable, reps: int = 10, setup: Optional[Callable] = Non
 def device_by_name(fn: Callable, reps: int = 10,
                    setup: Optional[Callable] = None) -> Dict[str, float]:
     """{device operation: ms a call} of ``fn``, leaving out the operations
-    whose names ``setup`` alone runs; empty when a trace lost device
+    whose names ``setup`` alone runs; empty when the trace lost device
     operations."""
     fn()
-    alone = [] if setup is None else _whole_trace(setup, 1, None, empty_ok=True)
-    events = _whole_trace(fn, reps, setup)
-    if events is None or alone is None:
+    parts = [(fn, reps, setup, False)]
+    if setup is not None:
+        parts.insert(0, (setup, 1, None, True))
+    got = _whole_trace(parts)
+    if got is None:
         return {}
-    skip = {e.name for e in alone}
+    skip = {e.name for e in got[0]} if setup is not None else set()
     out: Dict[str, float] = {}
-    for e in events:
+    for e in got[-1]:
         if e.name not in skip:
             out[e.name] = out.get(e.name, 0.0) + e.time_range.elapsed_us() / reps / 1e3
     return out

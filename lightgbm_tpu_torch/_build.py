@@ -227,6 +227,11 @@ def entry(name: str):
         return fn
 
 
+def loaded(name: str) -> bool:
+    """Whether the C entry ``lgbt_<name>`` is loaded in this process."""
+    return name in _ENTRIES
+
+
 def check(rc: int, what: str) -> None:
     """Raise when a launch returned a CUDA error code."""
     if rc != 0:

@@ -52,6 +52,19 @@ on u8 bins, where the sentinel is 255; a model it rejects takes the plain
 walker on i32 bins, where the sentinel is 65535, past every table (so a
 category kept at bin 255 at ``max_bin`` 256 stays a category).
 
+Prediction (:2583-3040): ``predict`` routes as the JAX Booster does, but
+for a model read from text: the walk path (``_walk_raw``) for a trained
+booster's scores, in chunks of PREDICT_CHUNK rows copied on a side stream
+one chunk ahead; the streaming engine (``predict.py``
+``StreamingPredictor``) for ``pred_leaf`` and prediction early stopping
+(the binary margin rule, ``_apply_pred_early_stop``); the scores of a
+model read from text by the real-space walker in chunks of
+REAL_WALK_CELLS rows x trees (``_real_raw``: the JAX package streams them
+through its engine, whose 4,096-row chunks cost the port a hundred-odd
+operator launches each); ``pred_contrib`` by TreeSHAP on the host
+(``shap.py``).  ``last_predict_stats`` holds the last call's phases,
+``compile_predict`` builds what a predict needs before the first one.
+
 Model text (:3186-3421): ``model_to_string`` / ``save_model`` write
 LightGBM's format; ``Booster(model_file=...)`` / ``Booster(model_str=...)``
 / ``model_from_string`` read it.  A model read from text has no bin
@@ -64,14 +77,16 @@ from __future__ import annotations
 
 import dataclasses
 import os
+import time
 import warnings
 from typing import Any, Dict, List, Optional
 
 import numpy as np
 import torch
 
+from .. import _build
 from ..binning import categorical_bins
-from ..config import _OBJECTIVE_ALIASES, Config
+from ..config import _OBJECTIVE_ALIASES, Config, check_pred_engine
 from ..dataset import Dataset
 from ..device import resolve_device
 from ..metrics import create_metrics
@@ -87,16 +102,22 @@ from ..ops.forest_walk import (
 from ..ops.grower import GrowerParams, grow_tree, int8_acc_eligible
 from ..ops.histogram import row_major_bins
 from ..ops.seg import byte_planes
-from ..predict import predict_bins_raw, predict_real_raw, stack_bin_trees, stack_real_trees
+from ..predict import (StreamingPredictor, predict_bins_raw, predict_real_leaves, shard_count,
+                       stack_bin_trees)
 from ..quantize import hist_acc_scales, quantize_gradients
 from ..random import fold_in, prng_key, split
+from ..shap import predict_contrib
 from ..tree import Tree
 from .sampling import create_sample_strategy
 
 _EPS = 1e-15
 _MODEL_VERSION = "v4"
-PREDICT_CHUNK = 1 << 20  # rows binned and walked per launch
+PREDICT_CHUNK = 1 << 20  # rows binned and walked per launch on the walk path
 REAL_WALK_CELLS = 1 << 24  # rows x trees of one real-space walk
+# predict's keywords beside the named arguments (each also a parameter)
+_PREDICT_KEYS = frozenset({"pred_early_stop", "pred_early_stop_freq", "pred_early_stop_margin",
+                           "pred_chunk_rows", "pred_num_buffers", "pred_shard_devices",
+                           "pred_engine"})
 # the seg layout's feature budget (boosting/gbdt.py:1317): two byte bins a
 # TPU i16 plane up to 256 padded bins, one u16 plane a feature past them
 SEG_MAX_FEATURES = 242
@@ -185,8 +206,16 @@ class Booster:
         self._version = _MODEL_VERSION
         self._params_tail: Optional[str] = None
         self._finished = False
-        # walk tables by tree range: (t0, t1) bin space, ("real", t0, t1)
+        # walk tables by tree range: (t0, t1) the walk path's, ("stream",
+        # space, t0, t1) the streaming engine's
         self._tables: Dict[tuple, Any] = {}
+        # predict: the streaming engine, its staging buffers (by bucket,
+        # width, dtype, kind and trees; ``predict.staging`` keeps the small
+        # ones), the device binning tables, and the phases of the last call
+        self._stream: Optional[StreamingPredictor] = None
+        self._staging: Dict[tuple, list] = {}
+        self._devbin = None
+        self.last_predict_stats: Dict[str, Any] = {}
         self._warned_walk_fallback = False
         self.hist_mode: Optional[str] = None  # the resolved training layout
         # per trained tree: near-tie f32 refines of the int8 accumulation,
@@ -213,6 +242,8 @@ class Booster:
                 model_str = f.read()
         if model_str is not None:
             self._load_model_string(model_str)
+            if self.config.pred_aot_compile:
+                self.compile_predict()
         elif train_set is not None:
             self._init_train(train_set)
 
@@ -383,7 +414,7 @@ class Booster:
                     self._add_to_scores(init_score)
                 self.trees.append(Tree.constant(init_score))
                 self._note_tree(refines, steps, k, n_leaves)
-                self._tables = {}
+                self._drop_predict_caches()
             self._finished = True
             return True
         tree = Tree.from_tree_arrays(ta, self.bin_mappers, self.used_features,
@@ -401,7 +432,7 @@ class Booster:
         if init_score:
             tree.add_bias(init_score)
         self.trees.append(tree)
-        self._tables = {}
+        self._drop_predict_caches()
         self._iter += 1
         return False
 
@@ -568,82 +599,322 @@ class Booster:
         return raw + self.init_score if self.init_score else raw
 
     def predict(self, data: np.ndarray, start_iteration: int = 0,
-                num_iteration: Optional[int] = None, raw_score: bool = False) -> np.ndarray:
-        """Scores of rows ``data`` [N, F] (probabilities for binary unless
-        ``raw_score``) through iterations [start_iteration, start_iteration
-        + num_iteration) (``_tree_range``: by default up to the best
-        iteration once early stopping has set one).  A trained booster
-        bins the rows on the device in f32; rows within f32 rounding of a
-        bin boundary are re-binned on the host in f64, so the bins equal
-        the training Dataset's, then packed into its EFB planes where it
-        has them.  A model read from text walks the raw values in real
-        space."""
+                num_iteration: Optional[int] = None, raw_score: bool = False,
+                pred_leaf: bool = False, pred_contrib: bool = False, **kwargs) -> np.ndarray:
+        """Predictions of rows ``data`` [N, F] through iterations
+        [start_iteration, start_iteration + num_iteration) (``_tree_range``:
+        by default up to the best iteration once early stopping has set
+        one), routed as the JAX Booster routes them (boosting/gbdt.py:
+        2583-2693) but for a model read from text's scores:
+
+        * ``pred_contrib``: TreeSHAP contributions [N, F + 1] (``shap.py``);
+        * ``pred_leaf``: i32 leaf indices [N, T] by the streaming engine;
+        * with ``pred_early_stop`` on a binary model: the margin rule over
+          the engine's per-tree block (``_apply_pred_early_stop``);
+        * a trained booster's scores otherwise: the walk path
+          (``_walk_raw``: device binning, the forest-walk kernel or the
+          plain walker past its limits);
+        * a model read from text's scores otherwise: the real-space walker
+          in large chunks (``_real_raw``, f64).
+
+        Scores are probabilities for a binary model unless ``raw_score``.
+        The keywords ``pred_early_stop``, ``pred_early_stop_freq``,
+        ``pred_early_stop_margin``, ``pred_chunk_rows``,
+        ``pred_num_buffers``, ``pred_shard_devices`` and ``pred_engine``
+        win over the params' values; ``last_predict_stats`` then holds the
+        call's phases."""
+        unknown = sorted(set(kwargs) - _PREDICT_KEYS)
+        if unknown:
+            raise ValueError("predict keyword(s) not yet ported to lightgbm_tpu_torch: "
+                             + ", ".join(unknown))
         x = np.asarray(data)
         if x.dtype not in (np.float32, np.float64):
             x = x.astype(np.float64)
         if x.ndim != 2:
             raise ValueError(f"data must be 2-D, got shape {x.shape}")
         n = x.shape[0]
-        if not raw_score and self.objective is None and self.trees:
+        t0, t1 = self._tree_range(start_iteration, num_iteration)
+        if pred_contrib:
+            return predict_contrib(self, x, t0, t1)
+        knobs = self._predict_knobs(kwargs)
+        shard_count(knobs["shard_devices"], self.device)
+        if t1 <= t0:
+            return np.zeros((n, 0), np.int32) if pred_leaf else np.zeros(n)
+        space = self._predict_space(t0, t1)
+        if space == "real":
+            self._check_real_width(x, t0, t1)
+        eng = self._stream_engine()
+        if pred_leaf:
+            out = eng.run(x, t0, t1, space=space, kind="leaf", **knobs)
+            self.last_predict_stats = eng.last_stats
+            return out
+        if not raw_score and self.objective is None:
             raise NotImplementedError(
                 f"objective {self._objective_str!r} of this model not yet ported to "
                 "lightgbm_tpu_torch (only raw_score=True predicts it)")
-        t0, t1 = self._tree_range(start_iteration, num_iteration)
-        if t1 <= t0:
-            return np.zeros(n)
-        if self.bin_mappers is None:
-            raw = self._predict_real(x.astype(np.float64, copy=False), t0, t1)
-            return self._finish_predict(raw, raw_score)
-        dbt = build_devbin_tables(self.bin_mappers, self.used_features, self.device)
-        # u8 bins (sentinel 255) for the walk kernel, i32 (sentinel 65535)
-        # for the plain walker, whose masks may claim bin 255
-        u8 = isinstance(self._walk_tables(t0, t1), ForestTables)
-        # the used columns of a chunk in f32, without a copy of the whole
-        # table in f64 (_bin_host reads the suspect rows' values in f64)
-        every = list(self.used_features) == list(range(x.shape[1]))
-        cat_pos = [i for i, j in enumerate(self.used_features)
-                   if self.bin_mappers[j].is_categorical]
-        parts = []
-        for lo in range(0, n, PREDICT_CHUNK):
-            xo = x[lo : lo + PREDICT_CHUNK]
-            xs = torch.as_tensor(
-                np.ascontiguousarray(xo if every else xo[:, self.used_features],
-                                     dtype=np.float32),
-                device=self.device,
-            )
-            bins, suspect = bin_numeric(xs, *dbt)
-            if cat_pos:  # categorical columns: binned on the host
-                host = np.stack([self._cat_bins(self.used_features[i], xo[:, self.used_features[i]],
-                                                u8) for i in cat_pos], axis=1)
-                bins[:, cat_pos] = torch.as_tensor(host, device=self.device)
-            sidx = torch.nonzero(suspect)[:, 0].cpu().numpy()
-            if len(sidx):
-                patch = self._bin_host(xo[sidx], u8)
-                bins[torch.as_tensor(sidx, device=self.device)] = torch.as_tensor(
-                    patch.astype(np.int32), device=self.device
-                )
-            if self.bundle_layout is not None:
-                bins = self.bundle_layout.pack_tensor(bins, self.used_features)
-            parts.append(self.predict_raw_bins(self._bin_type(bins, u8), t0, t1))
-        raw = torch.cat(parts) if parts else torch.zeros(0, device=self.device)
-        return self._finish_predict(raw, raw_score)
+        early = bool(kwargs.get("pred_early_stop", self.config.pred_early_stop))
+        if not (early and self._early_stop_type() != "none"):
+            if space == "bin":
+                return self._walk_raw(x, t0, t1, knobs["num_buffers"], raw_score)
+            return self._real_raw(x, t0, t1, raw_score)
+        per_tree = eng.run(x, t0, t1, space=space, kind="value", **knobs)
+        self.last_predict_stats = eng.last_stats
+        return self._finish_predict(self._apply_pred_early_stop(per_tree, kwargs), raw_score)
 
-    def _predict_real(self, x: np.ndarray, t0: int, t1: int) -> torch.Tensor:
-        """Raw scores [N] f64 of trees [t0, t1) by the real-space walker, in
-        chunks of at most REAL_WALK_CELLS rows x trees."""
+    def _predict_knobs(self, kwargs: Dict[str, Any]) -> Dict[str, Any]:
+        """The streaming engine's knobs (boosting/gbdt.py:2695-2710):
+        per-call keywords win over params."""
+        cfg = self.config
+        return {
+            "chunk": int(kwargs.get("pred_chunk_rows", cfg.pred_chunk_rows)),
+            "num_buffers": int(kwargs.get("pred_num_buffers", cfg.pred_num_buffers)),
+            "shard_devices": int(kwargs.get("pred_shard_devices", cfg.pred_shard_devices)),
+            "engine": check_pred_engine(str(kwargs.get("pred_engine", cfg.pred_engine))),
+        }
+
+    def _stream_engine(self) -> StreamingPredictor:
+        if self._stream is None:
+            self._stream = StreamingPredictor(self)
+        return self._stream
+
+    def _predict_space(self, t0: int, t1: int) -> str:
+        """'bin' for a trained booster (exact bins from its mappers), 'real'
+        for a model read from text (boosting/gbdt.py:2764-2777)."""
+        return "bin" if self.bin_mappers is not None else "real"
+
+    def _bin_matrix_width(self) -> int:
+        """Columns of the host-binned rows: EFB planes, else the used
+        features, one when none is used (boosting/gbdt.py:2719-2726)."""
+        if self.bundle_layout is not None:
+            return max(1, self.bundle_layout.num_planes)
+        return max(1, len(self.used_features))
+
+    def _bin_matrix(self, x: np.ndarray) -> np.ndarray:
+        """Exact f64 host binning of rows x [n, F_total] into the model's
+        bin columns, [n, _bin_matrix_width()] i32 (``_bin_input_host``,
+        boosting/gbdt.py:3102-3146): categorical values outside the kept
+        categories at the sentinel 65535, EFB members packed into their
+        planes."""
+        if self.bundle_layout is not None:
+            def local(j):
+                if self.bin_mappers[j].is_categorical:
+                    return self._cat_bins(j, x[:, j], False)
+                return self.bin_mappers[j].values_to_bins(x[:, j])
+            return self.bundle_layout.pack_columns(len(x), local)
+        if not self.used_features:
+            return np.zeros((len(x), 1), np.int32)
+        return self._bin_host(x, False).astype(np.int32, copy=False)
+
+    def _check_real_width(self, x: np.ndarray, t0: int, t1: int) -> None:
         nf = max([int(t.split_feature_real.max()) + 1 for t in self.trees[t0:t1]
                   if t.num_leaves > 1] + [0])
         if x.shape[1] < nf:
             raise ValueError(f"data has {x.shape[1]} columns, the model splits on {nf}")
-        key = ("real", t0, t1)
-        if key not in self._tables:
-            self._tables[key] = stack_real_trees(self.trees[t0:t1], self.device)
-        batch = self._tables[key]
+
+    def compile_predict(self, start_iteration: int = 0, num_iteration: Optional[int] = None,
+                        kinds=("value",), chunk: Optional[int] = None,
+                        pred_engine: Optional[str] = None) -> int:
+        """Build what a predict of this tree range needs before the first
+        one (``pred_aot_compile`` runs it when a model is read from text;
+        boosting/gbdt.py:2736-2762): the engine's tables and the staging of
+        every ladder bucket of ``chunk`` (default ``pred_chunk_rows``) for
+        ``kinds`` (the tables also serve a model read from text's scores),
+        and for a trained booster the walk path's tables, its device
+        binning tables and the walk kernel (on the card).  Returns
+        the tables and kernels built (0 when warm)."""
+        t0, t1 = self._tree_range(start_iteration, num_iteration)
+        if t1 <= t0:
+            return 0
+        knobs = self._predict_knobs({} if pred_engine is None else {"pred_engine": pred_engine})
+        space = self._predict_space(t0, t1)
+        built = self._stream_engine().warmup(
+            t0, t1, space=space, chunk=knobs["chunk"] if chunk is None else chunk,
+            kinds=kinds, num_buffers=knobs["num_buffers"])
+        if space == "bin":
+            built += self._walk_prereqs(t0, t1)[2]
+        return built
+
+    def _walk_prereqs(self, t0: int, t1: int):
+        """(walk tables of [t0, t1), device binning tables, tables and
+        kernels this call built)."""
+        built = int((t0, t1) not in self._tables)
+        tables = self._walk_tables(t0, t1)
+        if self._devbin is None:
+            self._devbin = build_devbin_tables(self.bin_mappers, self.used_features, self.device)
+            built += 1
+        if (isinstance(tables, ForestTables) and self.device.type == "cuda"
+                and not _build.loaded("forest_walk")):
+            _build.entry("forest_walk")
+            built += 1
+        return tables, self._devbin, built
+
+    def _walk_raw(self, x: np.ndarray, t0: int, t1: int, num_buffers: int,
+                  raw_score: bool) -> np.ndarray:
+        """The walk path of a trained booster (boosting/gbdt.py:2948-3003):
+        chunks of PREDICT_CHUNK rows, each chunk's used columns in f32 (the
+        caller's rows themselves when they are C-ordered f32 with every
+        column used, else gathered and converted on the host), copied to
+        the device on a side stream and binned there in f32
+        (``bin_numeric``); rows within f32 rounding of a bin boundary
+        re-binned on the host in f64, so the bins equal the training
+        Dataset's, and categorical columns binned on the host; packed into
+        the EFB planes where the model has them; then walked by the
+        forest-walk kernel (the plain walker on the same device when the
+        kernel rejects the model).  With ``num_buffers`` of 2 or more,
+        chunk i+1's gather, conversion and copy run while chunk i is binned
+        and walked (the lookahead); with 1, they start once chunk i's
+        suspect rows are read.  Each copy reads pageable memory, which the
+        driver stages before the call returns, and no host buffer is
+        reused, so nothing the host writes can reach a copy still in
+        flight.  The phases go to ``last_predict_stats``, with the rows
+        re-binned on the host (``suspect_rows``)."""
+        dev = self.device
+        cuda = dev.type == "cuda"
+        tables, dbt, built = self._walk_prereqs(t0, t1)
+        kernel = isinstance(tables, ForestTables)
+        # u8 bins (sentinel 255) for the walk kernel, i32 (sentinel 65535)
+        # for the plain walker, whose masks may claim bin 255
+        u8 = kernel
+        used = list(self.used_features)
+        every = used == list(range(x.shape[1]))
+        cat_pos = [i for i, j in enumerate(used) if self.bin_mappers[j].is_categorical]
+        n = x.shape[0]
+        stats = {"path": "forest_walk" if kernel else "plain_walk", "rows": n, "chunks": 0,
+                 "bin_ms": 0.0, "transfer_ms": 0.0, "walk_ms": 0.0, "host_ms": 0.0,
+                 "compiles": built, "suspect_rows": 0}
+        chunks = [(lo, min(PREDICT_CHUNK, n - lo)) for lo in range(0, n, PREDICT_CHUNK)]
+        side = torch.cuda.Stream(dev) if cuda else None
+        main = torch.cuda.current_stream(dev) if cuda else None
+
+        def clock(phase, t):
+            stats[phase] += (time.perf_counter() - t) * 1e3
+
+        def upload(ci):
+            """(chunk ci's rows, its used columns in f32 on the device, the
+            event that its copy on the side stream records)."""
+            lo, rows = chunks[ci]
+            t = time.perf_counter()
+            xo = x[lo: lo + rows]
+            xs = torch.as_tensor(np.ascontiguousarray(xo if every else xo[:, used],
+                                                      dtype=np.float32))
+            clock("bin_ms", t)
+            if not cuda:
+                return xo, xs, None
+            t = time.perf_counter()
+            with torch.cuda.stream(side):
+                xd = xs.to(dev, non_blocking=True)
+                copied = torch.cuda.Event()
+                copied.record(side)
+            clock("transfer_ms", t)
+            return xo, xd, copied
+
+        parts = []
+        pending = upload(0) if chunks else None
+        for ci in range(len(chunks)):
+            xo, xs, copied = pending
+            pending = None
+            t = time.perf_counter()
+            if cuda:
+                main.wait_event(copied)
+                xs.record_stream(main)  # made on the side stream, read on this one
+            bins, suspect = bin_numeric(xs, *dbt)
+            clock("walk_ms", t)
+            if num_buffers > 1 and ci + 1 < len(chunks):
+                pending = upload(ci + 1)  # the lookahead
+            if cat_pos:  # categorical columns: binned on the host
+                t = time.perf_counter()
+                host = np.stack([self._cat_bins(used[i], xo[:, used[i]], u8)
+                                 for i in cat_pos], axis=1)
+                clock("bin_ms", t)
+                t = time.perf_counter()
+                bins[:, cat_pos] = torch.as_tensor(host, device=dev)
+                clock("transfer_ms", t)
+            t = time.perf_counter()
+            sidx = torch.nonzero(suspect)[:, 0].cpu().numpy()
+            clock("walk_ms", t)
+            stats["suspect_rows"] += len(sidx)
+            if len(sidx):
+                t = time.perf_counter()
+                patch = self._bin_host(xo[sidx], u8).astype(np.int32)
+                clock("bin_ms", t)
+                t = time.perf_counter()
+                bins[torch.as_tensor(sidx, device=dev)] = torch.as_tensor(patch, device=dev)
+                clock("transfer_ms", t)
+            t = time.perf_counter()
+            if self.bundle_layout is not None:
+                bins = self.bundle_layout.pack_tensor(bins, used)
+            parts.append(self.predict_raw_bins(self._bin_type(bins, u8), t0, t1))
+            clock("walk_ms", t)
+            stats["chunks"] += 1
+            if pending is None and ci + 1 < len(chunks):
+                pending = upload(ci + 1)
+        t = time.perf_counter()
+        raw = torch.cat(parts) if parts else torch.zeros(0, device=dev)
+        if cuda:
+            main.synchronize()
+        clock("walk_ms", t)
+        t = time.perf_counter()
+        out = self._finish_predict(raw, raw_score)
+        clock("host_ms", t)
+        self.last_predict_stats = stats
+        return out
+
+    def _real_raw(self, x: np.ndarray, t0: int, t1: int, raw_score: bool) -> np.ndarray:
+        """Scores of a model read from text through trees [t0, t1): the
+        real-space walker (``predict_real_leaves``, f64) on the booster's
+        device, in chunks of at most REAL_WALK_CELLS rows x trees, the leaf
+        values summed there in f64.  The phases go to
+        ``last_predict_stats`` (``bin_ms`` 0: nothing is binned)."""
+        dev = self.device
+        batch, built = self._stream_engine().stacked("real", t0, t1)
+        n = x.shape[0]
+        stats = {"path": "real_walk", "rows": n, "chunks": 0, "bin_ms": 0.0,
+                 "transfer_ms": 0.0, "walk_ms": 0.0, "host_ms": 0.0, "compiles": built}
+        trees = torch.arange(t1 - t0, device=dev)[None, :]
         step = max(1, REAL_WALK_CELLS // (t1 - t0))
-        parts = [predict_real_raw(batch, torch.as_tensor(x[lo: lo + step], device=self.device))
-                 for lo in range(0, x.shape[0], step)]
-        return torch.cat(parts) if parts else torch.zeros(0, dtype=torch.float64,
-                                                          device=self.device)
+        parts = []
+        for lo in range(0, n, step):
+            t = time.perf_counter()
+            xs = torch.as_tensor(x[lo: lo + step], dtype=torch.float64, device=dev)
+            stats["transfer_ms"] += (time.perf_counter() - t) * 1e3
+            t = time.perf_counter()
+            parts.append(batch.leaf_value[trees, predict_real_leaves(batch, xs)].sum(dim=1))
+            stats["walk_ms"] += (time.perf_counter() - t) * 1e3
+            stats["chunks"] += 1
+        t = time.perf_counter()
+        raw = torch.cat(parts) if parts else torch.zeros(0, dtype=torch.float64, device=dev)
+        if dev.type == "cuda":
+            torch.cuda.current_stream(dev).synchronize()
+        stats["walk_ms"] += (time.perf_counter() - t) * 1e3
+        t = time.perf_counter()
+        out = self._finish_predict(raw, raw_score)
+        stats["host_ms"] += (time.perf_counter() - t) * 1e3
+        self.last_predict_stats = stats
+        return out
+
+    def _early_stop_type(self) -> str:
+        """The margin rule of the objective (boosting/gbdt.py:3005-3013):
+        'binary' for a binary model, else 'none' (no early stopping)."""
+        name = getattr(self.objective, "name", "")
+        return "binary" if name == "binary" else "none"
+
+    def _apply_pred_early_stop(self, per_tree: np.ndarray, kwargs: Dict[str, Any]) -> np.ndarray:
+        """Margin-based prediction early stopping over the per-tree block
+        [N, T] f64 (boosting/gbdt.py:3015-3040; reference
+        prediction_early_stop.cpp:26-75 and gbdt_prediction.cpp:18-36): each
+        row's sum stops at the first checkpoint (every
+        ``pred_early_stop_freq`` iterations) where 2 |sum| exceeds
+        ``pred_early_stop_margin``."""
+        freq = max(1, int(kwargs.get("pred_early_stop_freq", self.config.pred_early_stop_freq)))
+        margin_thr = float(kwargs.get("pred_early_stop_margin",
+                                      self.config.pred_early_stop_margin))
+        n, iters = per_tree.shape
+        cum = np.cumsum(per_tree, axis=1)
+        margin = 2.0 * np.abs(cum)
+        checkpoint = (np.arange(1, iters + 1) % freq) == 0
+        stop = (margin > margin_thr) & checkpoint[None, :]
+        first = np.where(stop.any(axis=1), stop.argmax(axis=1), iters - 1)
+        return cum[np.arange(n), first]
 
     def _tree_range(self, start_iteration: int, num_iteration: Optional[int]):
         """Trees [t0, t1) of a predict or a model text
@@ -812,10 +1083,19 @@ class Booster:
         self._iter = len(self.trees)
         self.best_iteration = -1
         self.init_score = 0.0
-        self._tables = {}
+        self._drop_predict_caches()
+        self._devbin = None
 
-    def _finish_predict(self, raw: torch.Tensor, raw_score: bool) -> np.ndarray:
-        """Raw scores -> output space (gbdt.py:2826)."""
+    def _drop_predict_caches(self) -> None:
+        """Forget the walk tables and staging buffers once the trees change."""
+        self._tables = {}
+        self._staging = {}
+
+    def _finish_predict(self, raw, raw_score: bool) -> np.ndarray:
+        """Raw scores (a tensor, or an f64 array from the streaming engine,
+        converted on the host) -> output space (gbdt.py:2826)."""
+        if isinstance(raw, np.ndarray):
+            raw = torch.as_tensor(raw)
         if not raw_score and self.objective is not None:
             raw = self.objective.convert_output(raw)
         return raw.double().cpu().numpy()

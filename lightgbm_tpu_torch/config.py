@@ -71,6 +71,17 @@ The path parameters take the JAX package's defaults and values
   (``ops/split.py``).  Pandas ``category`` columns and ``pandas_categorical``
   in model text are not ported (a DataFrame is not an input of the port's
   Dataset).
+* prediction (lightgbm_tpu/config.py:521-539, :676-678):
+  ``pred_early_stop`` with ``pred_early_stop_freq`` and
+  ``pred_early_stop_margin`` (the margin rule of a binary model; a
+  regression model ignores them), the streaming predictor's
+  ``pred_chunk_rows`` (4096), ``pred_num_buffers`` (2: chunks in flight,
+  and the walk path's staging slots), ``pred_shard_devices`` (1; a count
+  that resolves to more than one device raises: ROADMAP Queue 1, item 9),
+  ``pred_aot_compile`` (``Booster.compile_predict`` when a model is read
+  from text) and ``pred_engine`` ('walk'; 'matmul' and 'auto' name the
+  tensor-forest engine, ROADMAP Queue 1, item 7, and raise).  Each may also
+  be given to ``Booster.predict`` as a keyword, which wins.
 """
 
 from __future__ import annotations
@@ -172,6 +183,19 @@ _UNPORTED_HIST_MODES = ("gather", "full")
 MAX_LEAF_BATCH = 16
 
 
+def check_pred_engine(engine: str) -> str:
+    """``pred_engine``: 'walk' is the port's engine; 'matmul' and 'auto'
+    (which may resolve to the tensor-forest engine in the JAX package, so
+    taking it silently would change what runs) raise."""
+    if engine in ("matmul", "auto"):
+        raise NotImplementedError(
+            f"pred_engine={engine!r} not yet ported to lightgbm_tpu_torch: the "
+            "tensor-forest engine is ROADMAP Queue 1, item 7 (ported: 'walk')")
+    if engine != "walk":
+        raise ValueError("pred_engine must be one of 'walk', 'matmul', 'auto'")
+    return engine
+
+
 def _to_bool(v: Any) -> bool:
     if isinstance(v, bool):
         return v
@@ -260,6 +284,15 @@ class Config:
     early_stopping_round: int = 0
     early_stopping_min_delta: float = 0.0
     first_metric_only: bool = False
+    # prediction (Booster.predict; per-call keywords win over these)
+    pred_early_stop: bool = False
+    pred_early_stop_freq: int = 10
+    pred_early_stop_margin: float = 10.0
+    pred_chunk_rows: int = 4096
+    pred_num_buffers: int = 2
+    pred_shard_devices: int = 1
+    pred_aot_compile: bool = False
+    pred_engine: str = "walk"
     # the canonical keys the params gave, with their values
     raw: Dict[str, Any] = dataclasses.field(default_factory=dict, repr=False)
 
@@ -350,6 +383,7 @@ class Config:
             )
         if cfg.num_leaves < 2:
             raise ValueError("num_leaves must be >= 2")
+        check_pred_engine(cfg.pred_engine)
         if not 0.0 <= cfg.max_conflict_rate < 1.0:
             raise ValueError("max_conflict_rate must be in [0, 1)")
         if cfg.max_bin < 2:

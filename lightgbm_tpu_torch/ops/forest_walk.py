@@ -32,7 +32,7 @@ import torch
 
 from .. import _build
 from ..binning import K_ZERO_THRESHOLD, MissingType
-from ..predict import BinTreeBatch, predict_bins_raw
+from ..predict import BinTreeBatch, predict_bins_raw, walk_levels
 
 MAX_BIN_VALUE = 256  # bins, thresholds and NaN bins are bytes
 MAX_F = 512  # a node's staged word, NaN-left ones included, fits a byte (kMaxF)
@@ -251,16 +251,18 @@ def decode_tables(tables: ForestTables) -> BinTreeBatch:
     child = lambda off: torch.where(off < 8 * m, off // 8, ~((off - 8 * m) // 4))  # noqa: E731
     nan_bins = torch.cat([tables.nan_bins, torch.full((4 * nw - len(tables.nan_bins),), -1,
                                                       device=w.device, dtype=torch.long)])
+    left, right = child(y & 0xFFFF), child(y >> 16)
     return BinTreeBatch(
         split_feature=feat,
         split_bin=torch.where(is_cat, 0, x >> 24),
         default_left=nan_left,
         nan_bin=nan_bins[feat],
-        left_child=child(y & 0xFFFF),
-        right_child=child(y >> 16),
+        left_child=left,
+        right_child=right,
         leaf_value=tables.tables[:, 2 * m:].contiguous().view(torch.float32),
         split_is_cat=is_cat,
         cat_mask=cat_mask,
+        levels=walk_levels(zip(left.cpu().numpy(), right.cpu().numpy())),
     )
 
 

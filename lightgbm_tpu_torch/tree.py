@@ -12,8 +12,8 @@ three missing types (None, Zero, NaN), ``to_string`` (:391) and
 ``from_string`` (:435) in LightGBM's text format; and of the bin-space
 record dicts of ``boosting/gbdt.py`` (``_bin_records``).  A tree read from
 model text has no bin-space form: it is walked in real space
-(``predict.predict_real_raw``).  A block with linear leaves raises
-``NotImplementedError``.
+(``predict.predict_real_leaves``, by the streaming engine).  A block with
+linear leaves raises ``NotImplementedError``.
 """
 
 from __future__ import annotations
