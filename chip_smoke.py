@@ -81,9 +81,30 @@ Phases (any failed check raises, and the script exits non-zero):
            (with the tree's fused steps, and its segment histograms of the
            near-tie refine, against their bounds and the rows of their
            windows)
+  multiclass  softmax and one-vs-all at 5 classes (the class count of
+           the reference's examples/multiclass_classification) on the main
+           phase's rows and bins (nothing binned again) with a label made
+           from MULTI_SEED: 5 rounds of multiclass (25 trees), 3 of
+           multiclassova; multi_logloss per round (it must fall), the
+           fused step, int8 histogram, split scan and the walk's class mode
+           (forest_walk_multi) launched, predict [N, 5] raw and converted
+           against the training score (1e-5 relative); the class mode on
+           the 25 trees bit-equal to the plain walker at k = 5 and at
+           k = 10 (two class blocks of the grid), every row in the same
+           leaf, timed beside the same trees at k = 1; multiclass-parity:
+           65,536 rows, 3 rounds, card vs CPU with int8 on both (>= 0.95
+           of splits identical, multi_logloss within 1e-4 relative)
+  objectives  3 rounds each of regression_l1 (leaf renewal on the host),
+           quantile (alpha 0.7) and tweedie (1.3, count labels) on the same
+           rows and bins with labels made from MULTI_SEED: the training loss
+           (each one's metric) must fall, the host ms of each leaf renewal;
+           then each XLA form of objectives.py (log, log1p, sigmoid,
+           softmax, the subnormal flush) on the card against the CPU on
+           xla_exp's sweep, and every objective's gradients and hessians,
+           weighted and not, on OBJ_CHECK_ROWS scores: bit-equal
   batch    bench.py's headline parameters (min_data_in_leaf 100,
            leaf_batch 4: frontier-batched growth, up to 4 splits per grow
-           step) for 10 rounds on the same rows: log-loss per round (it
+           step) for 5 rounds on the same rows: log-loss per round (it
            must fall), grow steps, commit rate and effective K per tree,
            kernel launches; the same rows and parameters at leaf_batch 1
            for the same rounds, whose splits must be >= 0.95 identical and
@@ -98,7 +119,7 @@ Phases (any failed check raises, and the script exits non-zero):
   batch-off  the batch phase's parameters on the two-launch path for 3
            rounds: the batched partition, K-window f32 histograms and the
            batched split scan must launch
-  parity   the default parameters for 3 rounds at 65,536 rows on the card
+  parity   the default parameters for 2 rounds at 65,536 rows on the card
            and on the CPU with the int8 accumulation on there
            (grower.INT8_ON_CPU): share of identical splits, log-loss
   io       the train API, evaluation and model text on the card: the
@@ -132,8 +153,8 @@ Phases (any failed check raises, and the script exits non-zero):
            timed beside the threshold mode at the same bins and that
            threshold's own table (the same rows left), then
            bench_partition's table-mode edge cases (order and nl bit-equal,
-           int8 exact, f32 the same bits on two calls); 5 rounds with no
-           path parameters and 5 at bench.py's parameters (K=4):
+           int8 exact, f32 the same bits on two calls); 3 rounds with no
+           path parameters and 3 at bench.py's parameters (K=4):
            iterations/s, log-loss falling, launches (the fused step must
            launch in table mode, the split-scan kernel never: best_split
            decides every leaf), one iteration each under the profiler
@@ -147,8 +168,8 @@ Phases (any failed check raises, and the script exits non-zero):
            (the ordered layout) for its rate
   cat      categorical features end to end: the efb phase's draws kept as
            8 integer-coded columns named by categorical_feature (the same
-           information, categorical instead of one-hot): 5 rounds with no
-           path parameters and 5 at bench.py's parameters (K=4):
+           information, categorical instead of one-hot): 3 rounds with no
+           path parameters and 3 at bench.py's parameters (K=4):
            iterations/s beside efb's, log-loss per round beside efb's (must
            fall), categorical splits in every tree, launches (the fused step
            in table mode, the split-scan kernel never, the walk kernel's
@@ -163,14 +184,14 @@ Phases (any failed check raises, and the script exits non-zero):
            than 255 categories): the partition and the fused step (int8,
            f32) with tables past 256 bins against their plain versions at
            the root and on K=4 windows (one empty), timed beside the same
-           windows by 256-bin tables; 3 rounds at K=1, 2 at K=4, 2 each of
+           windows by 256-bin tables; 2 rounds at K=1, 2 at K=4, 2 each of
            the two-launch path at K=1 and K=4 (the *_wtable launches must
            be > 0), predict (the plain walker) against the training score,
-           the model text read back; cat-parity: 65,536 rows, 3 rounds,
+           the model text read back; cat-parity: 65,536 rows, 2 rounds,
            card vs CPU with int8 on both (>= 0.95 of splits identical,
            log-loss within 1e-4)
   widebin  the Higgs shape at max_bin 1023 (padded 1,024: the u16 modes;
-           rows cut from 11,000,000 to 1,048,576, rounds to 5): 5 rounds
+           rows cut from 11,000,000 to 1,048,576, rounds to 3): 3 rounds
            with no path parameters (iterations/s, log-loss falling, the
            u16 fused step, int8 root and f32 refine histograms launched,
            no split-scan kernel: best_split decides every leaf), one
@@ -178,11 +199,11 @@ Phases (any failed check raises, and the script exits non-zero):
            calls a tree, beside the main phase's), predict through the plain
            walker against the training score (1e-5 relative), the model
            text read back (its real-space predict within rtol 1e-6);
-           widebin-batch: bench.py's _PARAMS at max_bin 1023 for 5 rounds;
+           widebin-batch: bench.py's _PARAMS at max_bin 1023 for 3 rounds;
            widebin-off: the two-launch path (grow_fused='off',
            hist_acc='bf16') 2 rounds each at K=1 and K=4 (the u16
            partition, batched partition and f32 histogram launched);
-           widebin-parity: 65,536 rows, 3 rounds, card vs CPU (int8 on
+           widebin-parity: 65,536 rows, 2 rounds, card vs CPU (int8 on
            both): >= 0.95 of splits identical, log-loss within 1e-4
   wide data  an Expo-shaped table (binary, 1,048,576 x 700 numeric
            features, 2% NaN, values on a grid of 1/32), binned (and the
@@ -207,7 +228,7 @@ Phases (any failed check raises, and the script exits non-zero):
   wide-quant  quantized training on the int8 kernel (use_quantized_grad,
            stochastic_rounding=False, hist_method='pallas_int8') for 3
            rounds: ordered_hist_int8 only
-  wide-parity  32,768 of the wide rows for 2 rounds, card vs CPU, f32 and
+  wide-parity  32,768 of the wide rows for 1 round, card vs CPU, f32 and
            quantized: share of identical splits, log-loss
   wide-u16 the Expo shape at max_bin 1023 (262,144 x 700 normals on a
            grid of 1/1024, 2% NaN, padded to 1,024 bins): with no path parameters
@@ -217,18 +238,22 @@ Phases (any failed check raises, and the script exits non-zero):
            training score (1e-5 relative); wide-u16-quant: 3 quantized
            rounds on the same rows (ordered_hist_int8_u16, not
            ordered_hist_u16); wide-u16-parity: the first 8,192 rows, card
-           vs CPU for 2 rounds, quantized (>= 0.95 of splits identical,
+           vs CPU for 1 round, quantized (>= 0.95 of splits identical,
            log-loss within 1e-4) and f32 (the trees may part only at a
            near tie: the first differing split's two gains within 1e-5
            relative; log-loss within 2e-4; its share printed)
+The phases run in the order main, batch, off, batch-off, sampling, parity,
+multiclass, objectives, sampling-wide, io, efb, cat, widebin, wide,
+wide-u16; each prints its seconds ("phase ...: s").
 The last lines: the kernels JSON (launches summed over the main, batch,
-off, batch-off, io, efb, efb-batch, efb-off, efb-batch-off, efb-flat, cat,
+off, batch-off, multiclass, multiclassova, regression_l1, quantile,
+tweedie, io, efb, efb-batch, efb-off, efb-batch-off, efb-flat, cat,
 cat-batch, cat-wide, cat-wide-batch, cat-wide-off, cat-wide-batch-off,
 widebin, widebin-batch, widebin-off, widebin-batch-off, wide, wide-batch,
 wide-quant, wide-u16 and wide-u16-quant runs; the table, wide-table and
 u16 modes of the partition, the fused step, the segment histogram and the
-ordered histograms, and the walk's categorical mode, are entries of their
-own), the card, and
+ordered histograms, and the walk's categorical and class modes, are
+entries of their own), the card, and
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 """
 
@@ -251,7 +276,11 @@ FEATURES = 28
 ROUNDS = 10
 OFF_ROUNDS = 3
 PARITY_ROWS = 1 << 16
-PARITY_ROUNDS = 3
+# card vs CPU rounds of the parity, efb-, cat- and widebin-parity checks (3
+# until the multiclass and objectives phases joined the script; the
+# sampling-parity check keeps 3: its GOSS runs sample from the third round)
+PARITY_ROUNDS = 2
+SAMPLING_PARITY_ROUNDS = 3
 PARAMS = {"objective": "binary", "num_leaves": 255, "max_bin": 255, "learning_rate": 0.1}
 IO_VALID_ROWS = 1 << 18
 IO_ROUNDS = 10
@@ -261,7 +290,7 @@ GOLDEN = pathlib.Path(__file__).resolve().parent / "tests" / "golden"
 OFF_PARAMS = {**PARAMS, "grow_fused": "off", "hist_acc": "bf16", "fused_split_scan": True}
 # bench.py's _PARAMS (less its logging keys): frontier batching, K = 4
 BATCH_PARAMS = {**PARAMS, "min_data_in_leaf": 100, "leaf_batch": 4}
-BATCH_ROUNDS = 10
+BATCH_ROUNDS = 5  # 10 until the multiclass and objectives phases joined the script
 BATCH_OFF_PARAMS = {**BATCH_PARAMS, "grow_fused": "off", "hist_acc": "bf16",
                     "fused_split_scan": True}
 BATCH_OFF_ROUNDS = 3
@@ -279,10 +308,11 @@ WIDE_PARITY_ROWS = 1 << 15
 # rows of the streaming value path's and early stopping's card checks (the
 # engine bins every row on the host, ~0.3 M rows/s)
 STREAM_CHECK_ROWS = 1 << 18
-# the two 700-column card-vs-CPU checks (wide-parity, wide-u16-parity): 2
-# rounds (3 until the prediction checks joined the script; their CPU side
-# took 40-45 s a mode at 3)
-WIDE_PARITY_ROUNDS = 2
+# the two 700-column card-vs-CPU checks (wide-parity, wide-u16-parity): 1
+# round (3 until the prediction checks joined the script, 2 until the
+# multiclass and objectives phases did; their CPU side took 40-45 s a mode
+# at 3)
+WIDE_PARITY_ROUNDS = 1
 QUANT_PARAMS = {**PARAMS, "use_quantized_grad": True, "stochastic_rounding": False,
                 "num_grad_quant_bins": 4, "hist_method": "pallas_int8"}
 # the efb phase: the Expo / Flight Delay shape of the reference's experiment
@@ -293,7 +323,7 @@ QUANT_PARAMS = {**PARAMS, "use_quantized_grad": True, "stochastic_rounding": Fal
 EFB_ROWS = 1 << 20
 EFB_LEVELS = (12, 31, 7, 24, 20, 300, 300, 6)
 EFB_ZIPF = 1.1
-EFB_ROUNDS = 5  # 10 until the cat phases joined the script
+EFB_ROUNDS = 3  # 10 until the cat phases joined the script, 5 until PR 20's phases
 EFB_OFF_ROUNDS = 2
 EFB_FLAT_ROUNDS = 3
 # the unbundled run's rows when the phase has taken more than its budget
@@ -305,10 +335,10 @@ EFB_BUDGET_S = 240.0
 # reference's docs/Features.rst, "Optimal Split for Categorical Features");
 # cat-wide at max_bin 1023, where the two 300-level columns keep more than
 # 255 categories (tables past 256 bins)
-CAT_ROUNDS = 5  # 10 until the prediction checks joined the script
-CAT_BATCH_ROUNDS = 5
+CAT_ROUNDS = 3  # 10 until the prediction checks joined the script, 5 until PR 20's
+CAT_BATCH_ROUNDS = 3  # 5 until the multiclass and objectives phases joined the script
 CAT_WIDE_PARAMS = {**PARAMS, "max_bin": 1023}
-CAT_WIDE_ROUNDS = 3
+CAT_WIDE_ROUNDS = 2  # 3 until the multiclass and objectives phases joined the script
 CAT_WIDE_BATCH_ROUNDS = 2
 CAT_WIDE_OFF_ROUNDS = 2
 # the efb phase's rates and losses, for the cat phases' lines
@@ -319,8 +349,8 @@ EFB_RESULTS = {}
 # from 11,000,000 and rounds for the time limit, widths not
 WIDEBIN_PARAMS = {**PARAMS, "max_bin": 1023}
 WIDEBIN_BINS = 1024
-WIDEBIN_ROUNDS = 5  # 10 until the cat phases joined the script
-WIDEBIN_BATCH_ROUNDS = 5
+WIDEBIN_ROUNDS = 3  # 10 until the cat phases joined the script, 5 until PR 20's
+WIDEBIN_BATCH_ROUNDS = 3  # 5 until the multiclass and objectives phases joined the script
 WIDEBIN_OFF_ROUNDS = 2
 
 # the wide-u16 phase: the Expo shape (binary, 700 columns) at max_bin 1023,
@@ -342,6 +372,31 @@ WIDE_U16_PARITY_ROWS = 8192
 # 5.8e-5 and 1.06e-4 apart (relative, two runs), hence this limit; the
 # quantized runs (exact sums) keep 0.95 of splits and 1e-4
 WIDE_U16_F32_LOSS_TOL = 2e-4
+
+# the multiclass phase: the main phase's Higgs rows and bins with a 5-class
+# label (the class count of the reference's examples/multiclass_classification),
+# 5 rounds of softmax (25 trees), 3 of one-vs-all; the walk's class mode also
+# at 10 classes on the same records
+MULTI_SEED = 5
+MULTI_CLASSES = 5
+MULTI_ROUNDS = 5
+MULTI_OVA_ROUNDS = 3
+MULTI_WALK_WIDE_K = 10
+MULTI_PARITY_ROUNDS = 3
+# the objectives phase: 3 rounds each of regression_l1, quantile, tweedie on
+# the same rows and bins; its card-vs-CPU gradient check covers every
+# ported objective with these parameters (the scen_obj_* goldens' own)
+OBJ_ROUNDS = 3
+# scores of the card-vs-CPU gradient check of every objective (its CPU
+# side, the fused multiply-adds emulated in f64, bounds the count)
+OBJ_CHECK_ROWS = 1 << 18
+OBJECTIVE_CASES = {
+    "regression": {}, "regression_l1": {}, "huber": {"alpha": 0.9}, "fair": {"fair_c": 1.5},
+    "poisson": {}, "quantile": {"alpha": 0.7}, "mape": {}, "gamma": {},
+    "tweedie": {"tweedie_variance_power": 1.3}, "binary": {}, "cross_entropy": {},
+    "cross_entropy_lambda": {}, "multiclass": {"num_class": 5},
+    "multiclassova": {"num_class": 5},
+}
 
 # H100 SXM published peaks: HBM bytes/s and
 # f32 operations/s outside the tensor cores
@@ -399,6 +454,9 @@ SOURCES = {
     # the walk's categorical nodes (cat_gl) of row 4
     "forest_walk_cat": ("lightgbm_tpu_torch/csrc/forest_walk.cu",
                         "lightgbm_tpu/ops/pallas/forest_walk.py:418"),
+    # the walk's class mode (k > 1 trees an iteration, kpad) of row 4
+    "forest_walk_multi": ("lightgbm_tpu_torch/csrc/forest_walk.cu",
+                          "lightgbm_tpu/ops/pallas/forest_walk.py:418"),
     # goes-left tables past 256 bins (cat_ref [K, bmt]) of rows 2, 5 and 6
     "partition_wtable": ("lightgbm_tpu_torch/csrc/partition.cu",
                          "lightgbm_tpu/ops/pallas/partition.py:446"),
@@ -3027,8 +3085,8 @@ def sampling_parity(lt, ds, card):
             runs = {}
             for d in ("cuda", "cpu"):
                 t0 = time.perf_counter()
-                runs[d] = lt.train(params, lt.Dataset(xs, ys, params=params), PARITY_ROUNDS,
-                                   device=d)
+                runs[d] = lt.train(params, lt.Dataset(xs, ys, params=params),
+                                   SAMPLING_PARITY_ROUNDS, device=d)
                 secs = time.perf_counter() - t0
             share = split_share(runs["cuda"], runs["cpu"])
             lc, lp = runs["cuda"].train_loss(), runs["cpu"].train_loss()
@@ -3082,6 +3140,267 @@ def sampling_wide_phase(lt, _build, card):
     return out
 
 
+def multiclass_labels(x, classes: int, seed: int = MULTI_SEED) -> np.ndarray:
+    """A ``classes``-class label of rows x made from ``seed``: the class of
+    the largest of ``classes`` seeded projections of the first 8 columns
+    plus unit normal noise (learnable, every class present)."""
+    rng = np.random.default_rng(seed)
+    w = rng.normal(size=(8, classes))
+    z = np.nan_to_num(x[:, :8]) @ w + rng.normal(size=(len(x), classes))
+    return np.argmax(z, axis=1).astype(np.float64)
+
+
+def with_label(ds, label):
+    """The constructed Dataset ``ds`` with another label: its bins, mappers
+    and layout shared, so nothing is binned again."""
+    import copy
+
+    out = copy.copy(ds)
+    out.label = np.asarray(label, np.float64)
+    return out
+
+
+def multi_logloss(score: np.ndarray, y: np.ndarray) -> float:
+    """The f64 multi-class log-loss of [k, N] raw scores."""
+    s = score - score.max(axis=0, keepdims=True)
+    logp = s - np.log(np.exp(s).sum(axis=0, keepdims=True))
+    p = np.maximum(logp[y.astype(np.int64), np.arange(len(y))], math.log(1e-15))
+    return float(-p.mean())
+
+
+def check_multi_walk(booster, x, dev, classes):
+    """The walk kernel's class mode on the trained k-class forest over all
+    rows, kernel vs plain (the same bits) at k = classes and at k = 10 on
+    the same records, every row in the same leaf of every tree; timed
+    beside the same trees walked at k = 1.  Returns the kernels line's
+    entry (bound: the bytes of the bins, tables and scores, or the levels
+    walked at the f32 rate)."""
+    from lightgbm_tpu_torch.ops import forest_walk as fw
+    from lightgbm_tpu_torch.predict import predict_bins_leaves, stack_bin_trees
+
+    tables = booster._walk_tables()
+    xs = torch.as_tensor(np.ascontiguousarray(x[:, booster.used_features], dtype=np.float32),
+                         device=dev)
+    dbt = fw.build_devbin_tables(booster.bin_mappers, booster.used_features, dev)
+    bins = fw.bin_numeric(xs, *dbt)[0].to(torch.uint8)
+    n, f = bins.shape
+    out = {}
+    for k in (classes, MULTI_WALK_WIDE_K):
+        sk = fw.forest_walk(bins, tables, k)
+        sp = fw.forest_walk_plain(bins, tables, k)
+        if sk.shape != (n, k) or not torch.equal(sk, sp):
+            raise AssertionError(f"forest_walk_multi at k = {k}: scores differ from the plain "
+                                 f"walker's bits (max |err| {float((sk - sp).abs().max())})")
+        out[k] = sk
+    batch = stack_bin_trees([t.record() for t in booster.trees], booster.nan_bins, dev)
+    leaves = predict_bins_leaves(batch, bins)
+    for i, tree in enumerate(booster.trees):
+        rec = dict(tree.record(), leaf_value=np.arange(tree.num_leaves, dtype=np.float32))
+        got = fw.forest_walk(bins, fw.build_tables([rec] * classes, booster.nan_bins, dev),
+                             classes)[:, i % classes]
+        if not torch.equal(got.long(), leaves[:, i]):
+            raise AssertionError(f"forest_walk_multi: tree {i} routes rows to other leaves")
+    depth = torch.as_tensor(
+        np.stack([_leaf_depths(t, batch.leaf_value.shape[1]) for t in booster.trees]),
+        device=dev)
+    visits = float(depth[torch.arange(len(booster.trees), device=dev)[None, :], leaves].sum())
+    times = {k: time_ms(lambda k=k: fw.forest_walk(bins, tables, k), reps=10)
+             for k in (1, classes, MULTI_WALK_WIDE_K)}
+    table_bytes = tables.tables.numel() * 4
+    print(f"kernel forest_walk_multi: {len(booster.trees)} trees, scores bit-equal to the plain "
+          f"walker at k = {classes} and k = {MULTI_WALK_WIDE_K}, every row in the same leaf; "
+          f"{visits:.0f} node visits; " + ", ".join(f"k = {k} {t:.4f} ms" for k, t in times.items())
+          + " (the same trees)")
+    entry = with_device(kernel_entry(
+        "forest_walk_multi", 0.0, times[classes],
+        time_ms(lambda: fw.forest_walk_plain(bins, tables, classes), reps=3),
+        bound_ms(n * f + table_bytes + n * classes * 4, ops=visits), None,
+    ), lambda: fw.forest_walk(bins, tables, classes))
+    entry["k1_ms"] = times[1]
+    entry[f"k{MULTI_WALK_WIDE_K}_ms"] = times[MULTI_WALK_WIDE_K]
+    return entry
+
+
+def multiclass_phase(lt, _build, ds, x, dev, card):
+    """Softmax and one-vs-all multiclass on the main phase's Higgs rows and
+    bins with a 5-class label (``multiclass_labels``): 5 rounds of
+    multiclass (25 trees), then 3 of multiclassova; multi_logloss falling
+    every round, predict [N, 5] against the training score, the kernels of
+    the path launched (the walk's class mode at predict), the class mode
+    against the plain walker (``check_multi_walk``), and card vs CPU at
+    65,536 rows (int8 on both, 3 rounds of multiclass)."""
+    from lightgbm_tpu_torch.ops import grower
+
+    classes = MULTI_CLASSES
+    y = multiclass_labels(x, classes)
+    dsm = with_label(ds, y)
+    phases = {}
+    out = {}
+    for obj, rounds in (("multiclass", MULTI_ROUNDS), ("multiclassova", MULTI_OVA_ROUNDS)):
+        params = {**PARAMS, "objective": obj, "num_class": classes}
+        _build.LAUNCHES.clear()
+        booster, losses, secs, _ = train_rounds(lt, params, dsm, rounds)
+        t0 = time.perf_counter()
+        pred = booster.predict(x)
+        raw = booster.predict(x, raw_score=True)
+        torch.cuda.synchronize()
+        pred_s = time.perf_counter() - t0
+        phases[obj] = launches = dict(_build.LAUNCHES)
+        print(f"{obj}: {len(booster.trees)} trees in {len(losses)} rounds, "
+              f"{len(losses) / secs:.3f} iterations/s ({len(booster.trees) / secs:.3f} trees/s), "
+              f"multi_logloss per round " + " ".join(f"{v:.6f}" for v in losses)
+              + f"; predict and raw predict {2 * len(x) / pred_s:.0f} rows/s [{card}]")
+        print(f"{obj}: kernel launches {json.dumps(launches)}")
+        if not falls(losses, rounds):
+            raise AssertionError(f"{obj}: multi_logloss did not fall every round")
+        require_launches(launches, ("fused_grow_step", "seg_hist_int8", "split_scan",
+                                    "forest_walk", "forest_walk_multi"), obj)
+        score = booster.scores.double().cpu().numpy()  # [k, N]
+        if raw.shape != (len(x), classes) or pred.shape != (len(x), classes):
+            raise AssertionError(f"{obj}: predict shapes {raw.shape}, {pred.shape}")
+        rel = float(np.max(np.abs(raw - score.T) / np.maximum(np.abs(score.T), 1e-3)))
+        want = (torch.softmax(torch.as_tensor(score.T), dim=1) if obj == "multiclass"
+                else torch.sigmoid(torch.as_tensor(score.T))).numpy()
+        rel_p = float(np.max(np.abs(pred - want) / np.maximum(want, 1e-3)))
+        print(f"{obj}: predict against the training score: raw {rel:.3g}, output {rel_p:.3g} "
+              f"(relative)")
+        if rel > 1e-5 or rel_p > 1e-5 or not np.all(np.isfinite(pred)):
+            raise AssertionError(f"{obj}: predict differs from the training score")
+        if obj == "multiclass":
+            if abs(multi_logloss(score, y) - losses[-1]) > 1e-6 * losses[-1]:
+                raise AssertionError("multiclass: the f64 log-loss of the score disagrees")
+            out["forest_walk_multi"] = check_multi_walk(booster, x, dev, classes)
+        del booster
+    # card vs CPU, int8 accumulation on both
+    xs, _ = make_data(PARITY_ROWS, FEATURES, seed=7)
+    ys = multiclass_labels(xs, classes)
+    params = {**PARAMS, "objective": "multiclass", "num_class": classes}
+    runs = {}
+    grower.INT8_ON_CPU = True
+    try:
+        for d in ("cuda", "cpu"):
+            t0 = time.perf_counter()
+            runs[d] = lt.train(params, lt.Dataset(xs, ys, params=params), MULTI_PARITY_ROUNDS,
+                               device=d)
+            print(f"multiclass-parity: {d} trained {MULTI_PARITY_ROUNDS} rounds "
+                  f"({len(runs[d].trees)} trees) in {time.perf_counter() - t0:.1f} s")
+    finally:
+        grower.INT8_ON_CPU = False
+    share = split_share(runs["cuda"], runs["cpu"])
+    lc, lp = runs["cuda"].train_loss(), runs["cpu"].train_loss()
+    print(f"multiclass-parity: {share:.4f} of splits identical, multi_logloss cuda {lc:.7f} "
+          f"cpu {lp:.7f}")
+    if share < 0.95 or abs(lc - lp) > 1e-4 * abs(lp):
+        raise AssertionError("multiclass: card and CPU training disagree")
+    return out, phases
+
+
+def check_xla_forms(dev):
+    """Each XLA-form function of the objectives (log, log1p, sigmoid,
+    softmax over 5 classes, the subnormal flush) on the card against the
+    CPU on xla_exp's sweep of 4,000,001 points of [-89, 89] (log of their
+    magnitudes), bit for bit (a NaN against a NaN); then every objective's
+    gradients and hessians, weighted and not, on the card against the CPU
+    on OBJ_CHECK_ROWS of the points."""
+    from lightgbm_tpu_torch import objectives as ob
+    from lightgbm_tpu_torch.config import Config
+
+    x = torch.linspace(-89.0, 89.0, 4_000_001, dtype=torch.float32)
+
+    def same(a, b):
+        a, b = a.cpu(), b.cpu()
+        return int(((a.view(torch.int32) != b.view(torch.int32))
+                    & ~(torch.isnan(a) & torch.isnan(b))).sum())
+
+    # each form's input made on the CPU (on the card a tensor divided by a
+    # Python number is a product with its reciprocal) and copied to the card
+    forms = {
+        "xla_log": (ob.xla_log, x.abs()),
+        "xla_log1p": (ob.xla_log1p, x / torch.full_like(x, 89.0)),
+        "xla_sigmoid": (ob.xla_sigmoid, x),
+        "xla_softmax": (ob.xla_softmax, x[:4_000_000].reshape(5, -1)),
+        "ftz": (ob.ftz, x * 1e-38),
+    }
+    for name, (fn, v) in forms.items():
+        differ = same(fn(v), fn(v.to(dev)))
+        print(f"{name}: card vs CPU on {len(x)} points: {differ} differ")
+        if differ:
+            raise AssertionError(f"{name}: the card's differs from the CPU's")
+    rng = np.random.default_rng(MULTI_SEED)
+    n = OBJ_CHECK_ROWS
+    s = (x[::15][:n] * 0.125).reshape(1, -1)  # [-11.1, 11.1]
+    for name, extra in OBJECTIVE_CASES.items():
+        if name.startswith("multiclass"):
+            label = rng.integers(0, 5, n).astype(np.float64)
+            sc = s.repeat(5, 1) + torch.arange(5, dtype=torch.float32)[:, None]
+        elif name.startswith("cross_entropy"):
+            label, sc = rng.random(n), s
+        elif name in ("poisson", "gamma", "tweedie"):
+            label, sc = rng.poisson(2.0, n) + 1.0, s
+        elif name == "binary":
+            label, sc = (rng.random(n) < 0.4).astype(np.float64), s
+        else:
+            label, sc = rng.normal(size=n) * 3.0, s
+        cfg = Config.from_params({"objective": name, **extra})
+        for weight in (None, rng.uniform(0.5, 1.5, n)):
+            g0, h0 = ob.create_objective(cfg, label, "cpu", weight).get_gradients(sc)
+            g1, h1 = ob.create_objective(cfg, label, dev, weight).get_gradients(sc.to(dev))
+            differ = same(g0, g1) + same(h0, h1)
+            if differ:
+                raise AssertionError(f"{name}: gradients on the card differ from the CPU's "
+                                     f"({differ} values)")
+    print(f"objectives: gradients and hessians of {', '.join(OBJECTIVE_CASES)} (weighted and "
+          f"not) on the card bit-equal to the CPU on {n} scores")
+
+
+def objectives_phase(lt, _build, ds, x, dev, card):
+    """The pointwise objectives on the main phase's Higgs rows and bins
+    with regression labels made from MULTI_SEED: 3 rounds each of
+    regression_l1 (leaf renewal), quantile (alpha 0.7, as scen_obj_quantile)
+    and tweedie (1.3, as scen_obj_tweedie, on count labels); the training
+    loss (the objective's metric) must fall, the host ms of each leaf
+    renewal printed; then ``check_xla_forms``."""
+    rng = np.random.default_rng(MULTI_SEED)
+    z = np.nan_to_num(x[:, :8]) @ rng.normal(size=8) * 0.3
+    reg = z + rng.normal(size=len(x))
+    counts = rng.poisson(np.exp(np.clip(z, -3, 3))).astype(np.float64)
+    phases = {}
+    for name, extra, label in (("regression_l1", {}, reg), ("quantile", {"alpha": 0.7}, reg),
+                               ("tweedie", {"tweedie_variance_power": 1.3}, counts)):
+        params = {**PARAMS, "objective": name, **extra}
+        _build.LAUNCHES.clear()
+        booster, losses, secs, _ = train_rounds(lt, params, with_label(ds, label),
+                                                OBJ_ROUNDS)
+        phases[name] = launches = dict(_build.LAUNCHES)
+        renew = booster.renew_ms
+        print(f"{name}: {len(losses) / secs:.3f} iterations/s, {booster.config.default_metric()[0]}"
+              f" per round " + " ".join(f"{v:.6f}" for v in losses)
+              + (f", leaf renewal host ms per tree " + " ".join(f"{v:.1f}" for v in renew)
+                 if renew else "") + f" [{card}]")
+        if not falls(losses, OBJ_ROUNDS):
+            raise AssertionError(f"{name}: the training loss did not fall every round")
+        if booster.objective.is_renew_tree_output and len(renew) != len(booster.trees):
+            raise AssertionError(f"{name}: not every tree renewed its leaves")
+        require_launches(launches, ("fused_grow_step", "seg_hist_int8", "split_scan"), name)
+        del booster
+    check_xla_forms(dev)
+    return phases
+
+
+class Stamps:
+    """Seconds of each phase of the script, printed as each one ends."""
+
+    def __init__(self):
+        self.t = time.perf_counter()
+        self.took = {}
+
+    def __call__(self, name: str) -> None:
+        now = time.perf_counter()
+        self.took[name] = now - self.t
+        print(f"phase {name}: {self.took[name]:.1f} s")
+        self.t = now
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -3091,6 +3410,7 @@ def main() -> int:
     from lightgbm_tpu_torch.ops import grower
 
     t_script = time.perf_counter()
+    stamp = Stamps()
     dev = torch.device("cuda")
     card = card_line()
     print(f"device: {card}; torch {torch.__version__} cuda {torch.version.cuda}")
@@ -3108,6 +3428,7 @@ def main() -> int:
     print(f"dataset: {ROWS} x {FEATURES} binned in {time.perf_counter() - t0:.1f} s, "
           f"{ds.max_bin_padded} histogram bins")
 
+    stamp("build and data")
     kernels = {k["name"]: k for k in check_seg_kernels(ds, dev)}
     kernels.update(check_u16_kernels(dev))
     kernels.update(check_ordered_u16_kernels(dev))
@@ -3122,6 +3443,7 @@ def main() -> int:
         check_ordered_kernels(rows, qrows, scales, nb, -torch.ones_like(nb), 256)
         return 0
 
+    stamp("kernels")
     # -- main path (default parameters): counts from 0 just before, read
     # just after training and predict
     _build.LAUNCHES.clear()
@@ -3156,8 +3478,10 @@ def main() -> int:
     kernels["forest_walk"] = check_forest_walk(booster, x, dev)
     main_profile = profile_iteration(booster)
     del booster
+    stamp("main")
 
     batch_launches = batch_phase(lt, _build, ds)
+    stamp("batch")
 
     # -- the two-launch path with f32 sums, on the same rows
     _build.LAUNCHES.clear()
@@ -3198,11 +3522,13 @@ def main() -> int:
 
     phases = {"main": main_launches, "batch": batch_launches, "off": off_launches,
               "batch-off": boff_launches}
+    stamp("off and batch-off")
 
     t0 = time.perf_counter()
     phases.update(sampling_phases(lt, _build, ds, main_rate, card))
     sampling_parity(lt, ds, card)
     print(f"sampling: the sampling and sampling-parity phases took {time.perf_counter() - t0:.1f} s")
+    stamp("sampling")
 
     # -- card vs CPU on the default path, int8 accumulation on both
     xs, ys = make_data(PARITY_ROWS, FEATURES, seed=7)
@@ -3223,29 +3549,45 @@ def main() -> int:
           f"log-loss cuda {lc:.7f} cpu {lp:.7f}")
     if share < 0.95 or abs(lc - lp) > 1e-4 * abs(lp):
         raise AssertionError("card and CPU training disagree")
-    del runs, xs, ys, x, ds
+    del runs, xs, ys
+    stamp("parity")
+
+    multi_kernels, multi_launches = multiclass_phase(lt, _build, ds, x, dev, card)
+    kernels.update(multi_kernels)
+    phases.update(multi_launches)
+    stamp("multiclass")
+    phases.update(objectives_phase(lt, _build, ds, x, dev, card))
+    stamp("objectives")
+    del x, ds
 
     t0 = time.perf_counter()
     phases.update(sampling_wide_phase(lt, _build, card))
     print(f"sampling-wide: the phase took {time.perf_counter() - t0:.1f} s")
+    stamp("sampling-wide")
 
     phases["io"] = io_phase(lt, _build, ROWS, dev)
+    stamp("io")
 
     efb_kernels, efb_launches = efb_phase(lt, _build, dev)
     kernels.update(efb_kernels)
     phases.update(efb_launches)
+    stamp("efb")
 
     cat_kernels, cat_launches = cat_phases(lt, _build, dev, card)
     kernels.update(cat_kernels)
     phases.update(cat_launches)
+    stamp("cat")
 
     phases.update(widebin_phase(lt, _build, main_profile))
+    stamp("widebin")
 
     wide_kernels, wide_launches = wide_phases(lt, _build, dev)
     kernels.update({k["name"]: k for k in wide_kernels})
     phases.update(wide_launches)
+    stamp("wide")
 
     phases.update(wide_u16_phase(lt, _build))
+    stamp("wide-u16")
     for name, kern in kernels.items():
         kern["launches"] = sum(ph.get(name, 0) for ph in phases.values())
     for kern in kernels.values():

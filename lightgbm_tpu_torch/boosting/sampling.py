@@ -1,8 +1,9 @@
 """Row sampling: bagging and GOSS.
 
 Counterpart of ``lightgbm_tpu/boosting/sampling.py`` (the reference's
-``SampleStrategy``, ``BaggingSampleStrategy`` and ``GOSSStrategy``) for
-one model per iteration, on the training rows' device:
+``SampleStrategy``, ``BaggingSampleStrategy`` and ``GOSSStrategy``) on the
+training rows' device, for [k, N] gradients (k trees an iteration; one
+mask serves every class's tree):
 
 * ``BaggingStrategy``: a fresh in-bag mask every ``bagging_freq``
   iterations, kept in between: ``bernoulli(key, bagging_fraction)``
@@ -10,7 +11,8 @@ one model per iteration, on the training rows' device:
   ``neg_bagging_fraction`` < 1), ``uniform(key) < p`` with p the row's
   class fraction in f32;
 * ``GOSSStrategy``: no sampling for the first ``int(1 / learning_rate)``
-  iterations; then the rows whose |g * h| is at least the
+  iterations; then the rows whose |g * h| (summed over the classes in
+  class order, lightgbm_tpu/boosting/sampling.py:161) is at least the
   (n - top_k)-th smallest (ties add rows to the top set) are kept, the
   others with probability other_k / (n - top_k), and the others' g and h
   are multiplied by (n - top_k) / other_k, as ``grad * factor * mask``.
@@ -90,7 +92,10 @@ class GOSSStrategy(SampleStrategy):
             return self._ones, grad, hess
         cfg = self.config
         n = self.num_data
-        metric = torch.abs(grad * hess)
+        prod = torch.abs(grad * hess).reshape(-1, n)  # [k, N]
+        metric = prod[0]
+        for c in range(1, prod.shape[0]):
+            metric = metric + prod[c]
         top_k = max(1, int(n * cfg.top_rate))
         other_k = max(1, int(n * cfg.other_rate))
         threshold = torch.sort(metric).values[n - top_k]
@@ -101,7 +106,7 @@ class GOSSStrategy(SampleStrategy):
         in_bag = is_top | (~is_top & sampled)
         factor = torch.where(is_top, 1.0, (n - top_k) / other_k)
         mask = in_bag.to(torch.float32)
-        return mask, grad * factor * mask, hess * factor * mask
+        return mask, grad * factor * mask, hess * factor * mask  # broadcast over classes
 
 
 def create_sample_strategy(config: Config, num_data: int, device,

@@ -4,6 +4,17 @@ Counterpart of ``lightgbm_tpu/config.py``, cut to the fields this port
 reads.  A parameter outside that set raises ``ValueError`` naming it as not
 yet ported, so a user never trains silently with an option ignored.
 
+The objectives (``objectives.py``; lightgbm_tpu/config.py:192-233,
+:555-577, :664-667, :772-792): regression (with ``reg_sqrt``, also by the
+names l2_root / rmse), regression_l1, huber and quantile (``alpha``), fair
+(``fair_c``), poisson (``poisson_max_delta_step``), mape, gamma, tweedie
+(``tweedie_variance_power``), binary (``sigmoid``), multiclass and
+multiclassova (``num_class`` >= 2, alias ``num_classes``; k trees an
+iteration), cross_entropy and cross_entropy_lambda, with the JAX package's
+aliases and each one's default metric; the multiclass metrics'
+``multi_error_top_k`` and ``auc_mu_weights``.  The ranking objectives and
+``is_unbalance`` / ``scale_pos_weight`` are not ported (unknown keys raise).
+
 The path parameters take the JAX package's defaults and values
 (:320-364, validation :672-706) on the single-host layouts:
 
@@ -162,15 +173,51 @@ _PARAM_ALIASES: Dict[str, str] = {
     "categorical_features": "categorical_feature",
     "is_training_metric": "is_provide_training_metric",
     "train_metric": "is_provide_training_metric",
+    "num_classes": "num_class",
 }
 
+# the JAX package's objective names and aliases (lightgbm_tpu/config.py:
+# 192-233); the ranking objectives are not ported yet
 _OBJECTIVE_ALIASES: Dict[str, str] = {
     "regression": "regression",
     "regression_l2": "regression",
     "l2": "regression",
     "mean_squared_error": "regression",
     "mse": "regression",
+    "l2_root": "regression",
+    "root_mean_squared_error": "regression",
+    "rmse": "regression",
+    "regression_l1": "regression_l1",
+    "l1": "regression_l1",
+    "mean_absolute_error": "regression_l1",
+    "mae": "regression_l1",
+    "mean_absolute_percentage_error": "mape",
+    "mape": "mape",
+    "huber": "huber",
+    "fair": "fair",
+    "poisson": "poisson",
+    "quantile": "quantile",
+    "gamma": "gamma",
+    "tweedie": "tweedie",
     "binary": "binary",
+    "multiclass": "multiclass",
+    "softmax": "multiclass",
+    "multiclassova": "multiclassova",
+    "multiclass_ova": "multiclassova",
+    "ova": "multiclassova",
+    "ovr": "multiclassova",
+    "cross_entropy": "cross_entropy",
+    "xentropy": "cross_entropy",
+    "cross_entropy_lambda": "cross_entropy_lambda",
+    "xentlambda": "cross_entropy_lambda",
+}
+# the objectives' default metrics (lightgbm_tpu/config.py:772-792)
+_DEFAULT_METRIC: Dict[str, str] = {
+    "regression": "l2", "regression_l1": "l1", "huber": "huber", "fair": "fair",
+    "poisson": "poisson", "quantile": "quantile", "mape": "mape", "gamma": "gamma",
+    "tweedie": "tweedie", "binary": "binary_logloss", "multiclass": "multi_logloss",
+    "multiclassova": "multi_logloss", "cross_entropy": "cross_entropy",
+    "cross_entropy_lambda": "cross_entropy_lambda",
 }
 
 HIST_MODES = ("seg", "ordered")
@@ -234,6 +281,16 @@ class Config:
     bin_construct_sample_cnt: int = 200000
     data_random_seed: int = 1
     boost_from_average: bool = True
+    # the objectives (lightgbm_tpu/config.py:555-577)
+    num_class: int = 1
+    sigmoid: float = 1.0
+    reg_sqrt: bool = False
+    alpha: float = 0.9
+    fair_c: float = 1.0
+    poisson_max_delta_step: float = 0.7
+    tweedie_variance_power: float = 1.5
+    multi_error_top_k: int = 1
+    auc_mu_weights: List[float] = dataclasses.field(default_factory=list)
     # sampling (boosting/sampling.py) and its seeds; ``seed`` re-derives the
     # seeds the params do not name (_apply_seed)
     seed: Optional[int] = None
@@ -326,6 +383,8 @@ class Config:
                     setattr(cfg, name, None if v is None else int(float(v)))
                 elif name == "metric":
                     setattr(cfg, name, _to_str_list(v))
+                elif name == "auc_mu_weights":
+                    setattr(cfg, name, [float(x) for x in _to_str_list(v)])
                 elif name == "categorical_feature":
                     setattr(cfg, name, v)
                 else:
@@ -338,9 +397,13 @@ class Config:
         if obj is None:
             raise ValueError(
                 f"objective {cfg.objective!r} not yet ported to "
-                "lightgbm_tpu_torch (ported: regression, binary)"
+                "lightgbm_tpu_torch (ported: " + ", ".join(sorted(set(
+                    _OBJECTIVE_ALIASES.values()))) + ")"
             )
+        if str(cfg.objective).lower() in ("l2_root", "root_mean_squared_error", "rmse"):
+            cfg.reg_sqrt = True
         cfg.objective = obj
+        cfg._check_objective()
         if cfg.hist_mode in _UNPORTED_HIST_MODES:
             raise ValueError(
                 f"hist_mode={cfg.hist_mode!r} not yet ported to lightgbm_tpu_torch "
@@ -460,9 +523,24 @@ class Config:
                 "(leaf values come from the quantized sums)"
             )
 
+    def _check_objective(self) -> None:
+        """The objectives' checks (lightgbm_tpu/config.py:666-667 and the
+        objectives' own): num_class >= 2 for the multiclass ones, sigmoid
+        > 0, quantile's alpha in (0, 1)."""
+        if self.objective in ("multiclass", "multiclassova") and self.num_class < 2:
+            raise ValueError(f"objective {self.objective} requires num_class >= 2")
+        if self.sigmoid <= 0:
+            raise ValueError("sigmoid parameter must be > 0")
+        if self.objective == "quantile" and not 0.0 < self.alpha < 1.0:
+            raise ValueError("alpha must be in (0, 1) for quantile objective")
+
+    def num_tree_per_iteration(self) -> int:
+        """Trees an iteration: num_class for the multiclass objectives, else 1."""
+        return self.num_class if self.objective in ("multiclass", "multiclassova") else 1
+
     def default_metric(self) -> List[str]:
         """The objective's metric when ``metric`` names none."""
-        return {"regression": ["l2"], "binary": ["binary_logloss"]}[self.objective]
+        return [_DEFAULT_METRIC[self.objective]]
 
     def resolved_grow_fused(self) -> bool:
         """'on' and 'auto' fuse on the seg layout (the Booster ignores the

@@ -8,7 +8,8 @@ what the JAX booster predicts: through the forest walk, or, for a bundled
 model, through the plain walker with its nodes' goes-left tables.  A model
 trained with categorical features carries its categorical mappers
 (``bin_to_cats``) and its records' category masks (``split_is_cat``,
-``cat_mask``) across.
+``cat_mask``) across.  A multiclass model (k trees an iteration, tree t
+of class t % k) carries its ``num_class``.
 """
 
 from __future__ import annotations
@@ -21,7 +22,7 @@ from .binning import BinMapper
 from .boosting.gbdt import Booster
 from .bundling import BundleLayout
 from .device import resolve_device
-from .objectives import objective_for_output
+from .objectives import create_objective
 from .tree import Tree
 
 
@@ -40,6 +41,8 @@ def booster_from_arrays(
 ) -> Booster:
     """A predict-only Booster.
 
+    objective: the objective's name (its output conversion; the multiclass
+        ones with ``num_class`` classes, ``num_class`` trees an iteration);
     records: per tree, ``split_feature`` (used-feature index), ``split_bin``,
         ``default_left``, ``left_child``, ``right_child`` (``~leaf`` for
         leaves) and f32 ``leaf_value`` (shrunk, the first tree holding the
@@ -58,10 +61,12 @@ def booster_from_arrays(
         numeric feature; a categorical node of the records then carries
         ``split_is_cat`` and its ``cat_mask`` row.
     """
+    params = {"objective": objective}
     if num_class != 1:
-        raise ValueError("lightgbm_tpu_torch predicts one class per iteration (num_class=1)")
-    b = Booster({"objective": objective}, device=resolve_device(device))
-    b.objective = objective_for_output(b.config.objective, b.device)
+        params["num_class"] = num_class
+    b = Booster(params, device=resolve_device(device))
+    b.objective = create_objective(b.config, np.zeros(0), b.device)
+    b.num_class = b.config.num_tree_per_iteration()
     b.trees = [Tree.from_record(r) for r in records]
     f = len(bin_upper_bounds)
     used = list(range(f)) if used_features is None else [int(j) for j in used_features]

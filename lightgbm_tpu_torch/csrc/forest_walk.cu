@@ -87,9 +87,20 @@
 // f32: the same bits as the plain walker.  No float is added atomically,
 // and no partial sums of a row's trees are ever added.
 //
+// The class mode (k > 1 trees an iteration, tree t of class t % k; the TPU
+// kernel pads k to a multiple of 8 and adds every tree into a [kpad] row,
+// forest_walk.py:406): a row keeps one register accumulator a class.  Past
+// 8 classes the classes split into blocks of at most 8, a grid dimension
+// (blockIdx.y): block y walks only the trees of its classes c0 = 8y ..
+// c0 + kb - 1, its local tree j being tree (j / kb) * k + c0 + j % kb, and
+// writes only their columns of `out`.  So no tree is walked twice, the
+// accumulators stay 8 wide, and each class still adds its trees in tree
+// order.  At k <= 8 there is one block of classes and local tree j is tree j.
+//
 // The launch plan (threads a block, trees a chunk, groups) is
 // ops/forest_walk.walk_plan, a function of the shapes; the grid is the
-// blocks the card holds at once, at most one a tile.
+// blocks the card holds at once (shared among the class blocks), at most
+// one a tile.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -167,13 +178,26 @@ forest_walk_kernel(const uint8_t* __restrict__ bins, const unsigned char* __rest
   const long long tiles = (n + tile_rows - 1) / tile_rows;
   const uintptr_t last = (uintptr_t)bins + (uintptr_t)(n * f) - 1;
   constexpr int kAcc = kOneClass ? 1 : kMaxClass;
+  // this block's classes c0 .. c0 + kb - 1 and its trees (the class mode)
+  const int c0 = (int)blockIdx.y * kMaxClass;
+  const int kb = min(kMaxClass, k - c0);
+  const int rem = n_trees % k;
+  const int local_trees = n_trees / k * kb + min(max(rem - c0, 0), kb);
 
-  for (int t0 = 0; t0 < n_trees; t0 += chunk_trees) {
-    const int tc = min(chunk_trees, n_trees - t0);
+  for (int t0 = 0; t0 < local_trees; t0 += chunk_trees) {
+    const int tc = min(chunk_trees, local_trees - t0);
     const int end = tc * tree_bytes;  // the sink record's offset
     __syncthreads();                  // every row is done with the last chunk
-    const unsigned char* src = tables + (long long)t0 * tree_bytes;
-    for (int i = threadIdx.x * 16; i < end; i += blockDim.x * 16) cp_async16(smem + i, src + i);
+    if (kb == k) {                    // one block of classes: trees t0 .. t0 + tc - 1
+      const unsigned char* src = tables + (long long)t0 * tree_bytes;
+      for (int i = threadIdx.x * 16; i < end; i += blockDim.x * 16) cp_async16(smem + i, src + i);
+    } else {  // local tree j is tree (j / kb) * k + c0 + j % kb
+      for (int i = threadIdx.x * 16; i < end; i += blockDim.x * 16) {
+        const int j = t0 + i / tree_bytes;
+        const long long t = (long long)(j / kb) * k + c0 + j % kb;
+        cp_async16(smem + i, tables + t * tree_bytes + i % tree_bytes);
+      }
+    }
     asm volatile("cp.async.wait_all;\n" ::: "memory");
     if (threadIdx.x == 0) *reinterpret_cast<uint2*>(smem + end) = make_uint2(0u, 0u);
     __syncthreads();
@@ -192,11 +216,11 @@ forest_walk_kernel(const uint8_t* __restrict__ bins, const unsigned char* __rest
         tt[j] = group;  // the row's tree in the chunk
         base[j] = live ? group * tree_bytes : end;
         node[j] = base[j];
-        cls[j] = t0 % k;
+        cls[j] = t0 % kb;
         words0[j] = bins_off + 4 * slot;
 #pragma unroll
         for (int c = 0; c < kAcc; ++c) {
-          acc[j][c] = (row[j] < n && t0 > 0 && c < k) ? out[row[j] * k + c] : 0.0f;
+          acc[j][c] = (row[j] < n && t0 > 0 && c < kb) ? out[row[j] * k + c0 + c] : 0.0f;
         }
         if (group == 0) {  // the rows' words, once a tile
           const uintptr_t p = (uintptr_t)bins + (uintptr_t)((row[j] < n ? row[j] : 0) * f);
@@ -256,7 +280,7 @@ forest_walk_kernel(const uint8_t* __restrict__ bins, const unsigned char* __rest
                 for (int cc = 0; cc < kAcc; ++cc) {
                   if (cc == cls[j]) acc[j][cc] = acc[j][cc] + val;
                 }
-                cls[j] = cls[j] + 1 == k ? 0 : cls[j] + 1;
+                cls[j] = cls[j] + 1 == kb ? 0 : cls[j] + 1;
               }
               base[j] += tree_bytes;
               node[j] = base[j];
@@ -281,7 +305,7 @@ forest_walk_kernel(const uint8_t* __restrict__ bins, const unsigned char* __rest
                 for (int cc = 0; cc < kAcc; ++cc) {
                   if (cc == cls[j]) acc[j][cc] = acc[j][cc] + val;
                 }
-                cls[j] = cls[j] + 1 == k ? 0 : cls[j] + 1;
+                cls[j] = cls[j] + 1 == kb ? 0 : cls[j] + 1;
               }
             }
           }
@@ -292,7 +316,7 @@ forest_walk_kernel(const uint8_t* __restrict__ bins, const unsigned char* __rest
         if (row[j] >= n || group != 0) continue;
 #pragma unroll
         for (int c = 0; c < kAcc; ++c) {
-          if (c < k) out[row[j] * k + c] = acc[j][c];
+          if (c < kb) out[row[j] * k + c0 + c] = acc[j][c];
         }
       }
       if (kSplit) __syncthreads();  // the tile's words and stash are read
@@ -318,9 +342,10 @@ const void* kernel_for(size_t shared, cudaError_t* err) {
   return kernel;
 }
 
-// blocks of the launch: one a tile, at most the blocks the card holds at once
+// blocks of the launch a class block: one a tile, at most the blocks the
+// card holds at once shared among the `class_blocks`
 long long grid_blocks(const void* kernel, long long n, int tile_rows, size_t shared,
-                      int threads, cudaError_t* err) {
+                      int threads, int class_blocks, cudaError_t* err) {
   int resident = 0;
   *err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&resident, kernel, threads, shared);
   if (*err != cudaSuccess) return 0;
@@ -333,7 +358,8 @@ long long grid_blocks(const void* kernel, long long n, int tile_rows, size_t sha
   if (*err == cudaSuccess) *err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
   if (*err != cudaSuccess) return 0;
   const long long tiles = (n + tile_rows - 1) / tile_rows;
-  const long long wave = (long long)resident * (sms > 0 ? sms : 1);
+  const long long wave = ((long long)resident * (sms > 0 ? sms : 1) + class_blocks - 1) /
+                        class_blocks;
   return tiles < wave ? tiles : wave;
 }
 
@@ -342,6 +368,7 @@ struct Walk {
   int f, n_nan_words, n_trees, m_nodes, m_leaves, k, threads, chunk_trees, groups, cat;
 
   int tree_bytes() const { return 8 * m_nodes + 4 * m_leaves; }
+  int class_blocks() const { return (k + kMaxClass - 1) / kMaxClass; }
   int tile_rows() const { return threads / groups * kRows; }
   size_t shared() const {
     return (size_t)chunk_trees * tree_bytes() + kSinkBytes +
@@ -349,7 +376,7 @@ struct Walk {
            (groups > 1 ? (size_t)chunk_trees * tile_rows() * 4 : 0);
   }
   bool valid() const {
-    return k >= 1 && k <= kMaxClass && n_trees >= 1 && f >= 1 && f <= kMaxF &&
+    return k >= 1 && class_blocks() <= 65535 && n_trees >= 1 && f >= 1 && f <= kMaxF &&
            n_nan_words >= 0 && n_nan_words <= (f + 3) / 4 && m_nodes >= 1 && m_nodes % 2 == 0 &&
            m_leaves >= 1 && m_leaves % 4 == 0 && threads >= 32 && threads <= kMaxThreads &&
            threads % 32 == 0 && chunk_trees >= 1 && groups >= 1 && threads % groups == 0;
@@ -386,7 +413,8 @@ extern "C" int lgbt_forest_walk(const void* bins, const void* tables, const void
   cudaError_t e = cudaSuccess;
   const void* kernel = w.kernel(&e);
   if (e != cudaSuccess) return (int)e;
-  const long long grid = grid_blocks(kernel, n, w.tile_rows(), w.shared(), threads, &e);
+  const long long grid =
+      grid_blocks(kernel, n, w.tile_rows(), w.shared(), threads, w.class_blocks(), &e);
   if (e != cudaSuccess) return (int)e;
   int tree_bytes = w.tree_bytes(), leaf_off = 8 * m_nodes;
   void* args[] = {(void*)&bins,         (void*)&tables,      (void*)&nan_words,
@@ -394,7 +422,8 @@ extern "C" int lgbt_forest_walk(const void* bins, const void* tables, const void
                   (void*)&n_trees,      (void*)&tree_bytes,  (void*)&leaf_off,
                   (void*)&k,            (void*)&chunk_trees, (void*)&groups,
                   (void*)&out};
-  e = cudaLaunchKernel(kernel, dim3((unsigned)grid), dim3(threads), args, w.shared(),
+  e = cudaLaunchKernel(kernel, dim3((unsigned)grid, (unsigned)w.class_blocks()), dim3(threads),
+                       args, w.shared(),
                        (cudaStream_t)stream);
   return (int)(e != cudaSuccess ? e : cudaGetLastError());
 }

@@ -43,12 +43,14 @@ MIN_DATA_IN_BIN = 3
 BIN_BLOCK_ROWS = 1 << 14  # rows binned a block (their columns made contiguous)
 
 
-def _row_array(v, n: int, what: str) -> Optional[np.ndarray]:
-    """A per-row f64 array of length ``n`` (None stays None)."""
+def _row_array(v, n: int, what: str, per_class: bool = False) -> Optional[np.ndarray]:
+    """A per-row f64 array of length ``n`` (None stays None); with
+    ``per_class``, k * n values (class by class, k trees an iteration) are
+    taken too."""
     if v is None:
         return None
     a = np.asarray(v, dtype=np.float64).ravel()
-    if len(a) != n:
+    if len(a) != n and not (per_class and n and len(a) % n == 0):
         raise ValueError(f"{what} length {len(a)} != num rows {n}")
     if not np.all(np.isfinite(a)):
         raise ValueError(f"{what} contains NaN or inf")
@@ -89,7 +91,7 @@ class Dataset:
         self.bundle_layout: Optional[BundleLayout] = None  # None: a plane a used feature
         self.label: Optional[np.ndarray] = None  # [N] float64
         self.weight: Optional[np.ndarray] = None  # [N] float64 or None
-        self.init_score: Optional[np.ndarray] = None  # [N] float64 or None
+        self.init_score: Optional[np.ndarray] = None  # [N] (or [k * N]) float64, or None
         self.bundle_check_s = 0.0  # seconds of the bundle search
 
     def construct(self) -> "Dataset":
@@ -108,7 +110,7 @@ class Dataset:
         if not np.all(np.isfinite(label)):
             raise ValueError("label contains NaN or inf")
         self.weight = _row_array(self._weight, n, "weight")
-        self.init_score = _row_array(self._init_score, n, "init_score")
+        self.init_score = _row_array(self._init_score, n, "init_score", per_class=True)
         self.feature_names = [f"Column_{i}" for i in range(f)]
         self.num_total_features = f
         if self.reference is not None:

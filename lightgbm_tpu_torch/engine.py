@@ -1,7 +1,8 @@
 """Training entry point (counterpart of ``lightgbm_tpu/engine.py`` train,
 :34-300): validation sets, custom evaluation functions and callbacks, the
 early stopping of ``early_stopping_round``, and ``best_iteration`` /
-``best_score``.  Checkpoints, ``init_model``, ``resume_from``, custom
+``best_score``.  A custom evaluation function receives output-space
+predictions, [N, k] for k trees an iteration (boosting/gbdt.py:2480-2492).  Checkpoints, ``init_model``, ``resume_from``, custom
 objectives, fleets and the multi-step launch are not ported yet."""
 
 from __future__ import annotations

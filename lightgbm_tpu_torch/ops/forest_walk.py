@@ -19,8 +19,10 @@ Counterpart of ``lightgbm_tpu/ops/pallas/forest_walk.py``:
     binning; the caller re-bins those rows on the host;
   * ``forest_walk`` (:367) walks every row through every tree: the plain
     PyTorch version on the CPU, the ``csrc/forest_walk.cu`` kernel on a
-    CUDA device (launches counted in ``_build.LAUNCHES['forest_walk']``, and
-    as ``'forest_walk_cat'`` too when the tables hold a categorical node).
+    CUDA device (launches counted in ``_build.LAUNCHES['forest_walk']``, as
+    ``'forest_walk_cat'`` too when the tables hold a categorical node, and
+    as ``'forest_walk_multi'`` too in the class mode, k > 1 trees an
+    iteration: any k, in blocks of at most 8 classes, a grid dimension).
 """
 
 from __future__ import annotations
@@ -53,6 +55,7 @@ BLOCK_SHARED = 113 * 1024  # a block's shared memory: two blocks a multiprocesso
 MAX_BLOCK_SHARED = 227 * 1024  # the most a block can take (one a multiprocessor)
 BIN_SHARED = 64 * 1024  # at most this much of it for a tile's staged words
 MAX_GROUPS = MAX_THREADS // 16  # groups of threads on a tile's rows, at most
+CLASS_BLOCK = 8  # classes a block walks (kMaxClass): the register accumulators
 
 
 def walk_reject_reason(
@@ -338,8 +341,10 @@ def sm_count(device) -> int:
 
 
 def forest_walk(bins: torch.Tensor, tables: ForestTables, k: int) -> torch.Tensor:
-    """Raw scores [N, k] of bins [N, F] u8: plain version on the CPU, the
-    ``csrc/forest_walk.cu`` kernel on a CUDA device at ``walk_plan``'s plan."""
+    """Raw scores [N, k] of bins [N, F] u8, tree t added into class t % k:
+    plain version on the CPU, the ``csrc/forest_walk.cu`` kernel on a CUDA
+    device at ``walk_plan``'s plan (past 8 classes a class block of the grid
+    may hold no tree, so its columns start from zeros)."""
     if bins.device.type == "cpu":
         return forest_walk_plain(bins, tables, k)
     if bins.device.type != "cuda":
@@ -355,7 +360,8 @@ def forest_walk(bins: torch.Tensor, tables: ForestTables, k: int) -> torch.Tenso
     leaf_words = tables.m_leaves + 8 * tables.m_cat
     plan = walk_plan(n, f, tables.n_trees, tables.m_nodes, leaf_words,
                      sm_count(bins.device), n_nan)
-    out = torch.empty((n, k), dtype=torch.float32, device=bins.device)
+    alloc = torch.zeros if k > CLASS_BLOCK else torch.empty
+    out = alloc((n, k), dtype=torch.float32, device=bins.device)
     fn = _build.entry("forest_walk")
     rc = fn(
         bins.data_ptr(), tables.tables.data_ptr(), tables.nan_words.data_ptr(), n, f, n_nan,
@@ -367,6 +373,8 @@ def forest_walk(bins: torch.Tensor, tables: ForestTables, k: int) -> torch.Tenso
     _build.LAUNCHES["forest_walk"] += 1
     if tables.m_cat:
         _build.LAUNCHES["forest_walk_cat"] += 1
+    if k > 1:
+        _build.LAUNCHES["forest_walk_multi"] += 1
     return out
 
 

@@ -15,7 +15,9 @@ text (``Tree._decide``: numeric thresholds with the three missing types,
 categorical bitsets).
 
 Output layout as LightGBM's: ``[N, num_features + 1]`` for one model per
-iteration, the last column the expected value (bias).
+iteration, the last column the expected value (bias); ``[N, k
+(num_features + 1)]`` for k trees an iteration, class by class (tree t
+explains class t % k; lightgbm_tpu/shap.py:215-228).
 """
 
 from __future__ import annotations
@@ -164,13 +166,15 @@ def tree_shap(tree: Tree, x: np.ndarray, num_features: int) -> np.ndarray:
 
 
 def predict_contrib(booster, x: np.ndarray, t0: int, t1: int) -> np.ndarray:
-    """The contributions of trees [t0, t1) summed: [N, F + 1], F the
-    model's ``max_feature_idx + 1``."""
+    """The contributions of trees [t0, t1) summed by class: [N, F + 1] for
+    one tree an iteration, else [N, k (F + 1)], F the model's
+    ``max_feature_idx + 1``."""
     x = np.asarray(x, np.float64)
+    k = booster.num_class
     num_f = booster.max_feature_idx + 1
     if x.shape[1] < num_f:
         raise ValueError(f"data has {x.shape[1]} columns, the model has {num_f} features")
-    out = np.zeros((x.shape[0], num_f + 1))
-    for tree in booster.trees[t0:t1]:
-        out += tree_shap(tree, x, num_f)
-    return out
+    out = np.zeros((x.shape[0], k, num_f + 1))
+    for t in range(t0, t1):
+        out[:, t % k] += tree_shap(booster.trees[t], x, num_f)
+    return out[:, 0] if k == 1 else out.reshape(x.shape[0], k * (num_f + 1))

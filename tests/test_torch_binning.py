@@ -94,7 +94,7 @@ def test_config_accepts_the_jax_defaults():
 
 @pytest.mark.parametrize("params,word", [
     ({"extra_trees": True}, "extra_trees"),
-    ({"objective": "multiclass"}, "multiclass"),
+    ({"objective": "lambdarank"}, "lambdarank"),
     ({"hist_acc": "fp16"}, "hist_acc"),
     ({"grow_fused": "off", "fused_split_scan": False}, "grow_fused"),
     ({"hist_mode": "gather"}, "hist_mode"),

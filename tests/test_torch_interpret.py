@@ -20,6 +20,13 @@ every port test file imports: JAX's compiled executables keep their memory
 mappings until its caches are cleared, and an xdist worker that runs many
 files could otherwise reach the kernel's limit on mappings
 (``vm.max_map_count``) and crash inside XLA:CPU.
+
+Importing this module also gives PyTorch one intra-op thread in the
+process: the suite runs as several pytest workers on the machine's cores,
+and a pool of a thread a core in each worker oversubscribes them, so that
+the port's plain CPU versions (many small operators) spend most of their
+time waiting on each other's threads (3 rounds of a 5-class model on 3,000
+rows: 16.7 s at 8 threads beside 6 busy workers, 1.0 s at 1).
 """
 
 import contextlib
@@ -28,11 +35,14 @@ import gc
 import jax
 import jax.numpy as jnp
 import pytest
+import torch
 
 from lightgbm_tpu.ops.pallas import grow_step as jax_grow_step
 from lightgbm_tpu.ops.pallas import seg as jax_seg
 
 from lightgbm_tpu_torch.ops import grower
+
+torch.set_num_threads(1)
 
 
 def clear_jax_caches() -> None:

@@ -17,7 +17,8 @@ walker (predict.py), on the CPU.
   package's trees, within the 0.05 of the reference's final l2 that
   ``test_consistency.py::test_scenario_golden_parity`` allows, with
   ``cat_threshold`` in its model text;
-* linear and unported-objective files raise;
+* linear files raise (the objectives' scenario models predict through
+  the port in tests/test_torch_objectives.py);
 * the sampled scenarios (scen_bagging, scen_goss, scen_quantized: bagging
   with ``feature_fraction``, GOSS, stochastic quantized training) trained
   through the port: the JAX package's trees, and the final train l2 within
@@ -220,19 +221,6 @@ def test_categorical_scenario_trains_the_jax_trees_and_reaches_the_reference():
             np.testing.assert_array_equal(tr[key], jr[key], err_msg=f"tree {i} {key}")
         np.testing.assert_allclose(tr["leaf_value"], jr["leaf_value"], rtol=0, atol=1e-5)
     assert len(jb._bin_records) == rounds
-
-
-@pytest.mark.parametrize("name", ["obj_poisson", "obj_quantile", "obj_gamma"])
-def test_unported_objective_predicts_raw_scores_only(name):
-    x, _ = _golden(name)
-    model = GOLDEN / f"scen_{name}.model.txt"
-    b = lt.Booster(model_file=str(model), device="cpu")
-    objective = json.loads((GOLDEN / f"scen_{name}.params.json").read_text())["objective"]
-    with pytest.raises(NotImplementedError, match=objective):
-        b.predict(x)
-    ref = lgb.Booster(model_str=model.read_text())
-    np.testing.assert_allclose(b.predict(x, raw_score=True), ref.predict(x, raw_score=True),
-                               rtol=1e-6, atol=1e-6)
 
 
 @pytest.mark.parametrize("name", ["bagging", "goss", "quantized"])
